@@ -1,0 +1,46 @@
+"""Hand-written Hopper kernels of the port, with their plain versions.
+
+- B1 ``instance_norm``: fused instance norm + activation
+  (replaces ``ir2rgb_tpu/kernels/instance_norm.py``);
+- B2 ``tail_fused``: reflect-pad + 7x7 conv + bias + tanh output tail
+  (replaces ``ir2rgb_tpu/kernels/tail_fused.py``).
+
+There is no switch and no fallback: a CPU tensor takes a kernel's plain
+version, a CUDA tensor launches the kernel or raises. Each wrapper counts
+its launches (:func:`launch_counts`).
+
+The package attribute ``tail_fused`` is the wrapper function; the module
+of the same name is ``sys.modules["ir2rgb_tpu_torch.kernels.tail_fused"]``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import instance_norm as _instance_norm
+from . import tail_fused as _tail_fused
+from .tail_fused import tail_fused
+
+
+def fused_instance_norm_act(x: torch.Tensor, act: str = "relu",
+                            negative_slope: float = 0.2) -> torch.Tensor:
+    """Instance norm + activation over NHWC ``x`` (kernel B1)."""
+    return _instance_norm.instance_norm_act(
+        x, act, negative_slope=negative_slope)[0]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches made through the wrappers since the last reset."""
+    return {"instance_norm_act": _instance_norm.launches,
+            "tail_fused": _tail_fused.launches}
+
+
+def reset_launch_counts() -> None:
+    _instance_norm.launches = 0
+    _tail_fused.launches = 0
+
+
+__all__ = ["fused_instance_norm_act", "launch_counts", "reset_launch_counts",
+           "tail_fused"]

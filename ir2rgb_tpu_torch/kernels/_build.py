@@ -1,0 +1,122 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` and linked into one shared library with a plain C
+interface under ``build/`` at the repository root. The library is named by
+a hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses it. It is loaded with ``ctypes``: every pointer and the stream
+travel as ``ctypes.c_void_p``, and each entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+Nothing here runs at import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures (ctypes argtypes) of the entry points in csrc/
+_SIGNATURES = {
+    # x, part, y, mean, rstd, n, hw, c, n_chunks, chunk, ct, n_ctiles,
+    # act, slope, eps, is_bf16, stream
+    "ir2rgb_instance_norm_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _F, _I, _P],
+    # x, w4, b, y, n, h, w, c, pix_stride, smem_bytes, is_bf16, stream
+    "ir2rgb_tail_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                       "kernels are built from ir2rgb_tpu_torch/kernels/csrc")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    srcs, hdrs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in srcs + hdrs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libir2rgb_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (one nvcc each, in parallel) and link the .so."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    srcs, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in srcs:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for cmd, _, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"$ {' '.join(cmd)}\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        part = Path(tmp) / so.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(part),
+                *(str(obj) for _, obj, _ in procs)]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n$ {' '.join(link)}\n"
+                               f"{res.stdout}")
+        os.replace(part, so)  # atomic: a concurrent builder sees all or none
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.ir2rgb_error_string.argtypes = [ctypes.c_int]
+            handle.ir2rgb_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib().ir2rgb_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
