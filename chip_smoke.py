@@ -6,17 +6,30 @@
 Phases, each failing the run if it fails:
 
 1. build the hand-written kernels from ir2rgb_tpu_torch/kernels/csrc;
-2. B1 (fused instance norm + act): every shape and activation of the
-   pix2pixhd_512 main path, bf16 and fp32, held to its plain version on
-   the card, and timed beside the plain version, ``F.instance_norm`` + act
-   (a yardstick the port never calls) and the card's bound;
-3. B2 (output tail): the same at (1,512,512,32), yardstick
+2. B1 forward (fused instance norm + act): every shape and activation of
+   the pix2pixhd_512 generator and discriminator, bf16 and fp32, held to
+   its plain version on the card, and timed beside the plain version,
+   ``F.instance_norm`` + act (a yardstick the port never calls) and the
+   card's bound;
+3. B1 backward: the same shapes, dx held to the plain backward, timed
+   beside it and the autograd backward of ``F.instance_norm`` + act;
+4. B2 (output tail): the same at (1,512,512,32), yardstick
    ``F.pad(reflect)`` + ``F.conv2d`` + tanh;
-4. pix2pixhd_512, then 5. temporal_512: full-width generators with
-   weights drawn from a numpy seed, 8 uint8 frames through
+5. B3 d2s and s2d at the five ups' shapes, exact against the plain
+   permutation, yardstick ``view/permute/contiguous``; and each up timed
+   as the subpixel conv + d2s against ``F.conv_transpose2d``;
+6. pix2pixhd_512, then 7. temporal_512 serving: full-width generators
+   with weights drawn from a numpy seed, 8 uint8 frames through
    ``StreamingGenerator.stream`` in bf16 with the kernels' launch counts
    read around the run; an fp32 card run (TF32 off) held to the port's
-   fp32 CPU run; the bf16 run's PSNR against fp32; ms/frame at batch 1.
+   fp32 CPU run; the bf16 run's PSNR against fp32; ms/frame at batch 1;
+8. the pix2pixhd_512 train step at full width, 512x512, batch 1: 12 bf16
+   steps across the coarse-to-fine unfreeze (the trunk frozen through
+   step 9, moving from step 10), the launch counts of each step, 10
+   timed unfrozen steps in bf16 and in fp32, peak memory; the bf16 first
+   step's losses against fp32's; one fp32 step on the card held to the
+   port's fp32 CPU step at full width on 256x256 inputs (losses and every
+   gradient tensor).
 
 It prints the card (``nvidia-smi`` name and power limit), one JSON line
 of kernel results, and last ``{"ok": true, "device": {...}}``. Without a
@@ -26,6 +39,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -33,6 +47,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -61,11 +76,37 @@ B1_MAIN_PATH = {
     ((1, 512, 512, 32), "relu"): 2,
 }
 B1_PER_FRAME = sum(B1_MAIN_PATH.values())
+# one pass of the multiscale D on a 512x512 pair: scale 0, then scale 1
+B1_D_PASS = {
+    ((1, 129, 129, 128), "leaky_relu"): 1,
+    ((1, 65, 65, 256), "leaky_relu"): 1,
+    ((1, 66, 66, 512), "leaky_relu"): 1,
+    ((1, 65, 65, 128), "leaky_relu"): 1,
+    ((1, 33, 33, 256), "leaky_relu"): 1,
+    ((1, 34, 34, 512), "leaky_relu"): 1,
+}
+# per unfrozen train step: G's forward and backward, four D passes of
+# which three (fake for G, real and detached fake for D) take a backward
+B1_FWD_PER_STEP = {**B1_MAIN_PATH, **{k: 4 * v for k, v in B1_D_PASS.items()}}
+B1_BWD_PER_STEP = {**B1_MAIN_PATH, **{k: 3 * v for k, v in B1_D_PASS.items()}}
+# the five ups of a frame: (phase tensor shape, C); d2s forward, s2d back
+D2S_MAIN_PATH = [((1, 16, 16, 2048), 512), ((1, 32, 32, 1024), 256),
+                 ((1, 64, 64, 512), 128), ((1, 128, 128, 256), 64),
+                 ((1, 256, 256, 128), 32)]
+PER_STEP = {"instance_norm_act": sum(B1_FWD_PER_STEP.values()),
+            "instance_norm_act_bwd": sum(B1_BWD_PER_STEP.values()),
+            "tail_fused": 0, "d2s": 5, "s2d": 5}
+PER_FRAME = {"instance_norm_act": B1_PER_FRAME, "instance_norm_act_bwd": 0,
+             "tail_fused": 1, "d2s": 5, "s2d": 0}
 B2_SHAPE = ((1, 512, 512, 32), (7, 7, 32, 3))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
 N_FRAMES = 8
+TRAIN_STEPS, TIMED_STEPS = 12, 10
+FIX_STEPS = 10  # niter_fix_global 10 x steps_per_epoch 1
+TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_GRAD_REL = 1e-4, 1e-3
+BF16_LOSS_REL = 0.05
 SEED = 0
 
 failures = []
@@ -138,17 +179,40 @@ def psnr(a: torch.Tensor, b: torch.Tensor, peak: float = 2.0) -> float:
 
 
 def act_fn(y, act):
-    return torch.relu(y) if act == "relu" else y
+    if act == "relu":
+        return torch.relu(y)
+    if act == "leaky_relu":
+        return F.leaky_relu(y, 0.2)
+    if act == "tanh":
+        return torch.tanh(y)
+    return y
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype)[6:]
 
 
 # ---------------------------------------------------------------------------
 # Kernel phases
 # ---------------------------------------------------------------------------
 
+def per_path_totals(rows, counts, keys=("ms", "plain_ms", "library_ms",
+                                        "eager_ms", "bound_ms")):
+    """Sums of ``count x value`` over the bf16 rows whose (shape, act) or
+    shape is in ``counts``."""
+    tot = dict.fromkeys(keys, 0.0)
+    for r in rows:
+        n = counts.get(r["key"], 0)
+        if r["dtype"] == "bfloat16" and n:
+            for k in keys:
+                tot[k] += n * r[k]
+    return tot
+
+
 def b1_phase(bw: float, gen: torch.Generator):
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for (shape, act), count in B1_MAIN_PATH.items():
+    for (shape, act) in B1_FWD_PER_STEP:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
                  + 1).to(dtype)
@@ -160,7 +224,7 @@ def b1_phase(bw: float, gen: torch.Generator):
             stat_err = max(float((mean - mean_ref).abs().max()),
                            float(((rstd - rstd_ref) / rstd_ref).abs().max()))
             worst[dtype] = max(worst[dtype], err)
-            tag = f"B1 {shape} {act} {str(dtype)[6:]}"
+            tag = f"B1 {shape} {act} {dtype_name(dtype)}"
             check(err <= TOL[dtype] and stat_err <= 1e-4,
                   f"{tag}: max|y - plain| {err:.3g} (tol {TOL[dtype]}), "
                   f"stats {stat_err:.3g} (tol 1e-4)")
@@ -169,18 +233,140 @@ def b1_phase(bw: float, gen: torch.Generator):
             n, h, w, c = shape
             nbytes = 2 * x.numel() * x.element_size() + 2 * n * c * 4
             rows.append(dict(
-                shape=list(shape), act=act, dtype=str(dtype)[6:],
-                per_frame=count, max_abs_err=err, ms=graph_ms(kern),
+                key=(shape, act), shape=list(shape), act=act,
+                dtype=dtype_name(dtype), per_frame=B1_MAIN_PATH.get(
+                    (shape, act), 0),
+                per_step=B1_FWD_PER_STEP[(shape, act)], max_abs_err=err,
+                ms=graph_ms(kern),
                 plain_ms=graph_ms(
                     lambda: b1.instance_norm_act_reference(x, act)),
                 library_ms=graph_ms(
                     lambda: act_fn(F.instance_norm(x_nchw, eps=1e-5), act)),
                 eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3))
-    frame = [r for r in rows if r["dtype"] == "bfloat16"]
-    total = {k: sum(r[k] * r["per_frame"] for r in frame)
-             for k in ("ms", "plain_ms", "library_ms", "eager_ms",
-                       "bound_ms")}
-    return rows, total, worst
+    return (rows, per_path_totals(rows, B1_MAIN_PATH),
+            per_path_totals(rows, B1_FWD_PER_STEP), worst)
+
+
+def b1_bwd_phase(bw: float, gen: torch.Generator):
+    """dx of B1 at every (shape, act) of the train step, held to the plain
+    backward relative to max|dx| (1e-4 fp32, 2e-2 bf16)."""
+    from ir2rgb_tpu_torch.kernels import instance_norm as b1
+    rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for (shape, act), per_step in B1_BWD_PER_STEP.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3
+                 + 1).to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            _, mean, rstd = b1.instance_norm_act(x, act)
+            dx = b1.instance_norm_act_backward(x, mean, rstd, g, act)
+            ref = b1.instance_norm_act_backward_reference(
+                x.float(), mean, rstd, g.float(), act)
+            torch.cuda.synchronize()
+            err = float((dx.float() - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            worst[dtype] = max(worst[dtype], rel)
+            check(dx.dtype == dtype and rel <= TOL[dtype],
+                  f"B1 bwd {shape} {act} {dtype_name(dtype)}: "
+                  f"max|dx - plain| / max|dx| {rel:.3g} (tol {TOL[dtype]})")
+            kern = lambda: b1.instance_norm_act_backward(  # noqa: E731
+                x, mean, rstd, g, act)
+            # the library's backward: autograd of F.instance_norm + act,
+            # forward and backward captured together (a backward runs on
+            # its forward's stream) less the forward alone
+            x_lib = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            g_lib = g.permute(0, 3, 1, 2)
+            lib_fb = graph_ms(lambda: torch.autograd.grad(
+                act_fn(F.instance_norm(x_lib, eps=1e-5), act), x_lib,
+                g_lib))
+            lib_f = graph_ms(lambda: act_fn(F.instance_norm(
+                x_lib.detach(), eps=1e-5), act))
+            n, h, w, c = shape
+            nbytes = 3 * x.numel() * x.element_size() + 2 * n * c * 4
+            rows.append(dict(
+                key=(shape, act), shape=list(shape), act=act,
+                dtype=dtype_name(dtype), per_step=per_step,
+                max_abs_err=err, rel_err=rel, ms=graph_ms(kern),
+                plain_ms=graph_ms(
+                    lambda: b1.instance_norm_act_backward_reference(
+                        x, mean, rstd, g, act)),
+                library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
+                eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3))
+    return rows, per_path_totals(rows, B1_BWD_PER_STEP), worst
+
+
+def d2s_phase(bw: float, gen: torch.Generator):
+    """B3 both ways at the five ups' shapes: exact against the plain
+    permutation, timed beside it and view/permute/contiguous."""
+    from ir2rgb_tpu_torch.kernels import d2s as b3
+    rows = []
+    for (n, h, w, c4), c in D2S_MAIN_PATH:
+        for dtype in (torch.bfloat16, torch.float32):
+            y = torch.randn((n, h, w, c4), generator=gen,
+                            device="cuda").to(dtype)
+            x = torch.randn((n, 2 * h, 2 * w, c), generator=gen,
+                            device="cuda").to(dtype)
+            for name, src, kern, plain, lib in (
+                    ("d2s", y, lambda: b3.d2s(y, c),
+                     lambda: b3.d2s_reference(y, c),
+                     lambda: y.view(n, h, w, 2, 2, c).permute(
+                         0, 1, 3, 2, 4, 5).contiguous()),
+                    ("s2d", x, lambda: b3.s2d(x),
+                     lambda: b3.s2d_reference(x),
+                     lambda: x.view(n, h, 2, w, 2, c).permute(
+                         0, 1, 3, 2, 4, 5).contiguous())):
+                out, want = kern(), plain()
+                torch.cuda.synchronize()
+                exact = torch.equal(out, want)
+                check(exact, f"B3 {name} {tuple(src.shape)} "
+                      f"{dtype_name(dtype)}: exact against the plain "
+                      "permutation")
+                rows.append(dict(
+                    name=name, key=((n, h, w, c4), c),
+                    shape=list(src.shape), dtype=dtype_name(dtype),
+                    exact=exact, max_abs_err=float(
+                        (out.float() - want.float()).abs().max()),
+                    ms=graph_ms(kern), plain_ms=graph_ms(plain),
+                    library_ms=graph_ms(lib), eager_ms=cuda_ms(kern),
+                    bound_ms=2 * src.numel() * src.element_size() / bw
+                    * 1e3))
+    counts = {key: 1 for key in D2S_MAIN_PATH}
+    totals = {name: per_path_totals([r for r in rows if r["name"] == name],
+                                    counts) for name in ("d2s", "s2d")}
+    return rows, totals
+
+
+def deconv_phase(gen: torch.Generator):
+    """Each up as the port runs it (subpixel conv + B3 d2s + bias, the
+    rearranged weight kept) against ``F.conv_transpose2d``, in inference
+    at batch 1."""
+    from ir2rgb_tpu_torch.nn import Deconv, ops
+    rows = []
+    for (n, h, w, c4), c in D2S_MAIN_PATH:
+        for dtype in (torch.bfloat16, torch.float32):
+            # built outside inference mode, so that its weight is a normal
+            # tensor whose rearranged copy the module keeps, as in serving
+            up = Deconv(2 * c, c).to("cuda", dtype,
+                                     memory_format=torch.channels_last)
+            x = torch.randn((n, h, w, 2 * c), generator=gen,
+                            device="cuda").to(dtype)
+            with torch.inference_mode():
+                sub = lambda: up(x)  # noqa: E731
+                dil = lambda: ops.deconv(  # noqa: E731
+                    x, up.weight, up.bias, lowering="dilated")
+                a, b = sub(), dil()
+                torch.cuda.synchronize()
+                err = float((a.float() - b.float()).abs().max()) / float(
+                    b.float().abs().max())
+                check(err <= TOL[dtype], f"up {(n, h, w, 2 * c)}->{c} "
+                      f"{dtype_name(dtype)}: subpixel vs conv_transpose2d "
+                      f"{err:.3g} of max (tol {TOL[dtype]})")
+                rows.append(dict(shape=[n, h, w, 2 * c], cout=c,
+                                 dtype=dtype_name(dtype), rel_err=err,
+                                 subpixel_ms=graph_ms(sub),
+                                 conv_transpose_ms=graph_ms(dil),
+                                 subpixel_eager_ms=cuda_ms(sub),
+                                 conv_transpose_eager_ms=cuda_ms(dil)))
+    return rows
 
 
 def b2_phase(bw: float, fp32_peak: float, bf16_peak: float,
@@ -228,12 +414,12 @@ def b2_phase(bw: float, fp32_peak: float, bf16_peak: float,
 # Slice phases
 # ---------------------------------------------------------------------------
 
-def seeded_state_dict(model, seed: int):
+def seeded_state_dict(module, seed: int):
     """The reference weights_init drawn from a numpy seed: conv weights
-    N(0, 0.02), biases 0."""
+    N(0, 0.02), biases 0 (CPU tensors)."""
     rng = np.random.default_rng(seed)
     sd = {}
-    for k, v in model.netG.state_dict().items():
+    for k, v in module.state_dict().items():
         if k.endswith(".weight"):
             a = rng.standard_normal(tuple(v.shape), dtype=np.float32) * 0.02
         else:
@@ -260,7 +446,7 @@ def slice_phase(preset: str, seed: int, card: str):
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
     res = {"preset": preset}
     bf16 = make_model(preset, "bf16", "cuda", None)
-    sd = seeded_state_dict(bf16, seed)
+    sd = seeded_state_dict(bf16.netG, seed)
     bf16.netG.load_state_dict(sd)
     temporal = bf16.cfg.model.model == "temporal"
     hw = (bf16.cfg.data.crop_size,) * 2
@@ -289,10 +475,9 @@ def slice_phase(preset: str, seed: int, card: str):
     check(all(o.shape == hw + (3,) and o.dtype == np.uint8 for o in outs)
           and len(outs) == N_FRAMES,
           f"{preset}: {len(outs)} uint8 frames of {hw + (3,)}")
-    check(counts == {"instance_norm_act": B1_PER_FRAME * N_FRAMES,
-                     "tail_fused": N_FRAMES},
+    check(counts == {k: v * N_FRAMES for k, v in PER_FRAME.items()},
           f"{preset}: launches {counts} over {N_FRAMES} frames "
-          f"(want {B1_PER_FRAME} B1 and 1 B2 per frame)")
+          f"(want {PER_FRAME} per frame)")
     if temporal:
         check(all(carry_on_card), f"{preset}: carry stayed on the card")
 
@@ -358,6 +543,289 @@ def slice_phase(preset: str, seed: int, card: str):
     return res
 
 
+def train_model(dtype: str, device: str, weights, fix_global: bool = True):
+    """pix2pixhd_512 at full width, steps_per_epoch 1 (fix_steps 10 when
+    ``fix_global``, else no freeze), with ``weights`` = (G, D, VGG)
+    state_dicts."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    from ir2rgb_tpu_torch.train import create_model
+    cfg = PRESETS["pix2pixhd_512"]
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype=dtype))
+    if not fix_global:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    niter_fix_global=0))
+    model = create_model(cfg, device=device, steps_per_epoch=1)
+    if weights is not None:
+        for net, sd in zip((model.netG, model.netD, model.vgg), weights):
+            net.load_state_dict(sd)
+    return model
+
+
+def train_batch(size: int, seed: int, device: str):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.uniform(
+        -1, 1, (1, size, size, 3)).astype(np.float32)).to(device)
+        for k in "ab"}
+
+
+def clone_params(module, keep=lambda k: True):
+    return {k: p.detach().clone() for k, p in module.named_parameters()
+            if keep(k)}
+
+
+def changed(module, before) -> dict:
+    now = dict(module.named_parameters())
+    return {k: not torch.equal(now[k], v) for k, v in before.items()}
+
+
+def timed_steps(model, batch, n: int):
+    """ms/step over ``n`` back-to-back steps (CUDA events), peak memory,
+    and the kernels' launches over those steps."""
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        model.train_step(batch)
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / n, torch.cuda.max_memory_allocated(),
+            launch_counts())
+
+
+def grad_bar(got: dict, want: dict, rel: float):
+    """Worst per-tensor ratio of ||delta|| to rel·||g_cpu|| + 1e-6·M (M the
+    largest ||g_cpu|| of the network; the second term covers the conv
+    biases an instance norm follows, whose true gradient is zero)."""
+    norms = {k: float(v.norm()) for k, v in want.items()}
+    big = max(norms.values())
+    worst = (0.0, None)
+    for k, v in want.items():
+        ratio = float((got[k].cpu() - v).norm()) / (rel * norms[k]
+                                                    + 1e-6 * big)
+        worst = max(worst, (ratio, k))
+    return worst
+
+
+def avg_pool_grad_check():
+    """``ops.avg_pool``'s gradient on the card against the CPU's at the
+    discriminator's pyramid shape; beside it ``F.avg_pool2d`` straight on
+    channels-last memory, whose CUDA backward is wrong (reported)."""
+    from ir2rgb_tpu_torch.nn import ops
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.from_numpy(rng.standard_normal((1, 256, 256, 6),
+                                             dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((1, 128, 128, 6),
+                                             dtype=np.float32))
+
+    def grad(fn, dev):
+        xi = x.to(dev).requires_grad_(True)
+        (gx,) = torch.autograd.grad(fn(xi), xi, g.to(dev))
+        return gx.cpu()
+
+    def port(t):
+        return ops.avg_pool(t, 3, 2, 1, count_include_pad=False)
+
+    def channels_last(t):
+        return F.avg_pool2d(t.permute(0, 3, 1, 2), 3, 2, 1,
+                            count_include_pad=False).permute(0, 2, 3, 1)
+
+    want = grad(port, "cpu")
+    rel = {name: float((grad(fn, "cuda") - want).norm() / want.norm())
+           for name, fn in (("ops.avg_pool", port),
+                            ("F.avg_pool2d channels-last", channels_last))}
+    check(rel["ops.avg_pool"] <= 1e-6,
+          f"avg pool gradient on the card vs CPU: {rel}")
+    return rel
+
+
+class KinkPins:
+    """Straight-through pins (``y + (saved - y).detach()``) at every conv
+    output and every B1 input that a run records with a graph: recorded on
+    one run, replayed in the same order on another, so that the second
+    run's ReLU / LeakyReLU / abs kinks see the first run's values while
+    its backward is its own."""
+
+    def __init__(self):
+        self.saved, self.replayed, self._replay = [], 0, False
+
+    def pin(self, y: torch.Tensor) -> torch.Tensor:
+        if not (torch.is_grad_enabled() and y.requires_grad):
+            return y
+        if not self._replay:
+            self.saved.append(y.detach().cpu())
+            return y
+        r = self.saved[self.replayed].to(y.device, y.dtype)
+        self.replayed += 1
+        return y + (r - y).detach()
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        from ir2rgb_tpu_torch.nn import ops
+        conv, b1 = ops.conv, ops.fused_instance_norm_act
+        self._replay = replay
+        ops.conv = lambda *a, **kw: self.pin(conv(*a, **kw))
+        ops.fused_instance_norm_act = (
+            lambda x, act="relu", negative_slope=0.2: b1(
+                self.pin(x), act, negative_slope))
+        try:
+            yield
+        finally:
+            ops.conv, ops.fused_instance_norm_act = conv, b1
+
+    def recording(self):
+        return self._patched(False)
+
+    def replaying(self):
+        return self._patched(True)
+
+
+def train_phase(card: str):
+    """The main path of this slice: the pix2pixhd_512 train step at full
+    width, 512x512, batch 1."""
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    res = {"preset": "pix2pixhd_512", "batch": 1, "size": 512,
+           "fix_steps": FIX_STEPS, "avg_pool_grad_rel": avg_pool_grad_check()}
+    bf16 = train_model("bf16", "cuda", None)
+    weights = (seeded_state_dict(bf16.netG, SEED),
+               seeded_state_dict(bf16.netD, SEED + 1),
+               {k: v.cpu() for k, v in bf16.vgg.state_dict().items()})
+    for net, sd in zip((bf16.netG, bf16.netD, bf16.vgg), weights):
+        net.load_state_dict(sd)
+    check(bf16.fix_steps == FIX_STEPS, f"train: fix_steps {bf16.fix_steps}")
+    batch = train_batch(512, SEED + 3, "cuda")
+
+    # 12 steps across the unfreeze: the trunk (model.*) frozen through
+    # step 9 and moving from step 10; the enhancer and D move every step
+    trunk0 = clone_params(bf16.netG, lambda k: k.startswith("model."))
+    losses, counts, moved, walls = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        enh = clone_params(bf16.netG, lambda k: not k.startswith("model."))
+        dis = clone_params(bf16.netD)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m = bf16.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts.append(launch_counts())
+        losses.append({k: float(v) for k, v in m.items()})
+        trunk_moved = any(changed(bf16.netG, trunk0).values())
+        weights_moved = [v for k, v in {**changed(bf16.netG, enh),
+                                        **changed(bf16.netD, dis)}.items()
+                         if k.endswith("weight")]
+        moved.append(dict(step=i, trunk=trunk_moved,
+                          enhancer_and_d_weights=sum(weights_moved),
+                          of=len(weights_moved)))
+        check(trunk_moved == (i >= FIX_STEPS) and all(weights_moved),
+              f"train step {i}: trunk moved {trunk_moved} (want "
+              f"{i >= FIX_STEPS}), enhancer and D weights moved "
+              f"{sum(weights_moved)} of {len(weights_moved)}")
+        check(all(math.isfinite(v) for v in losses[-1].values()),
+              f"train step {i}: losses {losses[-1]}")
+        if i >= FIX_STEPS:
+            check(counts[-1] == PER_STEP, f"train step {i} (unfrozen): "
+                  f"launches {counts[-1]} (want {PER_STEP})")
+        else:
+            check(counts[-1]["instance_norm_act"] == PER_STEP[
+                "instance_norm_act"] and counts[-1]["d2s"] == 5,
+                f"train step {i} (frozen): launches {counts[-1]}")
+    res.update(losses_bf16=losses, launches_by_step=counts, moved=moved,
+               wall_ms_by_step=walls)
+    del trunk0
+
+    # ms/step: 10 more unfrozen steps, bf16, then fp32 (TF32 off) after
+    # two warmup steps of its own
+    ms, peak, run_counts = timed_steps(bf16, batch, TIMED_STEPS)
+    check(run_counts == {k: v * TIMED_STEPS for k, v in PER_STEP.items()},
+          f"train: launches {run_counts} over {TIMED_STEPS} timed steps")
+    res.update(ms_per_step_bf16=ms, peak_bytes_bf16=peak,
+               launches_timed=run_counts)
+    del bf16
+    torch.cuda.empty_cache()
+    fp32 = train_model("float32", "cuda", weights, fix_global=False)
+    first = {k: float(v) for k, v in fp32.train_step(batch).items()}
+    fp32.train_step(batch)
+    ms32, peak32, _ = timed_steps(fp32, batch, TIMED_STEPS)
+    res.update(losses_fp32_first=first, ms_per_step_fp32=ms32,
+               peak_bytes_fp32=peak32)
+    rel = {k: abs(losses[0][k] - v) / abs(v) for k, v in first.items()}
+    res["bf16_vs_fp32_first_step_rel"] = rel
+    check(max(rel.values()) <= BF16_LOSS_REL,
+          f"train: bf16 first-step losses within {BF16_LOSS_REL:.0%} of "
+          f"fp32 ({ {k: f'{v:.3g}' for k, v in rel.items()} })")
+    del fp32
+    torch.cuda.empty_cache()
+
+    # one fp32 step on the card against the port's fp32 CPU step at full
+    # width on 256x256 inputs, the same weights and batch. The losses are
+    # held as they come. The gradients are held at the forward point of
+    # the CPU run: every conv output and every B1 input is pinned to the
+    # CPU's value (KinkPins). Unpinned, fp32 rounding flips a few ReLU
+    # units across their kink (most in the trunk's 8x8x1024 blocks, where
+    # one unit carries ~0.4% of a layer's gradient), which moves every G
+    # gradient by ~0.5% whatever the arithmetic; that spread is reported.
+    cpu = train_model("float32", "cpu", weights, fix_global=False)
+    card32 = train_model("float32", "cuda", weights, fix_global=False)
+    b_cpu = train_batch(256, SEED + 4, "cpu")
+    b_card = {k: v.cuda() for k, v in b_cpu.items()}
+    pins = KinkPins()
+    t0 = time.perf_counter()
+    with pins.recording():
+        m_cpu = cpu.compute_grads(b_cpu)
+    cpu_s = time.perf_counter() - t0
+    m_card = card32.compute_grads(b_card)
+    torch.cuda.synchronize()
+    loss_rel = {k: abs(float(m_card[k]) - float(v)) / abs(float(v))
+                for k, v in m_cpu.items()}
+    nets = ("netG", "netD")
+    want = {n: {k: p.grad for k, p in getattr(cpu, n).named_parameters()}
+            for n in nets}
+    free = {n: grad_bar({k: p.grad for k, p in getattr(
+        card32, n).named_parameters()}, want[n], TRAIN_FP32_GRAD_REL)
+            for n in nets}
+    with pins.replaying():
+        card32.compute_grads(b_card)
+    check(pins.replayed == len(pins.saved) > 0,
+          f"train fp32 card vs CPU: {pins.replayed} of {len(pins.saved)} "
+          "pins replayed")
+    worst = {n: grad_bar({k: p.grad for k, p in getattr(
+        card32, n).named_parameters()}, want[n], TRAIN_FP32_GRAD_REL)
+             for n in nets}
+    res.update(fp32_card_vs_cpu_loss_rel=loss_rel,
+               fp32_card_vs_cpu_worst_grad_pinned=worst,
+               fp32_card_vs_cpu_worst_grad_unpinned=free, cpu_step_s=cpu_s,
+               pins=len(pins.saved))
+    check(max(loss_rel.values()) <= TRAIN_FP32_LOSS_RTOL,
+          f"train fp32 card vs CPU at 256px: losses rel "
+          f"{max(loss_rel.values()):.3g} (tol {TRAIN_FP32_LOSS_RTOL})")
+    for name, (ratio, key) in worst.items():
+        check(ratio <= 1.0, f"train fp32 card vs CPU at 256px: {name} "
+              f"gradients, worst {key} at {ratio:.3g} of the bar "
+              f"(||d|| <= {TRAIN_FP32_GRAD_REL}·||g|| + 1e-6·M); unpinned "
+              f"{free[name][1]} at {free[name][0]:.3g}")
+    del cpu, card32
+    torch.cuda.empty_cache()
+    print(f"train pix2pixhd_512 b1 512px: {ms:.2f} ms/step bf16, "
+          f"{ms32:.2f} ms/step fp32, peak {peak / 2**30:.2f} / "
+          f"{peak32 / 2**30:.2f} GiB ({card})", flush=True)
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, rows_total, worst,
+                 per, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=worst, ms=rows_total["ms"],
+                plain_ms=rows_total["plain_ms"],
+                bound_ms=rows_total["bound_ms"], bound_by="bytes",
+                library_ms=rows_total["library_ms"],
+                eager_ms=rows_total["eager_ms"], per=per, **extra)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -365,6 +833,9 @@ def main() -> int:
     from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import _build
 
+    # the VGG of the train phase is the documented numpy-seeded He-random
+    # fallback on purpose; its warning says nothing here
+    warnings.filterwarnings("ignore", message="VGG perceptual loss")
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -380,48 +851,91 @@ def main() -> int:
     print(f"built {so.name} in {build_s:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    b1_rows, b1_frame, b1_worst = b1_phase(bw, gen)
+    b1_rows, b1_frame, b1_step, b1_worst = b1_phase(bw, gen)
+    bwd_rows, bwd_step, bwd_worst = b1_bwd_phase(bw, gen)
     b2_rows = b2_phase(bw, fp32_peak, bf16_peak, gen)
+    d2s_rows, d2s_step = d2s_phase(bw, gen)
+    up_rows = deconv_phase(gen)
     slices = [slice_phase(preset, SEED, card)
               for preset in ("pix2pixhd_512", "temporal_512")]
+    train = train_phase(card)
 
+    serve = {s["preset"]: s["launches"] for s in slices}
+    steps = train["launches_timed"]
     b2 = b2_rows["bfloat16"]
     kernels = [
-        dict(name="instance_norm_act", route="cuda",
-             source="ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
-             replaces="ir2rgb_tpu/kernels/instance_norm.py:127",
-             launches=slices[0]["launches"]["instance_norm_act"],
-             max_abs_err=b1_worst[torch.bfloat16],
-             max_abs_err_fp32=b1_worst[torch.float32],
-             ms=b1_frame["ms"], kernel_ms=b1_frame["ms"],
-             plain_ms=b1_frame["plain_ms"], bound_ms=b1_frame["bound_ms"],
-             bound_by="bytes", library_ms=b1_frame["library_ms"],
-             eager_ms=b1_frame["eager_ms"],
-             per="one pix2pixhd_512 frame: 36 launches, bf16"),
+        kernel_entry(
+            "instance_norm_act",
+            "ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
+            "ir2rgb_tpu/kernels/instance_norm.py:127",
+            steps["instance_norm_act"], b1_step, b1_worst[torch.bfloat16],
+            f"one pix2pixhd_512 train step: {PER_STEP['instance_norm_act']}"
+            " launches, bf16; launches over the 10 timed steps",
+            max_abs_err_fp32=b1_worst[torch.float32],
+            per_serving_frame={k: b1_frame[k] for k in b1_frame},
+            launches_by_path=dict(serve_8_frames={
+                p: c["instance_norm_act"] for p, c in serve.items()},
+                train_10_steps=steps["instance_norm_act"])),
+        kernel_entry(
+            "instance_norm_act_bwd",
+            "ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
+            "ir2rgb_tpu/kernels/instance_norm.py:201",
+            steps["instance_norm_act_bwd"], bwd_step,
+            bwd_worst[torch.bfloat16],
+            f"one train step: {PER_STEP['instance_norm_act_bwd']} launches,"
+            " bf16; max_abs_err is relative to max|dx|",
+            max_rel_err_fp32=bwd_worst[torch.float32]),
         dict(name="tail_fused", route="cuda",
              source="ir2rgb_tpu_torch/kernels/csrc/tail_fused.cu",
              replaces="ir2rgb_tpu/kernels/tail_fused.py:189",
-             launches=slices[0]["launches"]["tail_fused"],
+             launches=serve["pix2pixhd_512"]["tail_fused"],
              max_abs_err=b2["max_abs_err"],
              max_abs_err_fp32=b2_rows["float32"]["max_abs_err"],
-             ms=b2["ms"], kernel_ms=b2["ms"], plain_ms=b2["plain_ms"],
+             ms=b2["ms"], plain_ms=b2["plain_ms"],
              bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
              library_ms=b2["library_ms"], eager_ms=b2["eager_ms"],
-             per="one launch at (1,512,512,32), bf16"),
+             per="one launch at (1,512,512,32), bf16; launches over 8 "
+                 "pix2pixhd_512 serving frames (not on the train path)"),
+        kernel_entry(
+            "d2s", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
+            "ir2rgb_tpu/kernels/d2s.py:100", steps["d2s"], d2s_step["d2s"],
+            max(r["max_abs_err"] for r in d2s_rows if r["name"] == "d2s"),
+            "the five ups of one frame or step, bf16",
+            launches_by_path=dict(serve_8_frames={
+                p: c["d2s"] for p, c in serve.items()},
+                train_10_steps=steps["d2s"])),
+        kernel_entry(
+            "s2d", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
+            "ir2rgb_tpu/kernels/d2s.py:115", steps["s2d"], d2s_step["s2d"],
+            max(r["max_abs_err"] for r in d2s_rows if r["name"] == "s2d"),
+            "the five ups' gradients of one train step, bf16"),
     ]
     print(f"peaks: {row} row, {bw / 1e12} TB/s, fp32 {fp32_peak / 1e12} "
           f"TFLOP/s, bf16 {bf16_peak / 1e12} TFLOP/s")
     for s in slices:
         print("slice " + json.dumps(s))
-    for r in b1_rows:
-        print(f"  B1 {r['shape']} {r['act']:5s} {r['dtype']:8s} "
-              f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
-              f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
-              f"eager {r['eager_ms']:.4f}")
+    print("train " + json.dumps(train))
+    for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
+        for r in rows:
+            print(f"  {tag} {r['shape']} {r['act']:10s} {r['dtype']:8s} "
+                  f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+                  f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+                  f"eager {r['eager_ms']:.4f}")
     for k, r in b2_rows.items():
         print(f"  B2 {k:8s} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
               f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}) eager {r['eager_ms']:.4f}")
+    for r in d2s_rows:
+        print(f"  B3 {r['name']} {r['shape']} {r['dtype']:8s} ms "
+              f"{r['ms']:.4f} plain {r['plain_ms']:.4f} lib "
+              f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} eager "
+              f"{r['eager_ms']:.4f}")
+    for r in up_rows:
+        print(f"  up {r['shape']}->{r['cout']} {r['dtype']:8s} subpixel "
+              f"{r['subpixel_ms']:.4f} conv_transpose "
+              f"{r['conv_transpose_ms']:.4f} (eager "
+              f"{r['subpixel_eager_ms']:.4f} / "
+              f"{r['conv_transpose_eager_ms']:.4f}) rel {r['rel_err']:.2g}")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

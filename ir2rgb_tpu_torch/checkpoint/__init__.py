@@ -1,3 +1,8 @@
-from .from_jax import generator_state_dict_from_jax
+from .from_jax import (
+    discriminator_state_dict_from_jax,
+    generator_state_dict_from_jax,
+    vgg_state_dict_from_jax,
+)
 
-__all__ = ["generator_state_dict_from_jax"]
+__all__ = ["discriminator_state_dict_from_jax",
+           "generator_state_dict_from_jax", "vgg_state_dict_from_jax"]

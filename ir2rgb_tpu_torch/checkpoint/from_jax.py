@@ -1,14 +1,18 @@
-"""JAX generator parameters -> the port's ``state_dict``.
+"""JAX parameters -> the port's ``state_dict``s (generator,
+discriminator, VGG19).
 
-The JAX package keeps its generator parameters as a nested dict of arrays
-(``local_enhancer_init``): conv kernels HWIO, and transposed-conv kernels
-as the equivalent *forward* conv kernel, spatially flipped HWIO
-(``ir2rgb_tpu/nn/ops.py:176-181``). This module turns such a dict (of
-numpy arrays) into the port's ``state_dict``, whose keys are the reference
-family's, with its own copy of the layout math:
+The JAX package keeps its parameters as nested dicts of arrays
+(``local_enhancer_init``, ``multiscale_disc_init``, ``vgg19_init``): conv
+kernels HWIO, and transposed-conv kernels as the equivalent *forward* conv
+kernel, spatially flipped HWIO (``ir2rgb_tpu/nn/ops.py:176-181``). This
+module turns such a dict (of numpy arrays) into a port ``state_dict``,
+whose keys are the reference family's (torchvision's for the VGG), with
+its own copy of the layout math:
 
 - conv: HWIO -> OIHW;
 - deconv: flipped HWIO -> IOHW, by transposing back and then unflipping.
+
+The maps are linear, so they convert gradients of the same trees too.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d
 from ir2rgb_tpu_torch.nn.generators import GenConfig, LocalEnhancer
+from ir2rgb_tpu_torch.nn.vgg import VGG_CONVS, Vgg19
 
 Params = Dict[str, Any]
 
@@ -62,19 +68,14 @@ def _local_enhancer_slots(g: LocalEnhancer, params: Params):
             yield f"model{n}_2.{up.tail}", pe["tail"]["conv"], "conv"
 
 
-def generator_state_dict_from_jax(params_np: Params, cfg: GenConfig
-                                  ) -> "OrderedDict[str, torch.Tensor]":
-    """The port's ``LocalEnhancer`` state_dict from JAX generator params.
-
-    Raises if the params do not fill every key of the configured module
-    with the right shape."""
-    if cfg.net_g != "local":
-        raise NotImplementedError(f"net_g={cfg.net_g!r} is not ported yet")
-    with torch.device("meta"):
-        g = LocalEnhancer(cfg)
-    want = g.state_dict()
+def _checked(module: torch.nn.Module, slots
+             ) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict that ``slots`` ((key prefix, JAX conv params,
+    kind) triples) fill, in ``module``'s key order. Raises unless it
+    fills every key of ``module`` with the right shape."""
+    want = module.state_dict()
     got: Dict[str, torch.Tensor] = {}
-    for prefix, p, kind in _local_enhancer_slots(g, params_np):
+    for prefix, p, kind in slots:
         w = deconv_w(p["w"]) if kind == "deconv" else conv_w(p["w"])
         got[prefix + ".weight"] = torch.from_numpy(w.astype(np.float32))
         if "b" in p:
@@ -90,3 +91,49 @@ def generator_state_dict_from_jax(params_np: Params, cfg: GenConfig
                              f", params {tuple(got[k].shape)}")
         out[k] = got[k]
     return out
+
+
+def generator_state_dict_from_jax(params_np: Params, cfg: GenConfig
+                                  ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's ``LocalEnhancer`` state_dict from JAX generator params.
+
+    Raises if the params do not fill every key of the configured module
+    with the right shape."""
+    if cfg.net_g != "local":
+        raise NotImplementedError(f"net_g={cfg.net_g!r} is not ported yet")
+    with torch.device("meta"):
+        g = LocalEnhancer(cfg)
+    return _checked(g, _local_enhancer_slots(g, params_np))
+
+
+def _disc_slots(p: Params, prefix: str, n_layers: int):
+    for j in range(n_layers + 1):
+        yield f"{prefix}{j}.0", p[f"conv{j}"]["conv"], "conv"
+    yield f"{prefix}{n_layers + 1}.0", p["head"]["conv"], "conv"
+
+
+def discriminator_state_dict_from_jax(params_np: Params, cfg: DiscConfig
+                                      ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's discriminator state_dict from JAX D params. The JAX
+    ``scale{i}`` (i = 0 the full resolution) becomes the reference's
+    ``scale{num_d-1-i}``, which is the module the port runs on that
+    resolution."""
+    with torch.device("meta"):
+        d = define_d(cfg)
+    if cfg.net_d == "n_layers":
+        slots = _disc_slots(params_np, "model", cfg.n_layers)
+    else:
+        slots = (s for i in range(cfg.num_d) for s in _disc_slots(
+            params_np[f"scale{i}"], f"scale{cfg.num_d - 1 - i}_layer",
+            cfg.n_layers))
+    return _checked(d, slots)
+
+
+def vgg_state_dict_from_jax(params_np: Params
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's ``Vgg19`` state_dict from JAX ``vgg19_init`` params
+    (``conv{i}`` -> ``features.{idx}``, HWIO -> OIHW)."""
+    with torch.device("meta"):
+        vgg = Vgg19()
+    return _checked(vgg, ((f"features.{idx}", params_np[f"conv{i}"], "conv")
+                          for i, (idx, _, _) in enumerate(VGG_CONVS)))

@@ -1,3 +1,12 @@
-from .config import PRESETS, Config, DataConfig, InferConfig, ModelConfig
+from .config import (
+    PRESETS,
+    Config,
+    DataConfig,
+    InferConfig,
+    LossConfig,
+    ModelConfig,
+    TrainConfig,
+)
 
-__all__ = ["Config", "DataConfig", "InferConfig", "ModelConfig", "PRESETS"]
+__all__ = ["Config", "DataConfig", "InferConfig", "LossConfig",
+           "ModelConfig", "PRESETS", "TrainConfig"]

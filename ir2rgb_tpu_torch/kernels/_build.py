@@ -34,6 +34,12 @@ _SIGNATURES = {
     # act, slope, eps, is_bf16, stream
     "ir2rgb_instance_norm_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _F, _I, _P],
+    # x, g, mean, rstd, part, gmeans, dx, n, hw, c, n_chunks, chunk, ct,
+    # n_ctiles, act, slope, is_bf16, stream
+    "ir2rgb_instance_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _F, _I, _P],
+    # src, dst, n, hs, ws, cw, unit_bytes, to_image, stream
+    "ir2rgb_d2s": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w4, b, y, n, h, w, c, pix_stride, smem_bytes, is_bf16, stream
     "ir2rgb_tail_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -1,4 +1,11 @@
+from .discriminators import (
+    DiscConfig,
+    MultiscaleDiscriminator,
+    NLayerDiscriminator,
+    define_d,
+)
 from .generators import (
+    Deconv,
     EnhancerDown,
     EnhancerUp,
     GenConfig,
@@ -7,6 +14,9 @@ from .generators import (
     ResnetGenerator,
     ResnetStack,
 )
+from .vgg import Vgg19, load_vgg19_npz
 
-__all__ = ["EnhancerDown", "EnhancerUp", "GenConfig", "LocalEnhancer",
-           "ResnetBlock", "ResnetGenerator", "ResnetStack"]
+__all__ = ["Deconv", "DiscConfig", "EnhancerDown", "EnhancerUp", "GenConfig",
+           "LocalEnhancer", "MultiscaleDiscriminator", "NLayerDiscriminator",
+           "ResnetBlock", "ResnetGenerator", "ResnetStack", "Vgg19",
+           "define_d", "load_vgg19_npz"]

@@ -1,7 +1,7 @@
 """pix2pixHD generators on NHWC tensors — the slice of
-``ir2rgb_tpu/nn/generators.py`` that the serving path runs: the ResNet
-trunk (headless or with its c7s1 tail) and the coarse-to-fine
-``LocalEnhancer`` with one or two enhancers.
+``ir2rgb_tpu/nn/generators.py`` that the serving path and the train step
+run: the ResNet trunk (headless or with its c7s1 tail) and the
+coarse-to-fine ``LocalEnhancer`` with one or two enhancers.
 
 The modules keep the reference family's ``nn.Sequential`` layout, so their
 ``state_dict`` keys are those of ``tests/torch_refs.py`` (``model.*``,
@@ -9,8 +9,12 @@ The modules keep the reference family's ``nn.Sequential`` layout, so their
 ``load_state_dict``. Pads, norms and activations carry no parameters; they
 hold their Sequential index as :class:`Slot` placeholders, and each
 module's ``forward`` applies them explicitly, fused where the port has a
-kernel: every instance norm with the activation after it (kernel B1), the
-output tail's reflect-pad + 7x7 conv + tanh (kernel B2).
+kernel: every instance norm with the activation after it (kernel B1),
+every transposed conv's interleave (kernel B3, :class:`Deconv`) and, when
+serving, the output tail's reflect-pad + 7x7 conv + tanh (kernel B2).
+With ``train=True`` the tail is the composed reflect-pad + conv + tanh, as
+the JAX package computes it when training (``generators.py:204``): B2 has
+no backward.
 
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
 ``nn/s2d_space.py``) are exact rewrites of the same math and are not
@@ -73,9 +77,39 @@ def _conv_norm_act(conv: nn.Conv2d, x: torch.Tensor, norm: str,
     return ops.norm_act(y, norm, act)
 
 
-def _tail(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """reflect-pad 3 + c7s1-out + tanh, fused in kernel B2."""
-    return kernels.tail_fused(x, conv.weight.permute(2, 3, 1, 0), conv.bias)
+def _tail(conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """reflect-pad 3 + c7s1-out + tanh: fused in kernel B2 when serving;
+    composed, with tanh in fp32, when training."""
+    if not train:
+        return kernels.tail_fused(x, conv.weight.permute(2, 3, 1, 0),
+                                  conv.bias)
+    y = ops.conv(ops.reflect_pad(x, 3), conv.weight, conv.bias)
+    return torch.tanh(y.float()).to(x.dtype)
+
+
+class Deconv(nn.ConvTranspose2d):
+    """The generators' upsampler, ConvTranspose2d(k3, s2, p1,
+    output_padding 1), run as the subpixel conv + B3 depth-to-space
+    (``ops.deconv``). Under ``torch.inference_mode`` the rearranged
+    weight is kept, keyed on the weight tensor, its version counter and
+    the compute dtype, so a serving frame does not rebuild it."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, stride=2, padding=1,
+                         output_padding=1)
+        self._wk = None  # (weight, its _version, dtype, rearranged weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, wk = self.weight, None
+        # an inference tensor has no version counter to key on
+        if torch.is_inference_mode_enabled() and not w.is_inference():
+            kept = self._wk
+            if (kept is None or kept[0] is not w or kept[1] != w._version
+                    or kept[2] != x.dtype):
+                kept = self._wk = (w, w._version, x.dtype,
+                                   ops.subpixel_weight(w.to(x.dtype)))
+            wk = kept[3]
+        return ops.deconv(x, self.weight, self.bias, wk=wk)
 
 
 class ResnetBlock(nn.Module):
@@ -121,10 +155,8 @@ class ResnetStack(nn.Sequential):
             layers.append(ResnetBlock(ngf * mult, norm))
         for _ in range(n_downsampling):
             ups.append(len(layers))
-            layers += [nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 3,
-                                          stride=2, padding=1,
-                                          output_padding=1),
-                       Slot(norm), Slot("relu")]
+            layers += [Deconv(ngf * mult, ngf * mult // 2), Slot(norm),
+                       Slot("relu")]
             mult //= 2
         tail = None
         if with_tail:
@@ -136,17 +168,16 @@ class ResnetStack(nn.Sequential):
         self.head, self.downs, self.blocks, self.ups, self.tail = (
             1, downs, blocks, ups, tail)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = _conv_norm_act(self[self.head], ops.reflect_pad(x, 3), self.norm)
         for i in self.downs:
             h = _conv_norm_act(self[i], h, self.norm, stride=2, padding=1)
         for i in self.blocks:
             h = self[i](h)
         for i in self.ups:
-            h = ops.norm_act(ops.deconv(h, self[i].weight, self[i].bias),
-                             self.norm, "relu")
+            h = ops.norm_act(self[i](h), self.norm, "relu")
         if self.tail is not None:
-            h = _tail(self[self.tail], h)
+            h = _tail(self[self.tail], h, train)
         return h
 
 
@@ -161,8 +192,8 @@ class ResnetGenerator(nn.Module):
         self.model = ResnetStack(input_nc, output_nc, ngf, n_blocks,
                                  n_downsampling, norm, with_tail)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.model(x, train)
 
 
 class EnhancerDown(nn.Sequential):
@@ -190,9 +221,7 @@ class EnhancerUp(nn.Sequential):
                  norm: str = "instance", with_tail: bool = True):
         _check_norm(norm)
         layers = [ResnetBlock(ngf_n * 2, norm) for _ in range(n_blocks)]
-        layers += [nn.ConvTranspose2d(ngf_n * 2, ngf_n, 3, stride=2,
-                                      padding=1, output_padding=1),
-                   Slot(norm), Slot("relu")]
+        layers += [Deconv(ngf_n * 2, ngf_n), Slot(norm), Slot("relu")]
         if with_tail:
             layers += [Slot("reflect_pad 3"), nn.Conv2d(ngf_n, output_nc, 7),
                        Slot("tanh")]
@@ -201,13 +230,12 @@ class EnhancerUp(nn.Sequential):
         self.n_blocks = n_blocks
         self.tail = n_blocks + 4 if with_tail else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.n_blocks):
             x = self[i](x)
-        up = self[self.n_blocks]
-        h = ops.norm_act(ops.deconv(x, up.weight, up.bias), self.norm, "relu")
+        h = ops.norm_act(self[self.n_blocks](x), self.norm, "relu")
         if self.tail is not None:
-            h = _tail(self[self.tail], h)
+            h = _tail(self[self.tail], h, train)
         return h
 
 
@@ -225,7 +253,10 @@ class LocalEnhancer(nn.Module):
     """pix2pixHD coarse-to-fine generator: the headless global trunk at
     1/2^n_local resolution (width ngf * 2^n_local) plus one enhancer
     branch per level, joined by elementwise sums. NHWC in, NHWC out, in
-    ``cfg.compute_dtype``."""
+    ``cfg.compute_dtype``. The parameters may be in another dtype (fp32
+    master weights when training); each op casts them at use.
+    ``train=True`` picks the differentiable tail, as
+    ``local_enhancer_apply(..., train=True)`` does."""
 
     def __init__(self, cfg: GenConfig):
         super().__init__()
@@ -244,7 +275,7 @@ class LocalEnhancer(nn.Module):
                     EnhancerUp(ngf_n, cfg.n_blocks_local, cfg.output_nc,
                                cfg.norm, with_tail=n == n_local))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         cfg = self.cfg
         n_local = cfg.n_local_enhancers
         _check_divisible(x, n_local + cfg.n_downsample_global, cfg.net_g)
@@ -257,7 +288,7 @@ class LocalEnhancer(nn.Module):
         for n in range(1, n_local + 1):
             down = getattr(self, f"model{n}_1")
             up = getattr(self, f"model{n}_2")
-            out = up(down(pyramid[n_local - n]) + out)
+            out = up(down(pyramid[n_local - n]) + out, train)
         return out
 
 

@@ -27,8 +27,11 @@ FRAMES = 10
 
 # kernel-name fragments -> kind, first match wins
 KINDS = [
+    ("B1 instance_norm backward", ("in_bwd_",)),
     ("B1 instance_norm", ("in_stats_kernel", "in_finalize_kernel",
                           "in_apply_kernel")),
+    ("B3 d2s / s2d", ("d2s_kernel",)),
+    ("optimizer (Adam)", ("multi_tensor_apply", "foreach", "Adam")),
     ("B2 tail", ("tail_kernel",)),
     ("conv", ("conv", "gemm", "xmma", "cudnn", "sm90_", "cutlass",
               "implicit", "dgrad", "wgrad", "fprop")),
@@ -57,6 +60,50 @@ def _busy_us(intervals) -> float:
             total += e - end
             end = e
     return total
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def summarize(prof, n: int, unit_ms: float, wall_us: float, unit: str):
+    """Device time of a profiled run of ``n`` units (frames, steps) by
+    kind and by kernel, the device's busy time and its idle share against
+    ``unit_ms``, the unit's time measured without the profiler. None when
+    the trace holds no device events."""
+    # device kernels and copies; a record_function range (the optimizer's
+    # "Optimizer.step#Adam.step") shows on the device timeline too, and
+    # would count its idle gaps as busy
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith("Optimizer.")]
+    if not dev:
+        print("profile: the trace holds no device events; device time "
+              "not measured", file=sys.stderr)
+        return None
+    by_name, by_kind = {}, {}
+    for e in dev:
+        us = e.time_range.end - e.time_range.start
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + us)
+        by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + us
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
+    return {
+        f"ms_per_{unit}": unit_ms,
+        f"profiled_wall_ms_per_{unit}": wall_us / n / 1e3,
+        f"device_busy_ms_per_{unit}": busy / n / 1e3,
+        "device_idle_share": 1 - busy / n / 1e3 / unit_ms,
+        f"launches_per_{unit}": len(dev) / n,
+        f"by_kind_ms_per_{unit}": {k: v / n / 1e3 for k, v in sorted(
+            by_kind.items(), key=lambda i: -i[1])},
+        "top_kernels": [{"name": k[:120], f"per_{unit}": c / n,
+                         f"ms_per_{unit}": t / n / 1e3} for k, (c, t) in
+                        sorted(by_name.items(), key=lambda i: -i[1][1])[:20]],
+    }
 
 
 def main(argv=None) -> int:
@@ -104,35 +151,10 @@ def main(argv=None) -> int:
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        print("profile: the trace holds no device events; device time "
-              "not measured", file=sys.stderr)
+    res = summarize(prof, FRAMES, frame_ms, wall_us, "frame")
+    if res is None:
         return 2
-    by_name, by_kind = {}, {}
-    for e in dev:
-        us = e.time_range.end - e.time_range.start
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + us)
-        by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + us
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
-    f = FRAMES
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader", "-i", "0"],
-                          capture_output=True, text=True,
-                          check=True).stdout.strip()
-    res = dict(
-        preset=args.preset, card=card, frames=f, ms_per_frame=frame_ms,
-        profiled_wall_ms_per_frame=wall_us / f / 1e3,
-        device_busy_ms_per_frame=busy / f / 1e3,
-        device_idle_share=1 - busy / f / 1e3 / frame_ms,
-        launches_per_frame=len(dev) / f,
-        by_kind_ms_per_frame={k: v / f / 1e3 for k, v in
-                              sorted(by_kind.items(), key=lambda i: -i[1])},
-        top_kernels=[dict(name=k[:120], per_frame=n / f, ms_per_frame=t / f
-                          / 1e3) for k, (n, t) in
-                     sorted(by_name.items(), key=lambda i: -i[1][1])[:20]])
+    res = dict(preset=args.preset, card=card_line(), frames=FRAMES, **res)
     print(json.dumps(res))
     return 0
 

@@ -39,6 +39,10 @@ B1_MAIN_PATH = {
     # enhancer down0 + up
     ((1, 512, 512, 32), "relu"): 2,
 }
+# the 5 B3 d2s launches of one frame, one per up: (input shape, C)
+D2S_MAIN_PATH = [((1, 16, 16, 2048), 512), ((1, 32, 32, 1024), 256),
+                 ((1, 64, 64, 512), 128), ((1, 128, 128, 256), 64),
+                 ((1, 256, 256, 128), 32)]
 
 
 def _x(shape, seed, scale=3.0, shift=1.0):
@@ -52,7 +56,7 @@ def test_main_path_sends_these_shapes_to_the_kernels(monkeypatch, input_nc):
     # only, no arithmetic), recording what reaches each kernel wrapper
     from ir2rgb_tpu_torch import kernels
     from ir2rgb_tpu_torch.nn import GenConfig, LocalEnhancer, ops
-    seen, tails = {}, []
+    seen, tails, d2s_seen = {}, [], []
 
     def norm(x, act, negative_slope=0.2):
         key = (tuple(x.shape), act)
@@ -63,13 +67,20 @@ def test_main_path_sends_these_shapes_to_the_kernels(monkeypatch, input_nc):
         tails.append((tuple(x.shape), tuple(w.shape)))
         return x[..., :3]
 
+    def d2s(y, c):
+        d2s_seen.append((tuple(y.shape), c))
+        n, h, w, _ = y.shape
+        return y.new_empty((n, 2 * h, 2 * w, c))
+
     monkeypatch.setattr(ops, "fused_instance_norm_act", norm)
     monkeypatch.setattr(kernels, "tail_fused", tail)
+    monkeypatch.setattr(ops, "d2s_fn", d2s)
     with torch.device("meta"):
         g = LocalEnhancer(GenConfig(input_nc=input_nc, ngf=32))
         y = g(torch.empty((1, 512, 512, input_nc)))
     assert seen == B1_MAIN_PATH and sum(seen.values()) == 36
     assert tails == [((1, 512, 512, 32), (7, 7, 32, 3))]
+    assert d2s_seen == D2S_MAIN_PATH
     assert tuple(y.shape) == (1, 512, 512, 3)
 
 
@@ -177,7 +188,9 @@ def test_plain_versions_do_not_count_as_launches():
     x = torch.from_numpy(_x((1, 8, 8, 32), seed=4))
     fused_instance_norm_act(x, "relu")
     tail_fused(x, torch.zeros((7, 7, 32, 3)), torch.zeros(3))
-    assert launch_counts() == {"instance_norm_act": 0, "tail_fused": 0}
+    assert launch_counts() == {"instance_norm_act": 0,
+                               "instance_norm_act_bwd": 0, "tail_fused": 0,
+                               "d2s": 0, "s2d": 0}
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
@@ -193,3 +206,205 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         ptail.tail_fused_cuda(torch.zeros((1, 8, 8, 32)),
                               torch.zeros((7, 7, 32, 3)), torch.zeros(3))
+
+
+# ---------------------------------------------------------------------------
+# B1 backward: the plain version against the JAX custom VJP
+# ---------------------------------------------------------------------------
+
+def _b1_bwd_inputs(shape, seed):
+    x = _x(shape, seed=seed)
+    g = np.random.RandomState(seed + 100).randn(*shape).astype(np.float32)
+    _, mean, rstd = pin.instance_norm_act_reference(torch.from_numpy(x))
+    return x, g, mean.numpy(), rstd.numpy()
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_b1_backward_plain_matches_jax_fused_bwd(act):
+    # _fused_bwd called directly on the same (x, mean, rstd) and g; fp32
+    # both sides, summation order differs: atol 1e-5
+    from ir2rgb_tpu.kernels.instance_norm import _fused_bwd
+    x, g, mean, rstd = _b1_bwd_inputs((2, 8, 16, 64), seed=5)
+    (dx_j,) = _fused_bwd(act, 1e-5, 0.2, (jnp.asarray(x), jnp.asarray(mean),
+                                          jnp.asarray(rstd)), jnp.asarray(g))
+    dx_p = pin.instance_norm_act_backward_reference(
+        torch.from_numpy(x), torch.from_numpy(mean), torch.from_numpy(rstd),
+        torch.from_numpy(g), act)
+    np.testing.assert_allclose(dx_p.numpy(), np.asarray(dx_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_b1_backward_matches_jax_grad_of_reference(act):
+    # against autodiff of the JAX forward reference: the VJP is the exact
+    # gradient of the forward, up to fp32 rounding (atol 1e-5)
+    import jax
+    x, g, _, _ = _b1_bwd_inputs((1, 16, 16, 32), seed=6)
+    dx_j = jax.grad(lambda v: jnp.sum(jax_in_reference(v, act)
+                                      * jnp.asarray(g)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = fused_instance_norm_act(xt, act)
+    (dx_p,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    np.testing.assert_allclose(dx_p.numpy(), np.asarray(dx_j), atol=1e-5)
+
+
+def test_b1_autograd_function_saves_forward_stats_and_counts_nothing_on_cpu():
+    # the Function's backward is the plain backward on (x, mean, rstd) of
+    # its forward; on the CPU neither direction counts a launch
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    x, g, mean, rstd = _b1_bwd_inputs((1, 8, 8, 64), seed=7)
+    reset_launch_counts()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = pin.InstanceNormAct.apply(xt, "leaky_relu", 1e-5, 0.2)
+    (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    want = pin.instance_norm_act_backward_reference(
+        torch.from_numpy(x), torch.from_numpy(mean), torch.from_numpy(rstd),
+        torch.from_numpy(g), "leaky_relu")
+    assert torch.equal(dx, want)
+    assert sum(launch_counts().values()) == 0
+
+
+def test_b1_backward_bf16_keeps_dtype():
+    x, g, mean, rstd = _b1_bwd_inputs((1, 8, 8, 64), seed=8)
+    dx = pin.instance_norm_act_backward_reference(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(mean),
+        torch.from_numpy(rstd), torch.from_numpy(g).bfloat16(), "relu")
+    assert dx.dtype == torch.bfloat16
+    want = pin.instance_norm_act_backward_reference(
+        torch.from_numpy(x).bfloat16().float(), torch.from_numpy(mean),
+        torch.from_numpy(rstd), torch.from_numpy(g).bfloat16().float(),
+        "relu")
+    np.testing.assert_allclose(dx.float().numpy(), want.numpy(),
+                               atol=2e-2, rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# B3: depth-to-space / space-to-depth
+# ---------------------------------------------------------------------------
+
+pd2s = importlib.import_module("ir2rgb_tpu_torch.kernels.d2s")
+
+
+@pytest.mark.parametrize("c", [3, 32, 64])
+def test_d2s_plain_matches_pallas_interpret_exactly(c):
+    from ir2rgb_tpu.kernels.d2s import d2s_pallas, d2s_reference
+    y = np.random.RandomState(c).rand(1, 4, 8, 4 * c).astype(np.float32)
+    want = np.asarray(d2s_pallas(jnp.asarray(y), c, True))
+    np.testing.assert_array_equal(want, np.asarray(d2s_reference(
+        jnp.asarray(y), c)))
+    got = pd2s.d2s(torch.from_numpy(y), c)
+    assert got.shape == (1, 8, 16, c)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("c", [3, 32, 64])
+def test_s2d_plain_matches_pallas_interpret_exactly(c):
+    from ir2rgb_tpu.kernels.d2s import s2d_pallas, s2d_reference
+    x = np.random.RandomState(c + 1).rand(1, 8, 16, c).astype(np.float32)
+    want = np.asarray(s2d_pallas(jnp.asarray(x), True))
+    np.testing.assert_array_equal(want, np.asarray(s2d_reference(
+        jnp.asarray(x))))
+    got = pd2s.s2d(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the round trip is the identity
+    assert torch.equal(pd2s.d2s(got, c), torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("c", [3, 32])
+def test_d2s_autograd_backward_is_s2d(c):
+    r = np.random.RandomState(9)
+    y = torch.from_numpy(r.rand(2, 4, 6, 4 * c).astype(np.float32))
+    g = torch.from_numpy(r.rand(2, 8, 12, c).astype(np.float32))
+    y.requires_grad_(True)
+    (dy,) = torch.autograd.grad(pd2s.d2s_fn(y, c), y, g)
+    assert torch.equal(dy, pd2s.s2d(g))
+    # and the gradient of the plain permutation agrees
+    (dy_ref,) = torch.autograd.grad(pd2s.d2s_reference(y, c), y, g)
+    assert torch.equal(dy, dy_ref)
+
+
+def test_d2s_is_not_pixel_shuffle():
+    # torch.pixel_shuffle orders channels c*4 + dh*2 + dw; B3 reads
+    # (dh*2+dw)*C + c, the subpixel deconv's order
+    y = torch.arange(2 * 2 * 8, dtype=torch.float32).reshape(1, 2, 2, 8)
+    ps = torch.pixel_shuffle(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    assert not torch.equal(pd2s.d2s(y, 2), ps)
+
+
+def test_d2s_wrappers_refuse_non_cpu_tensors_without_a_kernel():
+    with pytest.raises(ValueError):
+        pd2s.d2s(torch.zeros((1, 4, 4, 128), device="meta"), 32)
+    with pytest.raises(ValueError):
+        pd2s.s2d_cuda(torch.zeros((1, 8, 8, 32)))
+    with pytest.raises(ValueError):
+        pin.instance_norm_act_bwd_cuda(
+            torch.zeros((1, 8, 8, 32)), torch.zeros((1, 32)),
+            torch.ones((1, 32)), torch.zeros((1, 8, 8, 32)), "relu")
+
+
+# ---------------------------------------------------------------------------
+# The subpixel transposed conv (nn/ops.py::deconv) that puts B3 on the path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ci,co,hw", [(8, 4, 6), (16, 3, 5), (32, 32, 8)])
+def test_subpixel_deconv_matches_conv_transpose_and_jax(ci, co, hw):
+    # fp32 on both sides; the subpixel form sums the same products in
+    # another order: atol 1e-5
+    from ir2rgb_tpu.nn.ops import deconv_apply
+    from ir2rgb_tpu_torch.checkpoint.from_jax import deconv_w
+    from ir2rgb_tpu_torch.nn import ops
+    r = np.random.RandomState(ci + co)
+    x = r.randn(2, hw, hw + 1, ci).astype(np.float32)
+    w_j = (r.randn(3, 3, ci, co) * 0.2).astype(np.float32)  # flipped HWIO
+    b = r.randn(co).astype(np.float32)
+    w_t = torch.from_numpy(deconv_w(w_j))  # torch IOHW
+    xt, bt = torch.from_numpy(x), torch.from_numpy(b)
+    y = ops.deconv(xt, w_t, bt)
+    assert y.shape == (2, 2 * hw, 2 * (hw + 1), co) and y.is_contiguous()
+    y_dil = ops.deconv(xt, w_t, bt, lowering="dilated")
+    y_j = np.asarray(deconv_apply({"w": jnp.asarray(w_j), "b": jnp.asarray(b)},
+                                  jnp.asarray(x)))
+    np.testing.assert_allclose(y.numpy(), y_dil.numpy(), atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), y_j, atol=1e-5)
+
+
+def test_subpixel_deconv_gradients_match_conv_transpose():
+    from ir2rgb_tpu_torch.nn import ops
+    r = np.random.RandomState(3)
+    x = torch.from_numpy(r.randn(1, 5, 5, 8).astype(np.float32))
+    w = torch.from_numpy((r.randn(8, 4, 3, 3) * 0.2).astype(np.float32))
+    b = torch.from_numpy(r.randn(4).astype(np.float32))
+    g = torch.from_numpy(r.randn(1, 10, 10, 4).astype(np.float32))
+    grads = []
+    for lowering in ("subpixel", "dilated"):
+        ins = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        grads.append(torch.autograd.grad(
+            ops.deconv(*ins, lowering=lowering), ins, g))
+    for a, c in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-5)
+
+
+def test_deconv_module_keeps_its_weight_only_while_the_weight_is_unchanged():
+    from ir2rgb_tpu_torch.nn import Deconv
+    torch.manual_seed(0)
+    up = Deconv(8, 4)
+    x = torch.randn(1, 4, 4, 8)
+    with torch.inference_mode():
+        y0 = up(x)
+        kept = up._wk[3]
+        assert up(x).equal(y0) and up._wk[3] is kept
+    with torch.no_grad():
+        up.weight.mul_(2.0)  # in place: the version counter moves
+    with torch.inference_mode():
+        y1 = up(x)
+    assert up._wk[3] is not kept
+    np.testing.assert_allclose(y1.numpy(),
+                               (2 * (y0 - up.bias) + up.bias).detach().numpy(),
+                               atol=1e-5)
+
+
+def test_subpixel_gather_is_a_permutation():
+    # each weight tap lands once and each empty slot reads its own zero,
+    # so the gather's backward never adds twice into one address
+    from ir2rgb_tpu_torch.nn import ops
+    idx = ops._subpixel_index(8, 4, 3, 1, torch.device("cpu"))
+    assert torch.equal(idx.sort().values, torch.arange(16 * 8 * 4))
