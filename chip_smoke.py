@@ -10,9 +10,13 @@ Phases, each failing the run if it fails:
    the pix2pixhd_512 generator and discriminator, bf16 and fp32, held to
    its plain version on the card, and timed beside the plain version,
    ``F.instance_norm`` + act (a yardstick the port never calls) and the
-   card's bound;
+   card's bound; with each shape's plan (group width, cluster size,
+   shared memory per block, route), its device kernels per call read
+   with torch.profiler (must be 1), and for the four largest shapes the
+   time on a cold L2;
 3. B1 backward: the same shapes, dx held to the plain backward, timed
-   beside it and the autograd backward of ``F.instance_norm`` + act;
+   beside it and the autograd backward of ``F.instance_norm`` + act,
+   with the same plan, kernel count and cold-L2 readings;
 4. B2 (output tail): the same at (1,512,512,32), yardstick
    ``F.pad(reflect)`` + ``F.conv2d`` + tanh;
 5. B3 d2s and s2d at the five ups' shapes, exact against the plain
@@ -151,7 +155,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def graph_ms(fn, reps: int = 20) -> float:
     """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
     graph, replayed between CUDA events, so Python launch overhead is out
-    of the measurement."""
+    of the measurement; the median of five replays, so that one replay
+    slowed by the card's clocks or its host does not set the reading."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -166,11 +171,14 @@ def graph_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(5):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[2]
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, peak: float = 2.0) -> float:
@@ -196,6 +204,38 @@ def dtype_name(dtype) -> str:
 # Kernel phases
 # ---------------------------------------------------------------------------
 
+def device_kernels(fn, tries: int = 3) -> int:
+    """Device kernels (and copies) one call of ``fn`` runs on the card,
+    read with torch.profiler around that call. A profiler run that records
+    no device activity at all (the tracer can miss a short run's only
+    kernel) is read again, up to ``tries`` times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n
+    return 0
+
+
+def cold_ms(fn, flush: torch.Tensor) -> float:
+    """Device time of one ``fn`` call on a cold L2: ``flush`` (more than
+    the 50 MB L2) is written before every call, and the graph-replay time
+    of the flush alone is taken off."""
+    wipe = flush.zero_
+    return graph_ms(lambda: (wipe(), fn())) - graph_ms(wipe)
+
+
+def plan_text(p) -> str:
+    return (f"{p.channels} ch x K {p.k}, {p.smem_bytes} B smem, "
+            f"{p.route}")
+
+
 def per_path_totals(rows, counts, keys=("ms", "plain_ms", "library_ms",
                                         "eager_ms", "bound_ms")):
     """Sums of ``count x value`` over the bf16 rows whose (shape, act) or
@@ -209,9 +249,16 @@ def per_path_totals(rows, counts, keys=("ms", "plain_ms", "library_ms",
     return tot
 
 
+# the four largest B1 shapes of the path, timed on a cold L2 as well
+B1_COLD = {(1, 512, 512, 32), (1, 256, 256, 64), (1, 66, 66, 512),
+           (1, 129, 129, 128)}
+FLUSH_BYTES = 128 << 20
+
+
 def b1_phase(bw: float, gen: torch.Generator):
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for (shape, act) in B1_FWD_PER_STEP:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
@@ -232,17 +279,22 @@ def b1_phase(bw: float, gen: torch.Generator):
             kern = lambda: b1.instance_norm_act(x, act)  # noqa: E731
             n, h, w, c = shape
             nbytes = 2 * x.numel() * x.element_size() + 2 * n * c * 4
+            kernels = device_kernels(kern)
+            check(kernels == 1, f"{tag}: {kernels} device kernel(s) per "
+                  "call (want 1)")
             rows.append(dict(
                 key=(shape, act), shape=list(shape), act=act,
                 dtype=dtype_name(dtype), per_frame=B1_MAIN_PATH.get(
                     (shape, act), 0),
                 per_step=B1_FWD_PER_STEP[(shape, act)], max_abs_err=err,
+                plan=plan_text(b1.plan_for(x)), device_kernels=kernels,
                 ms=graph_ms(kern),
                 plain_ms=graph_ms(
                     lambda: b1.instance_norm_act_reference(x, act)),
                 library_ms=graph_ms(
                     lambda: act_fn(F.instance_norm(x_nchw, eps=1e-5), act)),
-                eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3))
+                eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3,
+                cold_ms=cold_ms(kern, flush) if shape in B1_COLD else None))
     return (rows, per_path_totals(rows, B1_MAIN_PATH),
             per_path_totals(rows, B1_FWD_PER_STEP), worst)
 
@@ -252,6 +304,7 @@ def b1_bwd_phase(bw: float, gen: torch.Generator):
     backward relative to max|dx| (1e-4 fp32, 2e-2 bf16)."""
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for (shape, act), per_step in B1_BWD_PER_STEP.items():
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
@@ -265,11 +318,15 @@ def b1_bwd_phase(bw: float, gen: torch.Generator):
             err = float((dx.float() - ref).abs().max())
             rel = err / float(ref.abs().max())
             worst[dtype] = max(worst[dtype], rel)
+            tag = f"B1 bwd {shape} {act} {dtype_name(dtype)}"
             check(dx.dtype == dtype and rel <= TOL[dtype],
-                  f"B1 bwd {shape} {act} {dtype_name(dtype)}: "
-                  f"max|dx - plain| / max|dx| {rel:.3g} (tol {TOL[dtype]})")
+                  f"{tag}: max|dx - plain| / max|dx| {rel:.3g} (tol "
+                  f"{TOL[dtype]})")
             kern = lambda: b1.instance_norm_act_backward(  # noqa: E731
                 x, mean, rstd, g, act)
+            kernels = device_kernels(kern)
+            check(kernels == 1, f"{tag}: {kernels} device kernel(s) per "
+                  "call (want 1)")
             # the library's backward: autograd of F.instance_norm + act,
             # forward and backward captured together (a backward runs on
             # its forward's stream) less the forward alone
@@ -285,12 +342,15 @@ def b1_bwd_phase(bw: float, gen: torch.Generator):
             rows.append(dict(
                 key=(shape, act), shape=list(shape), act=act,
                 dtype=dtype_name(dtype), per_step=per_step,
-                max_abs_err=err, rel_err=rel, ms=graph_ms(kern),
+                max_abs_err=err, rel_err=rel,
+                plan=plan_text(b1.plan_for(x, bwd=True)),
+                device_kernels=kernels, ms=graph_ms(kern),
                 plain_ms=graph_ms(
                     lambda: b1.instance_norm_act_backward_reference(
                         x, mean, rstd, g, act)),
                 library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
-                eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3))
+                eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3,
+                cold_ms=cold_ms(kern, flush) if shape in B1_COLD else None))
     return rows, per_path_totals(rows, B1_BWD_PER_STEP), worst
 
 
@@ -872,6 +932,10 @@ def main() -> int:
             f"one pix2pixhd_512 train step: {PER_STEP['instance_norm_act']}"
             " launches, bf16; launches over the 10 timed steps",
             max_abs_err_fp32=b1_worst[torch.float32],
+            device_kernels_per_call=max(r["device_kernels"]
+                                        for r in b1_rows),
+            l2_route=sorted({str(r["shape"]) for r in b1_rows
+                             if r["plan"].endswith("l2")}),
             per_serving_frame={k: b1_frame[k] for k in b1_frame},
             launches_by_path=dict(serve_8_frames={
                 p: c["instance_norm_act"] for p, c in serve.items()},
@@ -884,7 +948,11 @@ def main() -> int:
             bwd_worst[torch.bfloat16],
             f"one train step: {PER_STEP['instance_norm_act_bwd']} launches,"
             " bf16; max_abs_err is relative to max|dx|",
-            max_rel_err_fp32=bwd_worst[torch.float32]),
+            max_rel_err_fp32=bwd_worst[torch.float32],
+            device_kernels_per_call=max(r["device_kernels"]
+                                        for r in bwd_rows),
+            l2_route=sorted({str(r["shape"]) for r in bwd_rows
+                             if r["plan"].endswith("l2")})),
         dict(name="tail_fused", route="cuda",
              source="ir2rgb_tpu_torch/kernels/csrc/tail_fused.cu",
              replaces="ir2rgb_tpu/kernels/tail_fused.py:189",
@@ -917,10 +985,13 @@ def main() -> int:
     print("train " + json.dumps(train))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
+            cold = "" if r["cold_ms"] is None else \
+                f" cold-L2 {r['cold_ms']:.4f}"
             print(f"  {tag} {r['shape']} {r['act']:10s} {r['dtype']:8s} "
                   f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                   f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
-                  f"eager {r['eager_ms']:.4f}")
+                  f"eager {r['eager_ms']:.4f}{cold}; plan {r['plan']}, "
+                  f"{r['device_kernels']} kernel/call")
     for k, r in b2_rows.items():
         print(f"  B2 {k:8s} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
               f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "

@@ -30,14 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (ctypes argtypes) of the entry points in csrc/
 _SIGNATURES = {
-    # x, part, y, mean, rstd, n, hw, c, n_chunks, chunk, ct, n_ctiles,
-    # act, slope, eps, is_bf16, stream
-    "ir2rgb_instance_norm_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # x, y, mean, rstd, n, hw, c, k, share, cg, tile, smem_bytes, act,
+    # slope, eps, is_bf16, stream
+    "ir2rgb_instance_norm_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _F, _I, _P],
-    # x, g, mean, rstd, part, gmeans, dx, n, hw, c, n_chunks, chunk, ct,
-    # n_ctiles, act, slope, is_bf16, stream
-    "ir2rgb_instance_norm_act_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, g, mean, rstd, dx, n, hw, c, k, share, cg, tile, smem_bytes, act,
+    # slope, is_bf16, stream
+    "ir2rgb_instance_norm_act_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _I, _P],
+    # k, tile, smem_bytes, bwd, is_bf16, out (int*)
+    "ir2rgb_instance_norm_max_clusters": [_I, _I, _I, _I, _I, _P],
     # src, dst, n, hs, ws, cw, unit_bytes, to_image, stream
     "ir2rgb_d2s": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w4, b, y, n, h, w, c, pix_stride, smem_bytes, is_bf16, stream

@@ -1,5 +1,5 @@
 // Fused instance norm + activation over NHWC memory, for Hopper (sm_90a):
-// the forward and its backward.
+// the forward and its backward, one launch each.
 //
 // Replaces: ir2rgb_tpu/kernels/instance_norm.py::_instance_norm_act_pallas
 // (kernel body _kernel) and the custom VJP's _fused_bwd. Forward, per
@@ -13,45 +13,163 @@
 // Bound on this card: bytes. The forward must read x once and write y
 // once; the backward must read x and g once and write dx once. Each
 // element costs a handful of flops, far below the H100's ~295 flops per
-// byte. Both read their inputs twice (statistics or sums, then apply),
-// so the best they can reach is 1.5x (forward) and 1.67x (backward) the
-// one-read-one-write bound.
+// byte. On the tile route below the kernel reads every input byte from
+// device memory once, so it can approach that bound.
 //
-// Design. The TPU kernel walks a sequential grid and carries its sums in
-// VMEM scratch; Hopper's blocks run in no order, so each direction is
-// split in three launches that share one plan (ir2rgb_tpu_torch/kernels/
-// instance_norm.py::_plan):
-//   1. in_stats / in_bwd_sums: each block takes a chunk of pixels of one
-//      image and a tile of channels. Threads read 16 bytes (one channel
-//      vector) each, neighbouring threads on neighbouring addresses. The
-//      forward keeps a Welford (count, mean, M2) per channel and merges
-//      across the block with Chan's formula; the backward keeps the two
-//      plain fp32 sums of g' and g' * xh and tree-adds them. Either writes
-//      the chunk's partials to fp32 scratch.
-//   2. in_finalize / in_bwd_finalize: one block per (n, 32 channels);
-//      32 lanes per channel each merge a strided share of the chunk
-//      partials, then the lanes merge in shared memory. A separate small
-//      launch, so that no apply block re-reads every partial.
-//   3. in_apply / in_bwd_apply: the same grid as 1; the elementwise pass.
-// Welford/Chan matches the reference's two-pass variance, where the TPU
-// kernel's E[x^2] - mean^2 loses digits when |mean| >> std.
+// Design. A thread loads one word of 4 channels (8 bytes of bf16, 16 of
+// fp32). A slab is one image's pixels of one channel group: cg words
+// (4 * cg channels) at every pixel. One thread block cluster of K blocks
+// owns each slab; block r of the cluster owns pixels [r * share,
+// (r + 1) * share). The plan (ir2rgb_tpu_torch/kernels/instance_norm.py::
+// _plan) picks cg, K and the route by bytes. Per block:
+//   1. Load (tile route). Copy the block's share of the slab (x, and g in
+//      the backward) into shared memory with cp.async: cg neighbouring
+//      threads read one pixel's contiguous 4 * cg channels, the next cg
+//      threads the next pixel; every copy is in flight at once.
+//   2. Reduce the share from shared memory: the forward takes a two-pass
+//      (mean, M2) of the share, the backward the plain sums of g' and
+//      g' * xh (xh and act' recomputed from x and the saved mean, rstd).
+//      Threads sum their pixels, warps butterfly, and the warps' totals
+//      are added in warp order.
+//   3. cluster.sync(), then every block reads the K partials of its
+//      cluster through distributed shared memory and merges them in rank
+//      order (Chan's formula forward, plain sums backward), so every block
+//      holds the same bits. Rank 0 writes mean and rstd.
+//   4. Apply from the tile and write the output once.
+//   5. A split cluster barrier (arrive after step 3, wait before exit)
+//      keeps each block's shared memory alive until its cluster has read
+//      it.
+// So no partials go through device memory, there is no second launch, and
+// the wrapper allocates only the outputs.
+//
+// Why these choices:
+// - Clusters and distributed shared memory replace the TPU kernel's
+//   sequential grid, which carried its sums in VMEM from step to step:
+//   Hopper's blocks run in no order, and a cluster (up to 16 blocks, the
+//   non-portable size, allowed per kernel) is the largest group of blocks
+//   that run together and see each other's shared memory.
+// - The slab is one image's pixels, so a cluster of K <= 16 blocks holds
+//   at most 16 * 227 KB of it. A slab's bytes per pixel (its group width)
+//   set how many bytes one request of a warp brings: a narrow group reads
+//   8 or 16 bytes out of every pixel's row, and on this card such strided
+//   requests cost about as much as whole 32-byte sectors. So the plan
+//   takes the widest group, up to 64 bytes, whose slab still fits, and
+//   grows K until about 64 blocks run.
+// - L2 route: where no slab of at least 32 bytes a pixel fits (the large
+//   low-channel tensors: (1,512,512,32) both ways, the backward at
+//   (1,256,256,64)), or, in fp32, only in more clusters than the card
+//   holds at once, the kernel takes no tile. Its three passes (two for
+//   the backward) read x (and g) from global memory, the first from HBM
+//   and the others mostly from the 50 MB L2, with K up to 16, groups as
+//   wide as still give about 64 blocks, and 512 threads a block that each
+//   keep 8 words in flight (the tile route: 256 threads, 4 words).
+// - Two-pass statistics cost no device-memory traffic on the tile route
+//   and match the reference's two-pass variance, where the TPU kernel's
+//   E[x^2] - mean^2 loses digits when |mean| >> std. Chan's merge of the
+//   shares' (mean, M2) keeps that.
+// - Fixed reduction orders (threads, warps, ranks) give the same bits in
+//   every run and every block.
+// - The plan asks the card (cudaOccupancyMaxActiveClusters) how many
+//   clusters of K blocks with this shared memory it holds at once before
+//   it picks K, and takes a launch whose clusters all fit (one wave) where
+//   there is one: a second wave starts only as the first's clusters end.
+//   A launch the card refuses returns its error.
+// - The launch is cudaLaunchKernelEx with a cluster attribute, with no
+//   host sync or allocation, so it captures in a CUDA graph.
+
+#include <cooperative_groups.h>
+
+#include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-using ir2rgb::Vec;
+constexpr int kPer = 4;  // channels per word
 
-constexpr int kThreads = 256;
-constexpr int kFinC = 32;      // channels per finalize block
-constexpr int kFinLanes = 32;  // chunk lanes per channel in finalize
+// Threads per block, and words each thread reads before it uses any: the
+// tile route works from shared memory; the L2 route streams global memory
+// and needs more loads in flight.
+template <bool kTile>
+struct Route {
+  static constexpr int kThreads = kTile ? 256 : 512;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kBatch = kTile ? 4 : 8;
+};
 
 struct Plan {
-  int n, hw, c;       // batch, pixels per image, channels
-  int n_chunks;       // pixel chunks per image
-  int chunk;          // pixels per chunk (the last may be short)
-  int ct;             // channel vectors per block: a power of two <= 32
+  int n, hw, c;  // batch, pixels per image, channels
+  int k;         // blocks per cluster: pixel shares of one slab
+  int share;     // pixels per block (the last block may hold fewer)
+  int cg;        // words of a slab at one pixel (a power of two, <= 32)
 };
+
+// One word: 4 channels of T (8 bytes of bf16, 16 of fp32), as fp32.
+template <typename T>
+struct Word {
+  using Raw = typename std::conditional<std::is_same<T, float>::value, uint4,
+                                        uint2>::type;
+
+  __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
+    if constexpr (std::is_same<T, float>::value) {
+      v[0] = __uint_as_float(r.x);
+      v[1] = __uint_as_float(r.y);
+      v[2] = __uint_as_float(r.z);
+      v[3] = __uint_as_float(r.w);
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+      const float2 a = __bfloat1622float2(h[0]);
+      const float2 b = __bfloat1622float2(h[1]);
+      v[0] = a.x;
+      v[1] = a.y;
+      v[2] = b.x;
+      v[3] = b.y;
+    }
+  }
+
+  __device__ __forceinline__ static Raw pack(const float* v) {
+    Raw r;
+    if constexpr (std::is_same<T, float>::value) {
+      r = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                     __float_as_uint(v[2]), __float_as_uint(v[3]));
+    } else {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+      h[0] = __floats2bfloat162_rn(v[0], v[1]);
+      h[1] = __floats2bfloat162_rn(v[2], v[3]);
+    }
+    return r;
+  }
+};
+
+template <typename Raw>
+__device__ __forceinline__ void cp_async(Raw* smem, const Raw* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (sizeof(Raw) == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The split cluster barrier: arrive once done reading the cluster's shared
+// memory, wait before exit. The arrive orders nothing (relaxed): the
+// remote values it guards have been read and used, and a release would
+// make rank 0 wait for its mean/rstd stores to reach device memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 __device__ __forceinline__ float activate(float v, int act, float slope) {
   switch (act) {
@@ -61,191 +179,6 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
     default: return v;
   }
 }
-
-// Chan's merge of (nb, mb, m2b) into (cnt, mean, m2).
-__device__ __forceinline__ void chan_merge(float& cnt, float& mean, float& m2,
-                                           float nb, float mb, float m2b) {
-  if (nb <= 0.f) return;
-  const float tot = cnt + nb;
-  const float wb = nb / tot;
-  const float d = mb - mean;
-  mean += d * wb;
-  m2 += m2b + d * d * cnt * wb;
-  cnt = tot;
-}
-
-// Tree merge of the block's rows that hold the same channel vector; row 0
-// ends with the block's total in mean/m2/cnt.
-template <int V>
-__device__ void block_merge(float* mean, float* m2, float& cnt, float* s_mean,
-                            float* s_m2, float* s_cnt, int cv, int row,
-                            int rows, int ct) {
-  const int me = row * ct + cv;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    s_mean[me * V + j] = mean[j];
-    s_m2[me * V + j] = m2[j];
-  }
-  s_cnt[me] = cnt;
-  __syncthreads();
-  for (int s = rows / 2; s > 0; s >>= 1) {
-    if (row < s) {
-      const int o = (row + s) * ct + cv;
-      const float nb = s_cnt[o];
-      const float c0 = cnt;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float cj = c0;
-        chan_merge(cj, mean[j], m2[j], nb, s_mean[o * V + j], s_m2[o * V + j]);
-        s_mean[me * V + j] = mean[j];
-        s_m2[me * V + j] = m2[j];
-      }
-      cnt = c0 + nb;
-      s_cnt[me] = cnt;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-in_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Plan p) {
-  constexpr int V = Vec<T>::N;
-  __shared__ float s_mean[kThreads * V];
-  __shared__ float s_m2[kThreads * V];
-  __shared__ float s_cnt[kThreads];
-  const int cv = threadIdx.x % p.ct;
-  const int row = threadIdx.x / p.ct;
-  const int rows = kThreads / p.ct;
-  const int k = blockIdx.x;
-  const int n = blockIdx.z;
-  const int c0 = (blockIdx.y * p.ct + cv) * V;
-  const bool valid = c0 < p.c;
-
-  float mean[V], m2[V], cnt = 0.f;
-#pragma unroll
-  for (int j = 0; j < V; ++j) mean[j] = m2[j] = 0.f;
-  if (valid) {
-    const T* base = x + (size_t)n * p.hw * p.c + c0;
-    const int q1 = min((k + 1) * p.chunk, p.hw);
-#pragma unroll 4
-    for (int q = k * p.chunk + row; q < q1; q += rows) {
-      float v[V];
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(base + (size_t)q * p.c), v);
-      cnt += 1.f;
-      const float inv = 1.f / cnt;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float d = v[j] - mean[j];
-        mean[j] += d * inv;
-        m2[j] += d * (v[j] - mean[j]);
-      }
-    }
-  }
-  block_merge<V>(mean, m2, cnt, s_mean, s_m2, s_cnt, cv, row, rows, p.ct);
-  if (row == 0 && valid) {
-    float* out = part + ((size_t)n * p.n_chunks + k) * 2 * p.c + c0;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      out[j] = mean[j];
-      out[p.c + j] = m2[j];
-    }
-  }
-}
-
-// Block (kFinC channels, kFinLanes lanes) per (channel tile, n).
-__global__ void __launch_bounds__(kFinC * kFinLanes)
-in_finalize_kernel(const float* __restrict__ part, float* __restrict__ mean_out,
-                   float* __restrict__ rstd_out, Plan p, float eps) {
-  __shared__ float s_cnt[kFinLanes][kFinC];
-  __shared__ float s_mean[kFinLanes][kFinC];
-  __shared__ float s_m2[kFinLanes][kFinC];
-  const int lane = threadIdx.x;
-  const int k0 = threadIdx.y;
-  const int c = blockIdx.x * kFinC + lane;
-  const int n = blockIdx.y;
-  float cnt = 0.f, mean = 0.f, m2 = 0.f;
-  if (c < p.c) {
-    const float* src = part + (size_t)n * p.n_chunks * 2 * p.c + c;
-#pragma unroll 4
-    for (int k = k0; k < p.n_chunks; k += kFinLanes) {
-      const float nb = (float)min(p.chunk, p.hw - k * p.chunk);
-      const float* s = src + (size_t)k * 2 * p.c;
-      chan_merge(cnt, mean, m2, nb, s[0], s[p.c]);
-    }
-  }
-  s_cnt[k0][lane] = cnt;
-  s_mean[k0][lane] = mean;
-  s_m2[k0][lane] = m2;
-  __syncthreads();
-  for (int s = kFinLanes / 2; s > 0; s >>= 1) {
-    if (k0 < s) {
-      chan_merge(cnt, mean, m2, s_cnt[k0 + s][lane], s_mean[k0 + s][lane],
-                 s_m2[k0 + s][lane]);
-      s_cnt[k0][lane] = cnt;
-      s_mean[k0][lane] = mean;
-      s_m2[k0][lane] = m2;
-    }
-    __syncthreads();
-  }
-  if (k0 == 0 && c < p.c) {
-    const float var = m2 / (float)p.hw;
-    mean_out[(size_t)n * p.c + c] = mean;
-    rstd_out[(size_t)n * p.c + c] = rsqrtf(var + eps);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-in_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean_in,
-                const float* __restrict__ rstd_in, T* __restrict__ y, Plan p,
-                int act, float slope) {
-  constexpr int V = Vec<T>::N;
-  const int cv = threadIdx.x % p.ct;
-  const int row = threadIdx.x / p.ct;
-  const int rows = kThreads / p.ct;
-  const int k = blockIdx.x;
-  const int n = blockIdx.z;
-  const int c0 = (blockIdx.y * p.ct + cv) * V;
-  if (c0 >= p.c) return;
-  float mean[V], rstd[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    mean[j] = mean_in[(size_t)n * p.c + c0 + j];
-    rstd[j] = rstd_in[(size_t)n * p.c + c0 + j];
-  }
-  const size_t off = (size_t)n * p.hw * p.c + c0;
-  const int q1 = min((k + 1) * p.chunk, p.hw);
-#pragma unroll 4
-  for (int q = k * p.chunk + row; q < q1; q += rows) {
-    const size_t i = off + (size_t)q * p.c;
-    float v[V];
-    Vec<T>::unpack(*reinterpret_cast<const uint4*>(x + i), v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = activate((v[j] - mean[j]) * rstd[j], act, slope);
-    *reinterpret_cast<uint4*>(y + i) = Vec<T>::pack(v);
-  }
-}
-
-template <typename T>
-void launch(const void* x, void* part, void* y, void* mean, void* rstd,
-            const Plan& p, int n_ctiles, int act, float slope, float eps,
-            cudaStream_t stream) {
-  const dim3 grid(p.n_chunks, n_ctiles, p.n);
-  in_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(part), p);
-  const dim3 fgrid((p.c + kFinC - 1) / kFinC, p.n);
-  in_finalize_kernel<<<fgrid, dim3(kFinC, kFinLanes), 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(mean),
-      static_cast<float*>(rstd), p, eps);
-  in_apply_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<T*>(y), p, act, slope);
-}
-
-// ---------------------------------------------------------------------------
-// Backward
-// ---------------------------------------------------------------------------
 
 // g * act'(xh): the activation's derivative at the normalised input, as
 // _fused_bwd folds it (relu: xh > 0; leaky: xh >= 0 ? 1 : slope;
@@ -263,218 +196,483 @@ __device__ __forceinline__ float act_grad(float g, float xh, int act,
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_stats(const float* __restrict__ mean_in,
-                                           const float* __restrict__ rstd_in,
-                                           size_t off, float* mean,
-                                           float* rstd) {
+// Sum v[0..M) over the block's threads that hold the same word column
+// (threadIdx % cg; cg divides 32): a butterfly in each warp (every lane
+// ends with the same bits), then the warps' totals added in warp order.
+// Every thread returns its column's totals. red holds kWarps * cg * M
+// floats.
+template <int M, int kWarps>
+__device__ __forceinline__ void col_sum(float* v, float* red, int cg,
+                                        int col) {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    mean[j] = mean_in[off + j];
-    rstd[j] = rstd_in[off + j];
+  for (int j = 0; j < M; ++j)
+    for (int off = 16; off >= cg; off >>= 1)
+      v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane < cg)
+#pragma unroll
+    for (int j = 0; j < M; ++j) red[(warp * cg + lane) * M + j] = v[j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[(w * cg + col) * M + j];
+    v[j] = s;
+  }
+  __syncthreads();  // red is reused by the next call
+}
+
+// Chan's merge of (nb, mb, m2b) into (cnt, mean, m2).
+__device__ __forceinline__ void chan_merge(float& cnt, float& mean, float& m2,
+                                           float nb, float mb, float m2b) {
+  if (nb <= 0.f) return;
+  const float tot = cnt + nb;
+  const float wb = nb / tot;
+  const float d = mb - mean;
+  mean += d * wb;
+  m2 += m2b + d * d * cnt * wb;
+  cnt = tot;
+}
+
+__device__ __forceinline__ int share_count(const Plan& p, int rank) {
+  return max(0, min(p.share, p.hw - rank * p.share));
+}
+
+// Bytes of dynamic shared memory a launch needs: the tile (`streams`
+// tensors' shares of cg words a pixel; none on the L2 route), the column
+// sums' scratch, and two float2 per channel of the group.
+inline long long smem_need(const Plan& p, int word_bytes, int streams,
+                           bool tile) {
+  const long long words = tile ? (long long)p.share * p.cg * streams : 0;
+  const int warps = tile ? Route<true>::kWarps : Route<false>::kWarps;
+  return words * word_bytes + (long long)warps * p.cg * kPer * streams * 4 +
+         (long long)p.cg * kPer * 16;
+}
+
+// The block's place: its slab and share, and this thread's word column
+// and first pixel row.
+struct Where {
+  int rank, grp, n, col, row, rows, cnt;
+  size_t base;    // element offset of (pixel 0 of the share, this column)
+  size_t stride;  // words between neighbouring pixels
+
+  __device__ Where(const Plan& p, int threads) {
+    rank = blockIdx.x % p.k;  // == cluster.block_rank()
+    grp = blockIdx.x / p.k;
+    n = blockIdx.y;
+    col = threadIdx.x % p.cg;
+    row = threadIdx.x / p.cg;
+    rows = threads / p.cg;
+    cnt = share_count(p, rank);
+    base = ((size_t)n * p.hw + (size_t)rank * p.share) * p.c +
+           ((size_t)grp * p.cg + col) * kPer;
+    stride = p.c / kPer;
+  }
+};
+
+// A thread's words: column col of pixels row, row + rows, ... of the
+// block's share, from global memory or, on the tile route, from the
+// block's copy in shared memory (cg words a pixel).
+template <typename Raw, bool kTile>
+struct Src {
+  const Raw* g;  // word (0, col) in global memory
+  Raw* s;        // word (0, col) in the tile
+  size_t stride;
+  int cg;
+
+  __device__ __forceinline__ Raw operator[](int q) const {
+    if constexpr (kTile) return s[q * cg];
+    else return g[q * stride];
+  }
+
+  __device__ __forceinline__ void load(const Where& w) const {
+    for (int q = w.row; q < w.cnt; q += w.rows)
+      cp_async(s + q * cg, g + q * stride);
+  }
+};
+
+// For every pixel q of the thread's rows: use(q, word q). The words are
+// read kBatch at a time before any is used, so that the loads overlap.
+template <int kBatch, typename Get, typename Use>
+__device__ __forceinline__ void each_word(const Where& w, Get get, Use use) {
+  using Raw = decltype(get(0));
+  for (int q0 = w.row; q0 < w.cnt; q0 += kBatch * w.rows) {
+    Raw r[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int q = q0 + i * w.rows;
+      if (q < w.cnt) r[i] = get(q);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int q = q0 + i * w.rows;
+      if (q < w.cnt) use(q, r[i]);
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-in_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                   const float* __restrict__ mean_in,
-                   const float* __restrict__ rstd_in, float* __restrict__ part,
-                   Plan p, int act, float slope) {
-  constexpr int V = Vec<T>::N;
-  __shared__ float s_a[kThreads * V];
-  __shared__ float s_b[kThreads * V];
-  const int cv = threadIdx.x % p.ct;
-  const int row = threadIdx.x / p.ct;
-  const int rows = kThreads / p.ct;
-  const int k = blockIdx.x;
-  const int n = blockIdx.z;
-  const int c0 = (blockIdx.y * p.ct + cv) * V;
-  const bool valid = c0 < p.c;
-
-  float sa[V], sb[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) sa[j] = sb[j] = 0.f;
-  if (valid) {
-    float mean[V], rstd[V];
-    load_stats<V>(mean_in, rstd_in, (size_t)n * p.c + c0, mean, rstd);
-    const size_t off = (size_t)n * p.hw * p.c + c0;
-    const int q1 = min((k + 1) * p.chunk, p.hw);
-#pragma unroll 4
-    for (int q = k * p.chunk + row; q < q1; q += rows) {
-      const size_t i = off + (size_t)q * p.c;
-      float xv[V], gv[V];
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(x + i), xv);
-      Vec<T>::unpack(*reinterpret_cast<const uint4*>(g + i), gv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float xh = (xv[j] - mean[j]) * rstd[j];
-        const float gp = act_grad(gv[j], xh, act, slope);
-        sa[j] += gp;
-        sb[j] += gp * xh;
-      }
-    }
-  }
-  // tree-add the rows that hold the same channel vector into row 0
-  const int me = row * p.ct + cv;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    s_a[me * V + j] = sa[j];
-    s_b[me * V + j] = sb[j];
-  }
-  __syncthreads();
-  for (int s = rows / 2; s > 0; s >>= 1) {
-    if (row < s) {
-      const int o = (row + s) * p.ct + cv;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        sa[j] += s_a[o * V + j];
-        sb[j] += s_b[o * V + j];
-        s_a[me * V + j] = sa[j];
-        s_b[me * V + j] = sb[j];
-      }
-    }
+template <typename T, bool kTile>
+__global__ void __launch_bounds__(Route<kTile>::kThreads)
+in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
+              float* __restrict__ mean_out, float* __restrict__ rstd_out,
+              Plan p, int act, float slope, float eps) {
+  using W = Word<T>;
+  using Raw = typename W::Raw;
+  using R = Route<kTile>;
+  constexpr int N = kPer;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Where w(p, R::kThreads);
+  Raw* tile = reinterpret_cast<Raw*>(smem);
+  const size_t tile_words = kTile ? (size_t)p.share * p.cg : 0;
+  float* red = reinterpret_cast<float*>(tile + tile_words);
+  float2* part = reinterpret_cast<float2*>(red + R::kWarps * p.cg * N);
+  float2* stats = part + p.cg * N;  // the slab's (mean, rstd)
+  const Src<Raw, kTile> src{reinterpret_cast<const Raw*>(x + w.base),
+                            tile + w.col, w.stride, p.cg};
+  const auto get = [&](int q) { return src[q]; };
+  if constexpr (kTile) {
+    src.load(w);
+    cp_async_wait_all();
     __syncthreads();
   }
-  if (row == 0 && valid) {
-    float* out = part + ((size_t)n * p.n_chunks + k) * 2 * p.c + c0;
+
+  // the share's mean, then its M2 about that mean
+  float s[N], mb[N];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      out[j] = sa[j];
-      out[p.c + j] = sb[j];
+  for (int j = 0; j < N; ++j) s[j] = 0.f;
+  each_word<R::kBatch>(w, get, [&](int, const Raw& r) {
+    float v[N];
+    W::unpack(r, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] += v[j];
+  });
+  col_sum<N, R::kWarps>(s, red, p.cg, w.col);
+  const float inv = w.cnt > 0 ? 1.f / (float)w.cnt : 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mb[j] = s[j] * inv;
+    s[j] = 0.f;
+  }
+  each_word<R::kBatch>(w, get, [&](int, const Raw& r) {
+    float v[N];
+    W::unpack(r, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float d = v[j] - mb[j];
+      s[j] += d * d;
+    }
+  });
+  col_sum<N, R::kWarps>(s, red, p.cg, w.col);
+  if (w.row == 0)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      part[w.col * N + j] = make_float2(mb[j], s[j]);
+
+  // merge the cluster's shares in rank order, one thread per channel; all
+  // K remote reads are issued before the first merge
+  cluster.sync();
+  if (threadIdx.x < p.cg * N) {
+    const int ch = threadIdx.x;
+    float2 pr[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < p.k) pr[r] = cluster.map_shared_rank(part, r)[ch];
+    float tot = 0.f, mean = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < p.k)
+        chan_merge(tot, mean, m2, (float)share_count(p, r), pr[r].x,
+                   pr[r].y);
+    const float rstd = rsqrtf(m2 / (float)p.hw + eps);
+    stats[ch] = make_float2(mean, rstd);
+    if (w.rank == 0) {
+      const size_t o = (size_t)w.n * p.c + (size_t)w.grp * p.cg * N + ch;
+      mean_out[o] = mean;
+      rstd_out[o] = rstd;
     }
   }
+  cluster_arrive();
+  __syncthreads();
+
+  float mean[N], rstd[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mean[j] = stats[w.col * N + j].x;
+    rstd[j] = stats[w.col * N + j].y;
+  }
+  Raw* dst = reinterpret_cast<Raw*>(y + w.base);
+  each_word<R::kBatch>(w, get, [&](int q, const Raw& r) {
+    float v[N];
+    W::unpack(r, v);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      v[j] = activate((v[j] - mean[j]) * rstd[j], act, slope);
+    dst[q * w.stride] = W::pack(v);
+  });
+  cluster_wait();
 }
 
-// Block (kFinC channels, kFinLanes lanes) per (channel tile, n): the chunk
-// sums -> mean(g') and mean(g' * xh), (2, n, c) fp32.
-__global__ void __launch_bounds__(kFinC * kFinLanes)
-in_bwd_finalize_kernel(const float* __restrict__ part,
-                       float* __restrict__ gmeans, Plan p) {
-  __shared__ float s_a[kFinLanes][kFinC];
-  __shared__ float s_b[kFinLanes][kFinC];
-  const int lane = threadIdx.x;
-  const int k0 = threadIdx.y;
-  const int c = blockIdx.x * kFinC + lane;
-  const int n = blockIdx.y;
-  float a = 0.f, b = 0.f;
-  if (c < p.c) {
-    const float* src = part + (size_t)n * p.n_chunks * 2 * p.c + c;
-#pragma unroll 4
-    for (int k = k0; k < p.n_chunks; k += kFinLanes) {
-      const float* s = src + (size_t)k * 2 * p.c;
-      a += s[0];
-      b += s[p.c];
-    }
-  }
-  s_a[k0][lane] = a;
-  s_b[k0][lane] = b;
-  __syncthreads();
-  for (int s = kFinLanes / 2; s > 0; s >>= 1) {
-    if (k0 < s) {
-      a += s_a[k0 + s][lane];
-      b += s_b[k0 + s][lane];
-      s_a[k0][lane] = a;
-      s_b[k0][lane] = b;
-    }
+template <typename T, bool kTile>
+__global__ void __launch_bounds__(Route<kTile>::kThreads)
+in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+              const float* __restrict__ mean_in,
+              const float* __restrict__ rstd_in, T* __restrict__ dx, Plan p,
+              int act, float slope) {
+  using W = Word<T>;
+  using Raw = typename W::Raw;
+  using R = Route<kTile>;
+  constexpr int N = kPer;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Where w(p, R::kThreads);
+  Raw* tile = reinterpret_cast<Raw*>(smem);
+  const size_t tile_words = kTile ? (size_t)p.share * p.cg : 0;
+  float* red = reinterpret_cast<float*>(tile + 2 * tile_words);
+  float2* part = reinterpret_cast<float2*>(red + R::kWarps * p.cg * 2 * N);
+  float2* gsum = part + p.cg * N;  // the slab's (mean g', mean g' * xh)
+  const Src<Raw, kTile> xs{reinterpret_cast<const Raw*>(x + w.base),
+                           tile + w.col, w.stride, p.cg};
+  const Src<Raw, kTile> gs{reinterpret_cast<const Raw*>(g + w.base),
+                           tile + tile_words + w.col, w.stride, p.cg};
+  struct Pair {
+    Raw x, g;
+  };
+  const auto get = [&](int q) { return Pair{xs[q], gs[q]}; };
+  if constexpr (kTile) {
+    xs.load(w);
+    gs.load(w);
+    cp_async_wait_all();
     __syncthreads();
   }
-  if (k0 == 0 && c < p.c) {
+  float mean[N], rstd[N];
+  const size_t so = (size_t)w.n * p.c + ((size_t)w.grp * p.cg + w.col) * N;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mean[j] = mean_in[so + j];
+    rstd[j] = rstd_in[so + j];
+  }
+
+  float s[2 * N];  // sum g', then sum g' * xh
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) s[j] = 0.f;
+  each_word<R::kBatch>(w, get, [&](int, const Pair& r) {
+    float xv[N], gv[N];
+    W::unpack(r.x, xv);
+    W::unpack(r.g, gv);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float xh = (xv[j] - mean[j]) * rstd[j];
+      const float gp = act_grad(gv[j], xh, act, slope);
+      s[j] += gp;
+      s[N + j] += gp * xh;
+    }
+  });
+  col_sum<2 * N, R::kWarps>(s, red, p.cg, w.col);
+  if (w.row == 0)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      part[w.col * N + j] = make_float2(s[j], s[N + j]);
+
+  cluster.sync();
+  if (threadIdx.x < p.cg * N) {
+    const int ch = threadIdx.x;
+    float2 pr[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < p.k) pr[r] = cluster.map_shared_rank(part, r)[ch];
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < p.k) {
+        a += pr[r].x;
+        b += pr[r].y;
+      }
     const float inv = 1.f / (float)p.hw;
-    gmeans[(size_t)n * p.c + c] = a * inv;
-    gmeans[((size_t)p.n + n) * p.c + c] = b * inv;
+    gsum[ch] = make_float2(a * inv, b * inv);
   }
-}
+  cluster_arrive();
+  __syncthreads();
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                    const float* __restrict__ mean_in,
-                    const float* __restrict__ rstd_in,
-                    const float* __restrict__ gmeans, T* __restrict__ dx,
-                    Plan p, int act, float slope) {
-  constexpr int V = Vec<T>::N;
-  const int cv = threadIdx.x % p.ct;
-  const int row = threadIdx.x / p.ct;
-  const int rows = kThreads / p.ct;
-  const int k = blockIdx.x;
-  const int n = blockIdx.z;
-  const int c0 = (blockIdx.y * p.ct + cv) * V;
-  if (c0 >= p.c) return;
-  float mean[V], rstd[V], gm[V], gx[V];
-  load_stats<V>(mean_in, rstd_in, (size_t)n * p.c + c0, mean, rstd);
-  load_stats<V>(gmeans, gmeans + (size_t)p.n * p.c, (size_t)n * p.c + c0, gm,
-                gx);
-  const size_t off = (size_t)n * p.hw * p.c + c0;
-  const int q1 = min((k + 1) * p.chunk, p.hw);
-#pragma unroll 4
-  for (int q = k * p.chunk + row; q < q1; q += rows) {
-    const size_t i = off + (size_t)q * p.c;
-    float xv[V], gv[V];
-    Vec<T>::unpack(*reinterpret_cast<const uint4*>(x + i), xv);
-    Vec<T>::unpack(*reinterpret_cast<const uint4*>(g + i), gv);
+  float gm[N], gx[N];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+  for (int j = 0; j < N; ++j) {
+    gm[j] = gsum[w.col * N + j].x;
+    gx[j] = gsum[w.col * N + j].y;
+  }
+  Raw* dst = reinterpret_cast<Raw*>(dx + w.base);
+  each_word<R::kBatch>(w, get, [&](int q, const Pair& r) {
+    float xv[N], gv[N];
+    W::unpack(r.x, xv);
+    W::unpack(r.g, gv);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
       const float xh = (xv[j] - mean[j]) * rstd[j];
       const float gp = act_grad(gv[j], xh, act, slope);
       xv[j] = rstd[j] * (gp - gm[j] - xh * gx[j]);
     }
-    *reinterpret_cast<uint4*>(dx + i) = Vec<T>::pack(xv);
-  }
+    dst[q * w.stride] = W::pack(xv);
+  });
+  cluster_wait();
 }
 
-template <typename T>
-void launch_bwd(const void* x, const void* g, const void* mean,
-                const void* rstd, void* part, void* gmeans, void* dx,
-                const Plan& p, int n_ctiles, int act, float slope,
-                cudaStream_t stream) {
-  const dim3 grid(p.n_chunks, n_ctiles, p.n);
-  in_bwd_sums_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<float*>(part), p, act, slope);
-  const dim3 fgrid((p.c + kFinC - 1) / kFinC, p.n);
-  in_bwd_finalize_kernel<<<fgrid, dim3(kFinC, kFinLanes), 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(gmeans), p);
-  in_bwd_apply_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const float*>(gmeans), static_cast<T*>(dx), p, act, slope);
+// Once per kernel: allow the card's whole opt-in shared memory as dynamic
+// shared memory, and clusters of up to 16 blocks.
+cudaError_t prepare(const void* fn) {
+  static std::mutex mu;
+  static const void* done[8];
+  static int n_done = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_done; ++i)
+    if (done[i] == fn) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fn);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && n_done < 8) done[n_done++] = fn;
+  return e;
+}
+
+cudaLaunchConfig_t cluster_config(int k, int blocks_x, int n, int threads,
+                                  int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks_x, n, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = k;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The kernel's template arguments as a value, so that one generic lambda
+// serves both dtypes and both routes.
+template <typename T, bool kTile>
+struct Kind {
+  using Type = T;
+  static constexpr bool kTileRoute = kTile;
+};
+
+template <typename F>
+cudaError_t dispatch(int is_bf16, int tile, F&& f) {
+  if (is_bf16)
+    return tile ? f(Kind<__nv_bfloat16, true>{})
+                : f(Kind<__nv_bfloat16, false>{});
+  return tile ? f(Kind<float, true>{}) : f(Kind<float, false>{});
+}
+
+// The launch's shape, checked against what the kernel indexes: whole
+// words per pixel, cg a power of two <= 32 that divides them, K of 1..16,
+// shares that cover the image, and the dynamic shared memory the layout
+// needs.
+bool plan_ok(const Plan& p, int word_bytes, int tile, int smem_bytes,
+             int streams) {
+  return p.n > 0 && p.hw > 0 && p.c % kPer == 0 && p.cg >= 1 && p.cg <= 32 &&
+         (p.cg & (p.cg - 1)) == 0 && (p.c / kPer) % p.cg == 0 && p.k >= 1 &&
+         p.k <= 16 && p.share >= 1 && (long long)p.share * p.k >= p.hw &&
+         smem_bytes >= smem_need(p, word_bytes, streams, tile != 0);
 }
 
 }  // namespace
 
-// x, y (n, hw, c) NHWC; part (n, n_chunks, 2, c) fp32 scratch; mean, rstd
-// (n, c) fp32. Returns cudaGetLastError() after the three launches (0 on
-// success).
+// x, y (n, hw, c) NHWC; mean, rstd (n, c) fp32, written. One cluster
+// launch of (k * c / (4 * cg), n) blocks, clusters of k along x, with
+// smem_bytes of dynamic shared memory per block; tile 0 takes the L2
+// route. Returns the launch's error (0 on success).
 extern "C" int ir2rgb_instance_norm_act(
-    const void* x, void* part, void* y, void* mean, void* rstd, int n, int hw,
-    int c, int n_chunks, int chunk, int ct, int n_ctiles, int act, float slope,
+    const void* x, void* y, void* mean, void* rstd, int n, int hw, int c,
+    int k, int share, int cg, int tile, int smem_bytes, int act, float slope,
     float eps, int is_bf16, void* stream) {
-  const Plan p{n, hw, c, n_chunks, chunk, ct};
+  const Plan p{n, hw, c, k, share, cg};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch<__nv_bfloat16>(x, part, y, mean, rstd, p, n_ctiles, act, slope, eps, s);
-  else
-    launch<float>(x, part, y, mean, rstd, p, n_ctiles, act, slope, eps, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      dispatch(is_bf16, tile, [&](auto kind) -> cudaError_t {
+        using T = typename decltype(kind)::Type;
+        if (!plan_ok(p, kPer * sizeof(T), tile, smem_bytes, 1))
+          return cudaErrorInvalidValue;
+        const auto fn = &in_fwd_kernel<T, decltype(kind)::kTileRoute>;
+        const cudaError_t e = prepare(reinterpret_cast<const void*>(fn));
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = cluster_config(
+            k, k * (c / (kPer * cg)), n,
+            Route<decltype(kind)::kTileRoute>::kThreads, smem_bytes, s,
+            &attr);
+        return cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x),
+                                  static_cast<T*>(y),
+                                  static_cast<float*>(mean),
+                                  static_cast<float*>(rstd), p, act, slope,
+                                  eps);
+      }));
 }
 
-// x, g, dx (n, hw, c) NHWC; mean, rstd (n, c) fp32 from the forward; part
-// (n, n_chunks, 2, c) and gmeans (2, n, c) fp32 scratch. Returns
-// cudaGetLastError() after the three launches (0 on success).
+// x, g, dx (n, hw, c) NHWC; mean, rstd (n, c) fp32 from the forward. The
+// forward's launch shape, the tile holding x and g. Returns the launch's
+// error (0 on success).
 extern "C" int ir2rgb_instance_norm_act_bwd(
     const void* x, const void* g, const void* mean, const void* rstd,
-    void* part, void* gmeans, void* dx, int n, int hw, int c, int n_chunks,
-    int chunk, int ct, int n_ctiles, int act, float slope, int is_bf16,
-    void* stream) {
-  const Plan p{n, hw, c, n_chunks, chunk, ct};
+    void* dx, int n, int hw, int c, int k, int share, int cg, int tile,
+    int smem_bytes, int act, float slope, int is_bf16, void* stream) {
+  const Plan p{n, hw, c, k, share, cg};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch_bwd<__nv_bfloat16>(x, g, mean, rstd, part, gmeans, dx, p, n_ctiles,
-                              act, slope, s);
-  else
-    launch_bwd<float>(x, g, mean, rstd, part, gmeans, dx, p, n_ctiles, act,
-                      slope, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      dispatch(is_bf16, tile, [&](auto kind) -> cudaError_t {
+        using T = typename decltype(kind)::Type;
+        if (!plan_ok(p, kPer * sizeof(T), tile, smem_bytes, 2))
+          return cudaErrorInvalidValue;
+        const auto fn = &in_bwd_kernel<T, decltype(kind)::kTileRoute>;
+        const cudaError_t e = prepare(reinterpret_cast<const void*>(fn));
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = cluster_config(
+            k, k * (c / (kPer * cg)), n,
+            Route<decltype(kind)::kTileRoute>::kThreads, smem_bytes, s,
+            &attr);
+        return cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x),
+                                  static_cast<const T*>(g),
+                                  static_cast<const float*>(mean),
+                                  static_cast<const float*>(rstd),
+                                  static_cast<T*>(dx), p, act, slope);
+      }));
+}
+
+// How many clusters of k blocks with smem_bytes of dynamic shared memory
+// each the card can hold at once (cudaOccupancyMaxActiveClusters), for the
+// forward (bwd 0) or backward kernel of this dtype and route; 0 means the
+// card cannot run such a cluster. Written to *out; returns the query's
+// error (0 on success).
+extern "C" int ir2rgb_instance_norm_max_clusters(int k, int tile,
+                                                 int smem_bytes, int bwd,
+                                                 int is_bf16, int* out) {
+  *out = 0;
+  return static_cast<int>(
+      dispatch(is_bf16, tile, [&](auto kind) -> cudaError_t {
+        using T = typename decltype(kind)::Type;
+        constexpr bool kTile = decltype(kind)::kTileRoute;
+        const void* fn =
+            bwd ? reinterpret_cast<const void*>(&in_bwd_kernel<T, kTile>)
+                : reinterpret_cast<const void*>(&in_fwd_kernel<T, kTile>);
+        const cudaError_t e = prepare(fn);
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = cluster_config(
+            k, k, 1, Route<kTile>::kThreads, smem_bytes, nullptr, &attr);
+        return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+      }));
 }

@@ -17,7 +17,10 @@ and how the design answers that); this module holds
 - :func:`instance_norm_act_fn`: y only, differentiable; what the networks
   call;
 - ``launches`` / ``bwd_launches``: how many times the wrappers launched
-  the forward and the backward kernel.
+  the forward and the backward kernel;
+- :func:`_plan` / :func:`plan_for`: the launch (channel group, cluster
+  size, shared memory per block, route), sized by bytes and checked
+  against the card.
 
 All take and return NHWC tensors. The kernels read NHWC memory directly,
 so ``x`` and the gradient must be contiguous in that order (a
@@ -26,8 +29,9 @@ channels-last NCHW tensor permuted to NHWC is).
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -39,9 +43,12 @@ ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 launches = 0
 bwd_launches = 0
 
-_THREADS = 256       # block size of the stats/apply kernels
-_MAX_CT = 32         # channel vectors per block (one warp's 16-byte loads)
-_TARGET_BLOCKS = 528  # ~4 blocks per SM on a 132-SM H100
+_SMEM_OPTIN = 232_448   # shared memory one block may opt into on sm_90
+_KS = (1, 2, 4, 8, 16)  # blocks per cluster; above 8 is non-portable
+_PER = 4                # channels a thread loads per pixel (one word)
+# blocks a plan grows toward (the H100 has 132 SMs); the backward's tile
+# holds x and g, and more, smaller blocks pay (ir2rgb_tpu_torch/sweep_b1.py)
+_TARGET_BLOCKS = {"fwd": 64, "bwd": 128, "l2": 64}
 
 
 def apply_act(y: torch.Tensor, act: str,
@@ -102,29 +109,123 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+class Plan(NamedTuple):
+    """One B1 launch (either direction), as ``csrc/instance_norm.cu``
+    reads it: ``n * groups`` slabs, each one image's pixels of one group
+    of ``channels`` channels (``cg`` words of 4 channels a pixel), one
+    cluster of ``k`` blocks a slab, ``share`` pixels a block."""
+    cg: int           # words of a group at one pixel
+    channels: int     # channels per group (the group width)
+    k: int            # blocks per cluster
+    share: int        # pixels per block (the last may hold fewer)
+    groups: int       # channel groups per image
+    smem_bytes: int   # dynamic shared memory per block
+    route: str        # "smem": x (and g) read once; "l2": re-read from L2
+
+
+def _make_plan(hw: int, c: int, itemsize: int, bwd: bool, cg: int, k: int,
+               route: str) -> Plan:
+    """The launch with these choices. Its shared memory is laid out as the
+    kernel's ``smem_need``: the tile (x, and g in the backward), the
+    column sums' scratch (one row per warp: 8 on the tile route's 256
+    threads, 16 on the L2 route's 512), two float2 per channel."""
+    streams = 2 if bwd else 1
+    share = _ceil_div(hw, k)
+    tile = share * cg * _PER * itemsize * streams if route == "smem" else 0
+    warps = 8 if route == "smem" else 16
+    smem = tile + warps * cg * _PER * streams * 4 + cg * _PER * 16
+    return Plan(cg, cg * _PER, k, share, c // (cg * _PER), smem, route)
+
+
+def _choices(hw: int, c: int, itemsize: int):
+    """The group widths (words a pixel, widest first, at most 64 bytes)
+    and the cluster sizes (powers of two whose every block holds pixels)
+    a launch may take."""
+    cgs = [cg for cg in (16, 8, 4, 2, 1)
+           if (c // _PER) % cg == 0 and cg * _PER * itemsize <= 64]
+    ks = [k for k in _KS if (k - 1) * _ceil_div(hw, k) < hw]
+    return cgs, ks
+
+
+def _plan(n: int, hw: int, c: int, itemsize: int, bwd: bool,
+          clusters: Callable[[Plan], int] = lambda p: 1 << 30) -> Plan:
+    """The launch of B1 for an (n, hw, c) tensor of ``itemsize`` bytes,
+    sized by bytes: groups of at most 64 bytes a pixel, K the smallest
+    that fits, doubled while the grid is short of its target of blocks
+    (``_TARGET_BLOCKS``) or K is 16.
+
+    Tile route: of the groups of at least 32 bytes whose slab (x, and g
+    in the backward) fits in the shared memory of K <= 16 blocks and that
+    reach the target, the widest (forward) or the one with the smallest K
+    (backward); where none reaches it, the one with the most blocks. L2
+    route, where no such slab fits: the widest group that reaches the
+    target, else the one with the most blocks.
+
+    ``clusters(plan)`` is the card's count of such clusters it can hold at
+    once. A plan whose clusters all fit at once (one wave) is taken before
+    any that runs in waves: a second wave waits for the first's whole
+    cluster. A plan the card cannot run (0) is never taken. Without a
+    card, any runs."""
+    word = _PER * itemsize
+    cgs, ks = _choices(hw, c, itemsize)
+
+    def blocks(p: Plan) -> int:
+        return n * p.groups * p.k
+
+    for one_wave in (True, False):
+        def pick(cg: int, route: str, target: int):
+            ok = [p for p in (_make_plan(hw, c, itemsize, bwd, cg, k, route)
+                              for k in ks)
+                  if p.smem_bytes <= _SMEM_OPTIN and 0 < clusters(p)
+                  and (not one_wave or n * p.groups <= clusters(p))]
+            return next((p for p in ok if blocks(p) >= target),
+                        ok[-1] if ok else None)
+
+        target = _TARGET_BLOCKS["bwd" if bwd else "fwd"]
+        tile = [p for p in (pick(cg, "smem", target) for cg in cgs
+                            if cg * word >= 32) if p is not None]
+        reach = [p for p in tile if blocks(p) >= target]
+        if reach:
+            # the forward takes the widest group, the backward the smallest
+            # cluster (then the widest group): sweep_b1.py measured each best
+            return min(reach, key=lambda p: p.k) if bwd else reach[0]
+        if tile:
+            return max(tile, key=blocks)
+        target = _TARGET_BLOCKS["l2"]
+        l2 = [p for p in (pick(cg, "l2", target) for cg in cgs)
+              if p is not None]
+        reach = [p for p in l2 if blocks(p) >= target]
+        if l2:
+            return reach[0] if reach else max(l2, key=blocks)
+    raise ValueError(f"no B1 launch for (n={n}, hw={hw}, c={c}) on this "
+                     "card")
+
+
 @lru_cache(maxsize=None)
-def _plan(n: int, hw: int, c: int, vec: int):
-    """Grid of the stats/apply kernels (both directions): (n_chunks,
-    chunk, ct, n_ctiles).
-
-    ``ct`` channel vectors of ``vec`` elements per block (a power of two,
-    so the block's rows tree-merge), ``256 / ct`` pixel rows; pixel chunks
-    sized so the grid holds about ``_TARGET_BLOCKS`` blocks."""
-    cvecs = c // vec
-    ct = 1
-    while ct < min(cvecs, _MAX_CT):
-        ct *= 2
-    n_ctiles = _ceil_div(cvecs, ct)
-    rows = _THREADS // ct
-    want = max(1, _ceil_div(_TARGET_BLOCKS, n * n_ctiles))
-    n_chunks = min(want, _ceil_div(hw, rows))
-    chunk = _ceil_div(hw, n_chunks)
-    return _ceil_div(hw, chunk), chunk, ct, n_ctiles
+def max_clusters(p: Plan, bwd: bool, is_bf16: bool) -> int:
+    """How many clusters of plan ``p`` the card holds at once (0: it
+    cannot run one), from ``cudaOccupancyMaxActiveClusters``."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().ir2rgb_instance_norm_max_clusters(
+        p.k, int(p.route == "smem"), p.smem_bytes, int(bwd), int(is_bf16),
+        ctypes.byref(out)), "instance_norm max clusters")
+    return out.value
 
 
-def _check_nhwc(t: torch.Tensor, what: str) -> int:
-    """Raise unless ``t`` is what the kernels read; return its vector
-    width (elements per 16 bytes)."""
+@lru_cache(maxsize=None)
+def _card_plan(n: int, hw: int, c: int, is_bf16: bool, bwd: bool) -> Plan:
+    return _plan(n, hw, c, 2 if is_bf16 else 4, bwd,
+                 lambda p: max_clusters(p, bwd, is_bf16))
+
+
+def plan_for(x: torch.Tensor, bwd: bool = False) -> Plan:
+    """The plan a CUDA NHWC ``x`` launches with (queries the card)."""
+    n, h, w, c = x.shape
+    return _card_plan(n, h * w, c, x.dtype == torch.bfloat16, bwd)
+
+
+def _check_nhwc(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is what the kernels read."""
     if not t.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor")
     if t.dim() != 4:
@@ -133,41 +234,36 @@ def _check_nhwc(t: torch.Tensor, what: str) -> int:
         raise TypeError(f"unsupported dtype {t.dtype} (float32 or bfloat16)")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous NHWC memory")
-    vec = 16 // t.element_size()
-    if t.shape[3] % vec or t.data_ptr() % 16:
-        raise ValueError(f"C={t.shape[3]} must be a multiple of {vec} and the "
-                         "tensor 16-byte aligned for the kernel's 16-byte "
-                         "loads")
-    return vec
+    word = _PER * t.element_size()
+    if t.shape[3] % _PER or t.data_ptr() % word:
+        raise ValueError(f"C={t.shape[3]} must be a multiple of {_PER} and the "
+                         f"tensor {word}-byte aligned for the kernel's "
+                         f"{word}-byte loads")
 
 
 def instance_norm_act_cuda(x: torch.Tensor, act: str = "relu",
                            eps: float = INSTANCE_NORM_EPS,
-                           negative_slope: float = 0.2):
-    """Launch the forward kernel; raise on anything it does not take."""
+                           negative_slope: float = 0.2, plan: Plan = None):
+    """Launch the forward kernel; raise on anything it does not take.
+    ``plan`` replaces :func:`plan_for`'s (``sweep_b1`` times each)."""
     global launches
-    vec = _check_nhwc(x, "instance_norm_act_cuda")
+    _check_nhwc(x, "instance_norm_act_cuda")
     if act not in ACTS:
         raise ValueError(f"unknown act: {act}")
     if x.requires_grad and torch.is_grad_enabled():
         raise ValueError("instance_norm_act_cuda does not record a graph; "
                          "call instance_norm_act_fn for a differentiable y")
     n, h, w, c = x.shape
-    hw = h * w
-    n_chunks, chunk, ct, n_ctiles = _plan(n, hw, c, vec)
+    p = plan or plan_for(x)
     y = torch.empty_like(x)
-    # one fp32 allocation: mean, rstd, then the (n, n_chunks, 2, c)
-    # partial statistics
-    buf = torch.empty(n * c * (2 + 2 * n_chunks), device=x.device,
-                      dtype=torch.float32)
-    mean, rstd = buf[:2 * n * c].view(2, n, c).unbind(0)
-    part = buf[2 * n * c:]
+    mean, rstd = torch.empty((2, n, c), device=x.device,
+                             dtype=torch.float32).unbind(0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _build.lib().ir2rgb_instance_norm_act(
-        x.data_ptr(), part.data_ptr(), y.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), n, hw, c, n_chunks, chunk, ct, n_ctiles, ACTS[act],
-        float(negative_slope), float(eps), int(x.dtype == torch.bfloat16),
-        stream)
+        x.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n,
+        h * w, c, p.k, p.share, p.cg, int(p.route == "smem"), p.smem_bytes,
+        ACTS[act], float(negative_slope), float(eps),
+        int(x.dtype == torch.bfloat16), stream)
     _build.check(code, "instance_norm_act")
     launches += 1
     return y, mean, rstd
@@ -175,11 +271,12 @@ def instance_norm_act_cuda(x: torch.Tensor, act: str = "relu",
 
 def instance_norm_act_bwd_cuda(x: torch.Tensor, mean: torch.Tensor,
                                rstd: torch.Tensor, g: torch.Tensor,
-                               act: str = "relu",
-                               negative_slope: float = 0.2) -> torch.Tensor:
-    """Launch the backward kernel; raise on anything it does not take."""
+                               act: str = "relu", negative_slope: float = 0.2,
+                               plan: Plan = None) -> torch.Tensor:
+    """Launch the backward kernel; raise on anything it does not take.
+    ``plan`` replaces :func:`plan_for`'s."""
     global bwd_launches
-    vec = _check_nhwc(x, "instance_norm_act_bwd_cuda")
+    _check_nhwc(x, "instance_norm_act_bwd_cuda")
     _check_nhwc(g, "instance_norm_act_bwd_cuda")
     if act not in ACTS:
         raise ValueError(f"unknown act: {act}")
@@ -192,19 +289,14 @@ def instance_norm_act_bwd_cuda(x: torch.Tensor, mean: torch.Tensor,
                 or not s.is_contiguous() or s.device != x.device):
             raise ValueError("mean and rstd must be contiguous (N, C) fp32 "
                              "on x's device")
-    hw = h * w
-    n_chunks, chunk, ct, n_ctiles = _plan(n, hw, c, vec)
+    p = plan or plan_for(x, bwd=True)
     dx = torch.empty_like(x)
-    # one fp32 allocation: mean(g'), mean(g' * xh), then the
-    # (n, n_chunks, 2, c) partial sums
-    buf = torch.empty(n * c * (2 + 2 * n_chunks), device=x.device,
-                      dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _build.lib().ir2rgb_instance_norm_act_bwd(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        buf[2 * n * c:].data_ptr(), buf.data_ptr(), dx.data_ptr(), n, hw, c,
-        n_chunks, chunk, ct, n_ctiles, ACTS[act], float(negative_slope),
-        int(x.dtype == torch.bfloat16), stream)
+        dx.data_ptr(), n, h * w, c, p.k, p.share, p.cg,
+        int(p.route == "smem"), p.smem_bytes, ACTS[act],
+        float(negative_slope), int(x.dtype == torch.bfloat16), stream)
     _build.check(code, "instance_norm_act_bwd")
     bwd_launches += 1
     return dx

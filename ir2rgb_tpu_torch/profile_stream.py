@@ -28,8 +28,7 @@ FRAMES = 10
 # kernel-name fragments -> kind, first match wins
 KINDS = [
     ("B1 instance_norm backward", ("in_bwd_",)),
-    ("B1 instance_norm", ("in_stats_kernel", "in_finalize_kernel",
-                          "in_apply_kernel")),
+    ("B1 instance_norm", ("in_fwd_",)),
     ("B3 d2s / s2d", ("d2s_kernel",)),
     ("optimizer (Adam)", ("multi_tensor_apply", "foreach", "Adam")),
     ("B2 tail", ("tail_kernel",)),

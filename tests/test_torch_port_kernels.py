@@ -84,6 +84,16 @@ def test_main_path_sends_these_shapes_to_the_kernels(monkeypatch, input_nc):
     assert tuple(y.shape) == (1, 512, 512, 3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _first_torch_tanh():
+    """PyTorch's CPU tanh (2.13, AVX512) can be off by ~5e-5 on its first
+    call in a process once the intra-op pool has run a parallel op (about
+    one process in four); every later call is accurate to ~3e-8. Make
+    that first call here, so that no comparison below depends on whether
+    it comes first in its process."""
+    torch.tanh(torch.zeros(8))
+
+
 @pytest.mark.parametrize("shape", [(1, 16, 16, 128), (2, 8, 16, 256)])
 @pytest.mark.parametrize("act", ACTS)
 def test_b1_plain_matches_pallas_interpret(shape, act):
@@ -94,7 +104,9 @@ def test_b1_plain_matches_pallas_interpret(shape, act):
     y_j = np.asarray(instance_norm_act_pallas(jnp.asarray(x), act,
                                               interpret=True))
     y_p = fused_instance_norm_act(torch.from_numpy(x), act).numpy()
-    np.testing.assert_allclose(y_p, y_j, atol=2e-5, rtol=1e-5)
+    err = float(np.abs(y_p - y_j).max())
+    np.testing.assert_allclose(y_p, y_j, atol=2e-5, rtol=1e-5,
+                               err_msg=f"max-abs {err:.3g}")
 
 
 @pytest.mark.parametrize("shape", [(1, 32, 32, 32), (1, 16, 16, 64)])
@@ -136,17 +148,238 @@ def test_b1_stats_match_numpy(shape):
     assert mean.dtype == rstd.dtype == torch.float32
 
 
+# one pass of the multiscale D on a 512x512 pair (scale 0, then scale 1)
+B1_D_SHAPES = [(1, 129, 129, 128), (1, 65, 65, 256), (1, 66, 66, 512),
+               (1, 65, 65, 128), (1, 33, 33, 256), (1, 34, 34, 512)]
+# the (shape, direction) cases that take the L2 route on an H100 (PERF.md
+# names the same): where no slab of >= 32 bytes a pixel fits the shared
+# memory of a cluster; in fp32, also where the tile plans that fit need
+# more clusters than the card holds at once
+B1_L2_ROUTE = {((1, 512, 512, 32), "fwd"), ((1, 512, 512, 32), "bwd"),
+               ((1, 256, 256, 64), "bwd")}
+B1_L2_ROUTE_FP32 = B1_L2_ROUTE | {((1, 256, 256, 64), "fwd"),
+                                  ((1, 128, 128, 128), "bwd"),
+                                  ((1, 129, 129, 128), "bwd")}
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", sorted({s for s, _ in B1_MAIN_PATH}))
-def test_b1_plan_covers_every_pixel_and_channel(shape, dtype):
+@pytest.mark.parametrize("shape", sorted({s for s, _ in B1_MAIN_PATH})
+                         + B1_D_SHAPES)
+def test_b1_plan_covers_every_pixel_and_channel(shape, dtype, bwd):
     n, h, w, c = shape
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    n_chunks, chunk, ct, n_ctiles = pin._plan(n, h * w, c, vec)
-    assert (n_chunks - 1) * chunk < h * w <= n_chunks * chunk
-    assert ct & (ct - 1) == 0 and ct <= 32 and 256 % ct == 0
-    assert (n_ctiles - 1) * ct < c // vec <= n_ctiles * ct
-    # about the target number of blocks, never a chunk without pixels
-    assert n * n_ctiles * n_chunks < pin._TARGET_BLOCKS + n * n_ctiles
+    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
+    p = pin._plan(n, hw, c, item, bwd, _h100_like_clusters(bwd))
+    # every (n, c, pixel) tiled exactly once: block (g, r) of image n owns
+    # channels [g * channels, ...) and pixels [r * share, ...)
+    seen = np.zeros((c, hw), np.int32)
+    for g in range(p.groups):
+        for r in range(p.k):
+            seen[g * p.channels:(g + 1) * p.channels,
+                 r * p.share:(r + 1) * p.share] += 1
+    assert seen.min() == seen.max() == 1
+    assert (p.k - 1) * p.share < hw  # no block without pixels
+    # clusters of K <= 16 blocks, a grid of whole clusters
+    assert p.k in (1, 2, 4, 8, 16) and (n * p.groups * p.k) % p.k == 0
+    assert p.channels == 4 * p.cg and 32 % p.cg == 0
+    assert p.channels * item <= 64
+    # dynamic shared memory as the kernel lays it out, within the limit
+    streams = 2 if bwd else 1
+    tile = p.share * p.channels * item * streams
+    warps = 8 if p.route == "smem" else 16
+    assert p.smem_bytes == (tile if p.route == "smem" else 0) \
+        + warps * p.channels * streams * 4 + p.channels * 16
+    assert p.smem_bytes <= 232_448
+    # the tile route holds groups of >= 32 bytes; the L2 route only where
+    # none fits
+    l2 = B1_L2_ROUTE_FP32 if dtype == torch.float32 else B1_L2_ROUTE
+    want = "l2" if (shape, "bwd" if bwd else "fwd") in l2 else "smem"
+    assert p.route == want
+    assert p.route == "l2" or p.channels * item >= 32
+
+
+def test_b1_plan_takes_only_clusters_the_card_can_run():
+    # a card that holds no cluster above 8 blocks: (1,256,256,64) bf16
+    # forward's 32-byte slab then fits no tile; a card that holds none
+    # refuses every plan
+    p = pin._plan(1, 256 * 256, 64, 2, False,
+                  clusters=lambda p: 0 if p.k > 8 else 7)
+    assert p.k <= 8 and p.route == "l2"
+    with pytest.raises(ValueError):
+        pin._plan(1, 256 * 256, 64, 2, False, clusters=lambda p: 0)
+
+
+def _h100_like_clusters(bwd):
+    """The count of a plan's clusters an H100 holds at once, modelled: a
+    cluster lies in one GPC (132 SMs as six of 18, one of 16, one of 8),
+    and an SM holds as many blocks as its 228 KB of shared memory takes
+    (1 KB reserved each), at most 1 on the L2 route's 512 threads and 2
+    (backward) or 3 (forward) on the tile route's 256, for registers.
+    It gives the card's 7 clusters of 16 and 15 of 8 at 1 block an SM, and
+    the plans sweep_b1.py read there at every shape of the path."""
+    def clusters(p):
+        per_sm = 233_472 // (p.smem_bytes + 1024)
+        cap = 1 if p.route == "l2" else 2 if bwd else 3
+        return sum(sms * min(per_sm, cap) // p.k
+                   for sms in [18] * 6 + [16, 8])
+    return clusters
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted({s for s, _ in B1_MAIN_PATH})
+                         + B1_D_SHAPES)
+def test_b1_plan_runs_in_one_wave(shape, dtype, bwd):
+    # every cluster of the launch fits on the card at once: a second wave
+    # would wait for the first's slowest cluster. In fp32 the tile plans
+    # of (1,256,256,64) forward (8 clusters of 16) and of the
+    # (1,128,128,128) and (1,129,129,128) backward do not, and the L2
+    # route's do
+    n, h, w, c = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    clusters = _h100_like_clusters(bwd)
+    p = pin._plan(n, h * w, c, item, bwd, clusters)
+    assert n * p.groups <= clusters(p)
+    want = {((1, 256, 256, 64), False): ("l2", 16, 16),
+            ((1, 128, 128, 128), True): ("l2", 16, 8),
+            ((1, 129, 129, 128), True): ("l2", 16, 8)}
+    if dtype == torch.float32 and (shape, bwd) in want:
+        assert (p.route, p.channels, p.k) == want[(shape, bwd)]
+
+
+def test_b1_phase_probe_stamps_every_phase_of_both_kernels():
+    # phases_b1 instruments a copy of the source by its lines: each of the
+    # five stamps must land once in the forward and once in the backward
+    from ir2rgb_tpu_torch import phases_b1
+    src = phases_b1.instrumented_source()
+    assert [src.count(f"b1_stamp({i});") for i in range(5)] == [2] * 5
+    assert "ir2rgb_b1_stamps" in src
+
+
+def _threads(p):
+    """Threads per block of plan ``p``'s kernel: 256 on the tile route,
+    512 on the L2 route (``Route`` in csrc/instance_norm.cu)."""
+    return 256 if p.route == "smem" else 512
+
+
+def _col_sums(a, p):
+    """The kernel's column sums of one block, in float32 and its order.
+
+    ``a``: (iterations, rows, cg, 4) words of pixel row + i * rows
+    (zeros past the share). Each thread adds its words in order, each
+    warp butterflies (xor 16 ... cg, own value first), and the warps'
+    totals are added in warp order. Returns (cg * 4,)."""
+    threads = _threads(p)
+    s = np.zeros(a.shape[1:], np.float32)
+    for i in range(a.shape[0]):
+        s = s + a[i]
+    t = s.reshape(threads, 4)  # thread t = row * cg + col
+    idx = np.arange(threads)
+    off = 16
+    while off >= p.cg:
+        t = t + t[idx ^ off]
+        off //= 2
+    tot = np.zeros((p.cg, 4), np.float32)
+    for warp in range(threads // 32):
+        tot = tot + t[warp * 32:warp * 32 + p.cg]
+    return tot.reshape(-1)
+
+
+def _block_words(x, p, g, r):
+    """Block (g, r)'s words of image x (hw, c) as (iterations, rows, cg,
+    4), zero past the block's pixels, with the mask of its pixels and
+    their count."""
+    rows = _threads(p) // p.cg
+    blk = x[r * p.share:(r + 1) * p.share,
+            g * p.channels:(g + 1) * p.channels]
+    its = -(-p.share // rows)
+    a = np.zeros((its * rows, p.channels), np.float32)
+    a[:len(blk)] = blk
+    mask = (np.arange(its * rows) < len(blk)).reshape(its, rows, 1, 1)
+    return a.reshape(its, rows, p.cg, 4), mask, len(blk)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 64), (1, 512, 512, 32)])
+def test_b1_reduction_order_matches_float64_at_a_large_mean(shape):
+    # the kernel's order under its fp32 plan on an H100: per block a
+    # two-pass (mean, M2), then Chan's merge over the cluster's ranks in
+    # order, float32 throughout. At mean 100 and std 3 it holds float64
+    # statistics to 1e-6 (mean) and 2e-6 (variance) relative (it reads
+    # ~1.2e-7 and ~1.6e-7), where a float32 E[x^2] - mean^2 misses by
+    # ~2e-2
+    n, h, w, c = shape
+    hw = h * w
+    x = _x((hw, c), seed=11, scale=3.0, shift=100.0)
+    p = pin._plan(n, hw, c, 4, False, _h100_like_clusters(False))
+    mean = np.zeros(c, np.float32)
+    var = np.zeros(c, np.float32)
+    for g in range(p.groups):
+        tot = np.zeros(p.channels, np.float32)
+        mu = np.zeros(p.channels, np.float32)
+        m2 = np.zeros(p.channels, np.float32)
+        for r in range(p.k):
+            a, valid, cnt = _block_words(x, p, g, r)
+            mb = _col_sums(a, p) * (np.float32(1) / np.float32(cnt))
+            d = np.where(valid, a - mb.reshape(p.cg, 4), np.float32(0))
+            mb2 = _col_sums(d * d, p)
+            # Chan's merge, as chan_merge
+            nb = np.float32(cnt)
+            t = tot + nb
+            wb = nb / t
+            dd = mb - mu
+            mu = mu + dd * wb
+            m2 = m2 + (mb2 + dd * dd * tot * wb)
+            tot = t
+        sl = slice(g * p.channels, (g + 1) * p.channels)
+        mean[sl], var[sl] = mu, m2 / np.float32(hw)
+    x64 = x.astype(np.float64)
+    want_mean, want_var = x64.mean(0), x64.var(0)
+    mean_err = np.abs(mean - want_mean).max() / np.abs(want_mean).max()
+    var_err = (np.abs(var - want_var) / want_var).max()
+    assert mean_err < 1e-6, f"mean rel err {mean_err:.3g}"
+    assert var_err < 2e-6, f"var rel err {var_err:.3g}"
+    # the Pallas kernel's float32 E[x^2] - mean^2 misses that bar
+    x32 = x.astype(np.float32)
+    naive = (x32 * x32).mean(0, dtype=np.float32) - \
+        x32.mean(0, dtype=np.float32) ** 2
+    assert (np.abs(naive - want_var) / want_var).max() > 2e-6
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 64), (1, 512, 512, 32)])
+def test_b1_backward_reduction_order_matches_plain_backward(shape):
+    # the backward's sums of g' and g' * xh in the kernel's order under
+    # its fp32 plan (per block, then the ranks in order), and dx from
+    # them, against the plain backward: 1e-6 of max|dx| (it reads ~7e-8)
+    n, h, w, c = shape
+    hw = h * w
+    x = _x((hw, c), seed=12, scale=3.0, shift=100.0)
+    gr = np.random.RandomState(13).randn(hw, c).astype(np.float32)
+    x64 = x.astype(np.float64)
+    mean = x64.mean(0).astype(np.float32)
+    rstd = (1 / np.sqrt(x64.var(0) + 1e-5)).astype(np.float32)
+    xh = (x - mean) * rstd
+    gp = gr * (xh > 0)  # relu
+    p = pin._plan(n, hw, c, 4, True, _h100_like_clusters(True))
+    gm = np.zeros(c, np.float32)
+    gx = np.zeros(c, np.float32)
+    for g in range(p.groups):
+        a_sum = np.zeros(p.channels, np.float32)
+        b_sum = np.zeros(p.channels, np.float32)
+        for r in range(p.k):
+            a = _block_words(gp, p, g, r)[0]
+            b = _block_words(gp * xh, p, g, r)[0]
+            a_sum = a_sum + _col_sums(a, p)
+            b_sum = b_sum + _col_sums(b, p)
+        sl = slice(g * p.channels, (g + 1) * p.channels)
+        inv = np.float32(1) / np.float32(hw)
+        gm[sl], gx[sl] = a_sum * inv, b_sum * inv
+    dx = rstd * (gp - gm - xh * gx)
+    want = pin.instance_norm_act_backward_reference(
+        torch.from_numpy(x).view(1, h, w, c), torch.from_numpy(mean)[None],
+        torch.from_numpy(rstd)[None], torch.from_numpy(gr).view(1, h, w, c),
+        "relu").numpy().reshape(hw, c)
+    err = np.abs(dx - want).max() / np.abs(want).max()
+    assert err < 1e-6, f"max|dx - plain| / max|dx| {err:.3g}"
 
 
 def _tail_inputs(hs, c, seed=0):
