@@ -17,8 +17,12 @@ Phases, each failing the run if it fails:
 3. B1 backward: the same shapes, dx held to the plain backward, timed
    beside it and the autograd backward of ``F.instance_norm`` + act,
    with the same plan, kernel count and cold-L2 readings;
-4. B2 (output tail): the same at (1,512,512,32), yardstick
-   ``F.pad(reflect)`` + ``F.conv2d`` + tanh;
+4. B2 (output tail): the same at every preset's tail shape and a ragged
+   batch-2 shape (``B2_SHAPES``), bf16 (the tensor-core route) and fp32
+   (the CUDA-core route), yardstick ``F.pad(reflect)`` + ``F.conv2d`` +
+   tanh; device kernels per call (must be 1), a cold-L2 time at the main
+   path's shape, and the HMMA instructions of the built tensor-core
+   kernels (``cuobjdump -sass``, must be > 0);
 5. B3 d2s and s2d at the five ups' shapes, exact against the plain
    permutation, yardstick ``view/permute/contiguous``; and each up timed
    as the subpixel conv + d2s against ``F.conv_transpose2d``;
@@ -52,6 +56,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -102,7 +107,12 @@ PER_STEP = {"instance_norm_act": sum(B1_FWD_PER_STEP.values()),
             "tail_fused": 0, "d2s": 5, "s2d": 5}
 PER_FRAME = {"instance_norm_act": B1_PER_FRAME, "instance_norm_act_bwd": 0,
              "tail_fused": 1, "d2s": 5, "s2d": 0}
-B2_SHAPE = ((1, 512, 512, 32), (7, 7, 32, 3))
+# B2's x at every preset's tail: pix2pixhd_512 and temporal_512 (the main
+# path), global_512 (ngf 64), the 1024 presets, the 2048 preset (two
+# enhancers, ngf 16); then a ragged batch-2 shape for the edge tiles
+B2_SHAPES = [(1, 512, 512, 32), (1, 512, 512, 64), (1, 1024, 1024, 32),
+             (1, 2048, 2048, 16), (2, 72, 40, 32)]
+B2_MAIN = B2_SHAPES[0]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
@@ -429,45 +439,80 @@ def deconv_phase(gen: torch.Generator):
     return rows
 
 
+def sass_hmma() -> dict:
+    """HMMA (tensor-core) instructions in each tail kernel of the built
+    library, from ``cuobjdump -sass``: kernel name -> count."""
+    from ir2rgb_tpu_torch.kernels import _build
+    tool = str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "tail" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def b2_phase(bw: float, fp32_peak: float, bf16_peak: float,
              gen: torch.Generator):
+    """B2 at every shape of ``B2_SHAPES``, bf16 and fp32, held to the
+    plain version on the card and timed beside it, the library and the
+    bound; one device kernel per call; a cold L2 at the main shape."""
     b2 = importlib.import_module("ir2rgb_tpu_torch.kernels.tail_fused")
-    xs, ws = B2_SHAPE
-    rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
-        w = torch.randn(ws, generator=gen, device="cuda") * 0.05
-        b = torch.randn(3, generator=gen, device="cuda") * 0.1
-        y = b2.tail_fused(x, w, b)
-        y_ref = b2.tail_fused_reference(x.float(), w.to(dtype).float(), b)
-        torch.cuda.synchronize()
-        err = float((y.float() - y_ref).abs().max())
-        check(tuple(y.shape) == xs[:3] + (3,) and y.dtype == dtype
-              and err <= TOL[dtype],
-              f"B2 {xs} {str(dtype)[6:]}: max|y - plain| {err:.3g} "
-              f"(tol {TOL[dtype]})")
-        x_nchw = x.permute(0, 3, 1, 2)
-        w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        b_c = b.to(dtype)
-        kern = lambda: b2.tail_fused(x, w, b)  # noqa: E731
-        ms, eager = graph_ms(kern), cuda_ms(kern)
-        plain = graph_ms(lambda: b2.tail_fused_reference(x, w, b))
-        lib = graph_ms(lambda: torch.tanh(F.conv2d(
-            F.pad(x_nchw, (3, 3, 3, 3), mode="reflect"), w_oihw, b_c)))
+    rows = []
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for xs in B2_SHAPES:
         n, h, wd, c = xs
-        nbytes = (x.numel() + n * h * wd * 3) * x.element_size() + \
-            w.numel() * 4 + 3 * 4
-        flops = 2 * n * h * wd * 3 * 49 * c
-        peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-        rows[str(dtype)[6:]] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            eager_ms=eager,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            gflop=flops / 1e9, mbytes=nbytes / 1e6)
-    return rows
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+            w = torch.randn((7, 7, c, 3), generator=gen, device="cuda") * 0.05
+            b = torch.randn(3, generator=gen, device="cuda") * 0.1
+            y = b2.tail_fused(x, w, b)
+            y_ref = b2.tail_fused_reference(x.float(), w.to(dtype).float(), b)
+            torch.cuda.synchronize()
+            err = float((y.float() - y_ref).abs().max())
+            route = b2.route(x, w, b)
+            tag = f"B2 {xs} {dtype_name(dtype)} ({route})"
+            check(tuple(y.shape) == xs[:3] + (3,) and y.dtype == dtype
+                  and err <= TOL[dtype],
+                  f"{tag}: max|y - plain| {err:.3g} (tol {TOL[dtype]})")
+            kern = lambda: b2.tail_fused(x, w, b)  # noqa: E731
+            kernels = device_kernels(kern)
+            check(kernels == 1, f"{tag}: {kernels} device kernel(s) per call "
+                  "(want 1)")
+            x_nchw = x.permute(0, 3, 1, 2)
+            w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b_c = b.to(dtype)
+            nbytes = (x.numel() + n * h * wd * 3) * x.element_size() + \
+                w.numel() * 4 + 3 * 4
+            flops = 2 * n * h * wd * 3 * 49 * c
+            peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+            rows.append(dict(
+                shape=list(xs), dtype=dtype_name(dtype), route=route,
+                tile_rows=b2.tc_layout(c)[0] if route == "tensor_core"
+                else 16, max_abs_err=err, device_kernels=kernels,
+                ms=graph_ms(kern),
+                plain_ms=graph_ms(lambda: b2.tail_fused_reference(x, w, b)),
+                library_ms=graph_ms(lambda: torch.tanh(F.conv2d(
+                    F.pad(x_nchw, (3, 3, 3, 3), mode="reflect"), w_oihw,
+                    b_c))),
+                eager_ms=cuda_ms(kern), bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                cold_ms=cold_ms(kern, flush) if xs == B2_MAIN else None,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6))
+            del x, y, y_ref
+    hmma = sass_hmma()
+    tc = {k: v for k, v in hmma.items() if "tail_tc_kernel" in k}
+    check(bool(tc) and all(tc.values()),
+          f"B2 tensor-core kernels issue HMMA: {sorted(tc.values())} "
+          f"instructions in {len(tc)} instantiation(s)")
+    return rows, hmma
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +958,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b1_rows, b1_frame, b1_step, b1_worst = b1_phase(bw, gen)
     bwd_rows, bwd_step, bwd_worst = b1_bwd_phase(bw, gen)
-    b2_rows = b2_phase(bw, fp32_peak, bf16_peak, gen)
+    b2_rows, b2_hmma = b2_phase(bw, fp32_peak, bf16_peak, gen)
     d2s_rows, d2s_step = d2s_phase(bw, gen)
     up_rows = deconv_phase(gen)
     slices = [slice_phase(preset, SEED, card)
@@ -922,7 +967,10 @@ def main() -> int:
 
     serve = {s["preset"]: s["launches"] for s in slices}
     steps = train["launches_timed"]
-    b2 = b2_rows["bfloat16"]
+    b2 = next(r for r in b2_rows
+              if tuple(r["shape"]) == B2_MAIN and r["dtype"] == "bfloat16")
+    b2_fp32 = next(r for r in b2_rows
+                   if tuple(r["shape"]) == B2_MAIN and r["dtype"] == "float32")
     kernels = [
         kernel_entry(
             "instance_norm_act",
@@ -958,12 +1006,23 @@ def main() -> int:
              replaces="ir2rgb_tpu/kernels/tail_fused.py:189",
              launches=serve["pix2pixhd_512"]["tail_fused"],
              max_abs_err=b2["max_abs_err"],
-             max_abs_err_fp32=b2_rows["float32"]["max_abs_err"],
+             max_abs_err_fp32=b2_fp32["max_abs_err"],
              ms=b2["ms"], plain_ms=b2["plain_ms"],
              bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
              library_ms=b2["library_ms"], eager_ms=b2["eager_ms"],
-             per="one launch at (1,512,512,32), bf16; launches over 8 "
-                 "pix2pixhd_512 serving frames (not on the train path)"),
+             cold_ms=b2["cold_ms"],
+             per="one launch at (1,512,512,32), bf16 (tensor-core route); "
+                 "launches over 8 pix2pixhd_512 serving frames (not on the "
+                 "train path)",
+             device_kernels_per_call=max(r["device_kernels"]
+                                         for r in b2_rows),
+             sass_hmma_per_kernel=b2_hmma,
+             shapes=[{k: r[k] for k in ("shape", "dtype", "route",
+                                        "tile_rows", "max_abs_err", "ms",
+                                        "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by", "eager_ms", "cold_ms",
+                                        "device_kernels")}
+                     for r in b2_rows]),
         kernel_entry(
             "d2s", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
             "ir2rgb_tpu/kernels/d2s.py:100", steps["d2s"], d2s_step["d2s"],
@@ -992,10 +1051,15 @@ def main() -> int:
                   f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
                   f"eager {r['eager_ms']:.4f}{cold}; plan {r['plan']}, "
                   f"{r['device_kernels']} kernel/call")
-    for k, r in b2_rows.items():
-        print(f"  B2 {k:8s} ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
-              f"lib {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) eager {r['eager_ms']:.4f}")
+    for r in b2_rows:
+        cold = "" if r["cold_ms"] is None else f" cold-L2 {r['cold_ms']:.4f}"
+        print(f"  B2 {r['shape']} {r['dtype']:8s} ms {r['ms']:.4f} plain "
+              f"{r['plain_ms']:.4f} lib {r['library_ms']:.4f} bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) eager "
+              f"{r['eager_ms']:.4f}{cold}; {r['route']}, "
+              f"{r['tile_rows']} rows a tile, {r['device_kernels']} "
+              "kernel/call")
+    print(f"  B2 HMMA instructions per kernel (cuobjdump -sass): {b2_hmma}")
     for r in d2s_rows:
         print(f"  B3 {r['name']} {r['shape']} {r['dtype']:8s} ms "
               f"{r['ms']:.4f} plain {r['plain_ms']:.4f} lib "

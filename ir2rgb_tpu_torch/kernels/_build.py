@@ -42,8 +42,10 @@ _SIGNATURES = {
     "ir2rgb_instance_norm_max_clusters": [_I, _I, _I, _I, _I, _P],
     # src, dst, n, hs, ws, cw, unit_bytes, to_image, stream
     "ir2rgb_d2s": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w4, b, y, n, h, w, c, pix_stride, smem_bytes, is_bf16, stream
-    "ir2rgb_tail_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w4, b, y, n, h, w, c, pix_stride, smem_bytes, stream
+    "ir2rgb_tail_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, wfrag, b, y, n, h, w, c, th, smem_bytes, stream
+    "ir2rgb_tail_fused_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

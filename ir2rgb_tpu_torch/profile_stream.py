@@ -31,7 +31,7 @@ KINDS = [
     ("B1 instance_norm", ("in_fwd_",)),
     ("B3 d2s / s2d", ("d2s_kernel",)),
     ("optimizer (Adam)", ("multi_tensor_apply", "foreach", "Adam")),
-    ("B2 tail", ("tail_kernel",)),
+    ("B2 tail", ("tail_tc_kernel", "tail_kernel")),
     ("conv", ("conv", "gemm", "xmma", "cudnn", "sm90_", "cutlass",
               "implicit", "dgrad", "wgrad", "fprop")),
     ("reflect pad (index_select)", ("index", "gather")),

@@ -5,6 +5,7 @@ inputs. The CUDA kernels themselves are held to these plain versions on
 the card by chip_smoke.py; here the Python around them (launch plan,
 shared-memory layout, argument checks) is tested."""
 
+import gc
 import importlib
 
 import jax.numpy as jnp
@@ -256,6 +257,20 @@ def test_b1_phase_probe_stamps_every_phase_of_both_kernels():
     assert "ir2rgb_b1_stamps" in src
 
 
+def test_b2_phase_probe_stamps_every_phase_of_the_tensor_core_kernel():
+    # phases_b2 instruments a copy of the source by its lines: each of the
+    # four stamps lands once, inside tail_tc_kernel, the last one after a
+    # barrier at the kernel's end
+    from ir2rgb_tpu_torch import phases_b2
+    src = phases_b2.instrumented_source()
+    assert [src.count(f"b2_stamp({i});") for i in range(4)] == [1] * 4
+    body = src[src.index("tail_tc_kernel("):src.index("int launch_tc(")]
+    assert all(f"b2_stamp({i});" in body for i in range(4))
+    assert body.rstrip().endswith("__syncthreads();\n  b2_stamp(3);\n}\n\n"
+                                  "template <int KS, int TH>".rstrip())
+    assert "ir2rgb_b2_stamps" in src
+
+
 def _threads(p):
     """Threads per block of plan ``p``'s kernel: 256 on the tile route,
     512 on the L2 route (``Route`` in csrc/instance_norm.cu)."""
@@ -404,15 +419,183 @@ def test_b2_plain_matches_pallas_interpret(hs, c):
     np.testing.assert_allclose(y_p, y_j, atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("c", [16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_b2_shared_memory_layout(c, dtype):
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    pix_stride, smem = ptail._smem_layout(c, vec)
-    # an odd stride of 16-byte words puts neighbouring pixels in distinct
-    # banks; the window and the weights fit in one block's shared memory
-    assert pix_stride % 2 == 1 and pix_stride >= c // vec
-    assert smem <= ptail._SMEM_LIMIT
+    if dtype == torch.float32:
+        # CUDA-core route: an odd stride of 16-byte words puts neighbouring
+        # pixels in distinct banks; window and weights fit one block
+        pix_stride, smem = ptail._smem_layout(c)
+        assert pix_stride % 2 == 1 and pix_stride >= c // 4
+        assert smem == 16 * (22 * 22 * pix_stride + 49 * c)
+        assert smem <= ptail._SMEM_LIMIT
+        return
+    # tensor-core route: the 8 row addresses of an ldmatrix phase are 8
+    # neighbouring pixels, so an odd pixel stride (in 16-byte words) puts
+    # them in the 8 distinct 16-byte bank groups of a 128-byte row
+    th, words, smem = ptail.tc_layout(c)
+    assert words % 2 == 1 and words >= c // 8
+    assert sorted({(p * words) % 8 for p in range(8)}) == list(range(8))
+    # the (th + 6) x 38 window, then 7 warps' fp32 partials (12 B a pixel)
+    assert smem == 16 * (th + 6) * 38 * words + 7 * th * 32 * 12
+    # two blocks an SM, the taller tile where it fits
+    assert 2 * (smem + 1024) <= 233472
+    assert th == (8 if c == 64 else 16)
+
+
+def _tc_emulation(x, wk, b):
+    """The tensor-core route's arithmetic in float32 from the packed
+    fragments: for each kw, products of 16 channels (one k-step) summed in
+    fp32, accumulated in the kernel's order (kh pair p = 0..3 as the
+    window rows arrive, k-steps within), the even taps (kh = 2p) and odd
+    taps (kh = 2p + 1) apart and then added; the seven kw partials summed
+    in kw order; bias, tanh. Returns fp32 (before the bf16 store)."""
+    n, h, wd, c = x.shape
+    nks = c // 16
+    frag = wk.float().view(7, 4, nks, 8, 4, 4)  # [kw][p][ks][g][t][j]
+    bm = torch.zeros(7, 4, nks, 16, 8)          # [kw][p][ks][k][n]
+    for t in range(4):
+        for j, k in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+            bm[:, :, :, k, :] = frag[:, :, :, :, t, j]
+    xp = torch.nn.functional.pad(x.float().permute(0, 3, 1, 2), (3,) * 4,
+                                 mode="reflect").permute(0, 2, 3, 1)
+    y = None
+    for kw in range(7):
+        even = torch.zeros(n, h, wd, 4)
+        odd = torch.zeros(n, h, wd, 4)
+        for p in range(4):
+            for ks in range(nks):
+                ch = slice(16 * ks, 16 * ks + 16)
+                even = even + xp[:, 2 * p:2 * p + h, kw:kw + wd, ch] @ \
+                    bm[kw, p, ks, :, :4]
+                odd = odd + xp[:, 2 * p + 1:2 * p + 1 + h, kw:kw + wd, ch] @ \
+                    bm[kw, p, ks, :, 4:] if p < 3 else odd
+        y = even + odd if y is None else y + (even + odd)
+    return torch.tanh(y[..., :3] + b)
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_b2_tensor_core_arithmetic_matches_plain_and_jax(c):
+    # bf16 operands (x and w rounded to bf16 first), fp32 accumulation in
+    # the kernel's order, from the packed weights the wrapper builds. The
+    # plain version and JAX take the same bf16 values in fp32; they differ
+    # only in summation order: atol 2e-5, as the JAX package's own test.
+    # JAX: the Pallas kernel in interpret mode at C 32 and 64 (the widths
+    # it takes), the generator's composed tail (reflect pad, conv, tanh;
+    # ir2rgb_tpu/nn/generators.py:586-590) at C 16.
+    from ir2rgb_tpu.nn import ops as jops
+    x, w, b = _tail_inputs(32, c, seed=c)  # 64x64: the Pallas minimum
+    x = torch.from_numpy(x).bfloat16().float()
+    w = torch.from_numpy(w).bfloat16().float()
+    b = torch.from_numpy(b)
+    wk, b32 = ptail.packed(w, b, torch.bfloat16)
+    y_e = _tc_emulation(x, wk, b32)
+    y_p = ptail.tail_fused_reference(x, w, b)
+    np.testing.assert_allclose(y_e.numpy(), y_p.numpy(), atol=2e-5, rtol=0)
+    xj, wj, bj = (jnp.asarray(t.numpy()) for t in (x, w, b))
+    if c == 16:
+        y_j = jnp.tanh(jops.conv_apply({"w": wj, "b": bj},
+                                       jops.reflect_pad(xj, 3)))
+    else:
+        y_j = jax_tail_fused(to_s2d(xj), wj, bj, tile=16, interpret=True)
+    np.testing.assert_allclose(y_e.numpy(), np.asarray(y_j), atol=2e-5,
+                               rtol=0)
+    # in bf16, as the kernel stores it: within one rounding of the plain
+    # version's bf16 output
+    y_b = ptail.tail_fused_reference(x.bfloat16(), w, b).float()
+    assert float((y_e.bfloat16().float() - y_b).abs().max()) <= 2 ** -8
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_b2_fragment_packing_layout(c):
+    # each packed bf16 value against the HWIO weight at its index: lane
+    # l = 4g + t of (kw, pair p, k-step ks) holds rows 2t, 2t+1, 2t+8,
+    # 2t+9 of column g; column n is output n % 4 of tap kh = 2p + n // 4
+    w = torch.from_numpy(np.random.RandomState(c).randn(7, 7, c, 3)
+                         .astype(np.float32)).bfloat16()
+    wk = ptail.pack_fragments(w)
+    assert wk.shape == (7, 4, c // 16, 32, 4) and wk.dtype == torch.bfloat16
+    assert wk.is_contiguous()
+    got, want = wk.float().numpy(), np.zeros(wk.shape, np.float32)
+    wn = w.float().numpy()
+    for kw in range(7):
+        for p in range(4):
+            for ks in range(c // 16):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    kh, o = 2 * p + g // 4, g % 4
+                    for j, k in enumerate((2 * t, 2 * t + 1, 2 * t + 8,
+                                           2 * t + 9)):
+                        if kh < 7 and o < 3:
+                            want[kw, p, ks, lane, j] = wn[kh, kw,
+                                                          16 * ks + k, o]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("c", [8, 24, 48, 128])
+def test_b2_route_refuses_bf16_widths_the_kernel_does_not_take(c):
+    x = torch.zeros((1, 32, 32, c), device="meta", dtype=torch.bfloat16)
+    w = torch.zeros((7, 7, c, 3), device="meta")
+    b = torch.zeros(3, device="meta")
+    with pytest.raises(ValueError, match="C in"):
+        ptail.route(x, w, b)
+    with pytest.raises(ValueError, match="C in"):
+        ptail.tail_fused(x, w, b)
+
+
+def test_b2_route_by_dtype_and_width():
+    def r(c, dtype):
+        return ptail.route(torch.zeros((2, 72, 40, c), device="meta",
+                                       dtype=dtype),
+                           torch.zeros((7, 7, c, 3), device="meta"),
+                           torch.zeros(3, device="meta"))
+    assert [r(c, torch.bfloat16) for c in (16, 32, 64)] == ["tensor_core"] * 3
+    assert [r(c, torch.float32) for c in (16, 32, 64)] == ["cuda_core"] * 3
+    with pytest.raises(TypeError):
+        r(32, torch.float16)
+    with pytest.raises(ValueError):
+        ptail.route(torch.zeros((1, 3, 40, 32), device="meta"),
+                    torch.zeros((7, 7, 32, 3), device="meta"),
+                    torch.zeros(3, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_packed_weights_are_kept_until_the_weight_changes(dtype):
+    # as the serving generator passes them: the conv's weight as an HWIO
+    # view, its bias, under inference mode
+    conv = torch.nn.Conv2d(32, 3, 7)
+    with torch.inference_mode():
+        def get():
+            return ptail.packed(conv.weight.permute(2, 3, 1, 0), conv.bias,
+                                dtype)
+        first = get()
+        assert get() is first
+        assert ptail.packed(conv.weight.permute(2, 3, 1, 0), conv.bias,
+                            torch.float32 if dtype == torch.bfloat16
+                            else torch.bfloat16) is not first
+    assert not first[0].is_inference() and not first[1].is_inference()
+    assert not first[0].requires_grad and not first[1].requires_grad
+    assert first[1].dtype == torch.float32
+    with torch.no_grad():
+        conv.weight.add_(1.0)  # in place: the version counter moves
+    with torch.inference_mode():
+        second = get()
+        assert second is not first and get() is second
+    w_hwio = conv.weight.detach().permute(2, 3, 1, 0)
+    want = (ptail.pack_fragments(w_hwio.bfloat16())
+            if dtype == torch.bfloat16
+            else torch.nn.functional.pad(w_hwio.reshape(-1, 3), (0, 1)))
+    assert torch.equal(second[0], want)
+    with torch.no_grad():
+        conv.bias.mul_(2.0)
+    with torch.inference_mode():
+        third = get()
+    assert third is not second and torch.equal(third[1], conv.bias.detach())
+    # the entry goes with the weight: nothing kept refers back to it
+    kept = len(ptail._kept)
+    del conv, get
+    gc.collect()
+    assert len(ptail._kept) == kept - 1
 
 
 def test_plain_versions_do_not_count_as_launches():
@@ -641,3 +824,15 @@ def test_subpixel_gather_is_a_permutation():
     from ir2rgb_tpu_torch.nn import ops
     idx = ops._subpixel_index(8, 4, 3, 1, torch.device("cpu"))
     assert torch.equal(idx.sort().values, torch.arange(16 * 8 * 4))
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::tail_tc_kernel<2, 16>(__nv_bfloat16 "
+    "const*, uint2 const*, float const*, __nv_bfloat16*, int, int)",
+    "_ZN46_GLOBAL__N__39f2cccf_13_tail_fused_cu_f1deaeed14tail_tc_kernel"
+    "ILi4ELi8EEEvPK13__nv_bfloat16PK5uint2PKfPS1_ii",
+    "void (anonymous namespace)::tail_kernel(float const*, float4 const*, "
+    "float const*, float*, int, int, int, int)"])
+def test_profile_stream_counts_both_b2_routes_as_the_output_tail(name):
+    from ir2rgb_tpu_torch.profile_stream import kind_of
+    assert kind_of(name) == "B2 tail"
