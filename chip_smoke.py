@@ -7,31 +7,38 @@ Phases, each failing the run if it fails:
 
 1. build the hand-written kernels from ir2rgb_tpu_torch/kernels/csrc;
 2. B1 forward (fused instance norm + act): every shape and activation of
-   the pix2pixhd_512 generator and discriminator, bf16 and fp32, held to
-   its plain version on the card, and timed beside the plain version,
+   the pix2pixhd_512 generator and discriminator and of every served
+   preset's generator (``SERVE``), bf16 and fp32, held to its plain
+   version on the card, and timed beside the plain version,
    ``F.instance_norm`` + act (a yardstick the port never calls) and the
    card's bound; with each shape's plan (group width, cluster size,
-   shared memory per block, route), its device kernels per call read
-   with torch.profiler (must be 1), and for the four largest shapes the
-   time on a cold L2;
-3. B1 backward: the same shapes, dx held to the plain backward, timed
-   beside it and the autograd backward of ``F.instance_norm`` + act,
-   with the same plan, kernel count and cold-L2 readings;
+   shared memory per block, route), its device kernels per call (the
+   nodes of a CUDA graph captured around one call; must be 1), and for
+   the four largest shapes of the train step the time on a cold L2;
+3. B1 backward: the train step's shapes, dx held to the plain backward,
+   timed beside it and the autograd backward of ``F.instance_norm`` +
+   act, with the same plan, kernel count and cold-L2 readings;
 4. B2 (output tail): the same at every preset's tail shape and a ragged
    batch-2 shape (``B2_SHAPES``), bf16 (the tensor-core route) and fp32
    (the CUDA-core route), yardstick ``F.pad(reflect)`` + ``F.conv2d`` +
    tanh; device kernels per call (must be 1), a cold-L2 time at the main
    path's shape, and the HMMA instructions of the built tensor-core
    kernels (``cuobjdump -sass``, must be > 0);
-5. B3 d2s and s2d at the five ups' shapes, exact against the plain
-   permutation, yardstick ``view/permute/contiguous``; and each up timed
-   as the subpixel conv + d2s against ``F.conv_transpose2d``;
-6. pix2pixhd_512, then 7. temporal_512 serving: full-width generators
-   with weights drawn from a numpy seed, 8 uint8 frames through
-   ``StreamingGenerator.stream`` in bf16 with the kernels' launch counts
-   read around the run; an fp32 card run (TF32 off) held to the port's
-   fp32 CPU run; the bf16 run's PSNR against fp32; ms/frame at batch 1;
-8. the pix2pixhd_512 train step at full width, 512x512, batch 1: 12 bf16
+5. B3 d2s and s2d at the five ups' shapes, and d2s at every other served
+   preset's ups, exact against the plain permutation, yardstick
+   ``view/permute/contiguous``; and each up (the five k3 ups, the
+   U-Net's eight k4 ups) timed as the subpixel conv + d2s against
+   ``F.conv_transpose2d``;
+6. serving, one phase per preset: pix2pixhd_512 and temporal_512, then
+   resnet9_256, temporal_256, pix2pixhd_global_512, pix2pixhd_1024,
+   temporal_1024, pix2pixhd_2048 and pix2pix_unet256. Full-width
+   generators with weights drawn from a numpy seed, 8 uint8 frames of
+   the preset's crop size through ``StreamingGenerator.stream`` in bf16
+   with the kernels' launch counts read around the run (``per_frame``);
+   an fp32 card run (TF32 off) held to the port's fp32 CPU run (the
+   main path's two at 512x512, the others at 256x256); the bf16 run's
+   PSNR against fp32; ms/frame at batch 1;
+7. the pix2pixhd_512 train step at full width, 512x512, batch 1: 12 bf16
    steps across the coarse-to-fine unfreeze (the trunk frozen through
    step 9, moving from step 10), the launch counts of each step, 10
    timed unfrozen steps in bf16 and in fp32, peak memory; the bf16 first
@@ -39,8 +46,8 @@ Phases, each failing the run if it fails:
    port's fp32 CPU step at full width on 256x256 inputs (losses and every
    gradient tensor).
 
-It prints the card (``nvidia-smi`` name and power limit), one JSON line
-of kernel results, and last ``{"ok": true, "device": {...}}``. Without a
+It prints each phase's seconds, the card (``nvidia-smi`` name and power
+limit), one JSON line of kernel results, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the ir2rgb_tpu_torch package beside it, it exits
 non-zero and prints no result.
 """
@@ -48,6 +55,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import importlib
 import json
@@ -84,7 +92,6 @@ B1_MAIN_PATH = {
     ((1, 16, 16, 1024), "none"): 9,
     ((1, 512, 512, 32), "relu"): 2,
 }
-B1_PER_FRAME = sum(B1_MAIN_PATH.values())
 # one pass of the multiscale D on a 512x512 pair: scale 0, then scale 1
 B1_D_PASS = {
     ((1, 129, 129, 128), "leaky_relu"): 1,
@@ -105,14 +112,94 @@ D2S_MAIN_PATH = [((1, 16, 16, 2048), 512), ((1, 32, 32, 1024), 256),
 PER_STEP = {"instance_norm_act": sum(B1_FWD_PER_STEP.values()),
             "instance_norm_act_bwd": sum(B1_BWD_PER_STEP.values()),
             "tail_fused": 0, "d2s": 5, "s2d": 5}
-PER_FRAME = {"instance_norm_act": B1_PER_FRAME, "instance_norm_act_bwd": 0,
-             "tail_fused": 1, "d2s": 5, "s2d": 0}
-# B2's x at every preset's tail: pix2pixhd_512 and temporal_512 (the main
-# path), global_512 (ngf 64), the 1024 presets, the 2048 preset (two
-# enhancers, ngf 16); then a ragged batch-2 shape for the edge tiles
-B2_SHAPES = [(1, 512, 512, 32), (1, 512, 512, 64), (1, 1024, 1024, 32),
-             (1, 2048, 2048, 16), (2, 72, 40, 32)]
-B2_MAIN = B2_SHAPES[0]
+
+# What one served frame sends to each kernel, per preset: B1 (shape, act)
+# -> count, B2's x shapes, B3 d2s (phase tensor shape, C) in order.
+# tests/test_torch_port_serve_zoo.py holds these to a meta-device forward.
+_RESNET9_256 = dict(
+    b1={((1, 256, 256, 64), "relu"): 2, ((1, 128, 128, 128), "relu"): 2,
+        ((1, 64, 64, 256), "relu"): 10, ((1, 64, 64, 256), "none"): 9},
+    tail=[(1, 256, 256, 64)],
+    d2s=[((1, 64, 64, 512), 128), ((1, 128, 128, 256), 64)])
+# the global trunk at 512x512 (global_512, and the 1024 / 2048 presets')
+_TRUNK_512_B1 = {((1, 512, 512, 64), "relu"): 2,
+                 ((1, 256, 256, 128), "relu"): 2,
+                 ((1, 128, 128, 256), "relu"): 2,
+                 ((1, 64, 64, 512), "relu"): 2,
+                 ((1, 32, 32, 1024), "relu"): 10,
+                 ((1, 32, 32, 1024), "none"): 9}
+_TRUNK_512_D2S = [((1, 32, 32, 2048), 512), ((1, 64, 64, 1024), 256),
+                  ((1, 128, 128, 512), 128), ((1, 256, 256, 256), 64)]
+
+
+def _with_enhancer(b1: dict, hw: int, ngf_n: int, blocks: int = 3) -> dict:
+    """``b1`` plus an enhancer level at ``hw``: down0 and the up at
+    (hw, ngf_n), down1 and the blocks at (hw / 2, 2 ngf_n)."""
+    out = dict(b1)
+    for key, n in ((((1, hw, hw, ngf_n), "relu"), 2),
+                   (((1, hw // 2, hw // 2, 2 * ngf_n), "relu"), 1 + blocks),
+                   (((1, hw // 2, hw // 2, 2 * ngf_n), "none"), blocks)):
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+_MAIN_512 = dict(b1=B1_MAIN_PATH, tail=[(1, 512, 512, 32)],
+                 d2s=D2S_MAIN_PATH)
+_LOCAL_1024 = dict(b1=_with_enhancer(_TRUNK_512_B1, 1024, 32),
+                   tail=[(1, 1024, 1024, 32)],
+                   d2s=_TRUNK_512_D2S + [((1, 512, 512, 128), 32)])
+SERVE = {
+    "pix2pixhd_512": _MAIN_512,
+    "temporal_512": _MAIN_512,
+    "resnet9_256": _RESNET9_256,
+    "temporal_256": _RESNET9_256,
+    "pix2pixhd_global_512": dict(b1=_TRUNK_512_B1, tail=[(1, 512, 512, 64)],
+                                 d2s=_TRUNK_512_D2S),
+    "pix2pixhd_1024": _LOCAL_1024,
+    "temporal_1024": _LOCAL_1024,
+    "pix2pixhd_2048": dict(
+        b1=_with_enhancer(_with_enhancer(_TRUNK_512_B1, 1024, 32), 2048, 16),
+        tail=[(1, 2048, 2048, 16)],
+        d2s=_TRUNK_512_D2S + [((1, 512, 512, 128), 32),
+                              ((1, 1024, 1024, 64), 16)]),
+    # every U-Net norm takes no activation: 6 on the way down, 7 up
+    "pix2pix_unet256": dict(
+        b1={((1, 64, 64, 128), "none"): 2, ((1, 32, 32, 256), "none"): 2,
+            ((1, 16, 16, 512), "none"): 2, ((1, 8, 8, 512), "none"): 2,
+            ((1, 4, 4, 512), "none"): 2, ((1, 2, 2, 512), "none"): 2,
+            ((1, 128, 128, 64), "none"): 1},
+        tail=[],
+        d2s=[((1, 1, 1, 2048), 512), ((1, 2, 2, 2048), 512),
+             ((1, 4, 4, 2048), 512), ((1, 8, 8, 2048), 512),
+             ((1, 16, 16, 1024), 256), ((1, 32, 32, 512), 128),
+             ((1, 64, 64, 256), 64), ((1, 128, 128, 12), 3)]),
+}
+# the U-Net's k4 ups as the deconv phase times them: (input shape, cout)
+UNET_UPS = [((1, 1, 1, 512), 512), ((1, 2, 2, 1024), 512),
+            ((1, 4, 4, 1024), 512), ((1, 8, 8, 1024), 512),
+            ((1, 16, 16, 1024), 256), ((1, 32, 32, 512), 128),
+            ((1, 64, 64, 256), 64), ((1, 128, 128, 128), 3)]
+
+
+def per_frame(preset: str) -> dict:
+    """Kernel launches of one served frame of ``preset``."""
+    t = SERVE[preset]
+    return {"instance_norm_act": sum(t["b1"].values()),
+            "instance_norm_act_bwd": 0, "tail_fused": len(t["tail"]),
+            "d2s": len(t["d2s"]), "s2d": 0}
+
+
+# B1 forward shapes that only serving runs (the train step's are above)
+B1_SERVE_ONLY = sorted({k for t in SERVE.values() for k in t["b1"]}
+                       - set(B1_FWD_PER_STEP))
+# B2's x at every preset's tail, then a ragged batch-2 shape for the edge
+# tiles and the batch index
+B2_MAIN = (1, 512, 512, 32)
+B2_SHAPES = sorted({x for t in SERVE.values() for x in t["tail"]}) + [
+    (2, 72, 40, 32)]
+# B3 d2s shapes that only serving runs, beyond the train step's five ups
+D2S_SERVE_ONLY = sorted({k for t in SERVE.values() for k in t["d2s"]}
+                        - set(D2S_MAIN_PATH))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
@@ -214,23 +301,31 @@ def dtype_name(dtype) -> str:
 # Kernel phases
 # ---------------------------------------------------------------------------
 
-def device_kernels(fn, tries: int = 3) -> int:
-    """Device kernels (and copies) one call of ``fn`` runs on the card,
-    read with torch.profiler around that call. A profiler run that records
-    no device activity at all (the tracer can miss a short run's only
-    kernel) is read again, up to ``tries`` times."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+def device_kernels(fn) -> int:
+    """Device kernels (and copies and memsets) one call of ``fn`` puts on
+    the card: the nodes of a CUDA graph captured around that call, counted
+    with the driver's ``cuGraphGetNodes``. Capture fails if ``fn`` launches
+    on any other stream, so nothing it runs goes uncounted, and unlike a
+    profiler trace the count does not depend on the tracer catching a
+    short run's activity."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: builds, caches and the allocator's pool
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # an empty graph is a count of 0
+        with torch.cuda.graph(graph):
             fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
-            return n
-    return 0
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    rc = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                 None, ctypes.byref(count))
+    graph.reset()
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned CUresult {rc}")
+    return count.value
 
 
 def cold_ms(fn, flush: torch.Tensor) -> float:
@@ -269,7 +364,7 @@ def b1_phase(bw: float, gen: torch.Generator):
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for (shape, act) in B1_FWD_PER_STEP:
+    for (shape, act) in list(B1_FWD_PER_STEP) + B1_SERVE_ONLY:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
                  + 1).to(dtype)
@@ -296,7 +391,8 @@ def b1_phase(bw: float, gen: torch.Generator):
                 key=(shape, act), shape=list(shape), act=act,
                 dtype=dtype_name(dtype), per_frame=B1_MAIN_PATH.get(
                     (shape, act), 0),
-                per_step=B1_FWD_PER_STEP[(shape, act)], max_abs_err=err,
+                per_step=B1_FWD_PER_STEP.get((shape, act), 0),
+                max_abs_err=err,
                 plan=plan_text(b1.plan_for(x)), device_kernels=kernels,
                 ms=graph_ms(kern),
                 plain_ms=graph_ms(
@@ -305,8 +401,8 @@ def b1_phase(bw: float, gen: torch.Generator):
                     lambda: act_fn(F.instance_norm(x_nchw, eps=1e-5), act)),
                 eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3,
                 cold_ms=cold_ms(kern, flush) if shape in B1_COLD else None))
-    return (rows, per_path_totals(rows, B1_MAIN_PATH),
-            per_path_totals(rows, B1_FWD_PER_STEP), worst)
+    by_preset = {p: per_path_totals(rows, t["b1"]) for p, t in SERVE.items()}
+    return (rows, by_preset, per_path_totals(rows, B1_FWD_PER_STEP), worst)
 
 
 def b1_bwd_phase(bw: float, gen: torch.Generator):
@@ -365,11 +461,13 @@ def b1_bwd_phase(bw: float, gen: torch.Generator):
 
 
 def d2s_phase(bw: float, gen: torch.Generator):
-    """B3 both ways at the five ups' shapes: exact against the plain
+    """B3 at the five ups' shapes both ways and at the served presets'
+    other ups (d2s, the serving direction): exact against the plain
     permutation, timed beside it and view/permute/contiguous."""
     from ir2rgb_tpu_torch.kernels import d2s as b3
     rows = []
-    for (n, h, w, c4), c in D2S_MAIN_PATH:
+    for (n, h, w, c4), c in D2S_MAIN_PATH + D2S_SERVE_ONLY:
+        both = ((n, h, w, c4), c) in D2S_MAIN_PATH
         for dtype in (torch.bfloat16, torch.float32):
             y = torch.randn((n, h, w, c4), generator=gen,
                             device="cuda").to(dtype)
@@ -383,7 +481,7 @@ def d2s_phase(bw: float, gen: torch.Generator):
                     ("s2d", x, lambda: b3.s2d(x),
                      lambda: b3.s2d_reference(x),
                      lambda: x.view(n, h, 2, w, 2, c).permute(
-                         0, 1, 3, 2, 4, 5).contiguous())):
+                         0, 1, 3, 2, 4, 5).contiguous()))[:2 if both else 1]:
                 out, want = kern(), plain()
                 torch.cuda.synchronize()
                 exact = torch.equal(out, want)
@@ -402,35 +500,43 @@ def d2s_phase(bw: float, gen: torch.Generator):
     counts = {key: 1 for key in D2S_MAIN_PATH}
     totals = {name: per_path_totals([r for r in rows if r["name"] == name],
                                     counts) for name in ("d2s", "s2d")}
-    return rows, totals
+    d2s_rows = [r for r in rows if r["name"] == "d2s"]
+    by_preset = {p: per_path_totals(d2s_rows, {k: t["d2s"].count(k)
+                                               for k in t["d2s"]})
+                 for p, t in SERVE.items()}
+    return rows, totals, by_preset
 
 
 def deconv_phase(gen: torch.Generator):
     """Each up as the port runs it (subpixel conv + B3 d2s + bias, the
     rearranged weight kept) against ``F.conv_transpose2d``, in inference
-    at batch 1."""
+    at batch 1: the five k3 ups of the main path and the U-Net's eight k4
+    ups."""
     from ir2rgb_tpu_torch.nn import Deconv, ops
     rows = []
-    for (n, h, w, c4), c in D2S_MAIN_PATH:
+    ups = ([((n, h, w, 2 * c), c, 3) for (n, h, w, _), c in D2S_MAIN_PATH]
+           + [(xs, c, 4) for xs, c in UNET_UPS])
+    for (n, h, w, cin), c, k in ups:
+        geometry = dict(padding=1, output_padding=1 if k == 3 else 0)
         for dtype in (torch.bfloat16, torch.float32):
             # built outside inference mode, so that its weight is a normal
             # tensor whose rearranged copy the module keeps, as in serving
-            up = Deconv(2 * c, c).to("cuda", dtype,
-                                     memory_format=torch.channels_last)
-            x = torch.randn((n, h, w, 2 * c), generator=gen,
+            up = Deconv(cin, c, k, **geometry).to(
+                "cuda", dtype, memory_format=torch.channels_last)
+            x = torch.randn((n, h, w, cin), generator=gen,
                             device="cuda").to(dtype)
             with torch.inference_mode():
                 sub = lambda: up(x)  # noqa: E731
                 dil = lambda: ops.deconv(  # noqa: E731
-                    x, up.weight, up.bias, lowering="dilated")
+                    x, up.weight, up.bias, lowering="dilated", **geometry)
                 a, b = sub(), dil()
                 torch.cuda.synchronize()
                 err = float((a.float() - b.float()).abs().max()) / float(
                     b.float().abs().max())
-                check(err <= TOL[dtype], f"up {(n, h, w, 2 * c)}->{c} "
+                check(err <= TOL[dtype], f"up k{k} {(n, h, w, cin)}->{c} "
                       f"{dtype_name(dtype)}: subpixel vs conv_transpose2d "
                       f"{err:.3g} of max (tol {TOL[dtype]})")
-                rows.append(dict(shape=[n, h, w, 2 * c], cout=c,
+                rows.append(dict(shape=[n, h, w, cin], cout=c, k=k,
                                  dtype=dtype_name(dtype), rel_err=err,
                                  subpixel_ms=graph_ms(sub),
                                  conv_transpose_ms=graph_ms(dil),
@@ -545,7 +651,11 @@ def make_model(preset: str, dtype: str, device: str, sd):
     return model
 
 
-def slice_phase(preset: str, seed: int, card: str):
+def slice_phase(preset: str, seed: int, card: str, cmp_size=None):
+    """Serve ``preset`` at full width and its crop size: uint8 frames
+    through the stream in bf16 with the launches counted, the fp32 card
+    held to the fp32 CPU on ``cmp_size``-square frames (the crop size
+    when None), bf16 against fp32 there, and ms/frame at batch 1."""
     from ir2rgb_tpu_torch.infer import StreamingGenerator
     from ir2rgb_tpu_torch.infer.stream import _dev_normalize
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -555,9 +665,16 @@ def slice_phase(preset: str, seed: int, card: str):
     bf16.netG.load_state_dict(sd)
     temporal = bf16.cfg.model.model == "temporal"
     hw = (bf16.cfg.data.crop_size,) * 2
+    in_nc = bf16.cfg.model.input_nc
     rng = np.random.default_rng(seed + 1)
-    frames = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+    frames = [rng.integers(0, 256, hw + (in_nc,), dtype=np.uint8)
               for _ in range(N_FRAMES)]
+    cmp_hw = hw if cmp_size is None else (cmp_size, cmp_size)
+    cmp_frames = frames if cmp_size is None else [
+        rng.integers(0, 256, cmp_hw + (in_nc,), dtype=np.uint8)
+        for _ in range(3)]
+    res["cmp_hw"] = list(cmp_hw)
+    want = per_frame(preset)
 
     # the main path: uint8 frames through the pipelined stream, bf16,
     # after two frames of warmup (cuDNN picks its algorithms)
@@ -580,9 +697,9 @@ def slice_phase(preset: str, seed: int, card: str):
     check(all(o.shape == hw + (3,) and o.dtype == np.uint8 for o in outs)
           and len(outs) == N_FRAMES,
           f"{preset}: {len(outs)} uint8 frames of {hw + (3,)}")
-    check(counts == {k: v * N_FRAMES for k, v in PER_FRAME.items()},
+    check(counts == {k: v * N_FRAMES for k, v in want.items()},
           f"{preset}: launches {counts} over {N_FRAMES} frames "
-          f"(want {PER_FRAME} per frame)")
+          f"(want {want} per frame)")
     if temporal:
         check(all(carry_on_card), f"{preset}: carry stayed on the card")
 
@@ -594,11 +711,11 @@ def slice_phase(preset: str, seed: int, card: str):
     n_cmp = 3 if temporal else 1
     fp32 = make_model(preset, "float32", "cuda", sd)
     cpu = make_model(preset, "float32", "cpu", sd)
-    s_cpu = StreamingGenerator(cpu, hw)
-    free_gpu, free_bf = StreamingGenerator(fp32, hw), StreamingGenerator(
-        bf16, hw)
+    s_cpu = StreamingGenerator(cpu, cmp_hw)
+    free_gpu, free_bf = StreamingGenerator(fp32, cmp_hw), StreamingGenerator(
+        bf16, cmp_hw)
     errs, psnrs, drift, drift_psnr = [], [], [], []
-    for f in frames[:n_cmp]:
+    for f in cmp_frames[:n_cmp]:
         a = _dev_normalize(torch.from_numpy(f[None]))
         prev = s_cpu.carry
         y_cpu = s_cpu.push_device(a)
@@ -614,11 +731,12 @@ def slice_phase(preset: str, seed: int, card: str):
     res.update(fp32_card_vs_cpu_max_abs=errs, bf16_vs_fp32_psnr_db=psnrs,
                free_running_fp32_card_vs_cpu_max_abs=drift,
                free_running_bf16_vs_fp32_psnr_db=drift_psnr)
+    at = f"{cmp_hw[0]}x{cmp_hw[1]}"
     check(max(errs) <= SLICE_FP32_TOL,
           f"{preset}: fp32 card vs fp32 CPU max-abs {max(errs):.3g} over "
-          f"{n_cmp} frame(s) (tol {SLICE_FP32_TOL})")
+          f"{n_cmp} frame(s) at {at} (tol {SLICE_FP32_TOL})")
     check(min(psnrs) >= BF16_MIN_PSNR,
-          f"{preset}: bf16 vs fp32 PSNR {min(psnrs):.2f} dB "
+          f"{preset}: bf16 vs fp32 PSNR {min(psnrs):.2f} dB at {at} "
           f"(bar {BF16_MIN_PSNR})")
     if temporal:
         print(f"{preset}: free-running streams, frame by frame: fp32 card "
@@ -955,15 +1073,29 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {so.name} in {build_s:.1f} s", flush=True)
 
+    seconds = {}
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    b1_rows, b1_frame, b1_step, b1_worst = b1_phase(bw, gen)
-    bwd_rows, bwd_step, bwd_worst = b1_bwd_phase(bw, gen)
-    b2_rows, b2_hmma = b2_phase(bw, fp32_peak, bf16_peak, gen)
-    d2s_rows, d2s_step = d2s_phase(bw, gen)
-    up_rows = deconv_phase(gen)
-    slices = [slice_phase(preset, SEED, card)
-              for preset in ("pix2pixhd_512", "temporal_512")]
-    train = train_phase(card)
+    b1_rows, b1_frame, b1_step, b1_worst = phase("B1", b1_phase, bw, gen)
+    bwd_rows, bwd_step, bwd_worst = phase("B1 bwd", b1_bwd_phase, bw, gen)
+    b2_rows, b2_hmma = phase("B2", b2_phase, bw, fp32_peak, bf16_peak, gen)
+    d2s_rows, d2s_step, d2s_frame = phase("B3", d2s_phase, bw, gen)
+    up_rows = phase("ups", deconv_phase, gen)
+    # the main path's two presets at their crop size, then every other
+    # served preset, held to the CPU on 256x256 frames (every generator
+    # here divides 256)
+    slices = [phase(p, slice_phase, p, SEED, card)
+              for p in ("pix2pixhd_512", "temporal_512")]
+    slices += [phase(p, slice_phase, p, SEED, card, cmp_size=256)
+               for p in SERVE if p not in ("pix2pixhd_512", "temporal_512")]
+    train = phase("train", train_phase, card)
 
     serve = {s["preset"]: s["launches"] for s in slices}
     steps = train["launches_timed"]
@@ -984,7 +1116,7 @@ def main() -> int:
                                         for r in b1_rows),
             l2_route=sorted({str(r["shape"]) for r in b1_rows
                              if r["plan"].endswith("l2")}),
-            per_serving_frame={k: b1_frame[k] for k in b1_frame},
+            per_serving_frame_by_preset=b1_frame,
             launches_by_path=dict(serve_8_frames={
                 p: c["instance_norm_act"] for p, c in serve.items()},
                 train_10_steps=steps["instance_norm_act"])),
@@ -1016,6 +1148,8 @@ def main() -> int:
                  "train path)",
              device_kernels_per_call=max(r["device_kernels"]
                                          for r in b2_rows),
+             launches_by_path=dict(serve_8_frames={
+                 p: c["tail_fused"] for p, c in serve.items()}),
              sass_hmma_per_kernel=b2_hmma,
              shapes=[{k: r[k] for k in ("shape", "dtype", "route",
                                         "tile_rows", "max_abs_err", "ms",
@@ -1028,6 +1162,7 @@ def main() -> int:
             "ir2rgb_tpu/kernels/d2s.py:100", steps["d2s"], d2s_step["d2s"],
             max(r["max_abs_err"] for r in d2s_rows if r["name"] == "d2s"),
             "the five ups of one frame or step, bf16",
+            per_serving_frame_by_preset=d2s_frame,
             launches_by_path=dict(serve_8_frames={
                 p: c["d2s"] for p, c in serve.items()},
                 train_10_steps=steps["d2s"])),
@@ -1066,11 +1201,17 @@ def main() -> int:
               f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} eager "
               f"{r['eager_ms']:.4f}")
     for r in up_rows:
-        print(f"  up {r['shape']}->{r['cout']} {r['dtype']:8s} subpixel "
+        print(f"  up k{r['k']} {r['shape']}->{r['cout']} {r['dtype']:8s} "
+              "subpixel "
               f"{r['subpixel_ms']:.4f} conv_transpose "
               f"{r['conv_transpose_ms']:.4f} (eager "
               f"{r['subpixel_eager_ms']:.4f} / "
               f"{r['conv_transpose_eager_ms']:.4f}) rel {r['rel_err']:.2g}")
+    for p, t in b1_frame.items():
+        print(f"  {p} per frame, bf16: B1 {t['ms']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f}), B3 d2s {d2s_frame[p]['ms']:.4f} ms "
+              f"(bound {d2s_frame[p]['bound_ms']:.4f})")
+    print("phase seconds " + json.dumps(seconds))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

@@ -1,9 +1,11 @@
-"""Inference — single-frame apply and batch-1 streaming (the serving half of
-``ir2rgb_tpu/infer/stream.py``).
+"""Inference — single-frame apply, batch-1 streaming and whole clips (the
+port of ``ir2rgb_tpu/infer/stream.py``).
 
 - The uint8 wire: frames cross host<->device as uint8 and are normalised
   and quantised on the device, bit-identically to the JAX package
-  (``_dev_normalize``, ``_dev_quantize``, ``host_to_wire_u8``).
+  (``_dev_normalize``, ``_dev_quantize``, ``host_to_wire_u8``). A label
+  model's frames are class ids: they go to the device as raw ids, not
+  normalised, and ``generate`` one-hot encodes them.
 - The temporal carry (the last ``n_frames_g - 1`` generated frames, fp32)
   never leaves the device.
 - ``stream`` is a depth-1 pipeline: frame t is uploaded and its forward
@@ -82,6 +84,9 @@ class StreamingGenerator:
         self.model = model
         cfgm = model.cfg.model
         self.temporal = cfgm.model == "temporal"
+        # label frames carry class ids: the uint8 wire is not normalised
+        self._norm = ((lambda a: a.to(torch.float32)) if cfgm.label_nc > 0
+                      else _dev_normalize)
         self.carry_c = cfgm.output_nc * model.n_prev
         self.out_nc = cfgm.output_nc
         self.device = model.device
@@ -98,9 +103,20 @@ class StreamingGenerator:
     def carry(self) -> Optional[torch.Tensor]:
         return self._carry
 
-    def push_device(self, a: torch.Tensor) -> torch.Tensor:
+    def push_device(self, a: torch.Tensor,
+                    feat: Optional[torch.Tensor] = None,
+                    edges: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Device-in device-out step: NHWC ``a`` on the model's device ->
-        the generated frame in the compute dtype."""
+        the generated frame in the compute dtype. ``edges``: the
+        (B, H, W, 1) instance-boundary map of a single-frame
+        ``use_instance_edges`` model (JAX's ``step_extra``); ``feat``, the
+        netE feature map, is not ported yet."""
+        if feat is not None or edges is not None:
+            if self.temporal:
+                raise ValueError(
+                    "feature/edge maps are a pix2pixHD (single-frame) "
+                    "test surface; temporal streaming has no such input")
+            return self.model.generate(a, feat=feat, edges=edges)
         if not self.temporal:
             return self.model.generate(a)
         fake = self.model.generate(a, prev=self._carry)
@@ -118,7 +134,7 @@ class StreamingGenerator:
         with torch.inference_mode():
             if a.dtype == np.uint8:
                 a_dev = torch.from_numpy(a).to(self.device)
-                out = _dev_quantize(self.push_device(_dev_normalize(a_dev)))
+                out = _dev_quantize(self.push_device(self._norm(a_dev)))
                 is_u8 = True
             else:
                 out = self.push_device(torch.from_numpy(
@@ -159,3 +175,55 @@ class StreamingGenerator:
             pending = out
         if pending is not None:
             yield self._fetch(*pending)
+
+
+def translate_clip(model: GanModel, a_seq: torch.Tensor) -> torch.Tensor:
+    """Whole-clip translation: ``a_seq`` (T, B, H, W, C) on the model's
+    device -> (T, B, H, W, output_nc) in the compute dtype. The temporal
+    model carries its last generated frames (fp32, on the device) from
+    one frame to the next, starting from zeros; any other model runs the
+    frames one by one (``stream.py:256-278``)."""
+    cfgm = model.cfg.model
+    if cfgm.model != "temporal":
+        return torch.stack([model.generate(a) for a in a_seq])
+    carry_c = cfgm.output_nc * model.n_prev
+    carry = torch.zeros(a_seq.shape[1:4] + (carry_c,), dtype=torch.float32,
+                        device=a_seq.device)
+    fakes = []
+    for a in a_seq:
+        fake = model.generate(a, prev=carry)
+        with torch.inference_mode():
+            carry = torch.cat([fake.to(torch.float32), carry],
+                              dim=-1)[..., :carry_c]
+        fakes.append(fake)
+    return torch.stack(fakes)
+
+
+def _voc_palette(n: int) -> np.ndarray:
+    """The VOC bit-interleave colormap the reference's Colorize uses."""
+    palette = np.zeros((n, 3), np.uint8)
+    for k in range(n):
+        r = g = b = 0
+        c = k
+        for j in range(7):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        palette[k] = (r, g, b)
+    return palette
+
+
+def label2im(t, label_nc: int) -> np.ndarray:
+    """Class-id map (tensor or array; (1,) H, W (, 1)) -> palette RGB
+    uint8 for galleries (the reference ``util.tensor2label``): ids
+    rounded, clipped to [0, label_nc - 1], coloured by the VOC map."""
+    arr = (t.detach().to("cpu").numpy() if isinstance(t, torch.Tensor)
+           else np.asarray(t))
+    if arr.ndim == 4 and arr.shape[0] == 1:
+        arr = arr[0]
+    if arr.ndim == 3 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    n = max(int(label_nc), 1)
+    ids = np.clip(np.round(arr).astype(np.int64), 0, n - 1)
+    return _voc_palette(n)[ids]

@@ -4,18 +4,22 @@ PatchGAN) and ``MultiscaleDiscriminator`` (``num_d`` PatchGANs over an
 average-pooled image pyramid).
 
 Layers: a 4x4 stride-2 conv + LeakyReLU(0.2); ``n_layers - 1`` stride-2
-convs and one stride-1 conv, each + instance norm + LeakyReLU (kernel B1,
-``leaky_relu``); a 4x4 stride-1 conv to one channel of patch logits. All
-convs pad ``d_pad`` (2, the pix2pixHD convention). The input is cast to
-the compute dtype, weights are cast at use, and the logits are cast to
-fp32 (``discriminators.py:105``). The output is a list over scales, finest
-first, of the taps ``[feat_0, ..., feat_n_layers, logits]``.
+convs and one stride-1 conv, each + norm + LeakyReLU (instance norm in
+kernel B1 with ``leaky_relu``; batch norm with batch statistics; or
+none); a 4x4 stride-1 conv to one channel of patch logits. All convs pad
+``d_pad`` (2, the pix2pixHD convention); the normed convs carry a bias
+unless a batch norm follows. The input is cast to the compute dtype,
+weights are cast at use, and the logits are cast to fp32
+(``discriminators.py:105``). The output is a list over scales, finest
+first, of the taps ``[feat_0, ..., feat_n_layers, logits]``, or of
+``[logits]`` alone when ``get_interm_feat`` is off.
 
-The modules keep the reference family's layout (``tests/torch_refs.py``):
+The modules keep the reference family's layout (``tests/torch_refs.py``),
+so a reference ``state_dict`` loads directly. With ``get_interm_feat``:
 ``model{j}`` Sequentials in ``NLayerDiscriminator`` and
-``scale{i}_layer{j}`` in ``MultiscaleDiscriminator``, so a reference
-``state_dict`` loads directly. Trap: the reference runs the
-full-resolution input through ``scale{num_d-1}`` (its ``forward`` walks
+``scale{i}_layer{j}`` in ``MultiscaleDiscriminator``; without it, one flat
+Sequential, ``model`` and ``layer{i}``. Trap: the reference runs the
+full-resolution input through scale ``num_d - 1`` (its ``forward`` walks
 the scales in reverse), while the JAX package's ``scale0`` is the full
 resolution; ``checkpoint/from_jax.py`` reverses the scales.
 """
@@ -29,7 +33,7 @@ import torch
 import torch.nn as nn
 
 from . import ops
-from .generators import Slot
+from .generators import Slot, norm_layer, use_bias
 
 DiscOut = List[List[torch.Tensor]]
 
@@ -61,31 +65,43 @@ def _layer_plan(cfg: DiscConfig):
 
 
 def _make_layers(cfg: DiscConfig) -> List[nn.Sequential]:
+    """One Sequential a conv: (conv, leaky), (conv, norm, leaky) or the
+    head (conv)."""
     layers = []
     plan = _layer_plan(cfg)
     for j, (cin, cout, stride, normed) in enumerate(plan):
-        conv = nn.Conv2d(cin, cout, 4, stride=stride, padding=cfg.d_pad)
+        conv = nn.Conv2d(cin, cout, 4, stride=stride, padding=cfg.d_pad,
+                         bias=use_bias(cfg.norm) if normed else True)
         if j == len(plan) - 1:
             layers.append(nn.Sequential(conv))
         elif normed:
-            layers.append(nn.Sequential(conv, Slot(cfg.norm),
+            layers.append(nn.Sequential(conv, norm_layer(cfg.norm, cout),
                                         Slot("leaky_relu")))
         else:
             layers.append(nn.Sequential(conv, Slot("leaky_relu")))
     return layers
 
 
-def _check(cfg: DiscConfig) -> None:
-    if cfg.norm != "instance":
-        raise NotImplementedError(f"norm={cfg.norm!r} is not ported yet")
-    if not cfg.get_interm_feat:
-        raise NotImplementedError("get_interm_feat=False (the reference's "
-                                  "flat `model` layout) is not ported yet")
+def _flat(layers: List[nn.Sequential]) -> nn.Sequential:
+    """The reference's ``get_interm_feat=False`` layout: one Sequential."""
+    return nn.Sequential(*(m for seq in layers for m in seq))
+
+
+def _groups(flat: nn.Sequential) -> List[List[nn.Module]]:
+    """A flat Sequential cut back into one list a conv."""
+    groups: List[List[nn.Module]] = []
+    for m in flat:
+        if isinstance(m, nn.Conv2d):
+            groups.append([])
+        groups[-1].append(m)
+    return groups
 
 
 def _apply_layers(layers, x: torch.Tensor, cfg: DiscConfig
                   ) -> List[torch.Tensor]:
-    """[feat_0, ..., feat_n_layers, fp32 logits] of one PatchGAN."""
+    """[feat_0, ..., feat_n_layers, fp32 logits] of one PatchGAN, or
+    [logits] without ``get_interm_feat``. ``layers``: one sequence of
+    modules a conv."""
     h = x.to(cfg.compute_dtype)
     feats = []
     last = len(layers) - 1
@@ -96,25 +112,32 @@ def _apply_layers(layers, x: torch.Tensor, cfg: DiscConfig
         if j == last:
             h = h.float()
         elif len(seq) == 3:
-            h = ops.norm_act(h, cfg.norm, "leaky_relu")
+            h = ops.norm_act(h, cfg.norm, "leaky_relu",
+                             bn=seq[1] if cfg.norm == "batch" else None)
         else:
             h = ops.apply_act(h, "leaky_relu")
         feats.append(h)
-    return feats
+    return feats if cfg.get_interm_feat else feats[-1:]
 
 
 class NLayerDiscriminator(nn.Module):
-    """70x70 PatchGAN (keys ``model{j}.0``). ``forward`` returns the
-    uniform one-scale structure ``[[feat_0, ..., logits]]``."""
+    """70x70 PatchGAN (keys ``model{j}.*``, or ``model.*`` without
+    ``get_interm_feat``). ``forward`` returns the uniform one-scale
+    structure ``[[feat_0, ..., logits]]`` (``[[logits]]``)."""
 
     def __init__(self, cfg: DiscConfig):
         super().__init__()
-        _check(cfg)
         self.cfg = cfg
-        for j, seq in enumerate(_make_layers(cfg)):
-            setattr(self, f"model{j}", seq)
+        layers = _make_layers(cfg)
+        if cfg.get_interm_feat:
+            for j, seq in enumerate(layers):
+                setattr(self, f"model{j}", seq)
+        else:
+            self.model = _flat(layers)
 
     def layers(self) -> List[nn.Sequential]:
+        if not self.cfg.get_interm_feat:
+            return _groups(self.model)
         return [getattr(self, f"model{j}")
                 for j in range(self.cfg.n_layers + 2)]
 
@@ -124,19 +147,25 @@ class NLayerDiscriminator(nn.Module):
 
 class MultiscaleDiscriminator(nn.Module):
     """``num_d`` PatchGANs over the input and its 3x3 stride-2 average-pool
-    halvings (``count_include_pad=False``); keys ``scale{i}_layer{j}.0``.
-    ``forward`` returns the scales finest first; the finest runs
-    ``scale{num_d-1}``, as in the reference."""
+    halvings (``count_include_pad=False``); keys ``scale{i}_layer{j}.*``,
+    or ``layer{i}.*`` without ``get_interm_feat``. ``forward`` returns the
+    scales finest first; the finest runs scale ``num_d - 1``, as in the
+    reference."""
 
     def __init__(self, cfg: DiscConfig):
         super().__init__()
-        _check(cfg)
         self.cfg = cfg
         for i in range(cfg.num_d):
-            for j, seq in enumerate(_make_layers(cfg)):
-                setattr(self, f"scale{i}_layer{j}", seq)
+            layers = _make_layers(cfg)
+            if cfg.get_interm_feat:
+                for j, seq in enumerate(layers):
+                    setattr(self, f"scale{i}_layer{j}", seq)
+            else:
+                setattr(self, f"layer{i}", _flat(layers))
 
     def layers(self, i: int) -> List[nn.Sequential]:
+        if not self.cfg.get_interm_feat:
+            return _groups(getattr(self, f"layer{i}"))
         return [getattr(self, f"scale{i}_layer{j}")
                 for j in range(self.cfg.n_layers + 2)]
 

@@ -5,11 +5,15 @@ share of a frame. The idle share is taken against the frame time
 measured without the profiler (CUDA events over the same loop), since
 tracing slows the host.
 
-    python -m ir2rgb_tpu_torch.profile_stream [--preset temporal_512]
+    python -m ir2rgb_tpu_torch.profile_stream [--preset P [P ...] | all]
 
-prints one JSON object, the top kernels last.
+prints one JSON object a preset, the top kernels last. The frame's
+channels come from the preset (a label model's frame is a class-id map);
+the output is fed back as the next input where it has the input's
+channels, else every frame takes the same input.
 
-Needs one CUDA device. Weights are the seeded reference init.
+Needs one CUDA device. Weights are the seeded reference init; the
+perceptual loss's VGG is not built (serving does not run it).
 """
 
 from __future__ import annotations
@@ -106,27 +110,51 @@ def summarize(prof, n: int, unit_ms: float, wall_us: float, unit: str):
 
 
 def main(argv=None) -> int:
+    from ir2rgb_tpu_torch.config import PRESETS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--preset", default="pix2pixhd_512")
+    ap.add_argument("--preset", nargs="+", default=["pix2pixhd_512"],
+                    choices=sorted(PRESETS) + ["all"])
     args = ap.parse_args(argv)
+    presets = list(PRESETS) if "all" in args.preset else args.preset
+    for preset in presets:
+        res = profile_preset(preset)
+        if res is None:
+            return 2
+        print(json.dumps(res), flush=True)
+    return 0
+
+
+def profile_preset(preset: str):
+    """The profile of ``preset``'s served frame (None when the trace holds
+    no device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ir2rgb_tpu_torch.config import PRESETS
     from ir2rgb_tpu_torch.infer import StreamingGenerator
     from ir2rgb_tpu_torch.train import create_model
 
-    cfg = PRESETS[args.preset]
+    cfg = PRESETS[preset]
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                compute_dtype="bf16"))
+                                                compute_dtype="bf16"),
+                      loss=dataclasses.replace(cfg.loss, no_vgg_loss=True))
     model = create_model(cfg)
+    m = cfg.model
     hw = (cfg.data.crop_size,) * 2
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x0 = torch.rand((1,) + hw + (3,), generator=gen, device="cuda") * 2 - 1
-    if model.cfg.model.model == "temporal":
+    if m.label_nc > 0:
+        x0 = torch.randint(0, m.label_nc, (1,) + hw + (1,), generator=gen,
+                           device="cuda").float()
+    else:
+        x0 = torch.rand((1,) + hw + (m.input_nc,), generator=gen,
+                        device="cuda") * 2 - 1
+    if m.model == "temporal":
         s = StreamingGenerator(model, hw)
 
         def step():
             s.push_device(x0)
+    elif m.label_nc > 0 or m.input_nc != m.output_nc:
+        def step():
+            model.generate(x0)
     else:
         state = {"x": x0}
 
@@ -151,11 +179,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     res = summarize(prof, FRAMES, frame_ms, wall_us, "frame")
+    del model
+    torch.cuda.empty_cache()
     if res is None:
-        return 2
-    res = dict(preset=args.preset, card=card_line(), frames=FRAMES, **res)
-    print(json.dumps(res))
-    return 0
+        return None
+    return dict(preset=preset, card=card_line(), frames=FRAMES, **res)
 
 
 if __name__ == "__main__":

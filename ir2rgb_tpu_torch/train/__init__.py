@@ -1,3 +1,3 @@
-from .model import GanModel, create_model
+from .model import GanModel, create_model, network_configs
 
-__all__ = ["GanModel", "create_model"]
+__all__ = ["GanModel", "create_model", "network_configs"]

@@ -2,15 +2,21 @@
 and for the non-temporal train step.
 
 ``create_model(cfg)`` builds, on the CUDA device (or the device the
-caller names), the generator ``netG``, the discriminator ``netD``, the
-VGG19 of the perceptual loss and two Adam optimizers. Parameters are fp32
-master weights; G, D and the VGG compute in ``cfg.model.compute_dtype``
-and cast the weights at use, as the JAX package does. Weights are the
-reference ``weights_init`` drawn from seeded ``torch.Generator``s; load
-trained or JAX-converted weights with ``load_state_dict``.
+caller names), the generator ``netG`` (any ``net_g`` of ``define_g``),
+the discriminator ``netD``, the VGG19 of the perceptual loss and two Adam
+optimizers. Parameters are fp32 master weights; G, D and the VGG compute
+in ``cfg.model.compute_dtype`` and cast the weights at use, as the JAX
+package does. Weights are the reference ``weights_init`` drawn from
+seeded ``torch.Generator``s, re-drawn per ``init_type``; load trained or
+JAX-converted weights with ``load_state_dict``.
 
-- ``generate`` is the serving forward (no autograd). In bf16 it runs a
-  bf16 copy of ``netG`` that is rebuilt when a weight of ``netG``
+- ``generate`` is the serving forward (no autograd). Its input is, in
+  channel order (``model.py:199-221``): the frame, or with ``label_nc >
+  0`` the one-hot of a (B, H, W, 1) class-id map (``encode_label``); the
+  instance-edge channel (``use_instance_edges``; zeros when none is
+  given); in temporal mode the previous generated frames. In bf16 it
+  runs a bf16 copy of ``netG`` (batch-norm parameters stay fp32, as the
+  JAX package reads them) that is rebuilt when a weight of ``netG``
   changes, so a serving frame casts nothing.
 - ``train_step(batch)`` is one G + D update with the JAX package's
   stop-gradient walls (``model.py:13-21``): G's gradient comes through D
@@ -24,11 +30,10 @@ trained or JAX-converted weights with ``load_state_dict``.
   fresh optimizer at the unfreeze. On a frozen step the trunk records no
   graph: its gradients are zero by definition.
 
-Not ported yet (each raises ``NotImplementedError``): the label one-hot
-input (``label_nc > 0``), the instance-edge and netE feature inputs, the
-serving quantization modes, every generator but ``net_g="local"``, and in
-training the temporal model, the image pool, grad-accum, EMA,
-``adam_mu_dtype="bf16"`` and WGAN-GP.
+Not ported yet (each raises ``NotImplementedError``): the netE feature
+input, the serving quantization modes, the CycleGAN model, and in
+training the temporal model, label and edge inputs, dropout, the image
+pool, grad-accum, EMA, ``adam_mu_dtype="bf16"`` and WGAN-GP.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ from ir2rgb_tpu_torch.losses import (
     l1_loss,
     vgg_loss,
 )
+from ir2rgb_tpu_torch.nn import ops
 from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d
-from ir2rgb_tpu_torch.nn.generators import GenConfig, LocalEnhancer, init_weights
+from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g, init_weights
 from ir2rgb_tpu_torch.nn.vgg import Vgg19, load_vgg19_npz
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
 from ir2rgb_tpu_torch.train.schedule import global_freeze_mask, lr_schedule
@@ -76,7 +82,7 @@ def _no_param_grads(params: Iterable[nn.Parameter]):
 class GanModel:
     cfg: Config
     gen_cfg: GenConfig
-    netG: LocalEnhancer
+    netG: nn.Module
     device: torch.device
     disc_cfg: Optional[DiscConfig] = None
     netD: Optional[nn.Module] = None
@@ -89,7 +95,7 @@ class GanModel:
     # steps_per_epoch); > 0 only for net_g=local
     fix_steps: int = 0
     step: int = 0
-    _serving: Optional[Tuple[tuple, tuple, LocalEnhancer]] = dataclasses.field(
+    _serving: Optional[Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
         default=None, repr=False)
 
     @property
@@ -105,9 +111,10 @@ class GanModel:
     # Serving
     # ------------------------------------------------------------------
 
-    def serving_generator(self) -> LocalEnhancer:
+    def serving_generator(self) -> nn.Module:
         """``netG`` in fp32; in bf16 a bf16 copy of it, rebuilt when any
-        of ``netG``'s parameters was replaced or changed in place."""
+        of ``netG``'s parameters was replaced or changed in place. The
+        copy keeps batch-norm parameters and buffers as they are."""
         if self.dtype == torch.float32:
             return self.netG
         params = tuple(self.netG.parameters())
@@ -116,32 +123,64 @@ class GanModel:
         if (kept is None or len(kept[0]) != len(params) or versions != kept[1]
                 or any(a is not b for a, b in zip(kept[0], params))):
             with torch.device("meta"):
-                g = LocalEnhancer(self.gen_cfg)
+                g = define_g(self.gen_cfg)
+            bn = tuple(f"{name}." for name, m in g.named_modules()
+                       if isinstance(m, nn.BatchNorm2d))
             with torch.no_grad():
-                g.load_state_dict({k: v.to(self.dtype) for k, v in
+                g.load_state_dict({k: v if k.startswith(bn) else
+                                   v.to(self.dtype) for k, v in
                                    self.netG.state_dict().items()},
                                   assign=True)
             kept = self._serving = (params, versions,
                                     g.requires_grad_(False).eval())
         return kept[2]
 
-    def generate(self, a: torch.Tensor, prev: Optional[torch.Tensor] = None,
-                 feat: Optional[torch.Tensor] = None,
-                 edges: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Single-frame G forward on NHWC ``a``. In temporal mode ``prev``
-        is the previously generated frame stack (zeros when None).
-        Returns (B, H, W, output_nc) in the compute dtype."""
-        if feat is not None or edges is not None:
-            raise NotImplementedError(
-                "feature / instance-edge inputs are not ported yet")
+    def encode_label(self, a: torch.Tensor) -> torch.Tensor:
+        """``label_nc > 0``: a (B, H, W, 1) class-id map (ids rounded half
+        to even) -> its one-hot (B, H, W, label_nc) in the compute dtype,
+        on ``a``'s device; an id outside [0, label_nc) gives an all-zero
+        row, as ``jax.nn.one_hot`` (``model.py:157-169``). The identity
+        when ``label_nc == 0``."""
+        label_nc = self.cfg.model.label_nc
+        if label_nc <= 0:
+            return a
+        ids = torch.round(a[..., :1].float()).long()
+        classes = torch.arange(label_nc, device=a.device)
+        return (ids == classes).to(self.dtype)
+
+    def _generator_input(self, a: torch.Tensor,
+                        prev: Optional[torch.Tensor] = None,
+                        edges: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """G's input: the (encoded) frame, the edge channel, the temporal
+        prev, in that order (``model.py:199-221``); zeros for an edge map
+        or prev that is not given."""
         m = self.cfg.model
+        a = self.encode_label(a)
+        if m.use_instance_edges:
+            if edges is None:
+                edges = a.new_zeros(a.shape[:-1] + (1,))
+            a = torch.cat([a, edges.to(a.dtype)], dim=-1)
         if m.model == "temporal":
             if prev is None:
                 prev = a.new_zeros(a.shape[:-1] + (m.output_nc * self.n_prev,))
             a = torch.cat([a, prev.to(a.dtype)], dim=-1)
+        return a
+
+    def generate(self, a: torch.Tensor, prev: Optional[torch.Tensor] = None,
+                 feat: Optional[torch.Tensor] = None,
+                 edges: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Single-frame G forward on NHWC ``a`` (with ``label_nc > 0`` a
+        (B, H, W, 1) id map). ``prev``: in temporal mode the previously
+        generated frame stack; ``edges``: the (B, H, W, 1) instance
+        boundary map of a ``use_instance_edges`` model. Each is zeros when
+        None. Returns (B, H, W, output_nc) in the compute dtype."""
+        if feat is not None:
+            raise NotImplementedError(
+                "the netE feature input is not ported yet")
         net = self.serving_generator()  # built outside inference mode
         with torch.inference_mode():
-            return net(a)
+            return net(self._generator_input(a, prev, edges))
 
     # ------------------------------------------------------------------
     # Training
@@ -158,9 +197,17 @@ class GanModel:
         with the graph recorded for both losses. ``loss_g`` reaches only
         G's parameters, ``loss_d`` only D's; ``freeze_trunk`` records no
         graph through the global trunk."""
-        if self.cfg.model.model == "temporal":
+        m = self.cfg.model
+        if m.model == "temporal":
             raise NotImplementedError("training the temporal model "
                                       "(_temporal_losses) is not ported yet")
+        unported = {"label input (label_nc > 0)": m.label_nc > 0,
+                    "instance edges": m.use_instance_edges,
+                    "dropout": m.use_dropout}
+        for what, bad in unported.items():
+            if bad:
+                raise NotImplementedError(f"training with {what} is not "
+                                          "ported yet")
         if self.netD is None:
             raise ValueError("this model has no discriminator")
         loss_cfg = self.cfg.loss
@@ -245,22 +292,17 @@ class GanModel:
 
 def _check_supported(cfg: Config) -> None:
     m, loss, tr = cfg.model, cfg.loss, cfg.train
-    if m.label_nc > 0:
-        raise NotImplementedError("label_nc > 0 (one-hot label input) is "
-                                  "not ported yet")
-    if m.use_instance_edges or m.use_instance_feat:
-        raise NotImplementedError("instance-edge / netE feature inputs are "
-                                  "not ported yet")
+    if m.use_instance_feat:
+        raise NotImplementedError("the netE feature input is not ported yet")
     if cfg.infer.quant != "none":
         raise NotImplementedError(f"quant={cfg.infer.quant!r} is not "
                                   "ported yet")
-    if m.net_g != "local":
-        raise NotImplementedError(f"net_g={m.net_g!r} is not ported yet")
     if m.model not in ("pix2pix", "pix2pixhd", "temporal"):
         raise NotImplementedError(f"model={m.model!r} is not ported yet")
-    if m.upsample != "deconv":
-        raise NotImplementedError(f"upsample={m.upsample!r} is not ported "
-                                  "yet")
+    if m.model == "temporal" and (m.label_nc > 0 or m.use_instance_edges):
+        # as the JAX package's create_model asserts
+        raise ValueError("label / instance-edge inputs and temporal mode "
+                         "are not combined")
     unported = {"pool_size > 0 (image pool)": loss.pool_size > 0,
                 "gan_mode='wgangp' (gradient penalty)":
                     loss.gan_mode == "wgangp",
@@ -274,14 +316,43 @@ def _check_supported(cfg: Config) -> None:
                                       "yet")
 
 
-def _build(module_fn, dev: torch.device, seed: int) -> nn.Module:
+def network_configs(cfg: Config) -> Tuple[GenConfig, DiscConfig]:
+    """G's and D's configurations for ``cfg`` (raises on what is not
+    ported). Their input channels: the frame (or ``label_nc`` one-hot
+    channels), the edge channel with ``use_instance_edges`` (G and D
+    both, ``model.py:565-585``), then G's temporal prev."""
+    _check_supported(cfg)
+    m = cfg.model
+    n_prev = m.n_frames_g - 1 if m.model == "temporal" else 0
+    dtype = resolve_dtype(m.compute_dtype)
+    base_nc = (m.label_nc if m.label_nc > 0 else m.input_nc) + int(
+        m.use_instance_edges)
+    gen_cfg = GenConfig(
+        net_g=m.net_g, input_nc=base_nc + m.output_nc * n_prev,
+        output_nc=m.output_nc, ngf=m.ngf, norm=m.norm, upsample=m.upsample,
+        use_dropout=m.use_dropout,
+        n_downsample_global=m.n_downsample_global,
+        n_blocks_global=m.n_blocks_global, n_blocks_local=m.n_blocks_local,
+        n_local_enhancers=m.n_local_enhancers, compute_dtype=dtype)
+    disc_cfg = DiscConfig(
+        net_d=m.net_d, input_nc=base_nc + m.output_nc, ndf=m.ndf,
+        n_layers=m.n_layers_d, num_d=m.num_d, norm=m.norm,
+        get_interm_feat=m.get_interm_feat, compute_dtype=dtype)
+    return gen_cfg, disc_cfg
+
+
+def _build(module_fn, dev: torch.device, seed: int,
+           init_type: str = "normal") -> nn.Module:
     """Build on the meta device, materialise on ``dev``, draw the
-    reference init from ``seed`` and make the conv weights channels-last
-    (so cuDNN writes channels-last output, which is contiguous NHWC)."""
+    reference init from ``seed`` (then the ``init_type`` re-draw from the
+    same generator) and make the conv weights channels-last (so cuDNN
+    writes channels-last output, which is contiguous NHWC)."""
     with torch.device("meta"):
         net = module_fn()
     net = net.to_empty(device=dev)
-    init_weights(net, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(net, gen)
+    ops.apply_init_type(net, init_type, gen)
     return net.to(memory_format=torch.channels_last)
 
 
@@ -295,22 +366,10 @@ def create_model(cfg: Config,
     the CPU. G's weights come from ``seed``, D's from ``seed + 1`` and a
     random VGG's from ``seed + 2``."""
     dev = resolve_device(device)
-    _check_supported(cfg)
+    gen_cfg, disc_cfg = network_configs(cfg)
     m = cfg.model
-    n_prev = m.n_frames_g - 1 if m.model == "temporal" else 0
-    dtype = resolve_dtype(m.compute_dtype)
-    gen_cfg = GenConfig(
-        net_g=m.net_g, input_nc=m.input_nc + m.output_nc * n_prev,
-        output_nc=m.output_nc, ngf=m.ngf, norm=m.norm,
-        n_downsample_global=m.n_downsample_global,
-        n_blocks_global=m.n_blocks_global, n_blocks_local=m.n_blocks_local,
-        n_local_enhancers=m.n_local_enhancers, compute_dtype=dtype)
-    disc_cfg = DiscConfig(
-        net_d=m.net_d, input_nc=m.input_nc + m.output_nc, ndf=m.ndf,
-        n_layers=m.n_layers_d, num_d=m.num_d, norm=m.norm,
-        get_interm_feat=m.get_interm_feat, compute_dtype=dtype)
-    net_g = _build(lambda: LocalEnhancer(gen_cfg), dev, seed)
-    net_d = _build(lambda: define_d(disc_cfg), dev, seed + 1)
+    net_g = _build(lambda: define_g(gen_cfg), dev, seed, m.init_type)
+    net_d = _build(lambda: define_d(disc_cfg), dev, seed + 1, m.init_type)
 
     vgg = None
     if not cfg.loss.no_vgg_loss:

@@ -73,10 +73,8 @@ def test_create_model_on_cpu_when_asked():
     assert all(p.device.type == "cpu" for p in m.netG.parameters())
 
 
-@pytest.mark.parametrize("field,value", [("label_nc", 4),
-                                         ("use_instance_edges", True),
-                                         ("use_instance_feat", True),
-                                         ("net_g", "global")])
+@pytest.mark.parametrize("field,value", [("use_instance_feat", True),
+                                         ("model", "cycle_gan")])
 def test_unported_inputs_raise(field, value):
     import dataclasses
     from ir2rgb_tpu_torch.config import PRESETS

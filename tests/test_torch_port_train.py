@@ -471,8 +471,7 @@ def test_bias_before_norm_names_the_right_keys(jax_side):
 @pytest.mark.parametrize("section,field,value", [
     ("loss", "pool_size", 50), ("loss", "gan_mode", "wgangp"),
     ("train", "grad_accum", 2), ("train", "ema_decay", 0.999),
-    ("train", "adam_mu_dtype", "bf16"), ("model", "upsample", "resize_conv"),
-    ("model", "net_d", "pixel"), ("model", "get_interm_feat", False)])
+    ("train", "adam_mu_dtype", "bf16"), ("model", "net_d", "pixel")])
 def test_unported_training_options_raise(section, field, value):
     _, pcfg = _configs()
     sections = {"loss": dataclasses.replace(pcfg.loss, no_vgg_loss=True)}
