@@ -6,29 +6,32 @@
 Phases, each failing the run if it fails:
 
 1. build the hand-written kernels from ir2rgb_tpu_torch/kernels/csrc;
-2. B1 forward (fused instance norm + act): every shape and activation of
-   the pix2pixhd_512 generator and discriminator and of every served
-   preset's generator (``SERVE``), bf16 and fp32, held to its plain
-   version on the card, and timed beside the plain version,
+2. B1 forward (fused instance norm + act): every shape and activation it
+   runs at (``B1_FWD_SHAPES``: every served preset's generator,
+   ``SERVE``, and every preset's train step, G and D, at its crop size
+   and at 256x256, ``TRAIN`` / ``TRAIN_256``), bf16 and fp32, held to
+   its plain version on the card, and timed beside the plain version,
    ``F.instance_norm`` + act (a yardstick the port never calls) and the
    card's bound; with each shape's plan (group width, cluster size,
    shared memory per block, route), its device kernels per call (the
    nodes of a CUDA graph captured around one call; must be 1), and for
-   the four largest shapes of the train step the time on a cold L2;
-3. B1 backward: the train step's shapes, dx held to the plain backward,
-   timed beside it and the autograd backward of ``F.instance_norm`` +
-   act, with the same plan, kernel count and cold-L2 readings;
+   the four largest shapes of the pix2pixhd_512 step the time on a cold
+   L2;
+3. B1 backward: every train step's shapes (``B1_BWD_SHAPES``), dx held
+   to the plain backward, timed beside it and the autograd backward of
+   ``F.instance_norm`` + act, with the same plan, kernel count and
+   cold-L2 readings;
 4. B2 (output tail): the same at every preset's tail shape and a ragged
    batch-2 shape (``B2_SHAPES``), bf16 (the tensor-core route) and fp32
    (the CUDA-core route), yardstick ``F.pad(reflect)`` + ``F.conv2d`` +
    tanh; device kernels per call (must be 1), a cold-L2 time at the main
    path's shape, and the HMMA instructions of the built tensor-core
    kernels (``cuobjdump -sass``, must be > 0);
-5. B3 d2s and s2d at the five ups' shapes, and d2s at every other served
-   preset's ups, exact against the plain permutation, yardstick
-   ``view/permute/contiguous``; and each up (the five k3 ups, the
-   U-Net's eight k4 ups) timed as the subpixel conv + d2s against
-   ``F.conv_transpose2d``;
+5. B3 d2s at every up of a served frame or a train step and s2d at every
+   up's gradient (``D2S_SHAPES``, ``S2D_SHAPES``), exact against the
+   plain permutation, yardstick ``view/permute/contiguous``; and each up
+   (the five k3 ups, the U-Net's eight k4 ups) timed as the subpixel
+   conv + d2s against ``F.conv_transpose2d``;
 6. serving, one phase per preset: pix2pixhd_512 and temporal_512, then
    resnet9_256, temporal_256, pix2pixhd_global_512, pix2pixhd_1024,
    temporal_1024, pix2pixhd_2048 and pix2pix_unet256. Full-width
@@ -38,13 +41,17 @@ Phases, each failing the run if it fails:
    an fp32 card run (TF32 off) held to the port's fp32 CPU run (the
    main path's two at 512x512, the others at 256x256); the bf16 run's
    PSNR against fp32; ms/frame at batch 1;
-7. the pix2pixhd_512 train step at full width, 512x512, batch 1: 12 bf16
-   steps across the coarse-to-fine unfreeze (the trunk frozen through
-   step 9, moving from step 10), the launch counts of each step, 10
-   timed unfrozen steps in bf16 and in fp32, peak memory; the bf16 first
-   step's losses against fp32's; one fp32 step on the card held to the
-   port's fp32 CPU step at full width on 256x256 inputs (losses and every
-   gradient tensor).
+7. ``ops.avg_pool``'s gradient on the card against the CPU's;
+8. training, one phase per preset (``TRAIN``), at full width, the
+   preset's crop size and batch 1, a temporal preset on windows of its
+   4 frames: 4 bf16 steps, across the coarse-to-fine unfreeze where the
+   preset has one (the trunk frozen for steps 0-1), each step's kernel
+   launches held to ``TRAIN``, finite losses and the weights a step
+   moves moved; 5 timed steps in bf16 and in fp32 (TF32 off) with peak
+   memory; the bf16 first step's losses against fp32's; one fp32 step on
+   the card held to the port's fp32 CPU step at full width on 256x256
+   inputs (losses, launches against ``TRAIN_256``, and every gradient
+   tensor at the CPU run's forward point).
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last ``{"ok": true, "device": {...}}``. Without a
@@ -64,6 +71,8 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import Counter
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -92,26 +101,10 @@ B1_MAIN_PATH = {
     ((1, 16, 16, 1024), "none"): 9,
     ((1, 512, 512, 32), "relu"): 2,
 }
-# one pass of the multiscale D on a 512x512 pair: scale 0, then scale 1
-B1_D_PASS = {
-    ((1, 129, 129, 128), "leaky_relu"): 1,
-    ((1, 65, 65, 256), "leaky_relu"): 1,
-    ((1, 66, 66, 512), "leaky_relu"): 1,
-    ((1, 65, 65, 128), "leaky_relu"): 1,
-    ((1, 33, 33, 256), "leaky_relu"): 1,
-    ((1, 34, 34, 512), "leaky_relu"): 1,
-}
-# per unfrozen train step: G's forward and backward, four D passes of
-# which three (fake for G, real and detached fake for D) take a backward
-B1_FWD_PER_STEP = {**B1_MAIN_PATH, **{k: 4 * v for k, v in B1_D_PASS.items()}}
-B1_BWD_PER_STEP = {**B1_MAIN_PATH, **{k: 3 * v for k, v in B1_D_PASS.items()}}
 # the five ups of a frame: (phase tensor shape, C); d2s forward, s2d back
 D2S_MAIN_PATH = [((1, 16, 16, 2048), 512), ((1, 32, 32, 1024), 256),
                  ((1, 64, 64, 512), 128), ((1, 128, 128, 256), 64),
                  ((1, 256, 256, 128), 32)]
-PER_STEP = {"instance_norm_act": sum(B1_FWD_PER_STEP.values()),
-            "instance_norm_act_bwd": sum(B1_BWD_PER_STEP.values()),
-            "tail_fused": 0, "d2s": 5, "s2d": 5}
 
 # What one served frame sends to each kernel, per preset: B1 (shape, act)
 # -> count, B2's x shapes, B3 d2s (phase tensor shape, C) in order.
@@ -121,15 +114,23 @@ _RESNET9_256 = dict(
         ((1, 64, 64, 256), "relu"): 10, ((1, 64, 64, 256), "none"): 9},
     tail=[(1, 256, 256, 64)],
     d2s=[((1, 64, 64, 512), 128), ((1, 128, 128, 256), 64)])
+def _trunk(hw: int, ngf: int = 64, downs: int = 4, blocks: int = 9):
+    """The global trunk (headless) at ``hw``: its B1 (shape, act) ->
+    count and its ups' d2s (phase shape, C), in order."""
+    b1 = Counter([((1, hw, hw, ngf), "relu")]
+                 + [((1, hw >> i, hw >> i, ngf << i), "relu")
+                    for i in range(1, downs + 1)]
+                 + [((1, hw >> downs, hw >> downs, ngf << downs), a)
+                    for _ in range(blocks) for a in ("relu", "none")]
+                 + [((1, hw >> i, hw >> i, ngf << i), "relu")
+                    for i in range(downs - 1, -1, -1)])
+    d2s = [((1, hw >> i, hw >> i, 4 * (ngf << (i - 1))), ngf << (i - 1))
+           for i in range(downs, 0, -1)]
+    return b1, d2s
+
+
 # the global trunk at 512x512 (global_512, and the 1024 / 2048 presets')
-_TRUNK_512_B1 = {((1, 512, 512, 64), "relu"): 2,
-                 ((1, 256, 256, 128), "relu"): 2,
-                 ((1, 128, 128, 256), "relu"): 2,
-                 ((1, 64, 64, 512), "relu"): 2,
-                 ((1, 32, 32, 1024), "relu"): 10,
-                 ((1, 32, 32, 1024), "none"): 9}
-_TRUNK_512_D2S = [((1, 32, 32, 2048), 512), ((1, 64, 64, 1024), 256),
-                  ((1, 128, 128, 512), 128), ((1, 256, 256, 256), 64)]
+_TRUNK_512_B1, _TRUNK_512_D2S = _trunk(512)
 
 
 def _with_enhancer(b1: dict, hw: int, ngf_n: int, blocks: int = 3) -> dict:
@@ -174,6 +175,104 @@ SERVE = {
              ((1, 16, 16, 1024), 256), ((1, 32, 32, 512), 128),
              ((1, 64, 64, 256), 64), ((1, 128, 128, 12), 3)]),
 }
+
+
+def _d_pass(size: int, num_d: int, ndf: int = 64, n_layers: int = 3):
+    """B1 (shape, act) -> count of one pass of the PatchGAN (``num_d``
+    scales, each half the last) over a ``size``-square pair: 4x4 convs
+    padded 2, stride 2 but the last normed one."""
+    out = Counter()
+    for i in range(num_d):
+        h = (size >> i) // 2 + 1  # layer 0, no norm
+        nf = ndf
+        for j in range(1, n_layers + 1):
+            h = h // 2 + 1 if j < n_layers else h + 1
+            nf = min(nf * 2, 512)
+            out[((1, h, h, nf), "leaky_relu")] += 1
+    return out
+
+
+def _scaled(shape, num: int, den: int):
+    n, h, w, c = shape
+    return (n, h * num // den, w * num // den, c)
+
+
+def _mul(table: Counter, n: int) -> Counter:
+    return Counter({k: v * n for k, v in table.items()})
+
+
+# Each preset's train step at batch 1: (crop size, frames a step, D
+# scales, feature matching on, the local enhancer's trunk (hw, ngf) or
+# None). The G tables are SERVE's: a train step runs the same generator
+# (with the composed tail, so no B2).
+_TRAIN_SPEC = {
+    "resnet9_256": (256, 1, 1, True, None),
+    "temporal_256": (256, 4, 2, True, None),
+    "pix2pix_unet256": (256, 1, 1, False, None),
+    "pix2pixhd_512": (512, 1, 2, True, (256, 64)),
+    "temporal_512": (512, 4, 2, True, (256, 64)),
+    "pix2pixhd_global_512": (512, 1, 2, True, None),
+    "pix2pixhd_1024": (1024, 1, 3, True, (512, 64)),
+    "temporal_1024": (1024, 4, 3, True, (512, 64)),
+    "pix2pixhd_2048": (2048, 1, 3, True, (512, 64)),
+}
+
+
+def train_table(preset: str, size: int = None) -> dict:
+    """What one train step of ``preset`` at ``size`` (its crop size when
+    None) sends to each kernel: B1 forward and backward (shape, act) ->
+    count, d2s (phase shape, C) -> count, s2d (image shape) -> count;
+    under "unfrozen" and, for the local enhancer (coarse-to-fine), under
+    "frozen" too. Per frame G runs once; D four times with feature
+    matching (G's fake, the real taps with no graph, D's real and fake),
+    else three, each but the no-graph one with a backward. A frozen
+    step's trunk takes no backward where its input needs no gradient:
+    every frame of a frame step, the first frame of a window (later
+    frames reach the trunk through the carry)."""
+    crop, frames, num_d, fm, trunk = _TRAIN_SPEC[preset]
+    size = size or crop
+    g_b1 = Counter({(_scaled(k, size, crop), a): n
+                    for (k, a), n in SERVE[preset]["b1"].items()})
+    g_d2s = Counter((_scaled(k, size, crop), c)
+                    for k, c in SERVE[preset]["d2s"])
+    d = _d_pass(size, num_d)
+
+    def s2d(d2s):
+        return Counter({(n, 2 * h, 2 * w, c): m
+                        for ((n, h, w, _), c), m in d2s.items()})
+
+    unfrozen = dict(b1=_mul(g_b1 + _mul(d, 4 if fm else 3), frames),
+                    b1_bwd=_mul(g_b1 + _mul(d, 3), frames),
+                    d2s=_mul(g_d2s, frames), s2d=_mul(s2d(g_d2s), frames))
+    out = {"unfrozen": unfrozen}
+    if trunk is not None:
+        t_b1, t_d2s = _trunk(trunk[0] * size // crop, trunk[1])
+        out["frozen"] = dict(unfrozen, b1_bwd=unfrozen["b1_bwd"] - t_b1,
+                             s2d=unfrozen["s2d"] - s2d(Counter(t_d2s)))
+    return out
+
+
+TRAIN = {p: train_table(p) for p in _TRAIN_SPEC}
+# the same at 256x256, where each preset's fp32 card step is held to the
+# CPU's
+TRAIN_256 = {p: train_table(p, 256) for p in _TRAIN_SPEC}
+
+
+def per_step(table: dict) -> dict:
+    """Kernel launches of one train step from its ``TRAIN`` table."""
+    return {"instance_norm_act": sum(table["b1"].values()),
+            "instance_norm_act_bwd": sum(table["b1_bwd"].values()),
+            "tail_fused": 0, "d2s": sum(table["d2s"].values()),
+            "s2d": sum(table["s2d"].values())}
+
+
+# the headline train step, pix2pixhd_512 unfrozen: 60 B1 forward (G's 36,
+# four D passes of 6) and 54 backward (G's, three D passes: the fake for
+# G, the real and the detached fake for D)
+B1_FWD_PER_STEP = TRAIN["pix2pixhd_512"]["unfrozen"]["b1"]
+B1_BWD_PER_STEP = TRAIN["pix2pixhd_512"]["unfrozen"]["b1_bwd"]
+PER_STEP = per_step(TRAIN["pix2pixhd_512"]["unfrozen"])
+
 # the U-Net's k4 ups as the deconv phase times them: (input shape, cout)
 UNET_UPS = [((1, 1, 1, 512), 512), ((1, 2, 2, 1024), 512),
             ((1, 4, 4, 1024), 512), ((1, 8, 8, 1024), 512),
@@ -189,23 +288,40 @@ def per_frame(preset: str) -> dict:
             "d2s": len(t["d2s"]), "s2d": 0}
 
 
-# B1 forward shapes that only serving runs (the train step's are above)
-B1_SERVE_ONLY = sorted({k for t in SERVE.values() for k in t["b1"]}
-                       - set(B1_FWD_PER_STEP))
+def _keys(tables, field):
+    return {k for t in tables for v in t.values() for k in v[field]}
+
+
+_STEPS = list(TRAIN.values()) + list(TRAIN_256.values())
+# every (shape, act) B1 runs at, in serving, in each preset's train step
+# and in its 256x256 fp32 step: the headline step's first, then the rest
+B1_FWD_SHAPES = list(B1_FWD_PER_STEP) + sorted(
+    ({k for t in SERVE.values() for k in t["b1"]} | _keys(_STEPS, "b1"))
+    - set(B1_FWD_PER_STEP))
+B1_BWD_SHAPES = list(B1_BWD_PER_STEP) + sorted(
+    _keys(_STEPS, "b1_bwd") - set(B1_BWD_PER_STEP))
 # B2's x at every preset's tail, then a ragged batch-2 shape for the edge
 # tiles and the batch index
 B2_MAIN = (1, 512, 512, 32)
 B2_SHAPES = sorted({x for t in SERVE.values() for x in t["tail"]}) + [
     (2, 72, 40, 32)]
-# B3 d2s shapes that only serving runs, beyond the train step's five ups
-D2S_SERVE_ONLY = sorted({k for t in SERVE.values() for k in t["d2s"]}
-                        - set(D2S_MAIN_PATH))
+# B3's d2s at every up of a served frame and of a train step (phase
+# shape, C), and its s2d at every up's gradient (image shape), the
+# headline path's first
+D2S_SHAPES = D2S_MAIN_PATH + sorted(
+    ({k for t in SERVE.values() for k in t["d2s"]} | _keys(_STEPS, "d2s"))
+    - set(D2S_MAIN_PATH))
+S2D_MAIN_PATH = list(TRAIN["pix2pixhd_512"]["unfrozen"]["s2d"])
+S2D_SHAPES = S2D_MAIN_PATH + sorted(_keys(_STEPS, "s2d")
+                                    - set(S2D_MAIN_PATH))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
 N_FRAMES = 8
-TRAIN_STEPS, TIMED_STEPS = 12, 10
-FIX_STEPS = 10  # niter_fix_global 10 x steps_per_epoch 1
+# train steps a preset: the first FIX_STEPS frozen where the preset trains
+# coarse to fine (niter_fix_global 1 x steps_per_epoch FIX_STEPS), then
+# unfrozen; then TIMED_STEPS timed in bf16 and in fp32
+TRAIN_STEPS, TIMED_STEPS, FIX_STEPS = 4, 5, 2
 TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_GRAD_REL = 1e-4, 1e-3
 BF16_LOSS_REL = 0.05
 SEED = 0
@@ -364,7 +480,7 @@ def b1_phase(bw: float, gen: torch.Generator):
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for (shape, act) in list(B1_FWD_PER_STEP) + B1_SERVE_ONLY:
+    for (shape, act) in B1_FWD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
                  + 1).to(dtype)
@@ -402,16 +518,19 @@ def b1_phase(bw: float, gen: torch.Generator):
                 eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3,
                 cold_ms=cold_ms(kern, flush) if shape in B1_COLD else None))
     by_preset = {p: per_path_totals(rows, t["b1"]) for p, t in SERVE.items()}
-    return (rows, by_preset, per_path_totals(rows, B1_FWD_PER_STEP), worst)
+    by_step = {p: per_path_totals(rows, t["unfrozen"]["b1"])
+               for p, t in TRAIN.items()}
+    return rows, by_preset, by_step, worst
 
 
 def b1_bwd_phase(bw: float, gen: torch.Generator):
-    """dx of B1 at every (shape, act) of the train step, held to the plain
-    backward relative to max|dx| (1e-4 fp32, 2e-2 bf16)."""
+    """dx of B1 at every (shape, act) of each preset's train step (at its
+    crop size and at 256x256), held to the plain backward relative to
+    max|dx| (1e-4 fp32, 2e-2 bf16)."""
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
     rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for (shape, act), per_step in B1_BWD_PER_STEP.items():
+    for (shape, act) in B1_BWD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
                  + 1).to(dtype)
@@ -447,7 +566,8 @@ def b1_bwd_phase(bw: float, gen: torch.Generator):
             nbytes = 3 * x.numel() * x.element_size() + 2 * n * c * 4
             rows.append(dict(
                 key=(shape, act), shape=list(shape), act=act,
-                dtype=dtype_name(dtype), per_step=per_step,
+                dtype=dtype_name(dtype),
+                per_step=B1_BWD_PER_STEP.get((shape, act), 0),
                 max_abs_err=err, rel_err=rel,
                 plan=plan_text(b1.plan_for(x, bwd=True)),
                 device_kernels=kernels, ms=graph_ms(kern),
@@ -457,54 +577,59 @@ def b1_bwd_phase(bw: float, gen: torch.Generator):
                 library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
                 eager_ms=cuda_ms(kern), bound_ms=nbytes / bw * 1e3,
                 cold_ms=cold_ms(kern, flush) if shape in B1_COLD else None))
-    return rows, per_path_totals(rows, B1_BWD_PER_STEP), worst
+    by_step = {p: per_path_totals(rows, t["unfrozen"]["b1_bwd"])
+               for p, t in TRAIN.items()}
+    return rows, by_step, worst
 
 
 def d2s_phase(bw: float, gen: torch.Generator):
-    """B3 at the five ups' shapes both ways and at the served presets'
-    other ups (d2s, the serving direction): exact against the plain
+    """B3 d2s at every up of a served frame and of a train step, and s2d
+    at every up's gradient in a train step: exact against the plain
     permutation, timed beside it and view/permute/contiguous."""
     from ir2rgb_tpu_torch.kernels import d2s as b3
     rows = []
-    for (n, h, w, c4), c in D2S_MAIN_PATH + D2S_SERVE_ONLY:
-        both = ((n, h, w, c4), c) in D2S_MAIN_PATH
+    cases = ([("d2s", (n, h, w, c4), c) for (n, h, w, c4), c in D2S_SHAPES]
+             + [("s2d", shape, shape[3]) for shape in S2D_SHAPES])
+    for name, shape, c in cases:
+        n, h, w, _ = shape
         for dtype in (torch.bfloat16, torch.float32):
-            y = torch.randn((n, h, w, c4), generator=gen,
-                            device="cuda").to(dtype)
-            x = torch.randn((n, 2 * h, 2 * w, c), generator=gen,
-                            device="cuda").to(dtype)
-            for name, src, kern, plain, lib in (
-                    ("d2s", y, lambda: b3.d2s(y, c),
-                     lambda: b3.d2s_reference(y, c),
-                     lambda: y.view(n, h, w, 2, 2, c).permute(
-                         0, 1, 3, 2, 4, 5).contiguous()),
-                    ("s2d", x, lambda: b3.s2d(x),
-                     lambda: b3.s2d_reference(x),
-                     lambda: x.view(n, h, 2, w, 2, c).permute(
-                         0, 1, 3, 2, 4, 5).contiguous()))[:2 if both else 1]:
-                out, want = kern(), plain()
-                torch.cuda.synchronize()
-                exact = torch.equal(out, want)
-                check(exact, f"B3 {name} {tuple(src.shape)} "
-                      f"{dtype_name(dtype)}: exact against the plain "
-                      "permutation")
-                rows.append(dict(
-                    name=name, key=((n, h, w, c4), c),
-                    shape=list(src.shape), dtype=dtype_name(dtype),
-                    exact=exact, max_abs_err=float(
-                        (out.float() - want.float()).abs().max()),
-                    ms=graph_ms(kern), plain_ms=graph_ms(plain),
-                    library_ms=graph_ms(lib), eager_ms=cuda_ms(kern),
-                    bound_ms=2 * src.numel() * src.element_size() / bw
-                    * 1e3))
-    counts = {key: 1 for key in D2S_MAIN_PATH}
-    totals = {name: per_path_totals([r for r in rows if r["name"] == name],
-                                    counts) for name in ("d2s", "s2d")}
+            src = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            if name == "d2s":
+                key, view = (shape, c), (n, h, w, 2, 2, c)
+                kern = partial(b3.d2s, src, c)
+                plain = partial(b3.d2s_reference, src, c)
+            else:
+                key, view = shape, (n, h // 2, 2, w // 2, 2, c)
+                kern = partial(b3.s2d, src)
+                plain = partial(b3.s2d_reference, src)
+            # the library's yardstick: the same permutation, one copy
+            lib = partial(lambda t, v: t.view(v).permute(
+                0, 1, 3, 2, 4, 5).contiguous(), src, view)
+            out, want = kern(), plain()
+            torch.cuda.synchronize()
+            exact = torch.equal(out, want)
+            check(exact, f"B3 {name} {shape} {dtype_name(dtype)}: exact "
+                  "against the plain permutation")
+            rows.append(dict(
+                name=name, key=key, shape=list(shape),
+                dtype=dtype_name(dtype), exact=exact, max_abs_err=float(
+                    (out.float() - want.float()).abs().max()),
+                ms=graph_ms(kern), plain_ms=graph_ms(plain),
+                library_ms=graph_ms(lib), eager_ms=cuda_ms(kern),
+                bound_ms=2 * src.numel() * src.element_size() / bw * 1e3))
     d2s_rows = [r for r in rows if r["name"] == "d2s"]
+    s2d_rows = [r for r in rows if r["name"] == "s2d"]
+    totals = {"d2s": per_path_totals(d2s_rows,
+                                     {k: 1 for k in D2S_MAIN_PATH}),
+              "s2d": per_path_totals(s2d_rows,
+                                     {k: 1 for k in S2D_MAIN_PATH})}
     by_preset = {p: per_path_totals(d2s_rows, {k: t["d2s"].count(k)
                                                for k in t["d2s"]})
                  for p, t in SERVE.items()}
-    return rows, totals, by_preset
+    by_step = {p: {"d2s": per_path_totals(d2s_rows, t["unfrozen"]["d2s"]),
+                   "s2d": per_path_totals(s2d_rows, t["unfrozen"]["s2d"])}
+               for p, t in TRAIN.items()}
+    return rows, totals, by_preset, by_step
 
 
 def deconv_phase(gen: torch.Generator):
@@ -766,30 +891,27 @@ def slice_phase(preset: str, seed: int, card: str, cmp_size=None):
     return res
 
 
-def train_model(dtype: str, device: str, weights, fix_global: bool = True):
-    """pix2pixhd_512 at full width, steps_per_epoch 1 (fix_steps 10 when
-    ``fix_global``, else no freeze), with ``weights`` = (G, D, VGG)
-    state_dicts."""
+def train_model(preset: str, dtype: str, device: str, weights,
+                fix_steps: int = 0):
+    """``preset`` at full width, with ``weights`` = (G, D, VGG)
+    state_dicts (VGG None: the preset has no VGG loss); the trunk frozen
+    for the first ``fix_steps`` steps (niter_fix_global 1 x
+    steps_per_epoch ``fix_steps``; only the local enhancer has a trunk),
+    none when 0."""
     from ir2rgb_tpu_torch.config import PRESETS
     from ir2rgb_tpu_torch.train import create_model
-    cfg = PRESETS["pix2pixhd_512"]
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                compute_dtype=dtype))
-    if not fix_global:
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                    niter_fix_global=0))
-    model = create_model(cfg, device=device, steps_per_epoch=1)
+    cfg = PRESETS[preset]
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+        train=dataclasses.replace(cfg.train,
+                                  niter_fix_global=int(fix_steps > 0)))
+    model = create_model(cfg, device=device,
+                         steps_per_epoch=max(fix_steps, 1))
     if weights is not None:
         for net, sd in zip((model.netG, model.netD, model.vgg), weights):
-            net.load_state_dict(sd)
+            if sd is not None:
+                net.load_state_dict(sd)
     return model
-
-
-def train_batch(size: int, seed: int, device: str):
-    rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.uniform(
-        -1, 1, (1, size, size, 3)).astype(np.float32)).to(device)
-        for k in "ab"}
 
 
 def clone_params(module, keep=lambda k: True):
@@ -830,7 +952,8 @@ def grad_bar(got: dict, want: dict, rel: float):
     for k, v in want.items():
         ratio = float((got[k].cpu() - v).norm()) / (rel * norms[k]
                                                     + 1e-6 * big)
-        worst = max(worst, (ratio, k))
+        if ratio >= worst[0]:
+            worst = (ratio, k)
     return worst
 
 
@@ -868,13 +991,17 @@ def avg_pool_grad_check():
 
 class KinkPins:
     """Straight-through pins (``y + (saved - y).detach()``) at every conv
-    output and every B1 input that a run records with a graph: recorded on
-    one run, replayed in the same order on another, so that the second
-    run's ReLU / LeakyReLU / abs kinks see the first run's values while
-    its backward is its own."""
+    output and every B1 input and output that a run records with a graph,
+    and B1's statistics (mean, rstd) at every call: recorded on one run,
+    replayed in the same order on another. The second run's forward then
+    takes the first run's values, and every kink its backward meets
+    decides as the first run's did: ReLU / LeakyReLU on pinned values
+    and, inside B1's backward kernel, on x-hat computed from the pinned x
+    and the first run's statistics. Its backward is its own."""
 
     def __init__(self):
-        self.saved, self.replayed, self._replay = [], 0, False
+        self.saved, self.stats = [], []
+        self.replayed, self.stats_replayed, self._replay = 0, 0, False
 
     def pin(self, y: torch.Tensor) -> torch.Tensor:
         if not (torch.is_grad_enabled() and y.requires_grad):
@@ -886,19 +1013,41 @@ class KinkPins:
         self.replayed += 1
         return y + (r - y).detach()
 
+    def _stats(self, mean: torch.Tensor, rstd: torch.Tensor):
+        if not self._replay:
+            self.stats.append((mean.cpu(), rstd.cpu()))
+            return mean, rstd
+        m, r = self.stats[self.stats_replayed]
+        self.stats_replayed += 1
+        return m.to(mean.device), r.to(rstd.device)
+
+    def all_replayed(self) -> bool:
+        return (self.replayed == len(self.saved) > 0
+                and self.stats_replayed == len(self.stats) > 0)
+
     @contextlib.contextmanager
     def _patched(self, replay: bool):
+        from ir2rgb_tpu_torch.kernels import instance_norm as b1k
         from ir2rgb_tpu_torch.nn import ops
         conv, b1 = ops.conv, ops.fused_instance_norm_act
+        norm_stats = b1k.instance_norm_act
         self._replay = replay
+
+        def stats(x, act="relu", eps=b1k.INSTANCE_NORM_EPS,
+                  negative_slope=0.2):
+            y, mean, rstd = norm_stats(x, act, eps, negative_slope)
+            return (y, *self._stats(mean, rstd))
+
         ops.conv = lambda *a, **kw: self.pin(conv(*a, **kw))
         ops.fused_instance_norm_act = (
-            lambda x, act="relu", negative_slope=0.2: b1(
-                self.pin(x), act, negative_slope))
+            lambda x, act="relu", negative_slope=0.2: self.pin(b1(
+                self.pin(x), act, negative_slope)))
+        b1k.instance_norm_act = stats
         try:
             yield
         finally:
             ops.conv, ops.fused_instance_norm_act = conv, b1
+            b1k.instance_norm_act = norm_stats
 
     def recording(self):
         return self._patched(False)
@@ -907,28 +1056,40 @@ class KinkPins:
         return self._patched(True)
 
 
-def train_phase(card: str):
-    """The main path of this slice: the pix2pixhd_512 train step at full
-    width, 512x512, batch 1."""
+def train_phase(preset: str, card: str):
+    """Train ``preset`` at full width, its crop size and batch 1 (a
+    temporal preset on windows of its n_frames_total frames): TRAIN_STEPS
+    bf16 steps with each step's launches held to ``TRAIN`` (frozen, then
+    from FIX_STEPS unfrozen where the preset trains coarse to fine),
+    finite losses and the weights that a step moves moved; TIMED_STEPS
+    timed steps in bf16 and in fp32 (TF32 off) with peak memory; bf16's
+    first-step losses against fp32's; one fp32 step on the card held to
+    the port's fp32 CPU step at 256x256 (losses, and every gradient at
+    the CPU run's forward point)."""
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
-    res = {"preset": "pix2pixhd_512", "batch": 1, "size": 512,
-           "fix_steps": FIX_STEPS, "avg_pool_grad_rel": avg_pool_grad_check()}
-    bf16 = train_model("bf16", "cuda", None)
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    table = TRAIN[preset]
+    fix = FIX_STEPS if "frozen" in table else 0
+    bf16 = train_model(preset, "bf16", "cuda", None, fix)
     weights = (seeded_state_dict(bf16.netG, SEED),
                seeded_state_dict(bf16.netD, SEED + 1),
+               None if bf16.vgg is None else
                {k: v.cpu() for k, v in bf16.vgg.state_dict().items()})
-    for net, sd in zip((bf16.netG, bf16.netD, bf16.vgg), weights):
+    for net, sd in zip((bf16.netG, bf16.netD), weights):
         net.load_state_dict(sd)
-    check(bf16.fix_steps == FIX_STEPS, f"train: fix_steps {bf16.fix_steps}")
-    batch = train_batch(512, SEED + 3, "cuda")
+    cfg = bf16.cfg
+    res = {"preset": preset, "batch": 1, "size": cfg.data.crop_size,
+           "frames": (cfg.data.n_frames_total
+                      if cfg.model.model == "temporal" else 1),
+           "fix_steps": bf16.fix_steps}
+    check(bf16.fix_steps == fix, f"{preset} train: fix_steps "
+          f"{bf16.fix_steps} (want {fix})")
+    batch = train_batch(cfg, SEED + 3, "cuda")
 
-    # 12 steps across the unfreeze: the trunk (model.*) frozen through
-    # step 9 and moving from step 10; the enhancer and D move every step
-    trunk0 = clone_params(bf16.netG, lambda k: k.startswith("model."))
-    losses, counts, moved, walls = [], [], [], []
+    losses, counts, walls, launches = [], [], [], {}
     for i in range(TRAIN_STEPS):
-        enh = clone_params(bf16.netG, lambda k: not k.startswith("model."))
-        dis = clone_params(bf16.netD)
+        frozen = i < fix
+        g0, d0 = clone_params(bf16.netG), clone_params(bf16.netD)
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -936,73 +1097,91 @@ def train_phase(card: str):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         counts.append(launch_counts())
+        launches = {k: launches.get(k, 0) + v for k, v in counts[-1].items()}
         losses.append({k: float(v) for k, v in m.items()})
-        trunk_moved = any(changed(bf16.netG, trunk0).values())
-        weights_moved = [v for k, v in {**changed(bf16.netG, enh),
-                                        **changed(bf16.netD, dis)}.items()
-                         if k.endswith("weight")]
-        moved.append(dict(step=i, trunk=trunk_moved,
-                          enhancer_and_d_weights=sum(weights_moved),
-                          of=len(weights_moved)))
-        check(trunk_moved == (i >= FIX_STEPS) and all(weights_moved),
-              f"train step {i}: trunk moved {trunk_moved} (want "
-              f"{i >= FIX_STEPS}), enhancer and D weights moved "
-              f"{sum(weights_moved)} of {len(weights_moved)}")
+        want = per_step(table["frozen" if frozen else "unfrozen"])
+        check(counts[-1] == want, f"{preset} train step {i} "
+              f"({'frozen' if frozen else 'unfrozen'}): launches "
+              f"{counts[-1]} (want {want})")
         check(all(math.isfinite(v) for v in losses[-1].values()),
-              f"train step {i}: losses {losses[-1]}")
-        if i >= FIX_STEPS:
-            check(counts[-1] == PER_STEP, f"train step {i} (unfrozen): "
-                  f"launches {counts[-1]} (want {PER_STEP})")
-        else:
-            check(counts[-1]["instance_norm_act"] == PER_STEP[
-                "instance_norm_act"] and counts[-1]["d2s"] == 5,
-                f"train step {i} (frozen): launches {counts[-1]}")
-    res.update(losses_bf16=losses, launches_by_step=counts, moved=moved,
+              f"{preset} train step {i}: losses {losses[-1]}")
+        # every weight moves, but the frozen trunk's (model.*), which stay
+        moved = {**changed(bf16.netG, g0), **{
+            "D." + k: v for k, v in changed(bf16.netD, d0).items()}}
+        trunk = {k for k in moved if frozen and k.startswith("model.")}
+        stuck = [k for k, v in moved.items() if k.endswith("weight")
+                 and k not in trunk and not v]
+        check(not stuck and not any(moved[k] for k in trunk),
+              f"{preset} train step {i}: {len(stuck)} weight(s) did not "
+              f"move {stuck[:3]}; frozen trunk tensors moved "
+              f"{sum(moved[k] for k in trunk)} of {len(trunk)}")
+    res.update(losses_bf16=losses, launches_by_step=counts,
                wall_ms_by_step=walls)
-    del trunk0
+    del g0, d0  # the last step's copies of every weight, out of the peak
 
-    # ms/step: 10 more unfrozen steps, bf16, then fp32 (TF32 off) after
-    # two warmup steps of its own
+    # ms/step, unfrozen: bf16, then fp32 (TF32 off) after two steps of
+    # its own (the first one's losses held against bf16's first)
+    unfrozen = per_step(table["unfrozen"])
     ms, peak, run_counts = timed_steps(bf16, batch, TIMED_STEPS)
-    check(run_counts == {k: v * TIMED_STEPS for k, v in PER_STEP.items()},
-          f"train: launches {run_counts} over {TIMED_STEPS} timed steps")
-    res.update(ms_per_step_bf16=ms, peak_bytes_bf16=peak,
-               launches_timed=run_counts)
+    check(run_counts == {k: v * TIMED_STEPS for k, v in unfrozen.items()},
+          f"{preset} train: launches {run_counts} over {TIMED_STEPS} timed "
+          "bf16 steps")
+    launches = {k: launches[k] + v for k, v in run_counts.items()}
     del bf16
     torch.cuda.empty_cache()
-    fp32 = train_model("float32", "cuda", weights, fix_global=False)
+    fp32 = train_model(preset, "float32", "cuda", weights)
     first = {k: float(v) for k, v in fp32.train_step(batch).items()}
     fp32.train_step(batch)
-    ms32, peak32, _ = timed_steps(fp32, batch, TIMED_STEPS)
-    res.update(losses_fp32_first=first, ms_per_step_fp32=ms32,
-               peak_bytes_fp32=peak32)
+    ms32, peak32, run32 = timed_steps(fp32, batch, TIMED_STEPS)
+    check(run32 == {k: v * TIMED_STEPS for k, v in unfrozen.items()},
+          f"{preset} train: launches {run32} over {TIMED_STEPS} timed fp32 "
+          "steps")
+    launches = {k: launches[k] + v for k, v in run32.items()}
     rel = {k: abs(losses[0][k] - v) / abs(v) for k, v in first.items()}
-    res["bf16_vs_fp32_first_step_rel"] = rel
+    res.update(ms_per_step_bf16=ms, peak_bytes_bf16=peak,
+               ms_per_step_fp32=ms32, peak_bytes_fp32=peak32,
+               losses_fp32_first=first, bf16_vs_fp32_first_step_rel=rel,
+               launches=launches)
     check(max(rel.values()) <= BF16_LOSS_REL,
-          f"train: bf16 first-step losses within {BF16_LOSS_REL:.0%} of "
-          f"fp32 ({ {k: f'{v:.3g}' for k, v in rel.items()} })")
+          f"{preset} train: bf16 first-step losses within "
+          f"{BF16_LOSS_REL:.0%} of fp32 "
+          f"({ {k: f'{v:.3g}' for k, v in rel.items()} })")
     del fp32
     torch.cuda.empty_cache()
 
     # one fp32 step on the card against the port's fp32 CPU step at full
     # width on 256x256 inputs, the same weights and batch. The losses are
     # held as they come. The gradients are held at the forward point of
-    # the CPU run: every conv output and every B1 input is pinned to the
-    # CPU's value (KinkPins). Unpinned, fp32 rounding flips a few ReLU
-    # units across their kink (most in the trunk's 8x8x1024 blocks, where
-    # one unit carries ~0.4% of a layer's gradient), which moves every G
-    # gradient by ~0.5% whatever the arithmetic; that spread is reported.
-    cpu = train_model("float32", "cpu", weights, fix_global=False)
-    card32 = train_model("float32", "cuda", weights, fix_global=False)
-    b_cpu = train_batch(256, SEED + 4, "cpu")
+    # the CPU run: every conv output and every B1 input and output is
+    # pinned to the CPU's value, and B1's backward reads the CPU's
+    # statistics, so that its activation masks are the CPU's (KinkPins).
+    # Unpinned, fp32 rounding flips a few ReLU units across their kink
+    # (most in the trunk's 8x8x1024 blocks, where one unit carries ~0.4%
+    # of a layer's gradient), which moves every G gradient by ~0.5%
+    # whatever the arithmetic; that spread is reported. With only the
+    # inputs of B1 pinned, a unit whose x-hat sits within the two runs'
+    # rounding of zero still flipped in temporal_512's 4-frame window
+    # (model.1.weight at 2.47 of the bar, NVIDIA H100 80GB HBM3, 700 W).
+    cpu = train_model(preset, "float32", "cpu", weights)
+    card32 = train_model(preset, "float32", "cuda", weights)
+    b_cpu = train_batch(cfg, SEED + 4, "cpu", size=256)
     b_card = {k: v.cuda() for k, v in b_cpu.items()}
     pins = KinkPins()
     t0 = time.perf_counter()
     with pins.recording():
         m_cpu = cpu.compute_grads(b_cpu)
     cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
     m_card = card32.compute_grads(b_card)
     torch.cuda.synchronize()
+    want256 = TRAIN_256[preset]["unfrozen"]
+    got256 = launch_counts()
+    check(got256["instance_norm_act"] == sum(want256["b1"].values())
+          and got256["instance_norm_act_bwd"] == sum(
+              want256["b1_bwd"].values())
+          and got256["d2s"] == sum(want256["d2s"].values())
+          and got256["s2d"] == sum(want256["s2d"].values()),
+          f"{preset} train fp32 at 256px: launches {got256}")
     loss_rel = {k: abs(float(m_card[k]) - float(v)) / abs(float(v))
                 for k, v in m_cpu.items()}
     nets = ("netG", "netD")
@@ -1013,9 +1192,10 @@ def train_phase(card: str):
             for n in nets}
     with pins.replaying():
         card32.compute_grads(b_card)
-    check(pins.replayed == len(pins.saved) > 0,
-          f"train fp32 card vs CPU: {pins.replayed} of {len(pins.saved)} "
-          "pins replayed")
+    check(pins.all_replayed(),
+          f"{preset} train fp32 card vs CPU: {pins.replayed} of "
+          f"{len(pins.saved)} pins and {pins.stats_replayed} of "
+          f"{len(pins.stats)} B1 statistics replayed")
     worst = {n: grad_bar({k: p.grad for k, p in getattr(
         card32, n).named_parameters()}, want[n], TRAIN_FP32_GRAD_REL)
              for n in nets}
@@ -1024,18 +1204,19 @@ def train_phase(card: str):
                fp32_card_vs_cpu_worst_grad_unpinned=free, cpu_step_s=cpu_s,
                pins=len(pins.saved))
     check(max(loss_rel.values()) <= TRAIN_FP32_LOSS_RTOL,
-          f"train fp32 card vs CPU at 256px: losses rel "
+          f"{preset} train fp32 card vs CPU at 256px: losses rel "
           f"{max(loss_rel.values()):.3g} (tol {TRAIN_FP32_LOSS_RTOL})")
     for name, (ratio, key) in worst.items():
-        check(ratio <= 1.0, f"train fp32 card vs CPU at 256px: {name} "
-              f"gradients, worst {key} at {ratio:.3g} of the bar "
+        check(ratio <= 1.0, f"{preset} train fp32 card vs CPU at 256px: "
+              f"{name} gradients, worst {key} at {ratio:.3g} of the bar "
               f"(||d|| <= {TRAIN_FP32_GRAD_REL}·||g|| + 1e-6·M); unpinned "
               f"{free[name][1]} at {free[name][0]:.3g}")
     del cpu, card32
     torch.cuda.empty_cache()
-    print(f"train pix2pixhd_512 b1 512px: {ms:.2f} ms/step bf16, "
-          f"{ms32:.2f} ms/step fp32, peak {peak / 2**30:.2f} / "
-          f"{peak32 / 2**30:.2f} GiB ({card})", flush=True)
+    print(f"train {preset} b1 {res['size']}px x {res['frames']} frame(s): "
+          f"{ms:.2f} ms/step bf16, {ms32:.2f} ms/step fp32, peak "
+          f"{peak / 2**30:.2f} / {peak32 / 2**30:.2f} GiB ({card})",
+          flush=True)
     return res
 
 
@@ -1083,10 +1264,11 @@ def main() -> int:
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    b1_rows, b1_frame, b1_step, b1_worst = phase("B1", b1_phase, bw, gen)
-    bwd_rows, bwd_step, bwd_worst = phase("B1 bwd", b1_bwd_phase, bw, gen)
+    b1_rows, b1_frame, b1_steps, b1_worst = phase("B1", b1_phase, bw, gen)
+    bwd_rows, bwd_steps, bwd_worst = phase("B1 bwd", b1_bwd_phase, bw, gen)
     b2_rows, b2_hmma = phase("B2", b2_phase, bw, fp32_peak, bf16_peak, gen)
-    d2s_rows, d2s_step, d2s_frame = phase("B3", d2s_phase, bw, gen)
+    d2s_rows, d2s_step, d2s_frame, d2s_steps = phase("B3", d2s_phase, bw,
+                                                     gen)
     up_rows = phase("ups", deconv_phase, gen)
     # the main path's two presets at their crop size, then every other
     # served preset, held to the CPU on 256x256 frames (every generator
@@ -1095,61 +1277,76 @@ def main() -> int:
               for p in ("pix2pixhd_512", "temporal_512")]
     slices += [phase(p, slice_phase, p, SEED, card, cmp_size=256)
                for p in SERVE if p not in ("pix2pixhd_512", "temporal_512")]
-    train = phase("train", train_phase, card)
+    avg_pool_rel = phase("avg pool grad", avg_pool_grad_check)
+    trains = [phase("train " + p, train_phase, p, card) for p in TRAIN]
 
-    serve = {s["preset"]: s["launches"] for s in slices}
-    steps = train["launches_timed"]
+    # launches summed over every path's counted runs: 8 served frames a
+    # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
+    by_path = {**{"serve " + s["preset"]: s["launches"] for s in slices},
+               **{"train " + t["preset"]: t["launches"] for t in trains}}
+    total = {k: sum(c[k] for c in by_path.values())
+             for k in PER_STEP}
+    for k, n in total.items():
+        check(n > 0, f"{k}: {n} launches over the paths")
+
+    def path_launches(k):
+        return {p: c[k] for p, c in by_path.items() if c[k]}
+
     b2 = next(r for r in b2_rows
               if tuple(r["shape"]) == B2_MAIN and r["dtype"] == "bfloat16")
     b2_fp32 = next(r for r in b2_rows
                    if tuple(r["shape"]) == B2_MAIN and r["dtype"] == "float32")
+    main_step = "pix2pixhd_512"
     kernels = [
         kernel_entry(
             "instance_norm_act",
             "ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
-            "ir2rgb_tpu/kernels/instance_norm.py:127",
-            steps["instance_norm_act"], b1_step, b1_worst[torch.bfloat16],
-            f"one pix2pixhd_512 train step: {PER_STEP['instance_norm_act']}"
-            " launches, bf16; launches over the 10 timed steps",
+            "ir2rgb_tpu/kernels/instance_norm.py:136",
+            total["instance_norm_act"], b1_steps[main_step],
+            b1_worst[torch.bfloat16],
+            f"times: one {main_step} train step "
+            f"({PER_STEP['instance_norm_act']} launches), bf16; launches: "
+            "summed over every path's counted runs",
             max_abs_err_fp32=b1_worst[torch.float32],
             device_kernels_per_call=max(r["device_kernels"]
                                         for r in b1_rows),
             l2_route=sorted({str(r["shape"]) for r in b1_rows
                              if r["plan"].endswith("l2")}),
             per_serving_frame_by_preset=b1_frame,
-            launches_by_path=dict(serve_8_frames={
-                p: c["instance_norm_act"] for p, c in serve.items()},
-                train_10_steps=steps["instance_norm_act"])),
+            per_train_step_by_preset=b1_steps,
+            launches_by_path=path_launches("instance_norm_act")),
         kernel_entry(
             "instance_norm_act_bwd",
             "ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
             "ir2rgb_tpu/kernels/instance_norm.py:201",
-            steps["instance_norm_act_bwd"], bwd_step,
+            total["instance_norm_act_bwd"], bwd_steps[main_step],
             bwd_worst[torch.bfloat16],
-            f"one train step: {PER_STEP['instance_norm_act_bwd']} launches,"
-            " bf16; max_abs_err is relative to max|dx|",
+            f"times: one unfrozen {main_step} train step "
+            f"({PER_STEP['instance_norm_act_bwd']} launches), bf16; "
+            "max_abs_err is relative to max|dx|",
             max_rel_err_fp32=bwd_worst[torch.float32],
             device_kernels_per_call=max(r["device_kernels"]
                                         for r in bwd_rows),
             l2_route=sorted({str(r["shape"]) for r in bwd_rows
-                             if r["plan"].endswith("l2")})),
+                             if r["plan"].endswith("l2")}),
+            per_train_step_by_preset=bwd_steps,
+            launches_by_path=path_launches("instance_norm_act_bwd")),
         dict(name="tail_fused", route="cuda",
              source="ir2rgb_tpu_torch/kernels/csrc/tail_fused.cu",
-             replaces="ir2rgb_tpu/kernels/tail_fused.py:189",
-             launches=serve["pix2pixhd_512"]["tail_fused"],
+             replaces="ir2rgb_tpu/kernels/tail_fused.py:203",
+             launches=total["tail_fused"],
              max_abs_err=b2["max_abs_err"],
              max_abs_err_fp32=b2_fp32["max_abs_err"],
              ms=b2["ms"], plain_ms=b2["plain_ms"],
              bound_ms=b2["bound_ms"], bound_by=b2["bound_by"],
              library_ms=b2["library_ms"], eager_ms=b2["eager_ms"],
              cold_ms=b2["cold_ms"],
-             per="one launch at (1,512,512,32), bf16 (tensor-core route); "
-                 "launches over 8 pix2pixhd_512 serving frames (not on the "
-                 "train path)",
+             per="times: one launch at (1,512,512,32), bf16 (tensor-core "
+                 "route); launches: the served frames (not on the train "
+                 "path)",
              device_kernels_per_call=max(r["device_kernels"]
                                          for r in b2_rows),
-             launches_by_path=dict(serve_8_frames={
-                 p: c["tail_fused"] for p, c in serve.items()}),
+             launches_by_path=path_launches("tail_fused"),
              sass_hmma_per_kernel=b2_hmma,
              shapes=[{k: r[k] for k in ("shape", "dtype", "route",
                                         "tile_rows", "max_abs_err", "ms",
@@ -1159,24 +1356,30 @@ def main() -> int:
                      for r in b2_rows]),
         kernel_entry(
             "d2s", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
-            "ir2rgb_tpu/kernels/d2s.py:100", steps["d2s"], d2s_step["d2s"],
+            "ir2rgb_tpu/kernels/d2s.py:107", total["d2s"], d2s_step["d2s"],
             max(r["max_abs_err"] for r in d2s_rows if r["name"] == "d2s"),
-            "the five ups of one frame or step, bf16",
+            f"times: the five ups of one {main_step} frame or step, bf16",
             per_serving_frame_by_preset=d2s_frame,
-            launches_by_path=dict(serve_8_frames={
-                p: c["d2s"] for p, c in serve.items()},
-                train_10_steps=steps["d2s"])),
+            per_train_step_by_preset={p: t["d2s"]
+                                      for p, t in d2s_steps.items()},
+            launches_by_path=path_launches("d2s")),
         kernel_entry(
             "s2d", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
-            "ir2rgb_tpu/kernels/d2s.py:115", steps["s2d"], d2s_step["s2d"],
+            "ir2rgb_tpu/kernels/d2s.py:119", total["s2d"], d2s_step["s2d"],
             max(r["max_abs_err"] for r in d2s_rows if r["name"] == "s2d"),
-            "the five ups' gradients of one train step, bf16"),
+            f"times: the five ups' gradients of one unfrozen {main_step} "
+            "train step, bf16",
+            per_train_step_by_preset={p: t["s2d"]
+                                      for p, t in d2s_steps.items()},
+            launches_by_path=path_launches("s2d")),
     ]
     print(f"peaks: {row} row, {bw / 1e12} TB/s, fp32 {fp32_peak / 1e12} "
           f"TFLOP/s, bf16 {bf16_peak / 1e12} TFLOP/s")
     for s in slices:
         print("slice " + json.dumps(s))
-    print("train " + json.dumps(train))
+    print("avg pool gradient, card vs CPU " + json.dumps(avg_pool_rel))
+    for t in trains:
+        print("train " + json.dumps(t))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -1211,6 +1414,14 @@ def main() -> int:
         print(f"  {p} per frame, bf16: B1 {t['ms']:.4f} ms (bound "
               f"{t['bound_ms']:.4f}), B3 d2s {d2s_frame[p]['ms']:.4f} ms "
               f"(bound {d2s_frame[p]['bound_ms']:.4f})")
+    for p in TRAIN:
+        parts = [(k, t) for k, t in (
+            ("B1", b1_steps[p]), ("B1 bwd", bwd_steps[p]),
+            ("d2s", d2s_steps[p]["d2s"]), ("s2d", d2s_steps[p]["s2d"]))]
+        print(f"  {p} per unfrozen train step, bf16: " + ", ".join(
+            f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+            f"{t['plain_ms']:.4f}, lib {t['library_ms']:.4f})"
+            for k, t in parts))
     print("phase seconds " + json.dumps(seconds))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,

@@ -1,5 +1,5 @@
 """The subset of ``ir2rgb_tpu/config/config.py`` that serving and the
-non-temporal train step read, and every preset but ``cyclegan_256``
+train step read, and every preset but ``cyclegan_256``
 (whose model, ``train/cycle.py``, is not ported yet).
 
 A copy, not an import: the port keeps its own definitions. Field names,
@@ -39,8 +39,7 @@ class ModelConfig:
     upsample: str = "deconv"
     # D taps intermediate features (the feature-matching loss needs them)
     get_interm_feat: bool = True
-    # generator dropout 0.5 when training (not ported yet: training with
-    # it raises; serving never drops)
+    # generator dropout 0.5 when training (serving never drops)
     use_dropout: bool = False
     # normal | xavier | kaiming | orthogonal (ops.apply_init_type)
     init_type: str = "normal"
@@ -81,7 +80,8 @@ class LossConfig:
     # pretrained-VGG19 .npz (from the JAX package's `cli/convert.py
     # vgg19`); empty = He-random fallback (create_model warns)
     vgg_weights: str = ""
-    pool_size: int = 0  # image pool (not ported yet: > 0 raises)
+    # image pool of D's fakes (train/image_pool.py); 0: none
+    pool_size: int = 0
 
 
 @dataclass(frozen=True)
@@ -97,7 +97,8 @@ class TrainConfig:
     beta2: float = 0.999
     # coarse-to-fine: epochs during which only the local enhancer trains
     niter_fix_global: int = 0
-    # not ported yet (values other than these defaults raise)
+    # not ported yet: a model with other values serves, and its
+    # train_step raises
     grad_accum: int = 1
     ema_decay: float = 0.0
     adam_mu_dtype: str = "f32"

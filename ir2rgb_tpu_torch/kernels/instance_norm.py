@@ -319,12 +319,16 @@ def instance_norm_act_backward(x: torch.Tensor, mean: torch.Tensor,
                                negative_slope: float = 0.2) -> torch.Tensor:
     """dx of :func:`instance_norm_act` for the output gradient ``g``.
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel. A ``g``
+    the kernel cannot read (a view: a slice of a concat's gradient, or
+    contiguous memory at an offset that breaks its word loads) is copied
+    once to fresh contiguous memory."""
     if x.device.type == "cpu":
         return instance_norm_act_backward_reference(x, mean, rstd, g, act,
                                                     negative_slope)
-    return instance_norm_act_bwd_cuda(x, mean, rstd, g.contiguous(), act,
-                                      negative_slope)
+    if not g.is_contiguous() or g.data_ptr() % (_PER * g.element_size()):
+        g = g.clone(memory_format=torch.contiguous_format)
+    return instance_norm_act_bwd_cuda(x, mean, rstd, g, act, negative_slope)
 
 
 class InstanceNormAct(torch.autograd.Function):

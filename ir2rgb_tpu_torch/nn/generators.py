@@ -32,8 +32,13 @@ output tail's reflect-pad + 7x7 conv + tanh (kernel B2). With
 JAX package computes it when training (``generators.py:204``): B2 has no
 backward. A batch norm is an ``nn.BatchNorm2d`` for its keys (gamma, beta
 and the running stats); ``forward`` never calls it, so no running stat
-changes. Dropout (``use_dropout``) is kept as a slot: serving never drops,
-and training with it is not ported yet.
+changes. Dropout (``use_dropout``) is a slot too: it drops (``ops.dropout``,
+rate 0.5) only when ``forward`` is given ``train=True`` and a
+``torch.Generator`` to draw from, where the JAX package drops
+(``generators.py:92``, ``:751-767``): after the first norm of the ResNet
+blocks of a ResNet generator or of the local enhancer's trunk (not of
+its enhancer branches, which JAX gives no key), and after the up norm of
+the U-Net's inner ``num_downs - 5`` middle levels. Serving never drops.
 
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
 ``nn/s2d_space.py``) are exact rewrites of the same math and are not
@@ -184,7 +189,7 @@ class ResnetBlock(nn.Module):
     def __init__(self, dim: int, norm: str = "instance",
                  use_dropout: bool = False):
         super().__init__()
-        self.norm = norm
+        self.norm, self.use_dropout = norm, use_dropout
         bias = use_bias(norm)
         layers = [Slot("reflect_pad 1"), nn.Conv2d(dim, dim, 3, bias=bias),
                   norm_layer(norm, dim), Slot("relu")]
@@ -195,9 +200,14 @@ class ResnetBlock(nn.Module):
                    norm_layer(norm, dim)]
         self.conv_block = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: draw the dropout mask from it (a block built with
+        ``use_dropout``); None: no dropout."""
         cb, (c0, c1) = self.conv_block, self.convs
         h = _conv_norm_act(cb, c0, ops.reflect_pad(x, 1), self.norm, "relu")
+        if self.use_dropout and generator is not None:
+            h = ops.dropout(h, 0.5, generator)
         h = _conv_norm_act(cb, c1, ops.reflect_pad(h, 1), self.norm, "none")
         return x + h
 
@@ -242,13 +252,16 @@ class ResnetStack(nn.Sequential):
         self.head, self.downs, self.blocks, self.ups, self.tail = (
             1, downs, blocks, ups, tail)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the blocks' dropout draws (with ``train``)."""
         norm = self.norm
+        drop = generator if train else None
         h = _conv_norm_act(self, self.head, ops.reflect_pad(x, 3), norm)
         for i in self.downs:
             h = _conv_norm_act(self, i, h, norm, stride=2, padding=1)
         for i in self.blocks:
-            h = self[i](h)
+            h = self[i](h, drop)
         for i in self.ups:
             h = _norm_act(self[i + 1], self[i](h), norm, "relu")
         if self.tail is not None:
@@ -286,11 +299,12 @@ class ResnetGenerator(nn.Module):
                                  n_downsampling, norm, with_tail, upsample,
                                  use_dropout)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         _check_divisible(x, self.n_downsampling, self.net_g)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return self.model(x, train)
+        return self.model(x, train, generator)
 
 
 class EnhancerDown(nn.Sequential):
@@ -347,7 +361,9 @@ class LocalEnhancer(nn.Module):
     ``cfg.compute_dtype``. The parameters may be in another dtype (fp32
     master weights when training); each op casts them at use.
     ``train=True`` picks the differentiable tail, as
-    ``local_enhancer_apply(..., train=True)`` does."""
+    ``local_enhancer_apply(..., train=True)`` does, and with a
+    ``generator`` the trunk's blocks drop out (the enhancer branches'
+    never do: JAX hands them no key)."""
 
     def __init__(self, cfg: GenConfig):
         super().__init__()
@@ -368,7 +384,8 @@ class LocalEnhancer(nn.Module):
                                upsample=cfg.upsample,
                                use_dropout=cfg.use_dropout))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         n_local = cfg.n_local_enhancers
         _check_divisible(x, n_local + cfg.n_downsample_global, cfg.net_g)
@@ -377,7 +394,7 @@ class LocalEnhancer(nn.Module):
         for _ in range(n_local):
             pyramid.append(ops.avg_pool(pyramid[-1], 3, 2, 1,
                                         count_include_pad=False))
-        out = self.model(pyramid[-1])
+        out = self.model(pyramid[-1], train, generator)
         for n in range(1, n_local + 1):
             down = getattr(self, f"model{n}_1")
             up = getattr(self, f"model{n}_2")
@@ -407,6 +424,7 @@ class UnetBlock(nn.Module):
                  norm: str = "instance", use_dropout: bool = False):
         super().__init__()
         self.outermost, self.innermost, self.norm = outermost, innermost, norm
+        self.use_dropout = use_dropout and not (outermost or innermost)
         bias = use_bias(norm)
         down = nn.Conv2d(outer_nc if input_nc is None else input_nc,
                          inner_nc, 4, stride=2, padding=1, bias=bias)
@@ -432,7 +450,10 @@ class UnetBlock(nn.Module):
         self.up = layers.index(up)
         self.up_norm = None if outermost else self.up + 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the dropout draws of this level (built with
+        ``use_dropout``) and the levels inside it; None: no dropout."""
         m = self.model
         d = x if self.outermost else ops.apply_act(x, "leaky_relu")
         conv = m[self.down]
@@ -440,19 +461,22 @@ class UnetBlock(nn.Module):
         if self.down_norm is not None:
             d = _norm_act(m[self.down_norm], d, self.norm, "none")
         if self.sub is not None:
-            d = m[self.sub](d)
+            d = m[self.sub](d, generator)
         u = m[self.up](ops.apply_act(d, "relu"))
         if self.outermost:
             return torch.tanh(u.float()).to(u.dtype)
         u = _norm_act(m[self.up_norm], u, self.norm, "none")
+        if self.use_dropout and generator is not None:
+            u = ops.dropout(u, 0.5, generator)
         return torch.cat([x, u], dim=-1)
 
 
 class UnetGenerator(nn.Module):
     """``unet_256`` (8 levels) / ``unet_128`` (7): channels ngf, 2, 4, 8,
     8, ... x ngf from the outermost level in; the inner ``num_downs - 5``
-    middle levels take dropout when ``use_dropout`` (a slot: see the
-    module docstring). NHWC in, NHWC out, in ``cfg.compute_dtype``."""
+    middle levels take dropout when ``use_dropout`` (when training with
+    a generator: see the module docstring). NHWC in, NHWC out, in
+    ``cfg.compute_dtype``."""
 
     def __init__(self, cfg: GenConfig):
         super().__init__()
@@ -479,9 +503,11 @@ class UnetGenerator(nn.Module):
             prefix = f"{prefix}.model.{block.sub}"
             block = block.model[block.sub]
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         _check_divisible(x, self.num_downs, self.cfg.net_g)
-        return self.model(x.to(self.cfg.compute_dtype))
+        return self.model(x.to(self.cfg.compute_dtype),
+                          generator if train else None)
 
 
 def define_g(cfg: GenConfig) -> nn.Module:

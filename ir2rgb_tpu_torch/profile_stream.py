@@ -36,8 +36,10 @@ KINDS = [
     ("B3 d2s / s2d", ("d2s_kernel",)),
     ("optimizer (Adam)", ("multi_tensor_apply", "foreach", "Adam")),
     ("B2 tail", ("tail_tc_kernel", "tail_kernel")),
+    # fp32 without TF32: cuDNN also runs FFT convolutions (fft2d_r2c /
+    # c2r around cuBLAS gemv)
     ("conv", ("conv", "gemm", "xmma", "cudnn", "sm90_", "cutlass",
-              "implicit", "dgrad", "wgrad", "fprop")),
+              "implicit", "dgrad", "wgrad", "fprop", "fft2d", "gemv")),
     ("reflect pad (index_select)", ("index", "gather")),
     ("avg pool", ("avg_pool", "AvgPool")),
     ("copy / layout", ("copy", "Copy", "memcpy", "Memcpy", "memset",

@@ -1,11 +1,15 @@
 """The GAN model — the port of ``ir2rgb_tpu/train/model.py`` for serving
-and for the non-temporal train step.
+and for the train step, temporal windows included.
 
 ``create_model(cfg)`` builds, on the CUDA device (or the device the
 caller names), the generator ``netG`` (any ``net_g`` of ``define_g``),
-the discriminator ``netD``, the VGG19 of the perceptual loss and two Adam
-optimizers. Parameters are fp32 master weights; G, D and the VGG compute
-in ``cfg.model.compute_dtype`` and cast the weights at use, as the JAX
+the discriminator ``netD`` (none for ``net_d="pixel"``, which serves but
+does not train), the VGG19 of the perceptual loss, two Adam optimizers,
+one seeded ``torch.Generator`` on the device for dropout and the image
+pool (JAX's ``TrainState.rng``) and, with ``pool_size > 0``, the pool
+(``train/image_pool.py``, compute-dtype frames of the crop size).
+Parameters are fp32 master weights; G, D and the VGG compute in
+``cfg.model.compute_dtype`` and cast the weights at use, as the JAX
 package does. Weights are the reference ``weights_init`` drawn from
 seeded ``torch.Generator``s, re-drawn per ``init_type``; load trained or
 JAX-converted weights with ``load_state_dict``.
@@ -20,9 +24,13 @@ JAX-converted weights with ``load_state_dict``.
   changes, so a serving frame casts nothing.
 - ``train_step(batch)`` is one G + D update with the JAX package's
   stop-gradient walls (``model.py:13-21``): G's gradient comes through D
-  with D's parameters frozen, D's from the detached fake, and the G-side
-  real passes (feature-matching targets, VGG of the target) record no
-  graph. The four D passes are separate, as in the JAX default.
+  with D's parameters frozen, D's from the detached (pool-mixed) fake,
+  and the G-side real passes (feature-matching targets, VGG of the
+  target) record no graph. The four D passes are separate, as in the JAX
+  default. The input may be a label map (one-hot on the device) with an
+  instance-edge channel (``batch["inst"]``); G drops out with
+  ``use_dropout``; a temporal model trains on (B, T, H, W, C) windows,
+  the carry keeping G's graph (``_temporal_losses``).
   Adam is optax's ``adam`` (eps 1e-8, bias correction on both moments),
   the lr is set from the schedule before each step, and the
   coarse-to-fine freeze (``niter_fix_global``) zeroes the trunk's grads
@@ -31,9 +39,10 @@ JAX-converted weights with ``load_state_dict``.
   graph: its gradients are zero by definition.
 
 Not ported yet (each raises ``NotImplementedError``): the netE feature
-input, the serving quantization modes, the CycleGAN model, and in
-training the temporal model, label and edge inputs, dropout, the image
-pool, grad-accum, EMA, ``adam_mu_dtype="bf16"`` and WGAN-GP.
+input, the serving quantization modes and the CycleGAN model (at
+``create_model``); and in training (at ``train_step``; such a model
+serves) the pixel D, grad-accum, EMA, ``adam_mu_dtype="bf16"`` and
+WGAN-GP.
 """
 
 from __future__ import annotations
@@ -56,9 +65,11 @@ from ir2rgb_tpu_torch.losses import (
 )
 from ir2rgb_tpu_torch.nn import ops
 from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d
+from ir2rgb_tpu_torch.nn.encoders import instance_edges
 from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g, init_weights
 from ir2rgb_tpu_torch.nn.vgg import Vgg19, load_vgg19_npz
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
+from ir2rgb_tpu_torch.train.image_pool import PoolState, init_pool, query_pool
 from ir2rgb_tpu_torch.train.schedule import global_freeze_mask, lr_schedule
 
 Batch = Dict[str, torch.Tensor]
@@ -95,6 +106,9 @@ class GanModel:
     # steps_per_epoch); > 0 only for net_g=local
     fix_steps: int = 0
     step: int = 0
+    # dropout and pool draws (on the model's device); the pool's state
+    generator: Optional[torch.Generator] = None
+    pool: Optional[PoolState] = None
     _serving: Optional[Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
         default=None, repr=False)
 
@@ -189,37 +203,59 @@ class GanModel:
     def trunk_parameters(self):
         return self.netG.model.parameters()
 
-    def loss_and_metrics(self, batch: Batch, freeze_trunk: bool = False
-                         ) -> Tuple[torch.Tensor, torch.Tensor,
-                                    Dict[str, torch.Tensor]]:
-        """(loss_g, loss_d, metrics) for one batch of NHWC frames in
-        [-1, 1] (``batch["a"]`` the input, ``batch["b"]`` the target),
-        with the graph recorded for both losses. ``loss_g`` reaches only
-        G's parameters, ``loss_d`` only D's; ``freeze_trunk`` records no
-        graph through the global trunk."""
-        m = self.cfg.model
-        if m.model == "temporal":
-            raise NotImplementedError("training the temporal model "
-                                      "(_temporal_losses) is not ported yet")
-        unported = {"label input (label_nc > 0)": m.label_nc > 0,
-                    "instance edges": m.use_instance_edges,
-                    "dropout": m.use_dropout}
+    def _check_trainable(self) -> None:
+        """Raise for the training options that are not ported yet; a
+        model with them builds and serves."""
+        loss, tr = self.cfg.loss, self.cfg.train
+        unported = {"net_d='pixel' (the pixel discriminator)":
+                        self.netD is None,
+                    "gan_mode='wgangp' (gradient penalty)":
+                        loss.gan_mode == "wgangp",
+                    "grad_accum > 1": tr.grad_accum > 1,
+                    "ema_decay > 0": tr.ema_decay > 0,
+                    "adam_mu_dtype='bf16'": tr.adam_mu_dtype in ("bf16",
+                                                                 "bfloat16")}
         for what, bad in unported.items():
             if bad:
                 raise NotImplementedError(f"training with {what} is not "
                                           "ported yet")
-        if self.netD is None:
-            raise ValueError("this model has no discriminator")
-        loss_cfg = self.cfg.loss
-        a, b = batch["a"].to(self.device), batch["b"].to(self.device)
+
+    def _fake(self, a: torch.Tensor, prev: Optional[torch.Tensor] = None,
+              edges: Optional[torch.Tensor] = None,
+              freeze_trunk: bool = False) -> torch.Tensor:
+        """G's training forward (differentiable tail, dropout drawn from
+        ``generator``). ``freeze_trunk``: the global trunk's parameters
+        get no gradient; the graph still runs through the trunk where its
+        input needs one (a temporal carry)."""
         frozen = self.trunk_parameters() if freeze_trunk else ()
         with _no_param_grads(frozen):
-            fake = self.netG(a, train=True)
+            return self.netG(self._generator_input(a, prev, edges),
+                             train=True, generator=self.generator)
+
+    def _for_d(self, fake: torch.Tensor) -> torch.Tensor:
+        """The fake D's own update sees: through the image pool when
+        there is one (the pool advances), else the fake."""
+        if self.pool is None:
+            return fake
+        out, self.pool = query_pool(self.pool, fake.detach(), self.generator)
+        return out
+
+    def _frame_losses(self, a_d: torch.Tensor, b: torch.Tensor,
+                      fake_for_d: torch.Tensor, fake: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """The conditional-GAN losses of one frame batch
+        (``model.py:223-323``): D's condition ``a_d`` (the encoded input
+        and the edge channel), the target ``b``, ``fake`` carrying G's
+        graph and ``fake_for_d`` (pool-mixed, no graph) for D's own
+        update. Metrics, with the two totals as ``_loss_g`` (reaching only
+        G) and ``_loss_d`` (only D)."""
+        loss_cfg = self.cfg.loss
         # D pairs in the generator's compute dtype; losses reduce in fp32
         cdt = fake.dtype
-        a_c, b_c = a.to(cdt), b.to(cdt)
+        a_c, b_c = a_d.to(cdt), b.to(cdt)
         pair_real = torch.cat([a_c, b_c], dim=-1)
         pair_fake = torch.cat([a_c, fake], dim=-1)
+        pair_fake_d = torch.cat([a_c, fake_for_d.detach().to(cdt)], dim=-1)
 
         # G side: D's parameters frozen, the real taps without a graph
         want_fm = not loss_cfg.no_gan_feat_loss and self.disc_cfg.get_interm_feat
@@ -247,24 +283,95 @@ class GanModel:
             metrics["G_L1"] = l1
             loss_g = loss_g + l1
 
-        # D side: live D parameters, the fake detached from G
+        # D side: live D parameters, the fake without G's graph
         d_out_real = self.netD(pair_real)
-        d_out_fake = self.netD(pair_fake.detach())
+        d_out_fake = self.netD(pair_fake_d)
         d_real, d_fake = gan_loss_d_parts(d_out_real, d_out_fake,
                                           loss_cfg.gan_mode)
         metrics["D_real"] = d_real
         metrics["D_fake"] = d_fake
-        return loss_g, d_real + d_fake, metrics
+        metrics["_loss_g"] = loss_g
+        metrics["_loss_d"] = d_real + d_fake
+        return metrics
+
+    def _temporal_losses(self, batch: Batch, freeze_trunk: bool
+                         ) -> Dict[str, torch.Tensor]:
+        """One window of ``batch["a"]`` / ``batch["b"]`` (B, T, H, W, C)
+        frame by frame (``model.py:386-432``): G sees cat(a_t, prev), prev
+        starting as zeros in the compute dtype and then the last
+        ``n_frames_g - 1`` fakes, newest first. The carry keeps G's graph,
+        as JAX's scan does (no stop-gradient): frame t's loss reaches G
+        through every earlier frame. Each frame draws its own dropout and
+        pool decisions. Metrics are the means over the frames;
+        ``_frame_loss_g`` holds each frame's G loss."""
+        a_seq = batch["a"].to(self.device)
+        b_seq = batch["b"].to(self.device)
+        out_nc = self.cfg.model.output_nc
+        n_prev = self.n_prev
+        prev = torch.zeros(a_seq.shape[:1] + a_seq.shape[2:4]
+                           + (out_nc * n_prev,), dtype=self.dtype,
+                           device=self.device)
+        frames = []
+        for t in range(a_seq.shape[1]):
+            a_t, b_t = a_seq[:, t], b_seq[:, t]
+            fake = self._fake(a_t, prev=prev, freeze_trunk=freeze_trunk)
+            frames.append(self._frame_losses(a_t, b_t, self._for_d(fake),
+                                             fake))
+            if n_prev > 0:
+                prev = torch.cat([fake, prev], dim=-1)[..., :out_nc * n_prev]
+        metrics = {k: torch.stack([f[k] for f in frames]).mean()
+                   for k in frames[0]}
+        metrics["_frame_loss_g"] = torch.stack([f["_loss_g"]
+                                                for f in frames])
+        return metrics
+
+    def loss_and_metrics(self, batch: Batch, freeze_trunk: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    Dict[str, torch.Tensor]]:
+        """(loss_g, loss_d, metrics) for one batch, with the graph
+        recorded for both losses (``model.py:325-384``). ``loss_g``
+        reaches only G's parameters, ``loss_d`` only D's; ``freeze_trunk``
+        keeps the global trunk's parameters out of the graph.
+
+        ``batch["a"]`` is the input in [-1, 1] (with ``label_nc > 0`` a
+        (B, H, W, 1) class-id map), ``batch["b"]`` the target, NHWC; a
+        temporal model takes (B, T, H, W, C) windows. With
+        ``use_instance_edges``, ``batch["inst"]`` holds the (B, H, W)
+        instance ids, whose edge channel G and D both see. Metrics whose
+        name starts with ``_`` are the totals (and a window's per-frame G
+        losses), not reported by ``train_step``."""
+        self._check_trainable()
+        m = self.cfg.model
+        if m.model == "temporal":
+            metrics = self._temporal_losses(batch, freeze_trunk)
+        else:
+            a, b = batch["a"].to(self.device), batch["b"].to(self.device)
+            edges = None
+            if m.use_instance_edges:
+                if batch.get("inst") is None:
+                    raise ValueError(
+                        "use_instance_edges is on but the batch has no "
+                        "'inst' maps (<phase>Inst/ folder missing?)")
+                edges = instance_edges(batch["inst"].to(self.device))
+            fake = self._fake(a, edges=edges, freeze_trunk=freeze_trunk)
+            # D conditions on the encoded input and the edge channel
+            a_d = self.encode_label(a)
+            if edges is not None:
+                a_d = torch.cat([a_d, edges.to(a_d.dtype)], dim=-1)
+            metrics = self._frame_losses(a_d, b, self._for_d(fake), fake)
+        return metrics["_loss_g"], metrics["_loss_d"], metrics
 
     def compute_grads(self, batch: Batch, freeze_trunk: bool = False
                       ) -> Dict[str, torch.Tensor]:
         """Backward of loss_g + loss_d into the ``.grad`` of G's and D's
-        parameters (cleared first). Returns the metrics, detached."""
+        parameters (cleared first). Returns the reported metrics,
+        detached."""
+        loss_g, loss_d, metrics = self.loss_and_metrics(batch, freeze_trunk)
         for p in (*self.netG.parameters(), *self.netD.parameters()):
             p.grad = None
-        loss_g, loss_d, metrics = self.loss_and_metrics(batch, freeze_trunk)
         (loss_g + loss_d).backward()
-        return {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()
+                if not k.startswith("_")}
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One fused G + D update; returns the metrics as 0-dim tensors
@@ -291,7 +398,8 @@ class GanModel:
 
 
 def _check_supported(cfg: Config) -> None:
-    m, loss, tr = cfg.model, cfg.loss, cfg.train
+    """Raise for what the port cannot build or serve."""
+    m = cfg.model
     if m.use_instance_feat:
         raise NotImplementedError("the netE feature input is not ported yet")
     if cfg.infer.quant != "none":
@@ -303,22 +411,11 @@ def _check_supported(cfg: Config) -> None:
         # as the JAX package's create_model asserts
         raise ValueError("label / instance-edge inputs and temporal mode "
                          "are not combined")
-    unported = {"pool_size > 0 (image pool)": loss.pool_size > 0,
-                "gan_mode='wgangp' (gradient penalty)":
-                    loss.gan_mode == "wgangp",
-                "grad_accum > 1": tr.grad_accum > 1,
-                "ema_decay > 0": tr.ema_decay > 0,
-                "adam_mu_dtype='bf16'": tr.adam_mu_dtype in ("bf16",
-                                                             "bfloat16")}
-    for what, bad in unported.items():
-        if bad:
-            raise NotImplementedError(f"training with {what} is not ported "
-                                      "yet")
 
 
 def network_configs(cfg: Config) -> Tuple[GenConfig, DiscConfig]:
-    """G's and D's configurations for ``cfg`` (raises on what is not
-    ported). Their input channels: the frame (or ``label_nc`` one-hot
+    """G's and D's configurations for ``cfg`` (raises on what the port
+    cannot build). Their input channels: the frame (or ``label_nc`` one-hot
     channels), the edge channel with ``use_instance_edges`` (G and D
     both, ``model.py:565-585``), then G's temporal prev."""
     _check_supported(cfg)
@@ -361,15 +458,18 @@ def create_model(cfg: Config,
                  steps_per_epoch: int = 1000,
                  vgg_weights_npz: Optional[str] = None,
                  seed: int = 0) -> GanModel:
-    """Build G, D, the VGG and their optimizers. ``device=None`` means the
-    CUDA device and raises when there is none; pass ``device="cpu"`` for
-    the CPU. G's weights come from ``seed``, D's from ``seed + 1`` and a
-    random VGG's from ``seed + 2``."""
+    """Build G, D, the VGG, their optimizers, the random state and the
+    pool. ``device=None`` means the CUDA device and raises when there is
+    none; pass ``device="cpu"`` for the CPU. G's weights come from
+    ``seed``, D's from ``seed + 1``, a random VGG's from ``seed + 2`` and
+    the dropout and pool draws from ``seed + 3``."""
     dev = resolve_device(device)
     gen_cfg, disc_cfg = network_configs(cfg)
     m = cfg.model
     net_g = _build(lambda: define_g(gen_cfg), dev, seed, m.init_type)
-    net_d = _build(lambda: define_d(disc_cfg), dev, seed + 1, m.init_type)
+    # the pixel D is not ported: such a model serves and does not train
+    net_d = (None if m.net_d == "pixel" else
+             _build(lambda: define_d(disc_cfg), dev, seed + 1, m.init_type))
 
     vgg = None
     if not cfg.loss.no_vgg_loss:
@@ -399,9 +499,17 @@ def create_model(cfg: Config,
                                 betas=(tcfg.beta1, tcfg.beta2), eps=1e-8)
 
     fix_steps = tcfg.niter_fix_global * steps_per_epoch
+    pool = None
+    if cfg.loss.pool_size > 0:
+        crop = cfg.data.crop_size
+        pool = init_pool(cfg.loss.pool_size, (crop, crop, m.output_nc),
+                         gen_cfg.compute_dtype, dev)
     return GanModel(cfg=cfg, gen_cfg=gen_cfg, netG=net_g, device=dev,
                     disc_cfg=disc_cfg, netD=net_d, vgg=vgg,
                     opt_g=adam(net_g.parameters()),
-                    opt_d=adam(net_d.parameters()), schedule=schedule,
-                    steps_per_epoch=steps_per_epoch,
-                    fix_steps=fix_steps if m.net_g == "local" else 0)
+                    opt_d=None if net_d is None else adam(net_d.parameters()),
+                    schedule=schedule, steps_per_epoch=steps_per_epoch,
+                    fix_steps=fix_steps if m.net_g == "local" else 0,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        seed + 3),
+                    pool=pool)

@@ -265,18 +265,21 @@ def test_edges_are_not_a_temporal_input():
 @pytest.mark.parametrize("field,value", [("label_nc", LABEL_NC),
                                          ("use_instance_edges", True),
                                          ("use_dropout", True)])
-def test_training_what_is_only_served_raises(field, value):
-    # label and edge inputs and dropout serve; training them is not
-    # ported yet
+def test_label_edge_and_dropout_models_train_and_serve(field, value):
+    # label and edge inputs and dropout serve and train (held to JAX in
+    # tests/test_torch_port_train_options.py)
     kw = dict(model="pix2pix", net_g="resnet_6blocks", **NARROW)
     kw[field] = value
     pm = create_model(Config(model=ModelConfig(**kw),
                              loss=LossConfig(no_vgg_loss=True)), device="cpu")
-    nc = LABEL_NC if field == "label_nc" else 3
-    batch = {"a": torch.zeros((1, 16, 16, 1 if nc == LABEL_NC else 3)),
-             "b": torch.zeros((1, 16, 16, 3))}
-    with pytest.raises(NotImplementedError):
-        pm.train_step(batch)
+    nc = 1 if field == "label_nc" else 3
+    batch = {"a": torch.from_numpy(_ids((1, 16, 16, 1), 0)) if nc == 1
+             else torch.zeros((1, 16, 16, 3)),
+             "b": torch.zeros((1, 16, 16, 3)),
+             "inst": torch.from_numpy(_inst((1, 16, 16), 1))}
+    metrics = pm.train_step(batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert pm.step == 1
     assert pm.generate(batch["a"]).shape == (1, 16, 16, 3)
 
 
