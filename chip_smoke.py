@@ -51,12 +51,22 @@ Phases, each failing the run if it fails:
    memory; the bf16 first step's losses against fp32's; one fp32 step on
    the card held to the port's fp32 CPU step at full width on 256x256
    inputs (losses, launches against ``TRAIN_256``, and every gradient
-   tensor at the CPU run's forward point).
+   tensor at the CPU run's forward point);
+9. ``train_cli``: the training CLI (``ir2rgb_tpu_torch.cli.train``) from
+   folders of PNG frames at full width, bf16: pix2pixhd_512 for 6 frozen
+   steps, then resumed with continue_train for 6 more across the
+   unfreeze, and temporal_512 for 3 windows, each step's and each
+   display's launches held to ``TRAIN`` / ``SERVE``, the checkpoints and
+   epoch labels, the restored state bit for bit, and the first resumed
+   step against the uninterrupted one; with the loader, checkpoint and
+   fit-versus-bare-step numbers (``train_cli_phase``).
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
-limit), one JSON line of kernel results, and last ``{"ok": true, "device": {...}}``. Without a
-CUDA device, or without the ir2rgb_tpu_torch package beside it, it exits
-non-zero and prints no result.
+limit), one JSON line of kernel results, and last
+``{"ok": true, "device": {...}}``; every phase's results go to
+``build/chip_smoke.json`` as well. Without a CUDA device, or
+without the ir2rgb_tpu_torch package beside it, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1220,6 +1231,367 @@ def train_phase(preset: str, card: str):
     return res
 
 
+# the train_cli phase: pix2pixhd_512 trains 6 steps frozen (one epoch of
+# 6 pairs, niter_fix_global 1), then resumes for 6 unfrozen; temporal_512
+# trains 3 windows of 4 frames; then a bare-step timing
+CLI_PAIRS, CLI_FRAMES, CLI_BARE_STEPS = 6, 6, 5
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, make):
+    """``owner.name`` replaced by ``make(original)`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def state_on_card(model) -> dict:
+    """A copy of everything ``GanModel.state_dict`` holds, the config
+    aside (it names the run), tensors cloned where they lie."""
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().clone()
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(copy(x) for x in v)
+        return v
+    state = copy(model.state_dict())
+    state.pop("config")
+    return state
+
+
+def first_difference(x, y, at="state"):
+    """None if ``x`` and ``y`` are bit-equal nested states, else where
+    they first differ."""
+    if isinstance(x, torch.Tensor):
+        same = (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                and x.shape == y.shape and torch.equal(x, y.to(x.device)))
+        return None if same else at
+    if isinstance(x, dict):
+        if x.keys() != y.keys():
+            return f"{at} keys"
+        return next((d for d in (first_difference(x[k], y[k], f"{at}.{k}")
+                                 for k in x) if d), None)
+    if isinstance(x, (list, tuple)):
+        if len(x) != len(y):
+            return f"{at} length"
+        return next((d for d in (first_difference(a, b, f"{at}[{i}]")
+                                 for i, (a, b) in enumerate(zip(x, y))) if d),
+                    None)
+    return None if x == y else at
+
+
+def train_cli_phase(card: str):
+    """``python -m ir2rgb_tpu_torch.cli.train`` in process, from folders of
+    PNG frames that ``data/synthetic.py`` writes (decoded by
+    ``data/native.py``: the C++ library where it loads, else PIL):
+
+    - pix2pixhd_512 at full width, bf16, batch 1, crop 512 from 572, on
+      CLI_PAIRS pairs: run 1 trains one epoch with the trunk frozen
+      (niter_fix_global 1), saving at steps 3 and 6 and labelling epoch 1
+      at step 6, with a display (B2) at steps 3 and 6; run 2 resumes with
+      continue_train, crosses the unfreeze (G's Adam state cleared at step
+      6) and ends at 12. Each step's launches are held to ``TRAIN`` and
+      each display's to the served frame's; the state restored in run 2
+      is held bit for bit to run 1's at its end, on the card; and the
+      first resumed step's losses to those of run 1's model taking the
+      same step (uninterrupted), bit for bit, with cuDNN deterministic;
+    - temporal_512 at full width for 3 windows of 4 frames;
+    - the numbers beside: ms/step through ``Trainer.fit`` against the bare
+      ``train_step`` on one batch, the wait in ``next()`` on the prefetch
+      queue, host decode ms a batch, checkpoint bytes, the ``save()``
+      stall and its snapshot, the write until the file is on disk, the
+      restore, and peak memory."""
+    import shutil
+    from ir2rgb_tpu_torch.checkpoint import manager as ckpt
+    from ir2rgb_tpu_torch.cli.train import main as cli_main
+    from ir2rgb_tpu_torch.data import decoder_in_use, write_synthetic_dataset
+    from ir2rgb_tpu_torch.data import loader
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.train import GanModel, Trainer
+    sync = torch.cuda.synchronize
+    root = Path("build") / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_dataset(str(root / "pairs"), n=CLI_PAIRS, size=572)
+    write_synthetic_dataset(str(root / "video"), n_videos=1,
+                            frames_per_video=CLI_FRAMES, size=572)
+    res = {"decoder": decoder_in_use(),
+           "write_folders_s": time.perf_counter() - t0}
+    print(f"train_cli: host decode by {res['decoder']} "
+          "(data/native.py::decoder_in_use)", flush=True)
+
+    rec = {"steps": [], "displays": [], "decode": [], "waits": [],
+           "snapshot_s": [], "save_s": [], "write": [], "fits": [],
+           "restore_s": [], "restored": [], "trainers": [], "batches": []}
+
+    def timed(key):
+        def make(orig):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                out = orig(*a, **kw)
+                rec[key].append(time.perf_counter() - t)
+                return out
+            return run
+        return make
+
+    def snapshot(orig):
+        def run(state):  # snapshot recurses: time the outer call only
+            if rec.get("in_snapshot"):
+                return orig(state)
+            rec["in_snapshot"] = True
+            t = time.perf_counter()
+            try:
+                return orig(state)
+            finally:
+                rec["in_snapshot"] = False
+                rec["snapshot_s"].append(time.perf_counter() - t)
+        return run
+
+    def decode(orig):
+        def run(paths, *a, **kw):
+            t = time.perf_counter()
+            out = orig(paths, *a, **kw)
+            rec["decode"].append((len(paths), time.perf_counter() - t))
+            return out
+        return run
+
+    def prefetch(orig):
+        def run(it, depth=2):
+            gen, waits = orig(it, depth), []
+            rec["waits"].append(waits)  # one list per loader stream
+            while True:
+                t = time.perf_counter()
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t)
+                yield item
+        return run
+
+    def write(orig):
+        def run(path, state):
+            t = time.perf_counter()
+            orig(path, state)
+            rec["write"].append((os.path.basename(path),
+                                 time.perf_counter() - t,
+                                 os.path.getsize(path)))
+        return run
+
+    def train_step(orig):
+        def run(model, batch):
+            rec["batches"].append(batch)
+            reset_launch_counts()
+            out = orig(model, batch)
+            rec["steps"].append((model.step - 1, launch_counts(),
+                                 {k: v.detach().clone()
+                                  for k, v in out.items()}))
+            return out
+        return run
+
+    def display(orig):
+        def run(trainer, batch, step):
+            reset_launch_counts()
+            orig(trainer, batch, step)
+            rec["displays"].append((step, launch_counts()))
+        return run
+
+    def fit(orig):
+        def run(trainer, data, total_steps=None):
+            start = trainer.model.step
+            sync()
+            t = time.perf_counter()
+            orig(trainer, data, total_steps)
+            sync()
+            rec["fits"].append((trainer.model.step - start,
+                                time.perf_counter() - t))
+            rec["trainers"].append(trainer)
+        return run
+
+    def init_or_restore(orig):
+        def run(trainer):
+            sync()
+            t = time.perf_counter()
+            orig(trainer)
+            sync()
+            rec["restore_s"].append(time.perf_counter() - t)
+            rec["restored"].append((trainer.model.step,
+                                    state_on_card(trainer.model)))
+        return run
+
+    base = ["--preset", "pix2pixhd_512", "--model.compute_dtype", "bf16",
+            "--data.dataroot", str(root / "pairs"),
+            "--train.checkpoints_dir", str(root / "runs"),
+            "--train.name", "pix2pixhd_512", "--train.niter_decay", "0",
+            "--train.niter_fix_global", "1", "--train.save_latest_freq", "3",
+            "--train.save_epoch_freq", "1", "--train.print_freq", "2",
+            "--train.display_freq", "3"]
+    temporal = ["--preset", "temporal_512", "--model.compute_dtype", "bf16",
+                "--data.dataroot", str(root / "video"),
+                "--train.checkpoints_dir", str(root / "runs"),
+                "--train.name", "temporal_512", "--train.niter", "1",
+                "--train.niter_decay", "0", "--train.display_freq", "3",
+                "--train.print_freq", "3"]
+    # cuDNN's deterministic algorithms for the phase: the uninterrupted
+    # step below must reproduce the resumed one bit for bit
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for owner, name, make in (
+                (loader, "_decode_many", decode),
+                (loader, "_prefetch", prefetch),
+                (ckpt, "snapshot", snapshot),
+                (ckpt, "_write", write),
+                (ckpt.CheckpointManager, "save", timed("save_s")),
+                (GanModel, "train_step", train_step),
+                (Trainer, "_display", display),
+                (Trainer, "fit", fit),
+                (Trainer, "init_or_restore", init_or_restore)):
+            stack.enter_context(wrapped(owner, name, make))
+        check(cli_main(base + ["--train.niter", "1"]) == 0, "train_cli run 1")
+        run1 = rec["trainers"][-1]
+        end1 = state_on_card(run1.model)
+        n1 = len(rec["steps"])
+        check(cli_main(base + ["--train.niter", "2",
+                               "--train.continue_train", "true"]) == 0,
+              "train_cli run 2 (resume)")
+        run2 = rec["trainers"][-1]
+        n2 = len(rec["steps"])
+        d2 = len(rec["displays"])
+        peaks = [torch.cuda.max_memory_allocated()]
+        torch.cuda.reset_peak_memory_stats()
+        check(cli_main(temporal) == 0, "train_cli temporal_512")
+        peaks.append(torch.cuda.max_memory_allocated())
+
+    # launches: every step's and every display's
+    steps = rec["steps"]
+    frozen = per_step(TRAIN["pix2pixhd_512"]["frozen"])
+    unfrozen = per_step(TRAIN["pix2pixhd_512"]["unfrozen"])
+    for i, (step, got, metrics) in enumerate(steps):
+        preset = "pix2pixhd_512" if i < n2 else "temporal_512"
+        if i < n2:
+            want = frozen if step < 6 else unfrozen
+        else:
+            want = per_step(TRAIN["temporal_512"]["frozen"])
+        check(got == want, f"train_cli {preset} step {step}: launches {got} "
+              f"(want {want})")
+        check(all(math.isfinite(float(v)) for v in metrics.values()),
+              f"train_cli {preset} step {step}: finite losses")
+    check([s for s, _, _ in steps] == list(range(12)) + [0, 1, 2],
+          f"train_cli: steps {[s for s, _, _ in steps]}")
+    for i, (step, got) in enumerate(rec["displays"]):
+        preset = "pix2pixhd_512" if i < d2 else "temporal_512"
+        check(got == per_frame(preset), f"train_cli {preset} display at "
+              f"step {step}: launches {got} (want {per_frame(preset)})")
+    check([s for s, _ in rec["displays"]] == [3, 6, 6, 9, 12, 12, 3, 3],
+          f"train_cli: displays at {[s for s, _ in rec['displays']]}")
+    res["launches"] = {p: {k: sum(c[k] for _, c, _ in group)
+                           + sum(c[k] for _, c in shown) for k in PER_STEP}
+                       for p, group, shown in (
+                           ("pix2pixhd_512", steps[:n2],
+                            rec["displays"][:d2]),
+                           ("temporal_512", steps[n2:],
+                            rec["displays"][d2:]))}
+
+    # the run's files, its checkpoints and labels
+    run_dir = root / "runs" / "pix2pixhd_512"
+    files = ["config.json", "loss_log.txt", "metrics.jsonl", "web/index.html"]
+    missing = [f for f in files if not (run_dir / f).exists()]
+    images = sorted(os.listdir(run_dir / "web" / "images"))
+    ckpts = sorted(os.listdir(run_dir / "ckpt"))
+    with open(run_dir / "ckpt" / "epochs.json") as fh:
+        labels = json.load(fh)
+    records = [json.loads(x) for x in open(run_dir / "metrics.jsonl")]
+    check(not missing and len(images) == 12 and os.listdir(run_dir / "tb"),
+          f"train_cli: run files (missing {missing}, {len(images)} images)")
+    check(ckpts == ["12.pt", "3.pt", "6.pt", "9.pt", "epochs.json"]
+          and labels == {"1": 6, "2": 12},
+          f"train_cli: checkpoints {ckpts}, epochs.json {labels}")
+    check([r["step"] for r in records] == [2, 4, 6, 8, 10, 12],
+          f"train_cli: metrics.jsonl steps {[r['step'] for r in records]}")
+
+    # the resume: run 2 starts at step 6 with run 1's state, bit for bit
+    start2, restored = rec["restored"][1]
+    diff = first_difference(end1, restored)
+    check(start2 == 6 and diff is None,
+          f"train_cli: run 2 restored step {start2} (want 6); first "
+          f"difference from run 1's end state: {diff}")
+    # G's Adam state restarted at the unfreeze (step 6), D's did not
+    adam_steps = {n: sorted({float(v["step"]) for v in opt.state.values()})
+                  for n, opt in (("G", run2.model.opt_g),
+                                 ("D", run2.model.opt_d))}
+    check(adam_steps == {"G": [6.0], "D": [12.0]},
+          f"train_cli: Adam step counts after run 2 {adam_steps} (want G "
+          "[6.0], D [12.0])")
+
+    # the first resumed step against run 1's model taking it uninterrupted
+    first_batch = rec["batches"][n1]
+    resumed = steps[n1][2]
+    uninterrupted = {k: v.detach().clone() for k, v in
+                     run1.model.train_step(first_batch).items()}
+    same = all(torch.equal(resumed[k], uninterrupted[k]) for k in resumed)
+    res["first_resumed_step"] = {k: [float(resumed[k]),
+                                     float(uninterrupted[k])]
+                                 for k in resumed}
+    check(same, "train_cli: first resumed step's losses equal the "
+          f"uninterrupted step's bit for bit {res['first_resumed_step']}")
+
+    # fit against the bare step on one batch (both unfrozen, bf16)
+    n_fit, fit_s = rec["fits"][1]
+    sync()
+    t = time.perf_counter()
+    for _ in range(CLI_BARE_STEPS):
+        run1.model.train_step(first_batch)
+    sync()
+    bare_ms = (time.perf_counter() - t) * 1e3 / CLI_BARE_STEPS
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        deterministic
+    frames = sum(n for n, _ in rec["decode"])
+    writes = {name: (sec, size) for name, sec, size in rec["write"]}
+    res.update(
+        fit_ms_per_step=fit_s * 1e3 / n_fit, bare_ms_per_step=bare_ms,
+        fit_window_step_time_ms=[r["step_time"] * 1e3 for r in records],
+        prefetch_wait_s=rec["waits"][1],
+        decode_ms_per_batch=2e3 * sum(s for _, s in rec["decode"]) / frames,
+        decoded_frames=frames,
+        checkpoint_bytes={k: v[1] for k, v in writes.items()},
+        write_s={k: v[0] for k, v in writes.items()},
+        snapshot_s=rec["snapshot_s"], save_call_s=rec["save_s"],
+        restore_s=rec["restore_s"][1],
+        # runs 1 and 2 (run 1's model kept for the comparison), then the
+        # temporal run with both pix2pixhd_512 models still live
+        peak_bytes={"pix2pixhd_512": peaks[0], "temporal_512": peaks[1]})
+    waits = rec["waits"][1][1:]  # run 2's, after the first batch
+    peaks_named = res["peak_bytes"]
+    print(f"train_cli pix2pixhd_512 bf16 b1 512px ({card}): "
+          f"{res['fit_ms_per_step']:.1f} ms/step through Trainer.fit (run 2,"
+          f" {n_fit} steps) vs {bare_ms:.1f} ms/step bare train_step; "
+          f"prefetch next() wait mean {1e3 * sum(waits) / len(waits):.2f} "
+          f"ms, max {1e3 * max(waits):.2f} ms; decode "
+          f"{res['decode_ms_per_batch']:.1f} ms/batch ({res['decoder']})",
+          flush=True)
+    print(f"train_cli checkpoints ({card}): " + ", ".join(
+        f"{k} {v[1] / 1e9:.2f} GB written in {v[0]:.2f} s"
+        for k, v in writes.items()) + f"; save() stall "
+        f"{[round(x, 3) for x in rec['save_s']]} s, of it snapshot "
+        f"{[round(x, 3) for x in rec['snapshot_s']]} s; restore "
+        f"{res['restore_s']:.2f} s; peak GiB " + json.dumps(
+            {k: round(v / 2**30, 2) for k, v in peaks_named.items()}),
+        flush=True)
+    del run1, run2, rec
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1279,11 +1651,13 @@ def main() -> int:
                for p in SERVE if p not in ("pix2pixhd_512", "temporal_512")]
     avg_pool_rel = phase("avg pool grad", avg_pool_grad_check)
     trains = [phase("train " + p, train_phase, p, card) for p in TRAIN]
+    cli = phase("train_cli", train_cli_phase, card)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
     by_path = {**{"serve " + s["preset"]: s["launches"] for s in slices},
-               **{"train " + t["preset"]: t["launches"] for t in trains}}
+               **{"train " + t["preset"]: t["launches"] for t in trains},
+               **{"train_cli " + p: c for p, c in cli["launches"].items()}}
     total = {k: sum(c[k] for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
@@ -1380,6 +1754,7 @@ def main() -> int:
     print("avg pool gradient, card vs CPU " + json.dumps(avg_pool_rel))
     for t in trains:
         print("train " + json.dumps(t))
+    print("train_cli " + json.dumps(cli))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -1423,6 +1798,13 @@ def main() -> int:
             f"{t['plain_ms']:.4f}, lib {t['library_ms']:.4f})"
             for k, t in parts))
     print("phase seconds " + json.dumps(seconds))
+    # everything above in one file, for runs whose output is cut short
+    out = Path("build")
+    out.mkdir(exist_ok=True)
+    with open(out / "chip_smoke.json", "w") as fh:
+        json.dump({"card": card, "seconds": seconds, "failures": failures,
+                   "slices": slices, "trains": trains, "train_cli": cli,
+                   "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

@@ -6,7 +6,12 @@ from .config import (
     LossConfig,
     ModelConfig,
     TrainConfig,
+    config_from_args,
+    load_config,
+    parse_cli,
+    save_config,
 )
 
 __all__ = ["Config", "DataConfig", "InferConfig", "LossConfig",
-           "ModelConfig", "PRESETS", "TrainConfig"]
+           "ModelConfig", "PRESETS", "TrainConfig", "config_from_args",
+           "load_config", "parse_cli", "save_config"]

@@ -1,27 +1,38 @@
-"""The subset of ``ir2rgb_tpu/config/config.py`` that serving and the
-train step read, and every preset but ``cyclegan_256``
-(whose model, ``train/cycle.py``, is not ported yet).
+"""Typed configuration: the port's copy of ``ir2rgb_tpu/config/config.py``.
+
+Frozen dataclasses grouped by subsystem, every preset but ``cyclegan_256``
+(whose model, ``train/cycle.py``, is not ported yet), and the CLI helpers
+(``parse_cli``: ``--preset name --section.field value``) and the JSON
+dump every run writes into its run directory (``save_config`` /
+``load_config``).
 
 A copy, not an import: the port keeps its own definitions. Field names,
-defaults and preset values match the JAX package's so one set of
-settings drives both.
+types, defaults and preset values match the JAX package's, so one
+``config.json`` or one command line drives both. A field whose feature
+the port does not have yet is accepted here and refused where it would
+be used (``train/model.py``, ``train/trainer.py``).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from dataclasses import dataclass, field
+import json
+import os
+from dataclasses import dataclass, field, fields
+from typing import Optional
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     """Generator and discriminator architecture knobs."""
 
-    # pix2pix | pix2pixhd | temporal (previous-frame conditioning)
+    # pix2pix (GAN + L1) | pix2pixhd (multiscale D + FM + VGG) | temporal
+    # (previous-frame conditioning) | cycle_gan (not ported)
     model: str = "pix2pix"
     # resnet_9blocks | resnet_6blocks | unet_256 | unet_128 | global | local
     net_g: str = "resnet_9blocks"
-    # discriminator: n_layers (PatchGAN) | multiscale
+    # discriminator: n_layers (PatchGAN) | multiscale | pixel
     net_d: str = "n_layers"
     input_nc: int = 3
     output_nc: int = 3
@@ -43,27 +54,48 @@ class ModelConfig:
     use_dropout: bool = False
     # normal | xavier | kaiming | orthogonal (ops.apply_init_type)
     init_type: str = "normal"
-    # temporal mode: how many previous generated frames condition G
-    n_frames_g: int = 2
+    # pix2pixHD feature encoder netE (not ported yet: create_model raises)
+    use_instance_feat: bool = False
+    feat_num: int = 3
+    nef: int = 16
+    n_downsample_e: int = 4
+    # the instance-edge channel after the input (G and D)
+    use_instance_edges: bool = False
     # > 0: the input is a (B, H, W, 1) class-id map, one-hot encoded on
     # the device into label_nc channels
     label_nc: int = 0
-    # pix2pixHD instance-edge channel (after the input); the netE feature
-    # input is not ported yet
-    use_instance_edges: bool = False
-    use_instance_feat: bool = False
+    # netE's hashed instance slots (with use_instance_feat)
+    num_instances: int = 1024
+    # temporal mode: how many previous generated frames condition G
+    n_frames_g: int = 2
     # parameters stay fp32; this is the dtype G, D and the VGG compute in
     compute_dtype: str = "float32"
+    # recompute residual blocks in the backward (not ported yet: the
+    # train step raises)
+    remat: bool = False
 
 
 @dataclass(frozen=True)
 class DataConfig:
+    """Data pipeline knobs."""
+
+    dataroot: str = ""
+    phase: str = "train"
+    # resize_and_crop | crop | scale_width | scale_width_and_crop | none
+    preprocess: str = "resize_and_crop"
     load_size: int = 286
     crop_size: int = 256
     batch_size: int = 1
+    serial_batches: bool = False
+    no_flip: bool = False
+    max_dataset_size: Optional[int] = None
+    num_workers: int = 2
     # temporal dataset: frames per training window
     n_frames_total: int = 4
-    # aligned | unaligned | temporal | single
+    # AtoB trains A->B (IR->RGB); BtoA swaps each pair
+    direction: str = "AtoB"
+    # aligned | unaligned (unpaired trainA/trainB) | temporal | single
+    # (input only, inference)
     dataset_mode: str = "aligned"
 
 
@@ -72,6 +104,7 @@ class LossConfig:
     """Loss weights and switches."""
 
     gan_mode: str = "lsgan"  # lsgan | vanilla | hinge | wgangp
+    lambda_gp: float = 10.0  # wgangp gradient-penalty weight
     lambda_l1: float = 100.0
     lambda_feat: float = 10.0
     lambda_vgg: float = 10.0
@@ -82,12 +115,18 @@ class LossConfig:
     vgg_weights: str = ""
     # image pool of D's fakes (train/image_pool.py); 0: none
     pool_size: int = 0
+    # cycle_gan's cycle and identity weights (cycle_gan is not ported)
+    lambda_a: float = 10.0
+    lambda_b: float = 10.0
+    lambda_identity: float = 0.5
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer and schedule."""
+    """Optimizer, schedule, checkpoint and logging cadence."""
 
+    name: str = "experiment"
+    checkpoints_dir: str = "./checkpoints"
     niter: int = 100          # epochs at constant lr
     niter_decay: int = 100    # epochs of linear lr decay to 0
     lr: float = 2e-4
@@ -97,19 +136,58 @@ class TrainConfig:
     beta2: float = 0.999
     # coarse-to-fine: epochs during which only the local enhancer trains
     niter_fix_global: int = 0
+    save_latest_freq: int = 1000   # steps
+    save_epoch_freq: int = 10      # epochs
+    print_freq: int = 100          # steps
+    display_freq: int = 400        # steps
+    continue_train: bool = False
+    # resume from this epoch label ('latest', an epoch or a saved step)
+    which_epoch: str = "latest"
+    # warm-start G and D from another run directory (partial load)
+    load_pretrain: str = ""
+    seed: int = 0
+    # data-parallel devices (0: all visible), hosts and spatial
+    # partitioning: the port trains on one device (Trainer raises for
+    # more)
+    num_devices: int = 0
+    multihost: bool = False
+    spatial_devices: int = 1
+    # the port's step updates in place; accepted for either value
+    donate: bool = True
     # not ported yet: a model with other values serves, and its
     # train_step raises
     grad_accum: int = 1
     ema_decay: float = 0.0
     adam_mu_dtype: str = "f32"
-    seed: int = 0
 
 
 @dataclass(frozen=True)
 class InferConfig:
+    """Inference and serving knobs (the infer and serve CLIs are not
+    ported yet; the fields keep a config.json loadable in both
+    packages)."""
+
+    results_dir: str = "./results"
+    which_epoch: str = "latest"
+    how_many: Optional[int] = None
+    aspect_ratio: float = 1.0
+    use_encoded_image: bool = False
+    cluster_path: str = ""
+    n_clusters: int = 10
+    use_ema: bool = False
     # serving quantization mode (none | int8 | int8_mixed | int8_w); only
     # "none" is ported
     quant: str = "none"
+    video: str = ""
+    video_fps: float = 30.0
+    video_quality: int = 90
+    serve_host: str = "127.0.0.1"
+    serve_port: int = 7788
+    serve_slots: int = 8
+    serve_encode: str = "raw"
+    serve_quality: int = 90
+    serve_tick_ms: float = 5.0
+    serve_max_pending: int = 32
 
 
 @dataclass(frozen=True)
@@ -122,6 +200,9 @@ class Config:
 
     def replace(self, **sections) -> "Config":
         return dataclasses.replace(self, **sections)
+
+    def run_dir(self) -> str:
+        return os.path.join(self.train.checkpoints_dir, self.train.name)
 
 
 PRESETS = {
@@ -198,3 +279,77 @@ PRESETS = {
         train=TrainConfig(niter_fix_global=10),
     ),
 }
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls,
+                        prefix: str) -> None:
+    for f in fields(cls):
+        name = f"--{prefix}{f.name}"
+        if f.type in ("bool", bool):
+            parser.add_argument(
+                name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                default=None)
+        elif f.type in ("Optional[int]", Optional[int], "int", int):
+            parser.add_argument(name, type=int, default=None)
+        elif f.type in ("float", float):
+            parser.add_argument(name, type=float, default=None)
+        else:
+            parser.add_argument(name, type=str, default=None)
+
+
+_SECTIONS = {"model": ModelConfig, "data": DataConfig, "loss": LossConfig,
+             "train": TrainConfig, "infer": InferConfig}
+
+
+def parse_cli(argv=None, default: Optional[Config] = None) -> Config:
+    """Parse ``--preset name --section.field value`` style CLI overrides
+    (or ``--config path.json`` as the base)."""
+    parser = argparse.ArgumentParser("ir2rgb_tpu_torch")
+    parser.add_argument("--preset", type=str, default=None,
+                        choices=sorted(PRESETS.keys()))
+    parser.add_argument("--config", type=str, default=None,
+                        help="path to a config JSON to start from")
+    for section, cls in _SECTIONS.items():
+        _add_dataclass_args(parser, cls, f"{section}.")
+    args = parser.parse_args(argv)
+    cfg = default or Config()
+    if args.config and args.preset:
+        # the preset would replace every setting of the file: refuse
+        parser.error("--config and --preset both set a complete base "
+                     "config; pass one (then override fields with "
+                     "--section.field flags)")
+    if args.config:
+        cfg = load_config(args.config)
+    if args.preset:
+        cfg = PRESETS[args.preset]
+    return config_from_args(cfg, args)
+
+
+def config_from_args(cfg: Config, args: argparse.Namespace) -> Config:
+    """``cfg`` with every ``--section.field`` that ``args`` sets."""
+    updates = {}
+    for section, cls in _SECTIONS.items():
+        sec_updates = {}
+        for f in fields(cls):
+            v = getattr(args, f"{section}.{f.name}", None)
+            if v is not None:
+                sec_updates[f.name] = v
+        if sec_updates:
+            updates[section] = dataclasses.replace(getattr(cfg, section),
+                                                   **sec_updates)
+    return cfg.replace(**updates) if updates else cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(dataclasses.asdict(cfg), fh, indent=2, sort_keys=True)
+
+
+def load_config(path: str) -> Config:
+    with open(path) as fh:
+        raw = json.load(fh)
+    return Config(**{
+        section: cls(**raw.get(section, {}))
+        for section, cls in _SECTIONS.items()
+    })

@@ -38,17 +38,21 @@ JAX-converted weights with ``load_state_dict``.
   fresh optimizer at the unfreeze. On a frozen step the trunk records no
   graph: its gradients are zero by definition.
 
+- ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
+  reads (JAX's ``TrainState``), for ``checkpoint/manager.py``.
+
 Not ported yet (each raises ``NotImplementedError``): the netE feature
 input, the serving quantization modes and the CycleGAN model (at
 ``create_model``); and in training (at ``train_step``; such a model
-serves) the pixel D, grad-accum, EMA, ``adam_mu_dtype="bf16"`` and
-WGAN-GP.
+serves) the pixel D, grad-accum, EMA, ``adam_mu_dtype="bf16"``, WGAN-GP
+and ``remat``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import warnings
 from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
@@ -214,7 +218,9 @@ class GanModel:
                     "grad_accum > 1": tr.grad_accum > 1,
                     "ema_decay > 0": tr.ema_decay > 0,
                     "adam_mu_dtype='bf16'": tr.adam_mu_dtype in ("bf16",
-                                                                 "bfloat16")}
+                                                                 "bfloat16"),
+                    "remat=True (recomputed residual blocks)":
+                        self.cfg.model.remat}
         for what, bad in unported.items():
             if bad:
                 raise NotImplementedError(f"training with {what} is not "
@@ -395,6 +401,41 @@ class GanModel:
         self.opt_d.step()
         self.step = step + 1
         return metrics
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+
+    def state_dict(self) -> Dict[str, object]:
+        """Everything ``train_step`` reads (JAX's ``TrainState``): G's and
+        D's parameters and buffers, both Adam states, the step, the state
+        of the device generator that draws dropout and the pool, the pool,
+        and the config as JSON. Tensors are the live ones: a checkpoint
+        manager copies them."""
+        return {"netG": self.netG.state_dict(),
+                "netD": self.netD.state_dict(),
+                "opt_g": self.opt_g.state_dict(),
+                "opt_d": self.opt_d.state_dict(),
+                "step": self.step,
+                "generator": self.generator.get_state(),
+                "pool": None if self.pool is None else self.pool._asdict(),
+                "config": json.dumps(dataclasses.asdict(self.cfg),
+                                     sort_keys=True)}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Resume from :meth:`state_dict`'s output (tensors on any
+        device): parameters, moments and the pool are copied into the
+        live tensors, which keep their device and dtype."""
+        self.netG.load_state_dict(state["netG"])
+        self.netD.load_state_dict(state["netD"])
+        self.opt_g.load_state_dict(state["opt_g"])
+        self.opt_d.load_state_dict(state["opt_d"])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
+        if self.pool is not None:
+            self.pool.buffer.copy_(state["pool"]["buffer"])
+            self.pool = PoolState(self.pool.buffer,
+                                  state["pool"]["count"].to(self.device))
 
 
 def _check_supported(cfg: Config) -> None:
