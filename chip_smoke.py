@@ -59,7 +59,21 @@ Phases, each failing the run if it fails:
    display's launches held to ``TRAIN`` / ``SERVE``, the checkpoints and
    epoch labels, the restored state bit for bit, and the first resumed
    step against the uninterrupted one; with the loader, checkpoint and
-   fit-versus-bare-step numbers (``train_cli_phase``).
+   fit-versus-bare-step numbers (``train_cli_phase``);
+10. ``serve``: multi-stream serving (``serve_phase``). B1, B2 and B3 are
+   checked above at every batched tick's shapes too (``SERVE_TICK``:
+   every batch the phase launches: the ladder's 1, 2, 4, 8 and 16 of
+   temporal_512 and pix2pixhd_1024, the server's and the CLI's, and 16
+   of pix2pixhd_2048). A ``MultiStreamServer`` of temporal_512 at full
+   width serves 12 streams over 8 physical rows for 6 ticks in which
+   streams open, skip, close and reopen, fp32 and bf16: every chunk
+   tick's launches equal one served frame's, each stream's frame is held
+   to a batch-1 forward on the same frame and carry. Then the ms/tick
+   ladder of temporal_512 and pix2pixhd_1024 at 1, 2, 4, 8 and 16 slots
+   with the aggregate frames/s and peak memory, and one pix2pixhd_2048
+   tick at 16; ``cli.infer --torch_g`` then ``cli.evaluate`` on a
+   512x512 folder; a ``cli.serve`` subprocess in fp32 with a raw and a
+   JPEG client, every reply held to a batch-1 stream.
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -325,9 +339,54 @@ D2S_SHAPES = D2S_MAIN_PATH + sorted(
 S2D_MAIN_PATH = list(TRAIN["pix2pixhd_512"]["unfrozen"]["s2d"])
 S2D_SHAPES = S2D_MAIN_PATH + sorted(_keys(_STEPS, "s2d")
                                     - set(S2D_MAIN_PATH))
+
+# The batched serving tick (the serve phase, ``infer/multistream.py``):
+# N streams share one forward at the physical batch, so each kernel sees
+# the served frame's shapes at batch S. The phase's MultiStreamServer runs
+# SERVE_SLOTS streams over SERVE_PHYSICAL rows (two chunk ticks a logical
+# tick); SERVE_DEFAULT is the port's default cap on the physical batch
+# (``KNEE_SLOTS``, checked in the phase), so the largest batch a tick
+# gives the kernels; cli.serve runs with SERVE_CLI_SLOTS slots.
+SERVE_PHYSICAL, SERVE_DEFAULT, SERVE_SLOTS, SERVE_CLI_SLOTS = 8, 16, 12, 4
+# the ms/tick ladder: physical batches and presets
+LADDER_SLOTS = (1, 2, 4, 8, 16)
+LADDER_PRESETS = ("temporal_512", "pix2pixhd_1024")
+
+
+def batched(table: dict, n: int) -> dict:
+    """A ``SERVE`` entry's kernel shapes at batch ``n``."""
+    def at(shape):
+        return (n,) + tuple(shape[1:])
+    return dict(b1={(at(s), a): c for (s, a), c in table["b1"].items()},
+                tail=[at(s) for s in table["tail"]],
+                d2s=[(at(s), c) for s, c in table["d2s"]])
+
+
+# every (preset, physical batch) the serve phase launches (it checks that
+# its runs stay inside this table)
+SERVE_TICK = {(p, n): batched(SERVE[p], n) for p, n in sorted(
+    {(p, n) for p in LADDER_PRESETS for n in LADDER_SLOTS}
+    | {("temporal_512", SERVE_PHYSICAL), ("temporal_512", SERVE_CLI_SLOTS),
+       ("pix2pixhd_2048", SERVE_DEFAULT)})}
+B1_FWD_SHAPES += sorted({k for t in SERVE_TICK.values() for k in t["b1"]}
+                        - set(B1_FWD_SHAPES))
+B2_SHAPES += sorted({x for t in SERVE_TICK.values() for x in t["tail"]}
+                    - set(B2_SHAPES))
+D2S_SHAPES += sorted({k for t in SERVE_TICK.values() for k in t["d2s"]}
+                     - set(D2S_SHAPES))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
+LONG_CALL_MS, REPS_LONG = 20.0, 4
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
+# a batched stream against its batch-1 stream, bf16 (the serve phase)
+BF16_SERVE_PSNR = 40.0
+# a cli.serve reply (uint8) against a batch-1 fp32 stream of the same
+# frames, TF32 off on both sides, over a stream's first three frames. On
+# an H100 80GB HBM3 free-running fp32 streams read 82, 76 and 70 dB on
+# frames 1-3 against the batched server; a reply served without its
+# carry is checked to read below the bar
+FP32_SERVE_PSNR = 60.0
 N_FRAMES = 8
 # train steps a preset: the first FIX_STEPS frozen where the preset trains
 # coarse to fine (niter_fix_global 1 x steps_per_epoch FIX_STEPS), then
@@ -380,21 +439,29 @@ def graph_ms(fn, reps: int = 20) -> float:
     """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
     graph, replayed between CUDA events, so Python launch overhead is out
     of the measurement; the median of five replays, so that one replay
-    slowed by the card's clocks or its host does not set the reading."""
+    slowed by the card's clocks or its host does not set the reading. A
+    call of more than LONG_CALL_MS is captured REPS_LONG times, which
+    keeps the batched serving tick's largest shapes to seconds."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(2):
             fn()
+        start.record(side)
+        fn()
+        end.record(side)
     torch.cuda.current_stream().wait_stream(side)
+    end.synchronize()
+    if start.elapsed_time(end) > LONG_CALL_MS:
+        reps = REPS_LONG
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(5):
         start.record()
@@ -1592,6 +1659,370 @@ def train_cli_phase(card: str):
     return res
 
 
+# the serve phase's streams: (opened, closed, sending) at each logical tick
+# of SERVE_SLOTS slots. Stream 12 reopens stream 5's slot (fresh carry);
+# streams 3 and 7 skip tick 1 (carries held); the last tick is one chunk.
+SERVE_PLAN = [
+    (range(10), (), range(10)),
+    (range(10, 12), (), [i for i in range(12) if i not in (3, 7)]),
+    ((), (), range(12)),
+    ((), (5,), [i for i in range(12) if i != 5]),
+    ((12,), (), [i for i in range(13) if i != 5]),
+    ((), (), range(4)),
+]
+
+
+def _banner(proc, timeout: float) -> str:
+    """The first line ``proc`` prints, or raise after ``timeout`` s."""
+    import selectors
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    try:
+        if not sel.select(timeout):
+            raise RuntimeError(f"cli.serve printed no banner in {timeout} s")
+        return proc.stdout.readline()
+    finally:
+        sel.close()
+
+
+def generator_skeleton(preset: str):
+    """``preset``'s generator on the meta device (its keys and shapes)."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    from ir2rgb_tpu_torch.nn import define_g
+    from ir2rgb_tpu_torch.train.model import network_configs
+    with torch.device("meta"):
+        return define_g(network_configs(PRESETS[preset])[0])
+
+
+def multistream_run(preset: str, dtype: str, sd, seed: int):
+    """SERVE_PLAN through a ``MultiStreamServer`` of SERVE_SLOTS slots over
+    SERVE_PHYSICAL rows at full width: each tick's launches counted,
+    each stream's frame held to a batch-1 forward on the same frame and
+    the same carry (the slot's pool row before the tick, zero on a
+    reset), and to a free-running batch-1 ``StreamingGenerator``."""
+    from ir2rgb_tpu_torch.infer import StreamingGenerator
+    from ir2rgb_tpu_torch.infer.multistream import MultiStreamServer
+    from ir2rgb_tpu_torch.infer.stream import _dev_normalize, _dev_quantize
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    model = make_model(preset, dtype, "cuda", sd)
+    hw = (model.cfg.data.crop_size,) * 2
+    in_nc, out_nc = model.cfg.model.input_nc, model.cfg.model.output_nc
+    srv = MultiStreamServer(model, hw, n_slots=SERVE_SLOTS,
+                            physical_slots=SERVE_PHYSICAL)
+    tick, chunks = srv._tick, [0]
+
+    def counted(*args):
+        chunks[0] += 1
+        return tick(*args)
+
+    srv._tick = counted
+    rng = np.random.default_rng(seed)
+    slot, free, free_psnr = {}, {}, {}
+    counts = Counter()
+    fp32_err, bf16_psnr, u8_diff, held_ok = [], [], 0, True
+    for opened, closed, sending in SERVE_PLAN:
+        for k in closed:
+            srv.close(slot.pop(k))
+        for k in opened:
+            slot[k] = srv.open()
+            free[k], free_psnr[k] = StreamingGenerator(model, hw), []
+        frames = {k: rng.integers(0, 256, hw + (in_nc,), dtype=np.uint8)
+                  for k in sending}
+        before = srv._carry.clone()
+        pending = srv._pending_reset.copy()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = srv.step({slot[k]: f for k, f in frames.items()})
+        torch.cuda.synchronize()
+        counts.update(launch_counts())
+        after = srv._carry
+        for k, sid in slot.items():
+            if k not in frames:  # skipped: the carry is held exactly
+                held_ok &= torch.equal(after[sid], before[sid])
+                continue
+            a = _dev_normalize(torch.from_numpy(frames[k][None]).cuda())
+            prev = (torch.zeros_like(before[sid:sid + 1]) if pending[sid]
+                    else before[sid:sid + 1])
+            want = model.generate(a, prev=prev).float()
+            got = after[sid:sid + 1, ..., :out_nc]
+            fp32_err.append(float((got - want).abs().max()))
+            bf16_psnr.append(psnr(got, want))
+            u8 = _dev_quantize(want)[0].cpu().numpy()
+            u8_diff = max(u8_diff, int(np.abs(
+                u8.astype(np.int16) - outs[sid].astype(np.int16)).max()))
+            free_psnr[k].append(round(psnr(
+                torch.from_numpy(free[k].push(frames[k])).double(),
+                torch.from_numpy(outs[sid]).double(), peak=255.0), 2))
+    del srv, model, free
+    torch.cuda.empty_cache()
+    return dict(dtype=dtype, chunk_ticks=chunks[0],
+                launches={k: v for k, v in counts.items() if v},
+                same_carry_fp32_max_abs=max(fp32_err),
+                same_carry_min_psnr_db=min(bf16_psnr),
+                same_carry_u8_max_diff=u8_diff, skipped_carries_held=held_ok,
+                free_running_u8_psnr_db=free_psnr)
+
+
+def tick_ladder(preset: str, sd, seed: int, slots=LADDER_SLOTS):
+    """ms/tick of ``MultiStreamServer.step_device`` at each physical batch
+    of ``slots``, bf16, device frames in and out: CUDA events around 5
+    ticks, the median of 5 such readings after 3 warm ticks; with the
+    peak memory allocated over the ticks and the output's shape and
+    type checked."""
+    from ir2rgb_tpu_torch.infer.multistream import MultiStreamServer
+    model = make_model(preset, "bf16", "cuda", sd)
+    hw = (model.cfg.data.crop_size,) * 2
+    rng = np.random.default_rng(seed)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rows = []
+    for s in slots:
+        check((preset, s) in SERVE_TICK, f"serve ladder {preset} x{s}: its "
+              "kernel shapes are checked (SERVE_TICK)")
+        srv = MultiStreamServer(model, hw, n_slots=s, physical_slots=s)
+        frames = torch.from_numpy(rng.integers(
+            0, 256, (s,) + hw + (model.cfg.model.input_nc,),
+            dtype=np.uint8)).cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            out = srv.step_device(frames)
+        check(out.shape == (s,) + hw + (model.cfg.model.output_nc,)
+              and out.dtype == torch.uint8,
+              f"serve ladder {preset} x{s}: output {tuple(out.shape)} "
+              f"{out.dtype}")
+        readings = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(5):
+                srv.step_device(frames)
+            end.record()
+            end.synchronize()
+            readings.append(start.elapsed_time(end) / 5)
+        ms = sorted(readings)[2]
+        rows.append(dict(slots=s, ms_per_tick=ms, frames_per_s=s * 1e3 / ms,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         ms_readings=readings))
+        del srv, frames, out
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_phase(card: str):
+    """Multi-stream serving on the card (``infer/multistream.py``,
+    ``infer/server.py``, the serving CLIs):
+
+    - ``multistream_run`` of temporal_512 at full width in fp32 (TF32 off)
+      and bf16: every chunk tick's launches equal one served frame's
+      (``per_frame``); each stream's frame against a batch-1 forward on
+      the same frame and carry: fp32 within SLICE_FP32_TOL, bf16 at
+      BF16_SERVE_PSNR dB or more; skipped streams' carries held exactly.
+      Free-running batch-1 streams are reported beside (a random-weight
+      temporal loop amplifies any difference about 5x a frame);
+    - the ms/tick ladder (``tick_ladder``) of LADDER_PRESETS, with the
+      aggregate frames/s, the peak memory and the physical batch with
+      the most frames/s; then one pix2pixhd_2048 tick at SERVE_DEFAULT;
+    - ``cli.infer --torch_g`` on a 512x512 two-sequence folder, its
+      launches held to ``per_frame``, then ``cli.evaluate`` on its
+      gallery: the mean PSNRs within 0.1 dB;
+    - ``cli.serve`` as a subprocess in fp32 on port 0 with
+      SERVE_CLI_SLOTS slots and two clients, one sending raw frames and
+      one JPEG: every reply against a batch-1 fp32 stream of the frames
+      the server decoded at FP32_SERVE_PSNR dB or more, and each later
+      reply against a stream without its carry below that bar; then the
+      subprocess is stopped.
+
+    Every (preset, physical batch) it launches is in SERVE_TICK, so B1,
+    B2 and B3 were held to their plain versions at its shapes."""
+    import io
+    import shutil
+    from ir2rgb_tpu_torch.cli import evaluate as cli_evaluate
+    from ir2rgb_tpu_torch.cli import infer as cli_infer
+    from ir2rgb_tpu_torch.data import native, write_synthetic_dataset
+    from ir2rgb_tpu_torch.infer import StreamingGenerator
+    from ir2rgb_tpu_torch.infer.multistream import (KNEE_SLOTS,
+                                                    default_physical_slots)
+    from ir2rgb_tpu_torch.infer.server import FrameClient
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    check(KNEE_SLOTS == SERVE_DEFAULT, f"serve: the default cap on the "
+          f"physical batch, KNEE_SLOTS {KNEE_SLOTS}, is the checked "
+          f"SERVE_DEFAULT {SERVE_DEFAULT}")
+    preset = "temporal_512"
+    cli_physical = default_physical_slots(SERVE_CLI_SLOTS)
+    check({(preset, SERVE_PHYSICAL), (preset, cli_physical)}
+          <= set(SERVE_TICK), f"serve {preset}: the server's batch "
+          f"{SERVE_PHYSICAL} and cli.serve's {cli_physical} are checked "
+          "(SERVE_TICK)")
+    want = per_frame(preset)
+    sd = seeded_state_dict(generator_skeleton(preset), SEED)
+    res = {"runs": [], "ladder": {}, "launches": {}}
+    for dtype in ("float32", "bf16"):
+        run = multistream_run(preset, dtype, sd, SEED + 7)
+        res["runs"].append(run)
+        res["launches"][f"multistream {preset} {dtype}"] = run["launches"]
+        n = run["chunk_ticks"]
+        check(run["launches"] == {k: v * n for k, v in want.items() if v}
+              and n == 11, f"serve {preset} {dtype}: launches "
+              f"{run['launches']} over {n} chunk ticks (want 11 x "
+              f"{want}: batching adds no launch)")
+        check(run["skipped_carries_held"],
+              f"serve {preset} {dtype}: skipped streams' carries held")
+        if dtype == "float32":
+            check(run["same_carry_fp32_max_abs"] <= SLICE_FP32_TOL,
+                  f"serve {preset} fp32: batched vs batch-1 max-abs "
+                  f"{run['same_carry_fp32_max_abs']:.3g} (tol "
+                  f"{SLICE_FP32_TOL})")
+        else:
+            check(run["same_carry_min_psnr_db"] >= BF16_SERVE_PSNR,
+                  f"serve {preset} bf16: batched vs batch-1 PSNR "
+                  f"{run['same_carry_min_psnr_db']:.2f} dB (bar "
+                  f"{BF16_SERVE_PSNR})")
+        print(f"serve {preset} {dtype}: uint8 max diff "
+              f"{run['same_carry_u8_max_diff']} at the same carry; "
+              "free-running batch-1 streams, PSNR (uint8) frame by frame: "
+              + json.dumps(run["free_running_u8_psnr_db"]), flush=True)
+
+    for p in LADDER_PRESETS:
+        psd = sd if p == preset else seeded_state_dict(
+            generator_skeleton(p), SEED)
+        rows = tick_ladder(p, psd, SEED + 8)
+        knee = max(rows, key=lambda r: r["frames_per_s"])
+        res["ladder"][p] = dict(rows=rows, knee_slots=knee["slots"])
+        print(f"serve ladder {p} bf16 ({card}): " + ", ".join(
+            f"S={r['slots']} {r['ms_per_tick']:.3f} ms/tick "
+            f"{r['frames_per_s']:.1f} frames/s {r['peak_gib']:.2f} GiB"
+            for r in rows) + f"; most frames/s at S={knee['slots']}",
+            flush=True)
+    big = "pix2pixhd_2048"
+    (row,) = tick_ladder(big, seeded_state_dict(generator_skeleton(big),
+                                                SEED), SEED + 10,
+                         slots=(SERVE_DEFAULT,))
+    res["ladder"][big] = dict(rows=[row])
+    print(f"serve tick {big} bf16 ({card}): S={row['slots']} "
+          f"{row['ms_per_tick']:.3f} ms/tick {row['frames_per_s']:.1f} "
+          f"frames/s, peak {row['peak_gib']:.2f} GiB", flush=True)
+
+    root = Path("build") / "serve_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    write_synthetic_dataset(str(root / "data"), size=512, n_videos=2,
+                            frames_per_video=3)
+    pth = root / "G.pth"
+    torch.save(sd, pth)
+    argv = ["--preset", preset, "--data.dataroot", str(root / "data"),
+            "--data.load_size", "512", "--data.crop_size", "512",
+            "--train.name", "serve_cli", "--train.checkpoints_dir",
+            str(root / "ckpt"), "--infer.results_dir", str(root / "res"),
+            "--torch_g", str(pth)]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli_infer.main(argv)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    res["launches"][f"cli.infer {preset}"] = counts
+    line = out.getvalue().strip().splitlines()[-1]
+    frames = int(line.split()[1])
+    infer_psnr = float(line.split("PSNR:")[1].split()[0])
+    check(rc == 0 and frames == 6 and counts == {
+        k: v * frames for k, v in want.items() if v},
+        f"serve cli.infer {preset}: rc {rc}, {frames} frames, launches "
+        f"{counts} (want 6 x {want})")
+    gallery = root / "res" / "serve_cli" / "test_latest" / "images"
+    for sub, suffix in (("gen", "_generated.png"), ("tgt", "_target.png")):
+        (root / sub).mkdir()
+        for f in sorted(gallery.glob("*" + suffix)):
+            shutil.copy(f, root / sub / f.name)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_evaluate.main(["--generated", str(root / "gen"), "--target",
+                                str(root / "tgt"), "--json_out",
+                                str(root / "eval.json")])
+    ev = json.loads((root / "eval.json").read_text())
+    res["cli"] = dict(infer_line=line, evaluate=ev)
+    check(rc == 0 and ev["frames"] == 6
+          and abs(ev["psnr_mean"] - infer_psnr) <= 0.1,
+          f"serve cli.evaluate: rc {rc}, {ev['frames']} frames, mean PSNR "
+          f"{ev['psnr_mean']:.3f} dB vs cli.infer's {infer_psnr:.2f} (tol "
+          "0.1)")
+
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ir2rgb_tpu_torch.cli.serve", "--preset",
+         preset, "--model.compute_dtype", "float32", "--data.crop_size",
+         "512", "--infer.serve_port", "0", "--infer.serve_slots",
+         str(SERVE_CLI_SLOTS), "--torch_g", str(pth)],
+        stdout=subprocess.PIPE, text=True, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=str(repo)))
+    try:
+        banner = _banner(proc, 300)
+        res["cli"]["serve_banner"] = banner.strip()
+        port = int(banner.split(" at ")[1].split()[0].rsplit(":", 1)[1])
+        rng = np.random.default_rng(SEED + 9)
+        sent = {k: [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+                    for _ in range(3)] for k in ("raw", "jpeg")}
+        replies = {"raw": [], "jpeg": []}
+        with FrameClient("127.0.0.1", port, timeout=120) as raw, \
+                FrameClient("127.0.0.1", port, jpeg=True, quality=95,
+                            timeout=120) as jpg:
+            for t in range(3):
+                raw.send(sent["raw"][t])
+                jpg.send(sent["jpeg"][t])
+                replies["raw"].append(raw.recv())
+                replies["jpeg"].append(jpg.recv())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    # the references: batch-1 fp32 streams (TF32 off, as the server) of
+    # the frames the server saw, and the same frames without a carry
+    model = make_model(preset, "float32", "cuda", sd)
+    served = {"raw": sent["raw"], "jpeg": []}
+    for f in sent["jpeg"]:
+        j = np.frombuffer(native.encode_jpeg(f, 95), np.uint8)
+        served["jpeg"].append(native.decode_jpeg_mem_batch(
+            j, np.array([0]), np.array([len(j)]), 512, 512)[0])
+    def u8_psnr(a, b):
+        return psnr(torch.tensor(a, dtype=torch.float64),
+                    torch.tensor(b, dtype=torch.float64), peak=255.0)
+
+    serve_psnr, no_carry_psnr = {}, {}
+    for k in ("raw", "jpeg"):
+        ref = StreamingGenerator(model, (512, 512))
+        serve_psnr[k] = [u8_psnr(ref.push(f), r)
+                         for f, r in zip(served[k], replies[k])]
+        no_carry_psnr[k] = [
+            u8_psnr(StreamingGenerator(model, (512, 512)).push(f), r)
+            for f, r in zip(served[k][1:], replies[k][1:])]
+    res["cli"]["serve_reply_psnr_db"] = serve_psnr
+    res["cli"]["serve_reply_no_carry_psnr_db"] = no_carry_psnr
+    check(all(r.shape == (512, 512, 3) and r.dtype == np.uint8
+              for k in replies for r in replies[k])
+          and min(min(v) for v in serve_psnr.values()) >= FP32_SERVE_PSNR,
+          f"serve cli.serve (subprocess, fp32, {SERVE_CLI_SLOTS} slots): 2 "
+          f"clients x 3 replies vs batch-1 streams, PSNR {serve_psnr} dB "
+          f"(bar {FP32_SERVE_PSNR})")
+    check(max(max(v) for v in no_carry_psnr.values()) < FP32_SERVE_PSNR,
+          f"serve cli.serve: replies 2-3 vs the same frames without a "
+          f"carry, PSNR {no_carry_psnr} dB (below {FP32_SERVE_PSNR}: the "
+          "bar catches a dropped carry)")
+    print(f"serve cli ({card}): {line}; evaluate psnr_mean "
+          f"{ev['psnr_mean']:.3f} dB; cli.serve replies PSNR vs batch-1 "
+          + json.dumps({k: [round(x, 2) for x in v]
+                        for k, v in serve_psnr.items()})
+          + "; without the carry "
+          + json.dumps({k: [round(x, 2) for x in v]
+                        for k, v in no_carry_psnr.items()}), flush=True)
+    del model
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1652,25 +2083,40 @@ def main() -> int:
     avg_pool_rel = phase("avg pool grad", avg_pool_grad_check)
     trains = [phase("train " + p, train_phase, p, card) for p in TRAIN]
     cli = phase("train_cli", train_cli_phase, card)
+    serve = phase("serve", serve_phase, card)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
     by_path = {**{"serve " + s["preset"]: s["launches"] for s in slices},
                **{"train " + t["preset"]: t["launches"] for t in trains},
-               **{"train_cli " + p: c for p, c in cli["launches"].items()}}
-    total = {k: sum(c[k] for c in by_path.values())
+               **{"train_cli " + p: c for p, c in cli["launches"].items()},
+               **{"serve " + p: c for p, c in serve["launches"].items()}}
+    total = {k: sum(c.get(k, 0) for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
         check(n > 0, f"{k}: {n} launches over the paths")
 
     def path_launches(k):
-        return {p: c[k] for p, c in by_path.items() if c[k]}
+        return {p: c[k] for p, c in by_path.items() if c.get(k)}
 
     b2 = next(r for r in b2_rows
               if tuple(r["shape"]) == B2_MAIN and r["dtype"] == "bfloat16")
     b2_fp32 = next(r for r in b2_rows
                    if tuple(r["shape"]) == B2_MAIN and r["dtype"] == "float32")
     main_step = "pix2pixhd_512"
+    # each kernel's time over one batched serving tick (SERVE_TICK), bf16
+    tick_b1 = {f"{p} x{n}": per_path_totals(b1_rows, t["b1"])
+               for (p, n), t in SERVE_TICK.items()}
+    tick_d2s = {f"{p} x{n}": per_path_totals(
+        [r for r in d2s_rows if r["name"] == "d2s"],
+        {k: t["d2s"].count(k) for k in t["d2s"]})
+        for (p, n), t in SERVE_TICK.items()}
+    tick_b2 = {f"{p} x{n}": {k: sum(r[k] for r in b2_rows
+                                    if r["dtype"] == "bfloat16"
+                                    and tuple(r["shape"]) in t["tail"])
+                             for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "eager_ms")}
+               for (p, n), t in SERVE_TICK.items()}
     kernels = [
         kernel_entry(
             "instance_norm_act",
@@ -1687,6 +2133,7 @@ def main() -> int:
             l2_route=sorted({str(r["shape"]) for r in b1_rows
                              if r["plan"].endswith("l2")}),
             per_serving_frame_by_preset=b1_frame,
+            per_serving_tick_by_preset=tick_b1,
             per_train_step_by_preset=b1_steps,
             launches_by_path=path_launches("instance_norm_act")),
         kernel_entry(
@@ -1721,6 +2168,7 @@ def main() -> int:
              device_kernels_per_call=max(r["device_kernels"]
                                          for r in b2_rows),
              launches_by_path=path_launches("tail_fused"),
+             per_serving_tick_by_preset=tick_b2,
              sass_hmma_per_kernel=b2_hmma,
              shapes=[{k: r[k] for k in ("shape", "dtype", "route",
                                         "tile_rows", "max_abs_err", "ms",
@@ -1734,6 +2182,7 @@ def main() -> int:
             max(r["max_abs_err"] for r in d2s_rows if r["name"] == "d2s"),
             f"times: the five ups of one {main_step} frame or step, bf16",
             per_serving_frame_by_preset=d2s_frame,
+            per_serving_tick_by_preset=tick_d2s,
             per_train_step_by_preset={p: t["d2s"]
                                       for p, t in d2s_steps.items()},
             launches_by_path=path_launches("d2s")),
@@ -1755,6 +2204,7 @@ def main() -> int:
     for t in trains:
         print("train " + json.dumps(t))
     print("train_cli " + json.dumps(cli))
+    print("serve " + json.dumps(serve))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -1789,6 +2239,12 @@ def main() -> int:
         print(f"  {p} per frame, bf16: B1 {t['ms']:.4f} ms (bound "
               f"{t['bound_ms']:.4f}), B3 d2s {d2s_frame[p]['ms']:.4f} ms "
               f"(bound {d2s_frame[p]['bound_ms']:.4f})")
+    for p in tick_b1:
+        print(f"  {p} per serving tick, bf16: " + ", ".join(
+            f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+            f"{t['plain_ms']:.4f}, lib {t['library_ms']:.4f})"
+            for k, t in (("B1", tick_b1[p]), ("B2", tick_b2[p]),
+                         ("d2s", tick_d2s[p]))))
     for p in TRAIN:
         parts = [(k, t) for k, t in (
             ("B1", b1_steps[p]), ("B1 bwd", bwd_steps[p]),
@@ -1804,6 +2260,7 @@ def main() -> int:
     with open(out / "chip_smoke.json", "w") as fh:
         json.dump({"card": card, "seconds": seconds, "failures": failures,
                    "slices": slices, "trains": trains, "train_cli": cli,
+                   "serve": serve,
                    "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,

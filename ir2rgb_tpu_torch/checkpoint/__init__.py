@@ -4,7 +4,15 @@ from .from_jax import (
     vgg_state_dict_from_jax,
 )
 from .manager import CheckpointManager, restore_train_state, save_train_state
+from .torch_import import (
+    convert_vgg19_pth,
+    import_discriminator,
+    import_generator,
+    load_state_dict,
+)
 
-__all__ = ["CheckpointManager", "discriminator_state_dict_from_jax",
-           "generator_state_dict_from_jax", "restore_train_state",
+__all__ = ["CheckpointManager", "convert_vgg19_pth",
+           "discriminator_state_dict_from_jax",
+           "generator_state_dict_from_jax", "import_discriminator",
+           "import_generator", "load_state_dict", "restore_train_state",
            "save_train_state", "vgg_state_dict_from_jax"]

@@ -163,9 +163,10 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class InferConfig:
-    """Inference and serving knobs (the infer and serve CLIs are not
-    ported yet; the fields keep a config.json loadable in both
-    packages)."""
+    """Inference and serving knobs (``cli/infer.py``, ``cli/serve.py``);
+    netE's ``use_encoded_image`` / ``cluster_path`` / ``n_clusters`` are
+    not ported yet and are kept so a config.json loads in both
+    packages."""
 
     results_dir: str = "./results"
     which_epoch: str = "latest"
@@ -176,7 +177,7 @@ class InferConfig:
     n_clusters: int = 10
     use_ema: bool = False
     # serving quantization mode (none | int8 | int8_mixed | int8_w); only
-    # "none" is ported
+    # "none" is ported (ROADMAP A11)
     quant: str = "none"
     video: str = ""
     video_fps: float = 30.0

@@ -1,20 +1,27 @@
 """Data pipeline: folder discovery, host decode and prefetch (copies of
 the JAX package's host modules) and the device-side paired augmentation
-(``transforms``, rewritten in PyTorch)."""
+(``transforms``, rewritten in PyTorch).
 
-from .folder import (
-    IMG_EXTENSIONS,
-    find_aligned_pairs,
-    find_temporal_sequences,
-    make_dataset,
-)
-from .loader import DataLoader, create_dataloader
-from .native import decoder_in_use
-from .synthetic import synthetic_pair_batch, write_synthetic_dataset
-from .transforms import preprocess_pair_batch, preprocess_sequence_batch
+Exports resolve on first use (``_lazy.py``): ``data.video`` and
+``data.native`` import without torch.
+"""
 
-__all__ = ["DataLoader", "IMG_EXTENSIONS", "create_dataloader",
-           "decoder_in_use", "find_aligned_pairs", "find_temporal_sequences",
-           "make_dataset", "preprocess_pair_batch",
-           "preprocess_sequence_batch", "synthetic_pair_batch",
-           "write_synthetic_dataset"]
+_EXPORTS = {
+    "DataLoader": ".loader",
+    "IMG_EXTENSIONS": ".folder",
+    "create_dataloader": ".loader",
+    "decoder_in_use": ".native",
+    "find_aligned_pairs": ".folder",
+    "find_temporal_sequences": ".folder",
+    "make_dataset": ".folder",
+    "preprocess_pair_batch": ".transforms",
+    "preprocess_sequence_batch": ".transforms",
+    "synthetic_pair_batch": ".synthetic",
+    "write_synthetic_dataset": ".synthetic",
+}
+
+__all__ = sorted(_EXPORTS)
+
+from ir2rgb_tpu_torch._lazy import lazy_exports  # noqa: E402
+
+__getattr__ = lazy_exports(__name__, _EXPORTS, globals())

@@ -1,11 +1,28 @@
-from .stream import (
-    StreamingGenerator,
-    host_to_wire_u8,
-    label2im,
-    single_frame_infer,
-    tensor2im,
-    translate_clip,
-)
+"""Inference and serving: batch-1 streaming (``stream``), quality metrics
+(``metrics``), multi-stream batched serving (``multistream``) and the TCP
+daemon's protocol (``server``).
 
-__all__ = ["StreamingGenerator", "host_to_wire_u8", "label2im",
-           "single_frame_infer", "tensor2im", "translate_clip"]
+Exports resolve on first use (``_lazy.py``), so the protocol client
+(``infer.server``) imports without torch.
+"""
+
+_EXPORTS = {
+    "FrameClient": ".server",
+    "FrameServer": ".server",
+    "MultiStreamServer": ".multistream",
+    "StreamingGenerator": ".stream",
+    "flicker": ".metrics",
+    "host_to_wire_u8": ".stream",
+    "label2im": ".stream",
+    "psnr": ".metrics",
+    "single_frame_infer": ".stream",
+    "ssim": ".metrics",
+    "tensor2im": ".stream",
+    "translate_clip": ".stream",
+}
+
+__all__ = sorted(_EXPORTS)
+
+from ir2rgb_tpu_torch._lazy import lazy_exports  # noqa: E402
+
+__getattr__ = lazy_exports(__name__, _EXPORTS, globals())

@@ -1,10 +1,20 @@
 """Observability: loss logs, metrics, TensorBoard events, image
-galleries and MJPEG video (copies of the JAX package's ``obs``)."""
+galleries and MJPEG video (copies of the JAX package's ``obs``).
 
-from .html import HTMLPage
-from .video import MJPEGAviWriter, read_mjpeg_avi
-from .visualizer import Visualizer
-from .writer import AsyncImageWriter
+Exports resolve on first use (``_lazy.py``): ``obs.video`` imports
+without torch.
+"""
 
-__all__ = ["AsyncImageWriter", "HTMLPage", "MJPEGAviWriter", "Visualizer",
-           "read_mjpeg_avi"]
+_EXPORTS = {
+    "AsyncImageWriter": ".writer",
+    "HTMLPage": ".html",
+    "MJPEGAviWriter": ".video",
+    "Visualizer": ".visualizer",
+    "read_mjpeg_avi": ".video",
+}
+
+__all__ = sorted(_EXPORTS)
+
+from ir2rgb_tpu_torch._lazy import lazy_exports  # noqa: E402
+
+__getattr__ = lazy_exports(__name__, _EXPORTS, globals())

@@ -132,7 +132,10 @@ class GanModel:
     def serving_generator(self) -> nn.Module:
         """``netG`` in fp32; in bf16 a bf16 copy of it, rebuilt when any
         of ``netG``'s parameters was replaced or changed in place. The
-        copy keeps batch-norm parameters and buffers as they are."""
+        copy keeps batch-norm parameters and buffers as they are. It is
+        built with inference mode off, also when asked for inside it, so
+        its weights are normal tensors that ``Deconv`` can key its kept
+        weight on."""
         if self.dtype == torch.float32:
             return self.netG
         params = tuple(self.netG.parameters())
@@ -144,7 +147,7 @@ class GanModel:
                 g = define_g(self.gen_cfg)
             bn = tuple(f"{name}." for name, m in g.named_modules()
                        if isinstance(m, nn.BatchNorm2d))
-            with torch.no_grad():
+            with torch.inference_mode(False), torch.no_grad():
                 g.load_state_dict({k: v if k.startswith(bn) else
                                    v.to(self.dtype) for k, v in
                                    self.netG.state_dict().items()},
@@ -196,7 +199,7 @@ class GanModel:
         if feat is not None:
             raise NotImplementedError(
                 "the netE feature input is not ported yet")
-        net = self.serving_generator()  # built outside inference mode
+        net = self.serving_generator()
         with torch.inference_mode():
             return net(self._generator_input(a, prev, edges))
 
