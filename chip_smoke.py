@@ -9,7 +9,8 @@ Phases, each failing the run if it fails:
 2. B1 forward (fused instance norm + act): every shape and activation it
    runs at (``B1_FWD_SHAPES``: every served preset's generator,
    ``SERVE``, and every preset's train step, G and D, at its crop size
-   and at 256x256, ``TRAIN`` / ``TRAIN_256``), bf16 and fp32, held to
+   and at 256x256, ``TRAIN`` / ``TRAIN_256``, and the train_options
+   phase's, ``TRAIN_OPTIONS``), bf16 and fp32, held to
    its plain version on the card, and timed beside the plain version,
    ``F.instance_norm`` + act (a yardstick the port never calls) and the
    card's bound; with each shape's plan (group width, cluster size,
@@ -33,15 +34,17 @@ Phases, each failing the run if it fails:
    (the five k3 ups, the U-Net's eight k4 ups) timed as the subpixel
    conv + d2s against ``F.conv_transpose2d``;
 6. serving, one phase per preset: pix2pixhd_512 and temporal_512, then
-   resnet9_256, temporal_256, pix2pixhd_global_512, pix2pixhd_1024,
-   temporal_1024, pix2pixhd_2048 and pix2pix_unet256. Full-width
+   resnet9_256, temporal_256, cyclegan_256 (its G_A),
+   pix2pixhd_global_512, pix2pixhd_1024, temporal_1024, pix2pixhd_2048
+   and pix2pix_unet256. Full-width
    generators with weights drawn from a numpy seed, 8 uint8 frames of
    the preset's crop size through ``StreamingGenerator.stream`` in bf16
    with the kernels' launch counts read around the run (``per_frame``);
    an fp32 card run (TF32 off) held to the port's fp32 CPU run (the
    main path's two at 512x512, the others at 256x256); the bf16 run's
    PSNR against fp32; ms/frame at batch 1;
-7. ``ops.avg_pool``'s gradient on the card against the CPU's;
+7. ``ops.avg_pool``'s gradient and second derivative on the card
+   against the CPU's;
 8. training, one phase per preset (``TRAIN``), at full width, the
    preset's crop size and batch 1, a temporal preset on windows of its
    4 frames: 4 bf16 steps, across the coarse-to-fine unfreeze where the
@@ -51,7 +54,19 @@ Phases, each failing the run if it fails:
    memory; the bf16 first step's losses against fp32's; one fp32 step on
    the card held to the port's fp32 CPU step at full width on 256x256
    inputs (losses, launches against ``TRAIN_256``, and every gradient
-   tensor at the CPU run's forward point);
+   tensor at the CPU run's forward point); cyclegan_256 trains its two
+   generators and two discriminators the same way;
+8b. ``train_options`` (``train_options_phase``), at full width: WGAN-GP
+   on pix2pixhd_512 and, with the pixel D, on pix2pix_unet256 (bf16
+   steps with launches held to ``TRAIN_OPTIONS``: the penalty's D pass,
+   its B1 backward and the outer backward's; an fp32 step and D's
+   gradient from D_GP alone against the CPU's, pinned); grad-accum 2
+   against 1 on a batch of 2 (gradients at one forward point, peaks);
+   EMA (the shadow against a float64 recompute, and served from a
+   checkpoint bit for bit); the bf16-moment Adam against the formula;
+   remat on pix2pixhd_1024 and pix2pixhd_2048 with dropout (losses bit
+   for bit, gradients, launches, a lower peak); and the device time of
+   B1's second derivative beside the B1 backward kernel;
 9. ``train_cli``: the training CLI (``ir2rgb_tpu_torch.cli.train``) from
    folders of PNG frames at full width, bf16: pix2pixhd_512 for 6 frozen
    steps, then resumed with continue_train for 6 more across the
@@ -179,6 +194,8 @@ SERVE = {
     "temporal_512": _MAIN_512,
     "resnet9_256": _RESNET9_256,
     "temporal_256": _RESNET9_256,
+    # a CycleGAN serves G_A, ResNet-9 at 256
+    "cyclegan_256": _RESNET9_256,
     "pix2pixhd_global_512": dict(b1=_TRUNK_512_B1, tail=[(1, 512, 512, 64)],
                                  d2s=_TRUNK_512_D2S),
     "pix2pixhd_1024": _LOCAL_1024,
@@ -202,19 +219,27 @@ SERVE = {
 }
 
 
-def _d_pass(size: int, num_d: int, ndf: int = 64, n_layers: int = 3):
+def _d_pass(size: int, num_d: int, ndf: int = 64, n_layers: int = 3,
+            pad: int = 2):
     """B1 (shape, act) -> count of one pass of the PatchGAN (``num_d``
     scales, each half the last) over a ``size``-square pair: 4x4 convs
-    padded 2, stride 2 but the last normed one."""
+    padded ``pad`` (2, pix2pixHD's; a CycleGAN's 1), stride 2 but the
+    last normed one."""
     out = Counter()
     for i in range(num_d):
-        h = (size >> i) // 2 + 1  # layer 0, no norm
+        h = ((size >> i) + 2 * pad - 4) // 2 + 1  # layer 0, no norm
         nf = ndf
         for j in range(1, n_layers + 1):
-            h = h // 2 + 1 if j < n_layers else h + 1
+            h = ((h + 2 * pad - 4) // 2 + 1 if j < n_layers
+                 else h + 2 * pad - 3)
             nf = min(nf * 2, 512)
             out[((1, h, h, nf), "leaky_relu")] += 1
     return out
+
+
+def _pixel_d_pass(size: int, ndf: int = 64):
+    """B1 of one pass of the pixel D: its one norm, at full resolution."""
+    return Counter({((1, size, size, 2 * ndf), "leaky_relu"): 1})
 
 
 def _scaled(shape, num: int, den: int):
@@ -240,10 +265,27 @@ _TRAIN_SPEC = {
     "pix2pixhd_1024": (1024, 1, 3, True, (512, 64)),
     "temporal_1024": (1024, 4, 3, True, (512, 64)),
     "pix2pixhd_2048": (2048, 1, 3, True, (512, 64)),
+    "cyclegan_256": (256, 1, 1, False, None),
 }
+# A CycleGAN's step: six generator passes (G_A(a), G_B(b), the two
+# reconstructions, the two identities), each with a backward, and six D
+# passes (two on the fakes for G, four for D's own update), each with a
+# backward; its Ds pad 1
+_CYCLE = {"cyclegan_256"}
 
 
-def train_table(preset: str, size: int = None) -> dict:
+def _gp(d: Counter):
+    """The B1 launches WGAN-GP adds to a frame's step: one D forward on
+    x-hat, the B1 backward inside the penalty's first derivative on every
+    norm of that pass, and in the outer backward the B1 backward of every
+    norm of that pass again: the second derivative (PyTorch arithmetic,
+    kernels/instance_norm.py) reaches each norm's input, the last norm's
+    through the head conv's double backward."""
+    return dict(b1=d, b1_bwd=_mul(d, 2))
+
+
+def train_table(preset: str, size: int = None, gp: bool = False,
+                pixel: bool = False) -> dict:
     """What one train step of ``preset`` at ``size`` (its crop size when
     None) sends to each kernel: B1 forward and backward (shape, act) ->
     count, d2s (phase shape, C) -> count, s2d (image shape) -> count;
@@ -253,22 +295,34 @@ def train_table(preset: str, size: int = None) -> dict:
     else three, each but the no-graph one with a backward. A frozen
     step's trunk takes no backward where its input needs no gradient:
     every frame of a frame step, the first frame of a window (later
-    frames reach the trunk through the carry)."""
+    frames reach the trunk through the carry). A CycleGAN (``_CYCLE``)
+    runs six G passes and six D passes a step, each both ways. ``gp``:
+    with WGAN-GP (``_gp``); ``pixel``: with the pixel D in place of the
+    preset's."""
     crop, frames, num_d, fm, trunk = _TRAIN_SPEC[preset]
     size = size or crop
     g_b1 = Counter({(_scaled(k, size, crop), a): n
                     for (k, a), n in SERVE[preset]["b1"].items()})
     g_d2s = Counter((_scaled(k, size, crop), c)
                     for k, c in SERVE[preset]["d2s"])
-    d = _d_pass(size, num_d)
+    cycle = preset in _CYCLE
+    d = (_pixel_d_pass(size) if pixel else
+         _d_pass(size, num_d, pad=1 if cycle else 2))
+    g_passes, d_fwd, d_bwd = ((6, 6, 6) if cycle else
+                              (1, 4 if fm else 3, 3))
 
     def s2d(d2s):
         return Counter({(n, 2 * h, 2 * w, c): m
                         for ((n, h, w, _), c), m in d2s.items()})
 
-    unfrozen = dict(b1=_mul(g_b1 + _mul(d, 4 if fm else 3), frames),
-                    b1_bwd=_mul(g_b1 + _mul(d, 3), frames),
-                    d2s=_mul(g_d2s, frames), s2d=_mul(s2d(g_d2s), frames))
+    b1, b1_bwd = _mul(g_b1, g_passes) + _mul(d, d_fwd), _mul(
+        g_b1, g_passes) + _mul(d, d_bwd)
+    if gp:
+        extra = _gp(d)
+        b1, b1_bwd = b1 + extra["b1"], b1_bwd + extra["b1_bwd"]
+    unfrozen = dict(b1=_mul(b1, frames), b1_bwd=_mul(b1_bwd, frames),
+                    d2s=_mul(g_d2s, frames * g_passes),
+                    s2d=_mul(s2d(g_d2s), frames * g_passes))
     out = {"unfrozen": unfrozen}
     if trunk is not None:
         t_b1, t_d2s = _trunk(trunk[0] * size // crop, trunk[1])
@@ -281,6 +335,35 @@ TRAIN = {p: train_table(p) for p in _TRAIN_SPEC}
 # the same at 256x256, where each preset's fp32 card step is held to the
 # CPU's
 TRAIN_256 = {p: train_table(p, 256) for p in _TRAIN_SPEC}
+
+
+def at_batch(table: dict, n: int) -> dict:
+    """A ``TRAIN``-style table's shapes at batch ``n``."""
+    def at(key):
+        shape, rest = key
+        return ((n,) + tuple(shape[1:]), rest)
+    return {k: Counter({(at(key) if k != "s2d" else
+                         (n,) + tuple(key[1:])): c
+                        for key, c in v.items()})
+            for k, v in table.items()}
+
+
+# The train_options phase (``train_options_phase``): WGAN-GP on
+# pix2pixhd_512 (bf16 steps at its crop size, the fp32 card-vs-CPU step
+# at 256x256) and the pixel D with WGAN-GP on pix2pix_unet256; grad-accum
+# 2 against accum 1 at batch 2 (pix2pixhd_512, 256x256: the micro-batch
+# shapes are TRAIN_256's, the full batch's at batch 2); remat runs
+# TRAIN's shapes. The pixel D's one norm on pix2pixhd_512 is checked too.
+ACCUM_SIZE = 256
+TRAIN_OPTIONS = {
+    "gp pix2pixhd_512": train_table("pix2pixhd_512", gp=True),
+    "gp pix2pixhd_512 256": train_table("pix2pixhd_512", 256, gp=True),
+    "gp pixel pix2pix_unet256": train_table("pix2pix_unet256", gp=True,
+                                            pixel=True),
+    "accum pix2pixhd_512 b2": at_batch(train_table(
+        "pix2pixhd_512", ACCUM_SIZE)["unfrozen"], 2),
+    "pixel pix2pixhd_512": train_table("pix2pixhd_512", pixel=True),
+}
 
 
 def per_step(table: dict) -> dict:
@@ -317,7 +400,9 @@ def _keys(tables, field):
     return {k for t in tables for v in t.values() for k in v[field]}
 
 
-_STEPS = list(TRAIN.values()) + list(TRAIN_256.values())
+_STEPS = (list(TRAIN.values()) + list(TRAIN_256.values())
+          + [t if "unfrozen" in t else {"unfrozen": t}
+             for t in TRAIN_OPTIONS.values()])
 # every (shape, act) B1 runs at, in serving, in each preset's train step
 # and in its 256x256 fp32 step: the headline step's first, then the rest
 B1_FWD_SHAPES = list(B1_FWD_PER_STEP) + sorted(
@@ -970,26 +1055,64 @@ def slice_phase(preset: str, seed: int, card: str, cmp_size=None):
 
 
 def train_model(preset: str, dtype: str, device: str, weights,
-                fix_steps: int = 0):
-    """``preset`` at full width, with ``weights`` = (G, D, VGG)
-    state_dicts (VGG None: the preset has no VGG loss); the trunk frozen
-    for the first ``fix_steps`` steps (niter_fix_global 1 x
+                fix_steps: int = 0, **sections):
+    """``preset`` at full width, with ``weights`` (network name -> its
+    state_dict, "vgg" for the VGG; None: the seeded init) loaded; the
+    trunk frozen for the first ``fix_steps`` steps (niter_fix_global 1 x
     steps_per_epoch ``fix_steps``; only the local enhancer has a trunk),
-    none when 0."""
+    none when 0. ``sections``: config fields to change, by section
+    (``model=dict(remat=True)``)."""
     from ir2rgb_tpu_torch.config import PRESETS
     from ir2rgb_tpu_torch.train import create_model
     cfg = PRESETS[preset]
-    cfg = cfg.replace(
-        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
-        train=dataclasses.replace(cfg.train,
-                                  niter_fix_global=int(fix_steps > 0)))
+    changes = {k: dict(v) for k, v in sections.items()}
+    changes.setdefault("model", {})["compute_dtype"] = dtype
+    changes.setdefault("train", {})["niter_fix_global"] = int(fix_steps > 0)
+    cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                         for k, v in changes.items()})
     model = create_model(cfg, device=device,
                          steps_per_epoch=max(fix_steps, 1))
     if weights is not None:
-        for net, sd in zip((model.netG, model.netD, model.vgg), weights):
-            if sd is not None:
-                net.load_state_dict(sd)
+        for name, net in nets_of(model).items():
+            net.load_state_dict(weights[name])
+        if model.vgg is not None:
+            model.vgg.load_state_dict(weights["vgg"])
+        if model.ema is not None:
+            model.init_ema()
     return model
+
+
+def nets_of(model) -> dict:
+    """Every network a train step updates, by state_dict key."""
+    return {**model.g_nets(), **model.d_nets()}
+
+
+# the seed of each network's weights (seeded_state_dict)
+NET_SEEDS = {"netG": SEED, "netD": SEED + 1, "netG_B": SEED + 4,
+             "netD_B": SEED + 5}
+
+
+def seeded_model(preset: str, dtype: str, fix_steps: int = 0,
+                 **sections) -> tuple:
+    """``train_model`` on the card with ``seeded_weights``: (the model,
+    its weights)."""
+    model = train_model(preset, dtype, "cuda", None, fix_steps, **sections)
+    weights = seeded_weights(model)
+    for name, net in nets_of(model).items():
+        net.load_state_dict(weights[name])
+    if model.ema is not None:
+        model.init_ema()
+    return model, weights
+
+
+def seeded_weights(model) -> dict:
+    """``train_model``'s weights for ``model``'s networks, drawn from
+    numpy seeds, and its VGG's as they are (CPU tensors)."""
+    w = {name: seeded_state_dict(net, NET_SEEDS[name])
+         for name, net in nets_of(model).items()}
+    if model.vgg is not None:
+        w["vgg"] = {k: v.cpu() for k, v in model.vgg.state_dict().items()}
+    return w
 
 
 def clone_params(module, keep=lambda k: True):
@@ -1020,6 +1143,12 @@ def timed_steps(model, batch, n: int):
             launch_counts())
 
 
+def grads_of(model) -> dict:
+    """Network name -> parameter name -> its ``.grad``."""
+    return {n: {k: p.grad for k, p in net.named_parameters()}
+            for n, net in nets_of(model).items()}
+
+
 def grad_bar(got: dict, want: dict, rel: float):
     """Worst per-tensor ratio of ||delta|| to rel·||g_cpu|| + 1e-6·M (M the
     largest ||g_cpu|| of the network; the second term covers the conv
@@ -1036,18 +1165,21 @@ def grad_bar(got: dict, want: dict, rel: float):
 
 
 def avg_pool_grad_check():
-    """``ops.avg_pool``'s gradient on the card against the CPU's at the
-    discriminator's pyramid shape; beside it ``F.avg_pool2d`` straight on
-    channels-last memory, whose CUDA backward is wrong (reported)."""
+    """``ops.avg_pool``'s gradient, and its second derivative (WGAN-GP's
+    path between D's scales), on the card against the CPU's at the
+    discriminator's pyramid shape; beside them ``F.avg_pool2d`` straight
+    on channels-last memory, whose CUDA backward is wrong (reported)."""
     from ir2rgb_tpu_torch.nn import ops
     rng = np.random.default_rng(SEED + 5)
     x = torch.from_numpy(rng.standard_normal((1, 256, 256, 6),
                                              dtype=np.float32))
     g = torch.from_numpy(rng.standard_normal((1, 128, 128, 6),
                                              dtype=np.float32))
+    h = torch.from_numpy(rng.standard_normal((1, 256, 256, 6),
+                                             dtype=np.float32))
 
     def grad(fn, dev):
-        xi = x.to(dev).requires_grad_(True)
+        xi = x.to(dev, copy=True).requires_grad_(True)
         (gx,) = torch.autograd.grad(fn(xi), xi, g.to(dev))
         return gx.cpu()
 
@@ -1058,11 +1190,25 @@ def avg_pool_grad_check():
         return F.avg_pool2d(t.permute(0, 3, 1, 2), 3, 2, 1,
                             count_include_pad=False).permute(0, 2, 3, 1)
 
-    want = grad(port, "cpu")
+    def grad2(fn, dev):
+        # the second derivative WGAN-GP takes through the pool between
+        # D's scales: d/dx <h, d/dx <g, pool(x)^2>>
+        xi = x.to(dev, copy=True).requires_grad_(True)
+        (gx,) = torch.autograd.grad((fn(xi).square() * g.to(dev)).sum(), xi,
+                                    create_graph=True)
+        (gxx,) = torch.autograd.grad((gx * h.to(dev)).sum(), xi)
+        return gxx.cpu()
+
+    want, want2 = grad(port, "cpu"), grad2(port, "cpu")
+    fns = (("ops.avg_pool", port), ("F.avg_pool2d channels-last",
+                                    channels_last))
     rel = {name: float((grad(fn, "cuda") - want).norm() / want.norm())
-           for name, fn in (("ops.avg_pool", port),
-                            ("F.avg_pool2d channels-last", channels_last))}
-    check(rel["ops.avg_pool"] <= 1e-6,
+           for name, fn in fns}
+    rel.update({name + " second derivative": float(
+        (grad2(fn, "cuda") - want2).norm() / want2.norm())
+        for name, fn in fns})
+    check(rel["ops.avg_pool"] <= 1e-6
+          and rel["ops.avg_pool second derivative"] <= 1e-6,
           f"avg pool gradient on the card vs CPU: {rel}")
     return rel
 
@@ -1077,9 +1223,23 @@ class KinkPins:
     and, inside B1's backward kernel, on x-hat computed from the pinned x
     and the first run's statistics. Its backward is its own."""
 
-    def __init__(self):
+    def __init__(self, merge: int = 1):
+        """``merge`` > 1: the recording ran ``merge`` micro-batches one
+        after the other (grad-accum), the replay runs them as one batch:
+        replayed call i takes the concatenation, along the batch, of
+        call i of every micro-batch's recording."""
         self.saved, self.stats = [], []
         self.replayed, self.stats_replayed, self._replay = 0, 0, False
+        self.merge = merge
+
+    def _take(self, records: list, i: int):
+        n = len(records) // self.merge
+        parts = [records[i + j * n] for j in range(self.merge)]
+        if self.merge == 1:
+            return parts[0]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(t) for t in zip(*parts))
+        return torch.cat(parts)
 
     def pin(self, y: torch.Tensor) -> torch.Tensor:
         if not (torch.is_grad_enabled() and y.requires_grad):
@@ -1087,7 +1247,7 @@ class KinkPins:
         if not self._replay:
             self.saved.append(y.detach().cpu())
             return y
-        r = self.saved[self.replayed].to(y.device, y.dtype)
+        r = self._take(self.saved, self.replayed).to(y.device, y.dtype)
         self.replayed += 1
         return y + (r - y).detach()
 
@@ -1095,13 +1255,13 @@ class KinkPins:
         if not self._replay:
             self.stats.append((mean.cpu(), rstd.cpu()))
             return mean, rstd
-        m, r = self.stats[self.stats_replayed]
+        m, r = self._take(self.stats, self.stats_replayed)
         self.stats_replayed += 1
         return m.to(mean.device), r.to(rstd.device)
 
     def all_replayed(self) -> bool:
-        return (self.replayed == len(self.saved) > 0
-                and self.stats_replayed == len(self.stats) > 0)
+        return (self.replayed * self.merge == len(self.saved) > 0
+                and self.stats_replayed * self.merge == len(self.stats) > 0)
 
     @contextlib.contextmanager
     def _patched(self, replay: bool):
@@ -1148,13 +1308,7 @@ def train_phase(preset: str, card: str):
     from ir2rgb_tpu_torch.profile_train import train_batch
     table = TRAIN[preset]
     fix = FIX_STEPS if "frozen" in table else 0
-    bf16 = train_model(preset, "bf16", "cuda", None, fix)
-    weights = (seeded_state_dict(bf16.netG, SEED),
-               seeded_state_dict(bf16.netD, SEED + 1),
-               None if bf16.vgg is None else
-               {k: v.cpu() for k, v in bf16.vgg.state_dict().items()})
-    for net, sd in zip((bf16.netG, bf16.netD), weights):
-        net.load_state_dict(sd)
+    bf16, weights = seeded_model(preset, "bf16", fix)
     cfg = bf16.cfg
     res = {"preset": preset, "batch": 1, "size": cfg.data.crop_size,
            "frames": (cfg.data.n_frames_total
@@ -1167,7 +1321,7 @@ def train_phase(preset: str, card: str):
     losses, counts, walls, launches = [], [], [], {}
     for i in range(TRAIN_STEPS):
         frozen = i < fix
-        g0, d0 = clone_params(bf16.netG), clone_params(bf16.netD)
+        before = {n: clone_params(net) for n, net in nets_of(bf16).items()}
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1184,9 +1338,9 @@ def train_phase(preset: str, card: str):
         check(all(math.isfinite(v) for v in losses[-1].values()),
               f"{preset} train step {i}: losses {losses[-1]}")
         # every weight moves, but the frozen trunk's (model.*), which stay
-        moved = {**changed(bf16.netG, g0), **{
-            "D." + k: v for k, v in changed(bf16.netD, d0).items()}}
-        trunk = {k for k in moved if frozen and k.startswith("model.")}
+        moved = {f"{n}.{k}": v for n, net in nets_of(bf16).items()
+                 for k, v in changed(net, before[n]).items()}
+        trunk = {k for k in moved if frozen and k.startswith("netG.model.")}
         stuck = [k for k, v in moved.items() if k.endswith("weight")
                  and k not in trunk and not v]
         check(not stuck and not any(moved[k] for k in trunk),
@@ -1195,7 +1349,7 @@ def train_phase(preset: str, card: str):
               f"{sum(moved[k] for k in trunk)} of {len(trunk)}")
     res.update(losses_bf16=losses, launches_by_step=counts,
                wall_ms_by_step=walls)
-    del g0, d0  # the last step's copies of every weight, out of the peak
+    del before  # the last step's copies of every weight, out of the peak
 
     # ms/step, unfrozen: bf16, then fp32 (TF32 off) after two steps of
     # its own (the first one's losses held against bf16's first)
@@ -1262,21 +1416,17 @@ def train_phase(preset: str, card: str):
           f"{preset} train fp32 at 256px: launches {got256}")
     loss_rel = {k: abs(float(m_card[k]) - float(v)) / abs(float(v))
                 for k, v in m_cpu.items()}
-    nets = ("netG", "netD")
-    want = {n: {k: p.grad for k, p in getattr(cpu, n).named_parameters()}
-            for n in nets}
-    free = {n: grad_bar({k: p.grad for k, p in getattr(
-        card32, n).named_parameters()}, want[n], TRAIN_FP32_GRAD_REL)
-            for n in nets}
+    want = grads_of(cpu)
+    free = {n: grad_bar(g, want[n], TRAIN_FP32_GRAD_REL)
+            for n, g in grads_of(card32).items()}
     with pins.replaying():
         card32.compute_grads(b_card)
     check(pins.all_replayed(),
           f"{preset} train fp32 card vs CPU: {pins.replayed} of "
           f"{len(pins.saved)} pins and {pins.stats_replayed} of "
           f"{len(pins.stats)} B1 statistics replayed")
-    worst = {n: grad_bar({k: p.grad for k, p in getattr(
-        card32, n).named_parameters()}, want[n], TRAIN_FP32_GRAD_REL)
-             for n in nets}
+    worst = {n: grad_bar(g, want[n], TRAIN_FP32_GRAD_REL)
+             for n, g in grads_of(card32).items()}
     res.update(fp32_card_vs_cpu_loss_rel=loss_rel,
                fp32_card_vs_cpu_worst_grad_pinned=worst,
                fp32_card_vs_cpu_worst_grad_unpinned=free, cpu_step_s=cpu_s,
@@ -1295,6 +1445,445 @@ def train_phase(preset: str, card: str):
           f"{ms:.2f} ms/step bf16, {ms32:.2f} ms/step fp32, peak "
           f"{peak / 2**30:.2f} / {peak32 / 2**30:.2f} GiB ({card})",
           flush=True)
+    return res
+
+
+# the train_options phase
+GP_EPS = (0.3, 0.7)  # the penalty's mixing weights, one a sample
+EMA_DECAY, EMA_STEPS = 0.999, 3
+REMAT_PRESETS = ("pix2pixhd_1024", "pix2pixhd_2048")
+# the enhancer levels of a local preset: (hw, ngf_n) each
+_ENHANCERS = {"pix2pixhd_1024": [(1024, 32)],
+              "pix2pixhd_2048": [(1024, 32), (2048, 16)]}
+
+
+def remat_table(preset: str) -> dict:
+    """One unfrozen remat train step of a local preset: ``TRAIN``'s, plus
+    the B1 forward of every residual block's two norms again, recomputed
+    in the backward (the trunk's 9 at its 16th resolution, each
+    enhancer's 3 at its half)."""
+    crop, _, _, _, (hw, ngf) = _TRAIN_SPEC[preset]
+    blocks = Counter({((1, hw >> 4, hw >> 4, ngf << 4), a): 9
+                      for a in ("relu", "none")})
+    for level, ngf_n in _ENHANCERS[preset]:
+        blocks.update({((1, level // 2, level // 2, 2 * ngf_n), a): 3
+                       for a in ("relu", "none")})
+    t = TRAIN[preset]["unfrozen"]
+    return dict(t, b1=t["b1"] + blocks)
+
+
+REMAT = {p: remat_table(p) for p in REMAT_PRESETS}
+
+
+@contextlib.contextmanager
+def fixed_eps():
+    """The penalty's mixing weights fixed (``GP_EPS``), the same on the
+    card and the CPU, whose generators draw different numbers."""
+    from ir2rgb_tpu_torch.losses import gan
+    with wrapped(gan, "draw_eps", lambda orig: lambda n, generator:
+                 torch.tensor(GP_EPS[:n]).reshape(n, 1, 1, 1).to(
+                     generator.device)):
+        yield
+
+
+def gp_grads(model, batch) -> tuple:
+    """One step's metrics and gradients (``grads_of``), and D's gradient
+    from the D_GP term alone, from one forward."""
+    for p in model._params():
+        p.grad = None
+    loss_g, loss_d, m = model.loss_and_metrics(batch)
+    names, params = zip(*model.netD.named_parameters())
+    # the logits' biases do not reach the input gradient: no D_GP term
+    gp = torch.autograd.grad(m["D_GP"], params, retain_graph=True,
+                             allow_unused=True)
+    (loss_g + loss_d).backward()
+    return ({k: float(v.detach()) for k, v in m.items()
+             if not k.startswith("_")},
+            grads_of(model), {k: torch.zeros_like(p) if g is None else g
+                              for k, p, g in zip(names, params, gp)})
+
+
+def gp_check(tag: str, preset: str, card: str, **sections) -> dict:
+    """WGAN-GP on ``preset`` (``sections`` change its config): TRAIN_STEPS
+    bf16 steps at its crop size with each step's launches held to
+    ``TRAIN_OPTIONS[tag]``, finite losses, D_GP > 0 and every weight
+    moved; then one fp32 step on the card against the port's fp32 CPU
+    step at 256x256 on the same weights, batch and mixing weights: its
+    launches held to ``TRAIN_OPTIONS[tag + " 256"]`` (or ``tag``'s at
+    256), the losses, every gradient and D's gradient from D_GP alone at
+    the CPU run's forward point (``KinkPins``, whose B1 statistics the
+    second derivative reads too)."""
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    loss = dict(sections.pop("loss", {}), gan_mode="wgangp")
+    bf16, weights = seeded_model(preset, "bf16", loss=loss, **sections)
+    res = {"tag": tag, "preset": preset, "net_d": bf16.disc_cfg.net_d}
+    batch = train_batch(bf16.cfg, SEED + 3, "cuda")
+    want = per_step(TRAIN_OPTIONS[tag]["unfrozen"])
+    losses, counts, launches = [], [], {}
+    for i in range(TRAIN_STEPS):
+        before = {n: clone_params(net) for n, net in nets_of(bf16).items()}
+        reset_launch_counts()
+        m = bf16.train_step(batch)
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+        launches = {k: launches.get(k, 0) + v for k, v in counts[-1].items()}
+        losses.append({k: float(v) for k, v in m.items()})
+        check(counts[-1] == want, f"{tag} step {i}: launches {counts[-1]} "
+              f"(want {want})")
+        check(all(math.isfinite(v) for v in losses[-1].values())
+              and losses[-1]["D_GP"] > 0, f"{tag} step {i}: {losses[-1]}")
+        stuck = [f"{n}.{k}" for n, net in nets_of(bf16).items()
+                 for k, v in changed(net, before[n]).items()
+                 if k.endswith("weight") and not v]
+        check(not stuck, f"{tag} step {i}: every weight moved (stuck: "
+              f"{stuck[:3]})")
+    ms, peak, run = timed_steps(bf16, batch, TIMED_STEPS)
+    check(run == _mul(want, TIMED_STEPS), f"{tag}: launches {run} "
+          f"over {TIMED_STEPS} timed steps")
+    launches = {k: launches[k] + v for k, v in run.items()}
+    res.update(losses_bf16=losses, launches_by_step=counts,
+               ms_per_step_bf16=ms, peak_bytes_bf16=peak)
+    del bf16, before
+    torch.cuda.empty_cache()
+
+    key = tag + " 256" if tag + " 256" in TRAIN_OPTIONS else tag
+    cpu = train_model(preset, "float32", "cpu", weights, loss=loss,
+                      **sections)
+    card32 = train_model(preset, "float32", "cuda", weights, loss=loss,
+                         **sections)
+    b_cpu = train_batch(cpu.cfg, SEED + 4, "cpu", size=256)
+    b_card = {k: v.cuda() for k, v in b_cpu.items()}
+    pins = KinkPins()
+    with fixed_eps():
+        with pins.recording():
+            m_cpu, want_g, want_gp = gp_grads(cpu, b_cpu)
+        reset_launch_counts()
+        card32.compute_grads(b_card)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        table = per_step(TRAIN_OPTIONS[key]["unfrozen"])
+        check(got == table, f"{tag} fp32 at 256px: launches {got} (want "
+              f"{table})")
+        with pins.replaying():
+            m_card, got_g, got_gp = gp_grads(card32, b_card)
+    check(pins.all_replayed(), f"{tag} fp32 card vs CPU: "
+          f"{pins.replayed} of {len(pins.saved)} pins and "
+          f"{pins.stats_replayed} of {len(pins.stats)} B1 statistics "
+          "replayed")
+    loss_rel = {k: abs(m_card[k] - v) / abs(v) for k, v in m_cpu.items()}
+    worst = {n: grad_bar(got_g[n], want_g[n], TRAIN_FP32_GRAD_REL)
+             for n in want_g}
+    worst["netD from D_GP"] = grad_bar(got_gp, want_gp, TRAIN_FP32_GRAD_REL)
+    res.update(fp32_card_vs_cpu_loss_rel=loss_rel,
+               fp32_card_vs_cpu_worst_grad_pinned=worst,
+               launches_fp32_256=got, launches=launches)
+    check(max(loss_rel.values()) <= TRAIN_FP32_LOSS_RTOL,
+          f"{tag} fp32 card vs CPU at 256px: losses rel {loss_rel}")
+    for name, (ratio, k) in worst.items():
+        check(ratio <= 1.0, f"{tag} fp32 card vs CPU at 256px: {name} "
+              f"gradients, worst {k} at {ratio:.3g} of the bar")
+    print(f"{tag}: {ms:.2f} ms/step bf16 at {res['preset']}'s crop, D_GP "
+          f"{losses[-1]['D_GP']:.4g}; fp32 card vs CPU worst "
+          f"{ {n: round(r, 3) for n, (r, _) in worst.items()} } of the bar "
+          f"({card})", flush=True)
+    del cpu, card32
+    torch.cuda.empty_cache()
+    return res
+
+
+def accum_check(card: str) -> dict:
+    """grad-accum 2 against accum 1 on one batch of 2 (pix2pixhd_512 at
+    ACCUM_SIZE, fp32): each run's launches held to its table, and the
+    accumulated gradients held to the full batch's at the accumulated
+    run's forward point (``KinkPins(merge=2)``: the full batch replays
+    the two micro-batches' values). Instance norm's statistics are per
+    sample, every loss a batch mean. Peak memory of each."""
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    preset = "pix2pixhd_512"
+    acc, weights = seeded_model(preset, "float32", train=dict(grad_accum=2))
+    full = train_model(preset, "float32", "cuda", weights)
+    rng = np.random.default_rng(SEED + 6)
+    batch = {k: torch.from_numpy(rng.uniform(-1, 1, (
+        2, ACCUM_SIZE, ACCUM_SIZE, 3)).astype(np.float32)).cuda()
+        for k in "ab"}
+    res = {}
+    for name, model, table in (
+            ("accum2", acc, _mul(per_step(
+                TRAIN_256[preset]["unfrozen"]), 2)),
+            ("accum1", full, per_step(
+                TRAIN_OPTIONS["accum pix2pixhd_512 b2"]))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        model.compute_grads(batch)
+        torch.cuda.synchronize()
+        res[f"peak_bytes_{name}"] = torch.cuda.max_memory_allocated()
+        res[f"launches_{name}"] = got = launch_counts()
+        check(got == table, f"grad-accum {name}: launches {got} (want "
+              f"{table})")
+    pins = KinkPins(merge=2)
+    with pins.recording():
+        m_acc = acc.compute_grads(batch)
+    with pins.replaying():
+        m_full = full.compute_grads(batch)
+    check(pins.all_replayed(), "grad-accum: the full batch replayed "
+          f"{pins.replayed} x 2 of {len(pins.saved)} pins")
+    want = {n: {k: v.cpu() for k, v in g.items()}
+            for n, g in grads_of(full).items()}
+    worst = {n: grad_bar(g, want[n], TRAIN_FP32_GRAD_REL)
+             for n, g in grads_of(acc).items()}
+    loss_rel = {k: abs(float(m_acc[k]) - float(v)) / abs(float(v))
+                for k, v in m_full.items()}
+    res.update(worst_grad=worst, loss_rel=loss_rel,
+               launches={k: v + res["launches_accum1"][k]
+                         for k, v in res["launches_accum2"].items()})
+    check(max(loss_rel.values()) <= TRAIN_FP32_LOSS_RTOL,
+          f"grad-accum 2 vs 1: losses rel {loss_rel}")
+    for n, (ratio, k) in worst.items():
+        check(ratio <= 1.0, f"grad-accum 2 vs 1: {n} gradients, worst {k} "
+              f"at {ratio:.3g} of the bar")
+    print(f"grad-accum {preset} b2 at {ACCUM_SIZE}px fp32: peak "
+          f"{res['peak_bytes_accum2'] / 2**30:.2f} GiB accum 2, "
+          f"{res['peak_bytes_accum1'] / 2**30:.2f} GiB accum 1; worst "
+          f"{ {n: round(r, 3) for n, (r, _) in worst.items()} } of the bar "
+          f"({card})", flush=True)
+    del acc, full
+    torch.cuda.empty_cache()
+    return res
+
+
+def ema_check(card: str) -> dict:
+    """EMA_STEPS bf16 steps of pix2pixhd_512 with ema_decay EMA_DECAY:
+    the shadow against d·e + (1 − d)·p recomputed in float64 from the
+    recorded parameters, to fp32 rounding; a stream frame served from the
+    checkpoint's EMA (``cli/common.py``'s ``--infer.use_ema`` path) bit
+    for bit against one served from a model whose netG was loaded with
+    the shadow."""
+    import shutil
+
+    from ir2rgb_tpu_torch.checkpoint import CheckpointManager
+    from ir2rgb_tpu_torch.cli.common import load_generator_params
+    from ir2rgb_tpu_torch.infer import StreamingGenerator
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    from ir2rgb_tpu_torch.train import create_model
+    preset = "pix2pixhd_512"
+    model, _ = seeded_model(preset, "bf16", train=dict(ema_decay=EMA_DECAY))
+    d = EMA_DECAY
+    e64 = {k: p.detach().double() for k, p in model.netG.named_parameters()}
+    start = max(float((model.ema["netG"][k].double() - v).abs().max())
+                for k, v in e64.items())
+    batch = train_batch(model.cfg, SEED + 3, "cuda")
+    want = per_step(TRAIN[preset]["unfrozen"])
+    launches = {}
+    for i in range(EMA_STEPS):
+        reset_launch_counts()
+        model.train_step(batch)
+        got = launch_counts()
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        check(got == want, f"EMA step {i}: launches {got} (want {want})")
+        for k, p in model.netG.named_parameters():
+            e64[k] = d * e64[k] + (1 - d) * p.detach().double()
+    worst = 0.0
+    for k, p in model.netG.named_parameters():
+        e = model.ema["netG"][k].double()
+        tol = 16 * 2.0 ** -24 * (e64[k].abs() + p.detach().double().abs())
+        worst = max(worst, float(((e - e64[k]).abs() / (tol + 1e-30)).max()))
+    check(start == 0.0 and worst <= 1.0,
+          f"EMA: shadow at creation off by {start}; after {EMA_STEPS} "
+          f"steps at {worst:.3g} of 16 fp32 ulps of the float64 recompute")
+
+    run = Path("build") / "ema_run"
+    shutil.rmtree(run, ignore_errors=True)
+    cfg = model.cfg.replace(
+        train=dataclasses.replace(model.cfg.train, name=run.name,
+                                  checkpoints_dir=str(run.parent)),
+        infer=dataclasses.replace(model.cfg.infer, use_ema=True))
+    ckpt = CheckpointManager(str(run / "ckpt"))
+    ckpt.save(model.step, model.state_dict())
+    ckpt.wait()
+    served = create_model(cfg.replace(loss=dataclasses.replace(
+        cfg.loss, no_vgg_loss=True)), device="cuda")
+    served.netG.load_state_dict(load_generator_params(cfg, served))
+    loaded = make_model(preset, "bf16", "cuda",
+                        {k: v.detach().clone() for k, v in
+                         model.ema_state_dict().items()})
+    rng = np.random.default_rng(SEED + 7)
+    frames = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+              for _ in range(2)]
+    outs = [list(StreamingGenerator(m, (512, 512)).stream(frames))
+            for m in (served, loaded)]
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    check(same, "EMA: frames served from the checkpoint's EMA equal, bit "
+          "for bit, those of a netG loaded with the shadow")
+    shutil.rmtree(run, ignore_errors=True)
+    print(f"EMA {preset} bf16 x{EMA_STEPS}: shadow at {worst:.3g} of the "
+          f"fp32 bar, served frames equal {same} ({card})", flush=True)
+    del model, served, loaded
+    torch.cuda.empty_cache()
+    return {"worst_of_bar": worst, "served_equal": same,
+            "launches": launches}
+
+
+def adam_bf16_check(card: str) -> dict:
+    """adam_mu_dtype bf16 on pix2pixhd_512, bf16: one train step (finite,
+    first moments stored bf16, second fp32), then one G step on fixed
+    gradients against the plain formula in float64 on the card: the
+    stored first moment within bf16 rounding of it, the parameters within
+    1e-6 of |p| + lr."""
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    from ir2rgb_tpu_torch.train.optim import AdamBf16Mu
+    preset = "pix2pixhd_512"
+    model = train_model(preset, "bf16", "cuda", None,
+                        train=dict(adam_mu_dtype="bf16"))
+    opt = model.opt_g
+    check(isinstance(opt, AdamBf16Mu), f"adam bf16: {type(opt).__name__}")
+    reset_launch_counts()
+    m = model.train_step(train_batch(model.cfg, SEED + 3, "cuda"))
+    launches, want = launch_counts(), per_step(TRAIN[preset]["unfrozen"])
+    check(launches == want, f"adam bf16 step: launches {launches} (want "
+          f"{want})")
+    states = list(opt.state.values())
+    dtypes_ok = bool(states) and all(
+        st["exp_avg"].dtype == torch.bfloat16
+        and st["exp_avg_sq"].dtype == torch.float32 for st in states)
+    check(dtypes_ok and all(math.isfinite(float(v)) for v in m.values()),
+          "adam bf16: first moments bf16, second fp32, losses finite "
+          f"{ {k: float(v) for k, v in m.items()} }")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b1, b2 = opt.param_groups[0]["betas"]
+    lr, eps = opt.param_groups[0]["lr"], opt.param_groups[0]["eps"]
+    before = {}
+    for p in model.netG.parameters():
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+        st = opt.state[p]
+        before[p] = (p.detach().double(), st["exp_avg"].double(),
+                     st["exp_avg_sq"].double(), st["step"])
+    opt.step()
+    mu_worst = p_worst = 0.0
+    for p, (p0, mu0, nu0, t) in before.items():
+        g = p.grad.double()
+        mu = (1 - b1) * g + b1 * mu0
+        nu = b2 * nu0 + (1 - b2) * g * g
+        t += 1
+        upd = (mu / (1 - b1 ** t)) / ((nu / (1 - b2 ** t)).sqrt() + eps)
+        p64 = p0 - lr * upd
+        st = opt.state[p]
+        mu_worst = max(mu_worst, float(((st["exp_avg"].double() - mu).abs()
+                                        / (2.0 ** -8 * mu.abs() + 1e-30))
+                                       .max()))
+        p_worst = max(p_worst, float(((p.detach().double() - p64).abs()
+                                      / (1e-6 * (p64.abs() + lr))).max()))
+    check(mu_worst <= 1.0 and p_worst <= 1.0,
+          f"adam bf16 vs the float64 formula: mu at {mu_worst:.3g} of bf16 "
+          f"rounding, parameters at {p_worst:.3g} of the bar")
+    print(f"adam bf16 {preset}: mu at {mu_worst:.3g} of bf16 rounding, "
+          f"parameters at {p_worst:.3g} of 1e-6 ({card})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"mu_of_bf16_rounding": mu_worst, "params_of_bar": p_worst,
+            "launches": launches}
+
+
+def remat_check(preset: str, card: str) -> dict:
+    """remat against the plain step on ``preset``, bf16, dropout on, the
+    same weights and generator seed: the first step's losses bit for bit
+    (the same forward, the same masks), every gradient under the bar,
+    the launches of TIMED_STEPS steps held to ``REMAT`` (the blocks'
+    norms run again in the backward) and ``TRAIN``, and the peak memory
+    and ms/step of each; remat's peak must be the lower."""
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    res = {"preset": preset}
+    model = dict(use_dropout=True)
+    plain, weights = seeded_model(preset, "bf16", model=model)
+    del plain
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, table in (("plain", TRAIN[preset]["unfrozen"]),
+                        ("remat", REMAT[preset])):
+        m = train_model(preset, "bf16", "cuda", weights,
+                        model=dict(model, remat=name == "remat"))
+        batch = train_batch(m.cfg, SEED + 3, "cuda")
+        losses = {k: v.clone() for k, v in m.compute_grads(batch).items()}
+        grads = {n: {k: v.float().cpu() for k, v in g.items()}
+                 for n, g in grads_of(m).items()}
+        ms, peak, counts = timed_steps(m, batch, TIMED_STEPS)
+        want = _mul(per_step(table), TIMED_STEPS)
+        check(counts == want, f"{preset} {name}: launches {counts} over "
+              f"{TIMED_STEPS} steps (want {want})")
+        runs[name] = (losses, grads, ms, peak, counts)
+        del m, batch
+        torch.cuda.empty_cache()
+    (l0, g0, ms0, peak0, _), (l1, g1, ms1, peak1, c1) = (runs["plain"],
+                                                         runs["remat"])
+    same = all(torch.equal(l0[k], l1[k]) for k in l0)
+    worst = {n: grad_bar(g1[n], g0[n], TRAIN_FP32_GRAD_REL) for n in g0}
+    res.update(losses_equal=same, worst_grad=worst, ms_plain=ms0,
+               ms_remat=ms1, peak_bytes_plain=peak0, peak_bytes_remat=peak1,
+               launches=c1)
+    check(same, f"{preset} remat: losses equal the plain step's bit for "
+          "bit")
+    for n, (ratio, k) in worst.items():
+        check(ratio <= 1.0, f"{preset} remat: {n} gradients, worst {k} at "
+              f"{ratio:.3g} of the bar")
+    check(peak1 < peak0, f"{preset} remat: peak {peak1 / 2**30:.2f} GiB "
+          f"below the plain step's {peak0 / 2**30:.2f} GiB")
+    print(f"remat {preset} bf16 dropout: peak {peak0 / 2**30:.2f} -> "
+          f"{peak1 / 2**30:.2f} GiB, {ms0:.2f} -> {ms1:.2f} ms/step "
+          f"({ms1 / ms0:.3f}x) ({card})", flush=True)
+    return res
+
+
+def second_derivative_ms(bw: float) -> list:
+    """Device time of B1's second derivative (``InstanceNormActBackward``'s
+    backward: PyTorch arithmetic, no kernel of the port) at each norm of
+    the WGAN-GP D pass of pix2pixhd_512, bf16, beside the B1 backward
+    kernel at the same shape (CUDA events, eager)."""
+    from types import SimpleNamespace
+
+    from ir2rgb_tpu_torch.kernels import instance_norm as b1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    for (shape, act) in sorted(_d_pass(512, 2)):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(
+            torch.bfloat16)
+        g, gg = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        _, mean, rstd = b1.instance_norm_act(x, act)
+        ctx = SimpleNamespace(saved_tensors=(x, g, mean, rstd), act=act,
+                              negative_slope=0.2, eps=b1.INSTANCE_NORM_EPS)
+        rows.append(dict(
+            shape=list(shape), act=act,
+            second_derivative_ms=cuda_ms(
+                lambda: b1.InstanceNormActBackward.backward(ctx, gg)),
+            b1_bwd_ms=cuda_ms(lambda: b1.instance_norm_act_backward(
+                x, mean, rstd, g, act))))
+    return rows
+
+
+def train_options_phase(card: str) -> dict:
+    """The train step's options at full width (ROADMAP A8): WGAN-GP on
+    pix2pixhd_512 and the pixel D with WGAN-GP on pix2pix_unet256
+    (``gp_check``), grad-accum (``accum_check``), EMA (``ema_check``),
+    bf16 Adam moments (``adam_bf16_check``), remat on pix2pixhd_1024 and
+    pix2pixhd_2048 (``remat_check``), and the time of B1's second
+    derivative (``second_derivative_ms``)."""
+    bw = peaks(torch.cuda.get_device_name(0))[1][0]
+    res = {"gp": [gp_check("gp pix2pixhd_512", "pix2pixhd_512", card),
+                  gp_check("gp pixel pix2pix_unet256", "pix2pix_unet256",
+                           card, model=dict(net_d="pixel"))],
+           "accum": accum_check(card), "ema": ema_check(card),
+           "adam_bf16": adam_bf16_check(card),
+           "remat": [remat_check(p, card) for p in REMAT_PRESETS],
+           "second_derivative": second_derivative_ms(bw)}
+    launches = {}
+    for part in (*res["gp"], res["accum"], res["ema"], res["adam_bf16"],
+                 *res["remat"]):
+        launches = {k: launches.get(k, 0) + v
+                    for k, v in part["launches"].items()}
+    res["launches"] = launches
     return res
 
 
@@ -2082,6 +2671,7 @@ def main() -> int:
                for p in SERVE if p not in ("pix2pixhd_512", "temporal_512")]
     avg_pool_rel = phase("avg pool grad", avg_pool_grad_check)
     trains = [phase("train " + p, train_phase, p, card) for p in TRAIN]
+    options = phase("train_options", train_options_phase, card)
     cli = phase("train_cli", train_cli_phase, card)
     serve = phase("serve", serve_phase, card)
 
@@ -2089,6 +2679,7 @@ def main() -> int:
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
     by_path = {**{"serve " + s["preset"]: s["launches"] for s in slices},
                **{"train " + t["preset"]: t["launches"] for t in trains},
+               "train_options": options["launches"],
                **{"train_cli " + p: c for p, c in cli["launches"].items()},
                **{"serve " + p: c for p, c in serve["launches"].items()}}
     total = {k: sum(c.get(k, 0) for c in by_path.values())
@@ -2203,6 +2794,7 @@ def main() -> int:
     print("avg pool gradient, card vs CPU " + json.dumps(avg_pool_rel))
     for t in trains:
         print("train " + json.dumps(t))
+    print("train_options " + json.dumps(options))
     print("train_cli " + json.dumps(cli))
     print("serve " + json.dumps(serve))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
@@ -2259,7 +2851,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     with open(out / "chip_smoke.json", "w") as fh:
         json.dump({"card": card, "seconds": seconds, "failures": failures,
-                   "slices": slices, "trains": trains, "train_cli": cli,
+                   "slices": slices, "trains": trains,
+                   "train_options": options, "train_cli": cli,
                    "serve": serve,
                    "kernels": kernels}, fh)
     if failures:

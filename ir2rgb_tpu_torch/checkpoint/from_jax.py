@@ -16,6 +16,12 @@ arrays) into a port ``state_dict``, whose keys are the reference family's
 - batch norm: gamma -> weight, beta -> bias; running stats as given, else
   0 and 1 (batch statistics are what the generators compute with).
 
+A CycleGAN's composite trees (``{"G_A", "G_B"}``, ``{"D_A", "D_B"}``,
+and its EMA's) convert net by net (:func:`cycle_generators_from_jax`,
+:func:`cycle_discriminators_from_jax`). The pixel discriminator's
+``conv0`` / ``conv1`` / ``head`` fill the reference's ``net.0`` /
+``net.2`` (+ its batch norm at ``net.3``) / ``net.5``.
+
 The slots pair each JAX parameter with its module key in the orders of
 ``ir2rgb_tpu/checkpoint/torch_import.py:79-131``. The maps are linear, so
 they convert gradients of the same trees too.
@@ -206,13 +212,40 @@ def discriminator_state_dict_from_jax(params_np: Params, cfg: DiscConfig
     runs on that resolution."""
     with torch.device("meta"):
         d = define_d(cfg)
-    if cfg.net_d == "n_layers":
+    if cfg.net_d == "pixel":
+        slots = [("net.0", params_np["conv0"]["conv"], "conv"),
+                 ("net.2", params_np["conv1"]["conv"], "conv"),
+                 *_norm_slot("net.3", params_np["conv1"].get("norm"),
+                             cfg.norm),
+                 ("net.5", params_np["head"]["conv"], "conv")]
+    elif cfg.net_d == "n_layers":
         slots = _disc_slots(d, d.layers(), params_np, cfg.norm)
     else:
         slots = (s for i in range(cfg.num_d) for s in _disc_slots(
             d, d.layers(cfg.num_d - 1 - i), params_np[f"scale{i}"],
             cfg.norm))
     return _checked(d, slots)
+
+
+def cycle_generators_from_jax(params_np: Params, cfg_a: GenConfig,
+                              cfg_b: GenConfig
+                              ) -> Dict[str, "OrderedDict[str, torch.Tensor]"]:
+    """A CycleGAN's ``{"G_A", "G_B"}`` JAX tree (its ``g_params``, or its
+    ``ema_g``) -> ``{"netG": G_A's, "netG_B": G_B's}`` state_dicts."""
+    return {"netG": generator_state_dict_from_jax(params_np["G_A"], cfg_a),
+            "netG_B": generator_state_dict_from_jax(params_np["G_B"], cfg_b)}
+
+
+def cycle_discriminators_from_jax(params_np: Params, cfg_a: DiscConfig,
+                                  cfg_b: DiscConfig
+                                  ) -> Dict[str,
+                                            "OrderedDict[str, torch.Tensor]"]:
+    """A CycleGAN's ``{"D_A", "D_B"}`` JAX tree -> ``{"netD": D_A's,
+    "netD_B": D_B's}`` state_dicts."""
+    return {"netD": discriminator_state_dict_from_jax(params_np["D_A"],
+                                                      cfg_a),
+            "netD_B": discriminator_state_dict_from_jax(params_np["D_B"],
+                                                        cfg_b)}
 
 
 def vgg_state_dict_from_jax(params_np: Params

@@ -28,10 +28,14 @@ def pop_flag(argv: list, name: str) -> Optional[str]:
     return None
 
 
-def load_generator_params(cfg, model, torch_g: Optional[str] = None):
-    """The serving ``netG`` state_dict for ``model`` per ``cfg.infer``.
+def load_generator_params(cfg, model, torch_g: Optional[str] = None,
+                          name: str = "netG"):
+    """The serving state_dict of generator ``name`` (``netG``; a
+    CycleGAN's reverse generator is ``netG_B``) for ``model`` per
+    ``cfg.infer``.
 
-    ``torch_g`` imports a reference ``.pth``; otherwise the run's
+    ``torch_g`` imports a reference ``.pth`` of ``netG`` (None for
+    ``netG_B``: the import holds one network); otherwise the run's
     checkpoint at ``--infer.which_epoch``, or its EMA shadow with
     ``--infer.use_ema``. Raises SystemExit with the JAX CLI's messages
     when the flags ask for weights that are not there."""
@@ -43,7 +47,8 @@ def load_generator_params(cfg, model, torch_g: Optional[str] = None):
             raise SystemExit("--infer.use_ema needs a run checkpoint; "
                              "--torch_g imports raw reference weights (no "
                              "EMA state)")
-        return import_generator(torch_g, model.gen_cfg)
+        return (import_generator(torch_g, model.gen_cfg) if name == "netG"
+                else None)
 
     ckpt = CheckpointManager(os.path.join(cfg.run_dir(), "ckpt"))
     state = ckpt.restore(ckpt.step_for_label(cfg.infer.which_epoch))
@@ -52,5 +57,5 @@ def load_generator_params(cfg, model, torch_g: Optional[str] = None):
             raise SystemExit(
                 "--infer.use_ema: this checkpoint has no EMA weights "
                 "(train with --train.ema_decay > 0)")
-        return state["ema_g"]
-    return state["netG"]
+        return state["ema_g" + name[4:]]
+    return state[name]

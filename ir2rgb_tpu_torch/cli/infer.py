@@ -15,11 +15,12 @@ with ``--torch_g``. It runs on the CUDA device; ``--device cpu`` runs
 the port's plain PyTorch path on the CPU. An fp32 model (the presets'
 default) runs its convolutions without TF32, as the JAX package runs f32
 convolutions at HIGHEST precision. Temporal models stream frame by frame
-with the carry on the device, reset at every sequence boundary. Not
-ported yet, and refused: netE's feature inputs
-(``--infer.use_encoded_image``, ``--infer.cluster_path``; ROADMAP A12),
-the CycleGAN model and its reconstruction column (A13), and quantized
-serving (A11).
+with the carry on the device, reset at every sequence boundary. A
+CycleGAN serves ``G_A``; its gallery adds the reconstruction column,
+``G_B`` of the translation, when the checkpoint holds ``G_B`` (a
+``--torch_g`` import serves fake-only galleries). Not ported yet, and
+refused: netE's feature inputs (``--infer.use_encoded_image``,
+``--infer.cluster_path``; ROADMAP A12) and quantized serving (A11).
 """
 
 from __future__ import annotations
@@ -38,9 +39,6 @@ def _refuse_unported(cfg, single: bool) -> None:
     if cfg.infer.use_encoded_image or cfg.infer.cluster_path:
         raise SystemExit("--infer.use_encoded_image / --infer.cluster_path "
                          "need netE, which is not ported yet (ROADMAP A12)")
-    if cfg.model.model == "cycle_gan":
-        raise SystemExit("model=cycle_gan (its reconstruction column "
-                         "included) is not ported yet (ROADMAP A13)")
     if cfg.infer.quant != "none":
         raise SystemExit(f"--infer.quant {cfg.infer.quant}: quantized "
                          "serving is not ported yet (ROADMAP A11)")
@@ -89,6 +87,13 @@ def main(argv=None) -> int:
                          steps_per_epoch=max(len(loader), 1),
                          seed=cfg.train.seed)
     model.netG.load_state_dict(load_generator_params(cfg, model, torch_g))
+    # a CycleGAN's gallery reconstructs the input from the translation
+    # when the weights hold G_B (cli/infer.py:109-117 of the JAX package)
+    reverse = None
+    if cfg.model.model == "cycle_gan":
+        reverse = load_generator_params(cfg, model, torch_g, "netG_B")
+        if reverse is not None:
+            model.netG_B.load_state_dict(reverse)
 
     # crop only in crop-style preprocess modes (as cli/train.py and the
     # reference test path): scale_width / none run the whole decoded frame
@@ -183,6 +188,9 @@ def main(argv=None) -> int:
                    "generated": aspect(tensor2im(fake))}
         if video_writer is not None:
             video_writer.add(visuals["generated"])
+        if reverse is not None:
+            visuals["reconstructed"] = aspect(tensor2im(
+                model.generate(fake, direction="BtoA")))
         if not single:
             visuals["target"] = aspect(tensor2im(batch["b"]))
         vis.save_images(page, visuals, host_batch["paths"][0][0])

@@ -6,7 +6,10 @@ Example:
         --data.dataroot /data/ir2rgb --train.name run1
 
 It runs on the CUDA device; ``--device cpu`` runs the port's plain
-PyTorch path on the CPU. Each uint8 host batch from the folder loader is
+PyTorch path on the CPU. An fp32 model (the presets' default) trains with
+its convolutions in true fp32 (TF32 off), as the JAX package runs f32
+convolutions at HIGHEST precision. Every model trains, ``cycle_gan`` on
+``unaligned`` folders (trainA / trainB) among them. Each uint8 host batch from the folder loader is
 pinned and copied to the card without blocking, then cropped, flipped
 and normalized there (``data/transforms.py``); the crop and flip draws
 come from a CPU generator seeded ``train.seed + 1``.
@@ -38,7 +41,7 @@ def main(argv=None) -> int:
         preprocess_sequence_batch,
     )
     from ir2rgb_tpu_torch.obs import Visualizer
-    from ir2rgb_tpu_torch.runtime import resolve_device
+    from ir2rgb_tpu_torch.runtime import resolve_device, set_parity_mode
     from ir2rgb_tpu_torch.train import Trainer, create_model
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -55,9 +58,14 @@ def main(argv=None) -> int:
             "dataset_mode=single has no ground-truth RGB targets — it is "
             "an inference-only mode; training needs aligned (or temporal) "
             "pairs")
-    if cfg.model.model == "cycle_gan":
-        raise SystemExit("model=cycle_gan (train/cycle.py) is not ported "
-                         "yet")
+    if (cfg.model.model == "cycle_gan"
+            and cfg.data.dataset_mode == "temporal"):
+        raise SystemExit(
+            "cycle_gan expects frame batches (aligned or unaligned "
+            "dataset_mode), not temporal windows")
+    if cfg.model.compute_dtype == "float32":
+        # full-fp32 convolutions, as the JAX package's HIGHEST precision
+        set_parity_mode()
     loader = DataLoader(cfg)
     model = create_model(cfg, device=device,
                          steps_per_epoch=max(len(loader), 1),

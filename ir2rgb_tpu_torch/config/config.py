@@ -1,7 +1,7 @@
 """Typed configuration: the port's copy of ``ir2rgb_tpu/config/config.py``.
 
-Frozen dataclasses grouped by subsystem, every preset but ``cyclegan_256``
-(whose model, ``train/cycle.py``, is not ported yet), and the CLI helpers
+Frozen dataclasses grouped by subsystem, every preset of the JAX package
+(``cyclegan_256`` included), and the CLI helpers
 (``parse_cli``: ``--preset name --section.field value``) and the JSON
 dump every run writes into its run directory (``save_config`` /
 ``load_config``).
@@ -28,7 +28,7 @@ class ModelConfig:
     """Generator and discriminator architecture knobs."""
 
     # pix2pix (GAN + L1) | pix2pixhd (multiscale D + FM + VGG) | temporal
-    # (previous-frame conditioning) | cycle_gan (not ported)
+    # (previous-frame conditioning) | cycle_gan (unpaired, train/cycle.py)
     model: str = "pix2pix"
     # resnet_9blocks | resnet_6blocks | unet_256 | unet_128 | global | local
     net_g: str = "resnet_9blocks"
@@ -70,8 +70,8 @@ class ModelConfig:
     n_frames_g: int = 2
     # parameters stay fp32; this is the dtype G, D and the VGG compute in
     compute_dtype: str = "float32"
-    # recompute residual blocks in the backward (not ported yet: the
-    # train step raises)
+    # recompute residual blocks in the backward (activation memory for
+    # recompute time)
     remat: bool = False
 
 
@@ -115,7 +115,7 @@ class LossConfig:
     vgg_weights: str = ""
     # image pool of D's fakes (train/image_pool.py); 0: none
     pool_size: int = 0
-    # cycle_gan's cycle and identity weights (cycle_gan is not ported)
+    # cycle_gan's cycle and identity weights
     lambda_a: float = 10.0
     lambda_b: float = 10.0
     lambda_identity: float = 0.5
@@ -154,10 +154,11 @@ class TrainConfig:
     spatial_devices: int = 1
     # the port's step updates in place; accepted for either value
     donate: bool = True
-    # not ported yet: a model with other values serves, and its
-    # train_step raises
+    # micro-batches a step (their gradients summed, then averaged)
     grad_accum: int = 1
+    # > 0: an fp32 EMA shadow of G, e <- d·e + (1 − d)·p after each step
     ema_decay: float = 0.0
+    # "bf16": Adam's first moments stored in bf16 (train/optim.py)
     adam_mu_dtype: str = "f32"
 
 
@@ -261,6 +262,17 @@ PRESETS = {
                         load_size=1124, crop_size=1024),
         loss=LossConfig(lambda_l1=0.0),
         train=TrainConfig(niter_fix_global=10),
+    ),
+    # unpaired IR<->RGB (the family's CycleGAN recipe): two ResNet-9
+    # generators and two 70x70 PatchGANs, LSGAN + cycle consistency +
+    # identity, a 50-image pool per domain
+    "cyclegan_256": Config(
+        model=ModelConfig(model="cycle_gan", net_g="resnet_9blocks",
+                          net_d="n_layers", get_interm_feat=False),
+        data=DataConfig(dataset_mode="unaligned", load_size=286,
+                        crop_size=256),
+        loss=LossConfig(no_gan_feat_loss=True, no_vgg_loss=True,
+                        lambda_l1=0.0, pool_size=50),
     ),
     # ResNet-9 at 256 with previous-frame conditioning
     "temporal_256": Config(

@@ -13,7 +13,13 @@ and how the design answers that); this module holds
   the kernel or raises;
 - :class:`InstanceNormAct`: the ``torch.autograd.Function`` joining the
   two. Its forward saves ``(x, mean, rstd)`` as ``_fused_fwd`` does, and
-  its backward is the backward wrapper;
+  its backward is :class:`InstanceNormActBackward`: the backward wrapper,
+  itself differentiable, so that B1 is differentiable twice (the gradient
+  penalty of WGAN-GP differentiates D's input gradient). Its own
+  derivative is that of the plain backward with mean and rstd taken as
+  functions of x: the second derivative of
+  :func:`instance_norm_act_reference`, as XLA differentiates the JAX
+  package's reference twice;
 - :func:`instance_norm_act_fn`: y only, differentiable; what the networks
   call;
 - ``launches`` / ``bwd_launches``: how many times the wrappers launched
@@ -64,17 +70,22 @@ def apply_act(y: torch.Tensor, act: str,
     raise ValueError(f"unknown act: {act}")
 
 
+def _stats(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, rstd) of NHWC ``x`` over H and W in fp32, differentiable."""
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2))
+    var = (x32 - mean[:, None, None, :]).square().mean(dim=(1, 2))
+    return mean, torch.rsqrt(var + eps)
+
+
 def instance_norm_act_reference(x: torch.Tensor, act: str = "relu",
                                 eps: float = INSTANCE_NORM_EPS,
                                 negative_slope: float = 0.2
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """(N,H,W,C) -> (y in x.dtype, mean (N,C) fp32, rstd (N,C) fp32)."""
-    x32 = x.float()
-    mean = x32.mean(dim=(1, 2))
-    var = (x32 - mean[:, None, None, :]).square().mean(dim=(1, 2))
-    rstd = torch.rsqrt(var + eps)
-    y = (x32 - mean[:, None, None, :]) * rstd[:, None, None, :]
+    mean, rstd = _stats(x, eps)
+    y = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
     return apply_act(y, act, negative_slope).to(x.dtype), mean, rstd
 
 
@@ -331,21 +342,57 @@ def instance_norm_act_backward(x: torch.Tensor, mean: torch.Tensor,
     return instance_norm_act_bwd_cuda(x, mean, rstd, g, act, negative_slope)
 
 
+class InstanceNormActBackward(torch.autograd.Function):
+    """dx = the B1 backward of (x, g) as a differentiable function of both
+    (what the gradient penalty's second derivative runs through).
+
+    Its forward is :func:`instance_norm_act_backward`: the backward kernel
+    on the card, the plain version on the CPU. Its backward returns
+    d(dx)/dx and d(dx)/dg for the incoming cotangent, from autograd of the
+    plain backward on copies of x and g, with mean and rstd recomputed
+    from x: their values are the saved ones (``saved + (m - m.detach())``),
+    so every activation kink decides as the kernel did, and their
+    derivatives are those of the statistics. This is PyTorch arithmetic:
+    the JAX package computes this second derivative with XLA outside any
+    Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x, g, mean, rstd, act, negative_slope, eps):
+        ctx.save_for_backward(x, g, mean, rstd)
+        ctx.act, ctx.negative_slope, ctx.eps = act, negative_slope, eps
+        return instance_norm_act_backward(x, mean, rstd, g, act,
+                                          negative_slope)
+
+    @staticmethod
+    def backward(ctx, gg):
+        x, g, mean, rstd = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(True)
+            gd = g.detach().requires_grad_(True)
+            m, r = _stats(xd, ctx.eps)
+            dx = instance_norm_act_backward_reference(
+                xd, mean + (m - m.detach()), rstd + (r - r.detach()), gd,
+                ctx.act, ctx.negative_slope)
+            d_x, d_g = torch.autograd.grad(dx, (xd, gd), gg)
+        return d_x, d_g, None, None, None, None, None
+
+
 class InstanceNormAct(torch.autograd.Function):
-    """y = act(instance_norm(x)) with the B1 kernels both ways."""
+    """y = act(instance_norm(x)) with the B1 kernels both ways; its
+    backward is differentiable (:class:`InstanceNormActBackward`)."""
 
     @staticmethod
     def forward(ctx, x, act, eps, negative_slope):
         y, mean, rstd = instance_norm_act(x, act, eps, negative_slope)
         ctx.save_for_backward(x, mean, rstd)
-        ctx.act, ctx.negative_slope = act, negative_slope
+        ctx.act, ctx.negative_slope, ctx.eps = act, negative_slope, eps
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, mean, rstd = ctx.saved_tensors
-        dx = instance_norm_act_backward(x, mean, rstd, g, ctx.act,
-                                        ctx.negative_slope)
+        dx = InstanceNormActBackward.apply(x, g, mean, rstd, ctx.act,
+                                           ctx.negative_slope, ctx.eps)
         return dx, None, None, None
 
 

@@ -4,12 +4,15 @@
 LSGAN (MSE against 1/0 targets, the default), vanilla (BCE with logits),
 hinge and the WGAN critic values, each a mean over the patch-logit map,
 summed over the scales of the discriminator's output (a list over scales,
-each a list of taps with the logits last). All in fp32.
+each a list of taps with the logits last). All in fp32. WGAN-GP's
+:func:`gradient_penalty` differentiates D's input gradient, so D's
+parameters get a second derivative through every layer, kernel B1's
+backward included.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +61,32 @@ def gan_loss_d_parts(disc_out_real: DiscOut, disc_out_fake: DiscOut,
     return 0.5 * loss_real, 0.5 * loss_fake
 
 
-def gradient_penalty(*args, **kwargs):
-    """WGAN-GP's penalty needs a second derivative through the B1
-    backward kernel; not ported yet."""
-    raise NotImplementedError("gan_mode='wgangp' (gradient_penalty) is not "
-                              "ported yet")
+def draw_eps(n: int, generator: torch.Generator) -> torch.Tensor:
+    """The penalty's per-sample mixing weights, (n, 1, 1, 1) fp32 uniform
+    in [0, 1), drawn from ``generator`` on its device."""
+    return torch.rand((n, 1, 1, 1), generator=generator,
+                      device=generator.device)
+
+
+def gradient_penalty(d_fn: Callable[[torch.Tensor], DiscOut],
+                     pair_real: torch.Tensor, pair_fake: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     lambda_gp: float = 10.0,
+                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """WGAN-GP's penalty (``ir2rgb_tpu/losses/gan.py:70-93``, the family's
+    'mixed' mode): λ · mean((‖∇x̂ D(x̂)‖₂ − 1)²) at x̂ = ε·real + (1−ε)·fake,
+    one ε a sample (``eps``, else drawn from ``generator``), in fp32.
+
+    ``d_fn``: x -> D's multiscale output with D's parameters live. The
+    inner gradient of the summed fp32 logits of every scale is taken with
+    ``create_graph``, so the penalty's own gradient reaches D's
+    parameters as a second derivative."""
+    if eps is None:
+        eps = draw_eps(pair_real.shape[0], generator)
+    eps = eps.to(pair_real.device, torch.float32)
+    xhat = (eps * pair_real.detach().float()
+            + (1.0 - eps) * pair_fake.detach().float()).requires_grad_(True)
+    critic = sum(s[-1].float().sum() for s in d_fn(xhat))
+    (g,) = torch.autograd.grad(critic, xhat, create_graph=True)
+    gnorm = torch.sqrt(g.reshape(g.shape[0], -1).square().sum(dim=1) + 1e-16)
+    return lambda_gp * (gnorm - 1.0).square().mean()

@@ -1,13 +1,14 @@
 """PatchGAN discriminators on NHWC tensors — the port of
 ``ir2rgb_tpu/nn/discriminators.py``: ``NLayerDiscriminator`` (70x70
-PatchGAN) and ``MultiscaleDiscriminator`` (``num_d`` PatchGANs over an
-average-pooled image pyramid).
+PatchGAN), ``MultiscaleDiscriminator`` (``num_d`` PatchGANs over an
+average-pooled image pyramid) and ``PixelDiscriminator`` (1x1 PatchGAN).
 
 Layers: a 4x4 stride-2 conv + LeakyReLU(0.2); ``n_layers - 1`` stride-2
 convs and one stride-1 conv, each + norm + LeakyReLU (instance norm in
 kernel B1 with ``leaky_relu``; batch norm with batch statistics; or
 none); a 4x4 stride-1 conv to one channel of patch logits. All convs pad
-``d_pad`` (2, the pix2pixHD convention); the normed convs carry a bias
+``d_pad`` (2, the pix2pixHD convention; a CycleGAN's 1, pix2pix's); the
+normed convs carry a bias
 unless a batch norm follows. The input is cast to the compute dtype,
 weights are cast at use, and the logits are cast to fp32
 (``discriminators.py:105``). The output is a list over scales, finest
@@ -40,7 +41,7 @@ DiscOut = List[List[torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class DiscConfig:
-    net_d: str = "n_layers"  # n_layers | multiscale
+    net_d: str = "n_layers"  # n_layers | multiscale | pixel
     input_nc: int = 6  # conditional GAN: cat(IR input, RGB output)
     ndf: int = 64
     n_layers: int = 3
@@ -181,6 +182,39 @@ class MultiscaleDiscriminator(nn.Module):
         return outs
 
 
+class PixelDiscriminator(nn.Module):
+    """The family's ``--netD pixel`` (``discriminators.py:114-150``): a
+    1x1 conv to ndf + LeakyReLU(0.2), a 1x1 conv to 2·ndf + norm +
+    LeakyReLU, a 1x1 conv to one channel: per-pixel real/fake logits.
+    The second conv and the head carry a bias unless the norm is batch,
+    as the reference builds them (the head too, though no norm follows
+    it). Keys ``net.{0,2,3,5}``, the reference's Sequential. ``forward``
+    returns ``[[feat_0, feat_1, logits]]`` (``[[logits]]`` without
+    ``get_interm_feat``)."""
+
+    def __init__(self, cfg: DiscConfig):
+        super().__init__()
+        self.cfg = cfg
+        bias = use_bias(cfg.norm)
+        self.net = nn.Sequential(
+            nn.Conv2d(cfg.input_nc, cfg.ndf, 1), Slot("leaky_relu"),
+            nn.Conv2d(cfg.ndf, cfg.ndf * 2, 1, bias=bias),
+            norm_layer(cfg.norm, cfg.ndf * 2), Slot("leaky_relu"),
+            nn.Conv2d(cfg.ndf * 2, 1, 1, bias=bias))
+
+    def forward(self, x: torch.Tensor) -> DiscOut:
+        cfg, net = self.cfg, self.net
+        h = ops.apply_act(ops.conv(x.to(cfg.compute_dtype), net[0].weight,
+                                   net[0].bias), "leaky_relu")
+        feats = [h]
+        h = ops.norm_act(ops.conv(h, net[2].weight, net[2].bias), cfg.norm,
+                         "leaky_relu",
+                         bn=net[3] if cfg.norm == "batch" else None)
+        feats.append(h)
+        feats.append(ops.conv(h, net[5].weight, net[5].bias).float())
+        return [feats if cfg.get_interm_feat else feats[-1:]]
+
+
 def define_d(cfg: DiscConfig) -> nn.Module:
     """The discriminator named by ``cfg.net_d``; its ``forward`` always
     yields the multiscale structure, so the losses are uniform."""
@@ -189,5 +223,5 @@ def define_d(cfg: DiscConfig) -> nn.Module:
     if cfg.net_d == "multiscale":
         return MultiscaleDiscriminator(cfg)
     if cfg.net_d == "pixel":
-        raise NotImplementedError("net_d='pixel' is not ported yet")
+        return PixelDiscriminator(cfg)
     raise ValueError(f"unknown net_d: {cfg.net_d}")

@@ -40,6 +40,13 @@ blocks of a ResNet generator or of the local enhancer's trunk (not of
 its enhancer branches, which JAX gives no key), and after the up norm of
 the U-Net's inner ``num_downs - 5`` middle levels. Serving never drops.
 
+With ``remat`` (``generators.py:79-86``) every residual block of a train
+forward (the ResNet generators', the trunk's and the enhancers') runs
+under ``torch.utils.checkpoint``: its activations are recomputed in the
+backward instead of kept. A block's dropout mask is drawn before the
+checkpointed body and passed in, so the recompute applies the forward's
+mask: checkpoint restores the global RNGs, not an explicit generator.
+
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
 ``nn/s2d_space.py``) are exact rewrites of the same math and are not
 ported; the port is held to the generator's output.
@@ -52,6 +59,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ir2rgb_tpu_torch import kernels
 from . import ops
@@ -73,6 +81,8 @@ class GenConfig:
     n_blocks_local: int = 3
     n_local_enhancers: int = 1
     compute_dtype: torch.dtype = torch.float32
+    # recompute each residual block in the backward (train forwards)
+    remat: bool = False
 
 
 class Slot(nn.Module):
@@ -187,9 +197,9 @@ class ResnetBlock(nn.Module):
     slot)."""
 
     def __init__(self, dim: int, norm: str = "instance",
-                 use_dropout: bool = False):
+                 use_dropout: bool = False, remat: bool = False):
         super().__init__()
-        self.norm, self.use_dropout = norm, use_dropout
+        self.norm, self.use_dropout, self.remat = norm, use_dropout, remat
         bias = use_bias(norm)
         layers = [Slot("reflect_pad 1"), nn.Conv2d(dim, dim, 3, bias=bias),
                   norm_layer(norm, dim), Slot("relu")]
@@ -201,13 +211,26 @@ class ResnetBlock(nn.Module):
         self.conv_block = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
         """``generator``: draw the dropout mask from it (a block built with
-        ``use_dropout``); None: no dropout."""
+        ``use_dropout``); None: no dropout. ``train`` with ``remat``: the
+        body is recomputed in the backward, on the mask drawn here."""
+        drop = self.use_dropout and generator is not None
+        if not (self.remat and train and torch.is_grad_enabled()):
+            return self._body(x, generator if drop else None, None)
+        mask = ops.dropout_mask(x.shape, 0.5, generator) if drop else None
+        return checkpoint(self._body, x, None, mask, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def _body(self, x: torch.Tensor, generator: Optional[torch.Generator],
+              mask: Optional[torch.Tensor]) -> torch.Tensor:
         cb, (c0, c1) = self.conv_block, self.convs
         h = _conv_norm_act(cb, c0, ops.reflect_pad(x, 1), self.norm, "relu")
-        if self.use_dropout and generator is not None:
+        if generator is not None:
             h = ops.dropout(h, 0.5, generator)
+        elif mask is not None:
+            h = ops.apply_dropout(h, mask, 0.5)
         h = _conv_norm_act(cb, c1, ops.reflect_pad(h, 1), self.norm, "none")
         return x + h
 
@@ -221,7 +244,7 @@ class ResnetStack(nn.Sequential):
     def __init__(self, input_nc: int, output_nc: int, ngf: int,
                  n_blocks: int, n_downsampling: int, norm: str = "instance",
                  with_tail: bool = True, upsample: str = "deconv",
-                 use_dropout: bool = False):
+                 use_dropout: bool = False, remat: bool = False):
         bias = use_bias(norm)
         layers = [Slot("reflect_pad 3"), nn.Conv2d(input_nc, ngf, 7,
                                                    bias=bias),
@@ -236,7 +259,7 @@ class ResnetStack(nn.Sequential):
             mult *= 2
         for _ in range(n_blocks):
             blocks.append(len(layers))
-            layers.append(ResnetBlock(ngf * mult, norm, use_dropout))
+            layers.append(ResnetBlock(ngf * mult, norm, use_dropout, remat))
         for _ in range(n_downsampling):
             ups.append(len(layers))
             layers += [_upsampler(ngf * mult, ngf * mult // 2, upsample, bias),
@@ -261,7 +284,7 @@ class ResnetStack(nn.Sequential):
         for i in self.downs:
             h = _conv_norm_act(self, i, h, norm, stride=2, padding=1)
         for i in self.blocks:
-            h = self[i](h, drop)
+            h = self[i](h, drop, train)
         for i in self.ups:
             h = _norm_act(self[i + 1], self[i](h), norm, "relu")
         if self.tail is not None:
@@ -291,13 +314,13 @@ class ResnetGenerator(nn.Module):
                  norm: str = "instance", with_tail: bool = True,
                  upsample: str = "deconv", use_dropout: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 net_g: str = "resnet"):
+                 net_g: str = "resnet", remat: bool = False):
         super().__init__()
         self.n_downsampling, self.net_g = n_downsampling, net_g
         self.compute_dtype = compute_dtype
         self.model = ResnetStack(input_nc, output_nc, ngf, n_blocks,
                                  n_downsampling, norm, with_tail, upsample,
-                                 use_dropout)
+                                 use_dropout, remat)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -331,8 +354,9 @@ class EnhancerUp(nn.Sequential):
 
     def __init__(self, ngf_n: int, n_blocks: int, output_nc: int = 3,
                  norm: str = "instance", with_tail: bool = True,
-                 upsample: str = "deconv", use_dropout: bool = False):
-        layers = [ResnetBlock(ngf_n * 2, norm, use_dropout)
+                 upsample: str = "deconv", use_dropout: bool = False,
+                 remat: bool = False):
+        layers = [ResnetBlock(ngf_n * 2, norm, use_dropout, remat)
                   for _ in range(n_blocks)]
         layers += [_upsampler(ngf_n * 2, ngf_n, upsample, use_bias(norm)),
                    norm_layer(norm, ngf_n), Slot("relu")]
@@ -346,7 +370,7 @@ class EnhancerUp(nn.Sequential):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.n_blocks):
-            x = self[i](x)
+            x = self[i](x, None, train)
         up = self.n_blocks
         h = _norm_act(self[up + 1], self[up](x), self.norm, "relu")
         if self.tail is not None:
@@ -373,7 +397,7 @@ class LocalEnhancer(nn.Module):
             cfg.input_nc, cfg.output_nc, cfg.ngf * 2 ** n_local,
             cfg.n_blocks_global, cfg.n_downsample_global, cfg.norm,
             with_tail=False, upsample=cfg.upsample,
-            use_dropout=cfg.use_dropout)
+            use_dropout=cfg.use_dropout, remat=cfg.remat)
         for n in range(1, n_local + 1):
             ngf_n = cfg.ngf * 2 ** (n_local - n)
             setattr(self, f"model{n}_1",
@@ -382,7 +406,8 @@ class LocalEnhancer(nn.Module):
                     EnhancerUp(ngf_n, cfg.n_blocks_local, cfg.output_nc,
                                cfg.norm, with_tail=n == n_local,
                                upsample=cfg.upsample,
-                               use_dropout=cfg.use_dropout))
+                               use_dropout=cfg.use_dropout,
+                               remat=cfg.remat))
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -516,7 +541,8 @@ def define_g(cfg: GenConfig) -> nn.Module:
     resnet = dict(input_nc=cfg.input_nc, output_nc=cfg.output_nc,
                   ngf=cfg.ngf, norm=cfg.norm, upsample=cfg.upsample,
                   use_dropout=cfg.use_dropout,
-                  compute_dtype=cfg.compute_dtype, net_g=name)
+                  compute_dtype=cfg.compute_dtype, net_g=name,
+                  remat=cfg.remat)
     if name in ("resnet_9blocks", "resnet_6blocks"):
         return ResnetGenerator(n_blocks=9 if name.endswith("9blocks") else 6,
                                n_downsampling=2, **resnet)

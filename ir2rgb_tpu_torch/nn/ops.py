@@ -284,9 +284,22 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
     (a uniform draw from ``generator``, on its device) and scaled by
     1 / (1 - rate), the rest 0. Its bits are the port's own; the JAX
     package draws from its key."""
+    return apply_dropout(x, dropout_mask(x.shape, rate, generator), rate)
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """:func:`dropout`'s draw alone: the bool mask of kept elements, on
+    ``generator``'s device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
+                  ) -> torch.Tensor:
+    """:func:`dropout` with its mask given."""
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
-    return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
+    return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
 
 
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

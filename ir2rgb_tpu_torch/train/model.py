@@ -3,16 +3,18 @@ and for the train step, temporal windows included.
 
 ``create_model(cfg)`` builds, on the CUDA device (or the device the
 caller names), the generator ``netG`` (any ``net_g`` of ``define_g``),
-the discriminator ``netD`` (none for ``net_d="pixel"``, which serves but
-does not train), the VGG19 of the perceptual loss, two Adam optimizers,
-one seeded ``torch.Generator`` on the device for dropout and the image
-pool (JAX's ``TrainState.rng``) and, with ``pool_size > 0``, the pool
-(``train/image_pool.py``, compute-dtype frames of the crop size).
-Parameters are fp32 master weights; G, D and the VGG compute in
-``cfg.model.compute_dtype`` and cast the weights at use, as the JAX
-package does. Weights are the reference ``weights_init`` drawn from
-seeded ``torch.Generator``s, re-drawn per ``init_type``; load trained or
-JAX-converted weights with ``load_state_dict``.
+the discriminator ``netD`` (n-layer, multiscale or pixel), the VGG19 of
+the perceptual loss, two Adam optimizers, one seeded ``torch.Generator``
+on the device for dropout, the image pool and the gradient penalty's
+mixing weights (JAX's ``TrainState.rng``), with ``pool_size > 0`` the
+pool (``train/image_pool.py``, compute-dtype frames of the crop size)
+and with ``ema_decay > 0`` an fp32 shadow of G's parameters. A
+``cycle_gan`` config builds the unpaired model instead
+(``train/cycle.py``). Parameters are fp32 master weights; G, D and the
+VGG compute in ``cfg.model.compute_dtype`` and cast the weights at use,
+as the JAX package does. Weights are the reference ``weights_init`` drawn
+from seeded ``torch.Generator``s, re-drawn per ``init_type``; load
+trained or JAX-converted weights with ``load_state_dict``.
 
 - ``generate`` is the serving forward (no autograd). Its input is, in
   channel order (``model.py:199-221``): the frame, or with ``label_nc >
@@ -27,25 +29,32 @@ JAX-converted weights with ``load_state_dict``.
   with D's parameters frozen, D's from the detached (pool-mixed) fake,
   and the G-side real passes (feature-matching targets, VGG of the
   target) record no graph. The four D passes are separate, as in the JAX
-  default. The input may be a label map (one-hot on the device) with an
+  default. With ``gan_mode="wgangp"`` D's loss adds the gradient penalty
+  on the detached real and fake pairs, a second derivative through D.
+  The input may be a label map (one-hot on the device) with an
   instance-edge channel (``batch["inst"]``); G drops out with
   ``use_dropout``; a temporal model trains on (B, T, H, W, C) windows,
-  the carry keeping G's graph (``_temporal_losses``).
-  Adam is optax's ``adam`` (eps 1e-8, bias correction on both moments),
-  the lr is set from the schedule before each step, and the
-  coarse-to-fine freeze (``niter_fix_global``) zeroes the trunk's grads
-  until ``fix_steps``, where G's Adam state is cleared, as the reference's
-  fresh optimizer at the unfreeze. On a frozen step the trunk records no
-  graph: its gradients are zero by definition.
+  the carry keeping G's graph (``_temporal_losses``). With ``grad_accum
+  = K`` the batch is cut into K micro-batches in order, each one's
+  gradient taken at the same parameters and summed, the pool and the
+  random draws running through them in order; the step divides by K and
+  reports the micro-batches' mean metrics (``model.py:451-505``).
+  Adam is optax's ``adam`` (eps 1e-8, bias correction on both moments;
+  ``train/optim.py`` with ``adam_mu_dtype="bf16"``), the lr is set from
+  the schedule before each step, and the coarse-to-fine freeze
+  (``niter_fix_global``) zeroes the trunk's grads until ``fix_steps``,
+  where G's Adam state is cleared, as the reference's fresh optimizer at
+  the unfreeze. On a frozen step the trunk records no graph: its
+  gradients are zero by definition. After the update the EMA shadow
+  becomes ``d·e + (1 − d)·p`` (``model.py:537-541``).
 
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
-  reads (JAX's ``TrainState``), for ``checkpoint/manager.py``.
+  reads (JAX's ``TrainState``, the EMA shadow as ``ema_g``), for
+  ``checkpoint/manager.py``.
 
-Not ported yet (each raises ``NotImplementedError``): the netE feature
-input, the serving quantization modes and the CycleGAN model (at
-``create_model``); and in training (at ``train_step``; such a model
-serves) the pixel D, grad-accum, EMA, ``adam_mu_dtype="bf16"``, WGAN-GP
-and ``remat``.
+Refused as the JAX package refuses them, or not ported (each raises at
+``create_model``): the netE feature input and the serving quantization
+modes.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from ir2rgb_tpu_torch.losses import (
     feature_matching_loss,
     gan_loss_d_parts,
     gan_loss_g,
+    gradient_penalty,
     l1_loss,
     vgg_loss,
 )
@@ -74,6 +84,7 @@ from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g, init_weights
 from ir2rgb_tpu_torch.nn.vgg import Vgg19, load_vgg19_npz
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
 from ir2rgb_tpu_torch.train.image_pool import PoolState, init_pool, query_pool
+from ir2rgb_tpu_torch.train.optim import AdamBf16Mu
 from ir2rgb_tpu_torch.train.schedule import global_freeze_mask, lr_schedule
 
 Batch = Dict[str, torch.Tensor]
@@ -102,8 +113,8 @@ class GanModel:
     disc_cfg: Optional[DiscConfig] = None
     netD: Optional[nn.Module] = None
     vgg: Optional[Vgg19] = None
-    opt_g: Optional[torch.optim.Adam] = None
-    opt_d: Optional[torch.optim.Adam] = None
+    opt_g: Optional[torch.optim.Optimizer] = None
+    opt_d: Optional[torch.optim.Optimizer] = None
     schedule: Optional[Callable[[int], float]] = None
     steps_per_epoch: int = 1000
     # coarse-to-fine unfreeze boundary in steps (niter_fix_global *
@@ -113,8 +124,12 @@ class GanModel:
     # dropout and pool draws (on the model's device); the pool's state
     generator: Optional[torch.Generator] = None
     pool: Optional[PoolState] = None
-    _serving: Optional[Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
-        default=None, repr=False)
+    # the fp32 EMA shadows of the generators' parameters (ema_decay > 0):
+    # net name (g_nets) -> parameter name -> tensor
+    ema: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+    # generator name -> (its parameters, their versions, the bf16 copy)
+    _serving: Dict[str, Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def n_prev(self) -> int:
@@ -129,32 +144,37 @@ class GanModel:
     # Serving
     # ------------------------------------------------------------------
 
-    def serving_generator(self) -> nn.Module:
-        """``netG`` in fp32; in bf16 a bf16 copy of it, rebuilt when any
-        of ``netG``'s parameters was replaced or changed in place. The
-        copy keeps batch-norm parameters and buffers as they are. It is
-        built with inference mode off, also when asked for inside it, so
-        its weights are normal tensors that ``Deconv`` can key its kept
-        weight on."""
+    def serving_generator(self, name: str = "netG") -> nn.Module:
+        """Generator ``name`` (``g_nets``) in fp32; in bf16 a bf16 copy of
+        it, rebuilt when any of its parameters was replaced or changed in
+        place. The copy keeps batch-norm parameters and buffers as they
+        are. It is built with inference mode off, also when asked for
+        inside it, so its weights are normal tensors that ``Deconv`` can
+        key its kept weight on."""
+        src = self.g_nets()[name]
         if self.dtype == torch.float32:
-            return self.netG
-        params = tuple(self.netG.parameters())
+            return src
+        params = tuple(src.parameters())
         versions = tuple(p._version for p in params)
-        kept = self._serving
+        kept = self._serving.get(name)
         if (kept is None or len(kept[0]) != len(params) or versions != kept[1]
                 or any(a is not b for a, b in zip(kept[0], params))):
             with torch.device("meta"):
-                g = define_g(self.gen_cfg)
-            bn = tuple(f"{name}." for name, m in g.named_modules()
+                g = define_g(self._gen_cfg_of(name))
+            bn = tuple(f"{n}." for n, m in g.named_modules()
                        if isinstance(m, nn.BatchNorm2d))
             with torch.inference_mode(False), torch.no_grad():
                 g.load_state_dict({k: v if k.startswith(bn) else
                                    v.to(self.dtype) for k, v in
-                                   self.netG.state_dict().items()},
+                                   src.state_dict().items()},
                                   assign=True)
-            kept = self._serving = (params, versions,
-                                    g.requires_grad_(False).eval())
+            kept = self._serving[name] = (params, versions,
+                                          g.requires_grad_(False).eval())
         return kept[2]
+
+    def _gen_cfg_of(self, name: str) -> GenConfig:
+        """The configuration generator ``name`` was built from."""
+        return self.gen_cfg
 
     def encode_label(self, a: torch.Tensor) -> torch.Tensor:
         """``label_nc > 0``: a (B, H, W, 1) class-id map (ids rounded half
@@ -210,24 +230,13 @@ class GanModel:
     def trunk_parameters(self):
         return self.netG.model.parameters()
 
-    def _check_trainable(self) -> None:
-        """Raise for the training options that are not ported yet; a
-        model with them builds and serves."""
-        loss, tr = self.cfg.loss, self.cfg.train
-        unported = {"net_d='pixel' (the pixel discriminator)":
-                        self.netD is None,
-                    "gan_mode='wgangp' (gradient penalty)":
-                        loss.gan_mode == "wgangp",
-                    "grad_accum > 1": tr.grad_accum > 1,
-                    "ema_decay > 0": tr.ema_decay > 0,
-                    "adam_mu_dtype='bf16'": tr.adam_mu_dtype in ("bf16",
-                                                                 "bfloat16"),
-                    "remat=True (recomputed residual blocks)":
-                        self.cfg.model.remat}
-        for what, bad in unported.items():
-            if bad:
-                raise NotImplementedError(f"training with {what} is not "
-                                          "ported yet")
+    def g_nets(self) -> Dict[str, nn.Module]:
+        """The generators one Adam covers, by state_dict key."""
+        return {"netG": self.netG}
+
+    def d_nets(self) -> Dict[str, nn.Module]:
+        """The discriminators the other Adam covers, by state_dict key."""
+        return {"netD": self.netD}
 
     def _fake(self, a: torch.Tensor, prev: Optional[torch.Tensor] = None,
               edges: Optional[torch.Tensor] = None,
@@ -299,8 +308,16 @@ class GanModel:
                                           loss_cfg.gan_mode)
         metrics["D_real"] = d_real
         metrics["D_fake"] = d_fake
+        loss_d = d_real + d_fake
+        if loss_cfg.gan_mode == "wgangp":
+            # on the detached pairs, D's parameters live: its gradient is
+            # a second derivative through D (model.py:311-320)
+            gp = gradient_penalty(self.netD, pair_real, pair_fake_d,
+                                  self.generator, loss_cfg.lambda_gp)
+            metrics["D_GP"] = gp
+            loss_d = loss_d + gp
         metrics["_loss_g"] = loss_g
-        metrics["_loss_d"] = d_real + d_fake
+        metrics["_loss_d"] = loss_d
         return metrics
 
     def _temporal_losses(self, batch: Batch, freeze_trunk: bool
@@ -349,7 +366,6 @@ class GanModel:
         instance ids, whose edge channel G and D both see. Metrics whose
         name starts with ``_`` are the totals (and a window's per-frame G
         losses), not reported by ``train_step``."""
-        self._check_trainable()
         m = self.cfg.model
         if m.model == "temporal":
             metrics = self._temporal_losses(batch, freeze_trunk)
@@ -370,17 +386,40 @@ class GanModel:
             metrics = self._frame_losses(a_d, b, self._for_d(fake), fake)
         return metrics["_loss_g"], metrics["_loss_d"], metrics
 
+    def _params(self) -> Iterable[nn.Parameter]:
+        for net in (*self.g_nets().values(), *self.d_nets().values()):
+            yield from net.parameters()
+
     def compute_grads(self, batch: Batch, freeze_trunk: bool = False
                       ) -> Dict[str, torch.Tensor]:
         """Backward of loss_g + loss_d into the ``.grad`` of G's and D's
-        parameters (cleared first). Returns the reported metrics,
-        detached."""
-        loss_g, loss_d, metrics = self.loss_and_metrics(batch, freeze_trunk)
-        for p in (*self.netG.parameters(), *self.netD.parameters()):
+        parameters (cleared first). With ``grad_accum = K`` the batch is
+        cut into K micro-batches in order, whose gradients add up before
+        the division by K. Returns the reported metrics (the mean over
+        the micro-batches), detached."""
+        accum = max(1, int(self.cfg.train.grad_accum))
+        n = next(iter(batch.values())).shape[0]
+        if n % accum:
+            raise ValueError(f"train.grad_accum={accum} must divide the "
+                             f"batch size ({n})")
+        for p in self._params():
             p.grad = None
-        (loss_g + loss_d).backward()
-        return {k: v.detach() for k, v in metrics.items()
-                if not k.startswith("_")}
+        metrics = []
+        for i in range(accum):
+            micro = batch if accum == 1 else {
+                k: v[i * n // accum:(i + 1) * n // accum]
+                for k, v in batch.items()}
+            loss_g, loss_d, m = self.loss_and_metrics(micro, freeze_trunk)
+            (loss_g + loss_d).backward()
+            metrics.append({k: v.detach() for k, v in m.items()
+                            if not k.startswith("_")})
+        if accum == 1:
+            return metrics[0]
+        for p in self._params():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        return {k: torch.stack([m[k] for m in metrics]).mean()
+                for k in metrics[0]}
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One fused G + D update; returns the metrics as 0-dim tensors
@@ -402,43 +441,99 @@ class GanModel:
                 group["lr"] = lr
         self.opt_g.step()
         self.opt_d.step()
+        if self.ema is not None:
+            self._update_ema()
         self.step = step + 1
         return metrics
+
+    # ------------------------------------------------------------------
+    # EMA of the generators
+    # ------------------------------------------------------------------
+
+    def init_ema(self) -> None:
+        """Start the shadows from the generators' parameters (fp32
+        copies), as at creation and after a warm start."""
+        self.ema = {name: {k: p.detach().float().clone()
+                           for k, p in net.named_parameters()}
+                    for name, net in self.g_nets().items()}
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        """e <- d·e + (1 − d)·p, in that form (``model.py:537-541``)."""
+        d = float(self.cfg.train.ema_decay)
+        for name, net in self.g_nets().items():
+            shadow = self.ema[name]
+            for k, p in net.named_parameters():
+                shadow[k].mul_(d).add_(p.float() * (1.0 - d))
+
+    def ema_state_dict(self, name: str = "netG") -> Dict[str, torch.Tensor]:
+        """The state_dict of generator ``name`` with its parameters
+        replaced by their EMA shadows (its buffers as they are): what
+        ``--infer.use_ema`` serves."""
+        sd = dict(self.g_nets()[name].state_dict())
+        sd.update(self.ema[name])
+        return sd
 
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
 
     def state_dict(self) -> Dict[str, object]:
-        """Everything ``train_step`` reads (JAX's ``TrainState``): G's and
-        D's parameters and buffers, both Adam states, the step, the state
-        of the device generator that draws dropout and the pool, the pool,
-        and the config as JSON. Tensors are the live ones: a checkpoint
-        manager copies them."""
-        return {"netG": self.netG.state_dict(),
-                "netD": self.netD.state_dict(),
-                "opt_g": self.opt_g.state_dict(),
-                "opt_d": self.opt_d.state_dict(),
-                "step": self.step,
-                "generator": self.generator.get_state(),
-                "pool": None if self.pool is None else self.pool._asdict(),
-                "config": json.dumps(dataclasses.asdict(self.cfg),
-                                     sort_keys=True)}
+        """Everything ``train_step`` reads (JAX's ``TrainState``): the
+        networks' parameters and buffers (``netG`` / ``netD``, and a
+        CycleGAN's ``netG_B`` / ``netD_B``), both optimizers' states, the
+        step, the state of the device generator that draws dropout, the
+        pool and the penalty's weights, the pool(s), the EMA shadows as
+        full state_dicts (``ema_g``, ``ema_g_B``) and the config as JSON.
+        Tensors are the live ones: a checkpoint manager copies them."""
+        state = {name: net.state_dict() for name, net in
+                 (*self.g_nets().items(), *self.d_nets().items())}
+        state.update(opt_g=self.opt_g.state_dict(),
+                     opt_d=self.opt_d.state_dict(), step=self.step,
+                     generator=self.generator.get_state(),
+                     pool=_pool_state(self.pool),
+                     config=json.dumps(dataclasses.asdict(self.cfg),
+                                       sort_keys=True))
+        if self.ema is not None:
+            for name in self.ema:
+                state["ema_g" + name[4:]] = self.ema_state_dict(name)
+        return state
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         """Resume from :meth:`state_dict`'s output (tensors on any
-        device): parameters, moments and the pool are copied into the
-        live tensors, which keep their device and dtype."""
-        self.netG.load_state_dict(state["netG"])
-        self.netD.load_state_dict(state["netD"])
+        device): parameters, moments, the EMA shadows and the pool are
+        copied into the live tensors, which keep their device and
+        dtype."""
+        for name, net in (*self.g_nets().items(), *self.d_nets().items()):
+            net.load_state_dict(state[name])
         self.opt_g.load_state_dict(state["opt_g"])
         self.opt_d.load_state_dict(state["opt_d"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
-        if self.pool is not None:
-            self.pool.buffer.copy_(state["pool"]["buffer"])
-            self.pool = PoolState(self.pool.buffer,
-                                  state["pool"]["count"].to(self.device))
+        self.pool = _load_pool(self.pool, state["pool"], self.device)
+        if self.ema is not None:
+            for name, shadow in self.ema.items():
+                src = state["ema_g" + name[4:]]
+                for k, v in shadow.items():
+                    v.copy_(src[k])
+
+
+def _pool_state(pool):
+    """A pool (or a dict of pools, or None) as checkpoint data."""
+    if isinstance(pool, dict):
+        return {k: p._asdict() for k, p in pool.items()}
+    return None if pool is None else pool._asdict()
+
+
+def _load_pool(pool, saved, device: torch.device):
+    """``pool`` (a pool, a dict of pools, or None) with ``saved``'s
+    buffer and count copied in."""
+    if isinstance(pool, dict):
+        return {k: _load_pool(p, saved[k], device) for k, p in pool.items()}
+    if pool is None:
+        return None
+    pool.buffer.copy_(saved["buffer"])
+    return PoolState(pool.buffer, saved["count"].to(device))
 
 
 def _check_supported(cfg: Config) -> None:
@@ -449,8 +544,8 @@ def _check_supported(cfg: Config) -> None:
     if cfg.infer.quant != "none":
         raise NotImplementedError(f"quant={cfg.infer.quant!r} is not "
                                   "ported yet")
-    if m.model not in ("pix2pix", "pix2pixhd", "temporal"):
-        raise NotImplementedError(f"model={m.model!r} is not ported yet")
+    if m.model not in ("pix2pix", "pix2pixhd", "temporal", "cycle_gan"):
+        raise ValueError(f"unknown model: {m.model!r}")
     if m.model == "temporal" and (m.label_nc > 0 or m.use_instance_edges):
         # as the JAX package's create_model asserts
         raise ValueError("label / instance-edge inputs and temporal mode "
@@ -474,7 +569,8 @@ def network_configs(cfg: Config) -> Tuple[GenConfig, DiscConfig]:
         use_dropout=m.use_dropout,
         n_downsample_global=m.n_downsample_global,
         n_blocks_global=m.n_blocks_global, n_blocks_local=m.n_blocks_local,
-        n_local_enhancers=m.n_local_enhancers, compute_dtype=dtype)
+        n_local_enhancers=m.n_local_enhancers, compute_dtype=dtype,
+        remat=m.remat)
     disc_cfg = DiscConfig(
         net_d=m.net_d, input_nc=base_nc + m.output_nc, ndf=m.ndf,
         n_layers=m.n_layers_d, num_d=m.num_d, norm=m.norm,
@@ -497,23 +593,46 @@ def _build(module_fn, dev: torch.device, seed: int,
     return net.to(memory_format=torch.channels_last)
 
 
+def make_adam(cfg: Config, schedule: Callable[[int], float]):
+    """One Adam as the JAX package builds it (``model.py:665-668``):
+    optax's formula, with bf16 first moments when ``adam_mu_dtype`` says
+    so (``train/optim.py``), else ``torch.optim.Adam``."""
+    tcfg = cfg.train
+    if tcfg.adam_mu_dtype in ("bf16", "bfloat16"):
+        return lambda params: AdamBf16Mu(params, lr=schedule(0),
+                                         betas=(tcfg.beta1, tcfg.beta2),
+                                         eps=1e-8)
+    return lambda params: torch.optim.Adam(params, lr=schedule(0),
+                                           betas=(tcfg.beta1, tcfg.beta2),
+                                           eps=1e-8)
+
+
+def make_schedule(cfg: Config, steps_per_epoch: int
+                  ) -> Callable[[int], float]:
+    tcfg = cfg.train
+    return lr_schedule(tcfg.lr_policy, tcfg.lr, tcfg.niter, tcfg.niter_decay,
+                       steps_per_epoch, tcfg.lr_decay_iters)
+
+
 def create_model(cfg: Config,
                  device: Optional[Union[str, torch.device]] = None,
                  steps_per_epoch: int = 1000,
                  vgg_weights_npz: Optional[str] = None,
                  seed: int = 0) -> GanModel:
-    """Build G, D, the VGG, their optimizers, the random state and the
-    pool. ``device=None`` means the CUDA device and raises when there is
-    none; pass ``device="cpu"`` for the CPU. G's weights come from
-    ``seed``, D's from ``seed + 1``, a random VGG's from ``seed + 2`` and
-    the dropout and pool draws from ``seed + 3``."""
+    """Build G, D, the VGG, their optimizers, the random state, the pool
+    and the EMA shadow. ``device=None`` means the CUDA device and raises
+    when there is none; pass ``device="cpu"`` for the CPU. G's weights
+    come from ``seed``, D's from ``seed + 1``, a random VGG's from ``seed
+    + 2`` and the dropout, pool and penalty draws from ``seed + 3``. A
+    ``cycle_gan`` config builds ``train/cycle.py``'s model."""
+    if cfg.model.model == "cycle_gan":
+        from ir2rgb_tpu_torch.train.cycle import create_cycle_model
+        return create_cycle_model(cfg, device, steps_per_epoch, seed)
     dev = resolve_device(device)
     gen_cfg, disc_cfg = network_configs(cfg)
     m = cfg.model
     net_g = _build(lambda: define_g(gen_cfg), dev, seed, m.init_type)
-    # the pixel D is not ported: such a model serves and does not train
-    net_d = (None if m.net_d == "pixel" else
-             _build(lambda: define_d(disc_cfg), dev, seed + 1, m.init_type))
+    net_d = _build(lambda: define_d(disc_cfg), dev, seed + 1, m.init_type)
 
     vgg = None
     if not cfg.loss.no_vgg_loss:
@@ -533,27 +652,23 @@ def create_model(cfg: Config,
         vgg = vgg.to(dev, memory_format=torch.channels_last)
         vgg.requires_grad_(False)
 
-    tcfg = cfg.train
-    schedule = lr_schedule(tcfg.lr_policy, tcfg.lr, tcfg.niter,
-                           tcfg.niter_decay, steps_per_epoch,
-                           tcfg.lr_decay_iters)
-
-    def adam(params):
-        return torch.optim.Adam(params, lr=schedule(0),
-                                betas=(tcfg.beta1, tcfg.beta2), eps=1e-8)
-
-    fix_steps = tcfg.niter_fix_global * steps_per_epoch
+    schedule = make_schedule(cfg, steps_per_epoch)
+    adam = make_adam(cfg, schedule)
+    fix_steps = cfg.train.niter_fix_global * steps_per_epoch
     pool = None
     if cfg.loss.pool_size > 0:
         crop = cfg.data.crop_size
         pool = init_pool(cfg.loss.pool_size, (crop, crop, m.output_nc),
                          gen_cfg.compute_dtype, dev)
-    return GanModel(cfg=cfg, gen_cfg=gen_cfg, netG=net_g, device=dev,
-                    disc_cfg=disc_cfg, netD=net_d, vgg=vgg,
-                    opt_g=adam(net_g.parameters()),
-                    opt_d=None if net_d is None else adam(net_d.parameters()),
-                    schedule=schedule, steps_per_epoch=steps_per_epoch,
-                    fix_steps=fix_steps if m.net_g == "local" else 0,
-                    generator=torch.Generator(device=dev).manual_seed(
-                        seed + 3),
-                    pool=pool)
+    model = GanModel(cfg=cfg, gen_cfg=gen_cfg, netG=net_g, device=dev,
+                     disc_cfg=disc_cfg, netD=net_d, vgg=vgg,
+                     opt_g=adam(net_g.parameters()),
+                     opt_d=adam(net_d.parameters()),
+                     schedule=schedule, steps_per_epoch=steps_per_epoch,
+                     fix_steps=fix_steps if m.net_g == "local" else 0,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         seed + 3),
+                     pool=pool)
+    if cfg.train.ema_decay > 0:
+        model.init_ema()
+    return model

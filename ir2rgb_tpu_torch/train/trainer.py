@@ -6,8 +6,9 @@ window's metrics read back in one host sync), ``display_freq`` image
 dumps through the serving forward, ``save_latest_freq`` and per-epoch
 checkpoints (``checkpoint/manager.py``), a fresh run that clears the
 run's old checkpoints, ``continue_train`` resume at ``which_epoch``, and
-the ``load_pretrain`` warm start (a tolerant partial load, which also
-grafts a global generator into a local enhancer's trunk).
+the ``load_pretrain`` warm start (a tolerant partial load of every
+network, which also grafts a global generator into a local enhancer's
+trunk, and restarts the EMA shadow from the loaded weights).
 
 Data-parallel, spatial and multi-host training are not ported: the
 trainer raises for them before any step.
@@ -109,8 +110,15 @@ class Trainer:
         if tcfg.load_pretrain:
             src = CheckpointManager(os.path.join(tcfg.load_pretrain,
                                                  "ckpt")).restore()
-            _partial_merge(self.model.netG, src.get("netG", {}), "G")
-            _partial_merge(self.model.netD, src.get("netD", {}), "D")
+            model = self.model
+            for name, net in (*model.g_nets().items(),
+                              *model.d_nets().items()):
+                _partial_merge(net, src.get(name, {}),
+                               name[3:].replace("_", "."))
+            if model.ema is not None:
+                # the EMA tracks the warm-started weights, not the fresh
+                # init it started from
+                model.init_ema()
         if tcfg.continue_train:
             step = self.ckpt.step_for_label(tcfg.which_epoch)
             if step is not None:

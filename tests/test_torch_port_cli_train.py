@@ -383,11 +383,26 @@ def test_trainer_cadence_matches_jaxs_trainer(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--infer.quant", "int8"], "serving-only"),
     (["--data.dataset_mode", "single"], "no ground-truth"),
-    (["--model.model", "cycle_gan"], "not ported"),
+    (["--model.model", "cycle_gan", "--data.dataset_mode", "temporal"],
+     "not temporal windows"),
 ])
 def test_cli_refuses_what_jax_refuses(tmp_path, argv, match):
     with pytest.raises(SystemExit, match=match):
         main(argv + ["--device", "cpu", "--data.dataroot", str(tmp_path)])
+
+
+@pytest.mark.parametrize("dtype,tf32", [("float32", False), ("bf16", True)])
+def test_fp32_train_turns_tf32_off(monkeypatch, tmp_path, dtype, tf32):
+    """An fp32 model trains with full-fp32 convolutions and matmuls (the
+    JAX package's HIGHEST precision), as cli.infer serves; bf16 leaves the
+    TF32 flags as they were."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(FileNotFoundError, match="folder pair"):
+        main(["--device", "cpu", "--model.compute_dtype", dtype,
+              "--data.dataroot", str(tmp_path)])
+    assert torch.backends.cudnn.allow_tf32 is tf32
+    assert torch.backends.cuda.matmul.allow_tf32 is tf32
 
 
 def test_cli_defaults_to_the_card(tmp_path):

@@ -49,7 +49,7 @@ def test_config_fields_equal_jax_by_name_type_and_default(section):
 
 @pytest.mark.parametrize("name", sorted(pconfig.PRESETS))
 def test_preset_equals_jax_field_for_field(name):
-    assert set(pconfig.PRESETS) == set(jconfig.PRESETS) - {"cyclegan_256"}
+    assert set(pconfig.PRESETS) == set(jconfig.PRESETS)
     assert (dataclasses.asdict(pconfig.PRESETS[name])
             == dataclasses.asdict(jconfig.PRESETS[name]))
 

@@ -47,8 +47,9 @@ def _chip_smoke():
 # ---------------------------------------------------------------------------
 
 def test_presets_are_the_jax_packages_but_cyclegan():
-    # cyclegan_256's model is train/cycle.py, not ported yet
-    assert set(PRESETS) == set(JAX_PRESETS) - {"cyclegan_256"}
+    # every preset of the JAX package, cyclegan_256 (train/cycle.py)
+    # included since the CycleGAN model is ported
+    assert set(PRESETS) == set(JAX_PRESETS)
 
 
 @pytest.mark.parametrize("name", sorted(PRESETS))
@@ -88,6 +89,7 @@ def test_every_preset_builds_and_generates_on_the_cpu(name):
 # (B1, B2, B3 d2s) launches of one frame, counted from the generators'
 # layers: one B1 an instance norm, one B2 a ResNet tail, one d2s an up
 LAUNCHES = {"resnet9_256": (23, 1, 2), "temporal_256": (23, 1, 2),
+            "cyclegan_256": (23, 1, 2),
             "pix2pixhd_global_512": (27, 1, 4),
             "pix2pixhd_512": (36, 1, 5), "temporal_512": (36, 1, 5),
             "pix2pixhd_1024": (36, 1, 5), "temporal_1024": (36, 1, 5),

@@ -227,8 +227,24 @@ def test_reconstruction_losses_match_jax(jax_vgg):
 
 
 def test_gradient_penalty_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        pgan.gradient_penalty(None, None, None)
+    # gradient_penalty is ported (the name predates it): on a linear critic
+    # D(x) = 2·sum(x), as JAX's test_gradient_penalty_analytic, every
+    # per-sample input gradient norm is 2·sqrt(N), so the penalty is
+    # λ(2·sqrt(N) − 1)² whatever ε, here JAX's draw
+    b, h, w, c = 2, 4, 4, 3
+    r = np.random.RandomState(0)
+    real, fake = (r.rand(b, h, w, c).astype(np.float32) for _ in range(2))
+    key = jax.random.PRNGKey(0)
+    want = jgan.gradient_penalty(lambda x: [[2.0 * x]], jnp.asarray(real),
+                                 jnp.asarray(fake), key, lambda_gp=10.0)
+    eps = np.asarray(jax.random.uniform(key, (b, 1, 1, 1), jnp.float32))
+    got = pgan.gradient_penalty(lambda x: [[2.0 * x]],
+                                torch.from_numpy(real),
+                                torch.from_numpy(fake), lambda_gp=10.0,
+                                eps=torch.from_numpy(eps))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert float(got) == pytest.approx(10.0 * (2.0 * np.sqrt(h * w * c)
+                                               - 1.0) ** 2, rel=1e-5)
 
 
 @pytest.mark.parametrize("policy", ["linear", "step", "cosine"])
@@ -473,16 +489,37 @@ def test_bias_before_norm_names_the_right_keys(jax_side):
     ("train", "ema_decay", 0.999), ("train", "adam_mu_dtype", "bf16"),
     ("model", "net_d", "pixel")])
 def test_unported_training_options_raise(section, field, value):
-    # such a model builds and serves (tests/test_torch_port_train_options.py);
-    # its train step raises
-    _, pcfg = _configs()
+    # every option is ported now (the name predates it): the step trains,
+    # and shows the option (each is held to JAX in
+    # tests/test_torch_port_gp.py and tests/test_torch_port_train_options.py)
+    _, pcfg = _configs(niter_fix_global=0)
     sections = {"loss": dataclasses.replace(pcfg.loss, no_vgg_loss=True)}
     sections[section] = dataclasses.replace(
         sections.get(section, getattr(pcfg, section)), **{field: value})
-    model = create_model(pcfg.replace(**sections), device="cpu")
-    batch = {k: torch.zeros((1, SIZE, SIZE, 3)) for k in "ab"}
-    with pytest.raises(NotImplementedError):
-        model.train_step(batch)
+    model = create_model(pcfg.replace(**sections), device="cpu",
+                         steps_per_epoch=1)
+    r = np.random.RandomState(3)
+    batch = {k: torch.from_numpy(r.uniform(-1, 1, (2, SIZE, SIZE, 3))
+                                 .astype(np.float32)) for k in "ab"}
+    g0 = {k: v.clone() for k, v in model.netG.named_parameters()}
+    metrics = model.train_step(batch)
+    assert model.step == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert ("D_GP" in metrics) == (value == "wgangp")
+    moved = [not torch.equal(p, g0[k]) for k, p in
+             model.netG.named_parameters() if k.endswith("weight")]
+    assert all(moved)
+    if field == "ema_decay":
+        shadow = model.ema["netG"]
+        for k, p in model.netG.named_parameters():
+            want = value * g0[k] + (1 - value) * p.detach()
+            torch.testing.assert_close(shadow[k], want, rtol=1e-6,
+                                       atol=1e-9)
+    if field == "adam_mu_dtype":
+        assert all(st["exp_avg"].dtype == torch.bfloat16
+                   for st in model.opt_g.state.values())
+    if field == "net_d":
+        assert type(model.netD).__name__ == "PixelDiscriminator"
 
 
 def test_serving_copy_follows_training_updates():

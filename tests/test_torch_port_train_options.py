@@ -12,10 +12,13 @@
   and the U-Net's dropout (``unet_128``, 128 px). Dropout masks and pool
   decisions are JAX's own, fed to the port in call order;
 - a temporal window draws each frame's own dropout masks;
-- what trains, what serves: the options still unported at the train
-  step (the pixel D, WGAN-GP, grad-accum, EMA, bf16 Adam moments) build
-  and serve through ``create_model`` + ``generate`` and raise at
-  ``train_step``; a 50-frame pool builds, serves and trains;
+- every option of the train step (the pixel D, WGAN-GP, grad-accum, EMA,
+  bf16 Adam moments, a 50-frame pool) builds, serves through
+  ``create_model`` + ``generate`` and trains; grad-accum against the
+  full batch and JAX's accumulated step, its indivisible batch, its pool,
+  a temporal window; EMA against JAX's; the bf16-moment Adam against
+  ``optax.scale_by_adam``; remat against the plain step with dropout,
+  bit for bit; the pixel-D step against JAX's;
 - every preset's train step at narrow width on the CPU;
 - each preset's kernel launches per train step on the meta device
   against ``chip_smoke.py``'s ``TRAIN`` table."""
@@ -49,6 +52,18 @@ def _first_torch_tanh():
     process (``tests/test_torch_port_kernels.py`` says when); make that
     call here, before any fake is compared."""
     torch.tanh(torch.zeros(8))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tiny CPU tensors: the suite
+    runs six test processes on the machine's cores, and oversubscribed
+    thread pools slowed small steps by up to two orders of magnitude
+    there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +130,16 @@ STEPS = {
         preset="pix2pix_unet256", t=None, batch=1, size=128,
         model=dict(ngf=8, ndf=8, net_g="unet_128", use_dropout=True),
         loss={}),
+    # JAX's pixel-D step (tests/test_train_step.py:337)
+    "pixel_d": dict(
+        preset="pix2pix_unet256", t=None, batch=1,
+        model=dict(ngf=8, ndf=8, net_g="resnet_6blocks", net_d="pixel"),
+        loss={}),
+    # the full batch grad-accum's micro-batches add up to
+    "accum_full": dict(
+        preset="resnet9_256", t=None, batch=2,
+        model=dict(ngf=8, ndf=8, net_g="resnet_6blocks"),
+        loss=dict(no_vgg_loss=True)),
 }
 @pytest.fixture(scope="module")
 def steps():
@@ -150,6 +175,15 @@ def test_step_every_gradient_matches_jax(step):
     got_d = {k: p.grad for k, p in pm.netD.named_parameters()}
     assert all(v is not None for v in (*got_g.values(), *got_d.values()))
     assert _mixed_bar(got_g, {k: want_g[k] for k in got_g}, 1e-4) == {}
+    if name == "pixel_d":
+        # the pixel D's conv bias before its norm cannot move the logits:
+        # its true gradient is 0, and each side's is the rounding noise of
+        # a sum over every pixel of the frame (JAX's 3.7e-6): held under
+        # 1e-5 of the largest gradient norm, the rest under the bar
+        big = max(float(v.norm()) for v in want_d.values())
+        assert max(float(got_d["net.2.bias"].norm()),
+                   float(want_d["net.2.bias"].norm())) <= 1e-5 * big
+        got_d.pop("net.2.bias")
     assert _mixed_bar(got_d, {k: want_d[k] for k in got_d}, 1e-4) == {}
     if name == "dropout_pool":
         # a batch of 2 through a pool of 1: it filled, then JAX's draw
@@ -213,27 +247,240 @@ SERVED_ONLY = [("model", "net_d", "pixel"), ("loss", "gan_mode", "wgangp"),
 @pytest.mark.parametrize("section,field,value",
                          SERVED_ONLY + [("loss", "pool_size", 50)])
 def test_training_options_build_and_serve(section, field, value):
-    # every config the JAX package builds builds here, and serves
+    # every config the JAX package builds builds here, serves and trains
     cfg = _narrow("pix2pixhd_512")
     cfg = cfg.replace(**{section: dataclasses.replace(
         getattr(cfg, section), **{field: value})})
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="VGG perceptual loss")
         pm = create_model(cfg, device="cpu")
-    assert (pm.netD is None) == (value == "pixel")
+    assert pm.netD is not None
     a = torch.from_numpy(np.random.RandomState(0).uniform(
-        -1, 1, (1, 64, 64, 3)).astype(np.float32))
+        -1, 1, (2, 64, 64, 3)).astype(np.float32))
     y = pm.generate(a)
-    assert tuple(y.shape) == (1, 64, 64, 3) and bool(torch.isfinite(y).all())
+    assert tuple(y.shape) == (2, 64, 64, 3) and bool(torch.isfinite(y).all())
     batch = {"a": a, "b": a.flip(1)}
-    if (section, field, value) in SERVED_ONLY:
-        with pytest.raises(NotImplementedError):
-            pm.train_step(batch)
-        assert pm.step == 0
-    else:
-        m = pm.train_step(batch)
-        assert all(np.isfinite(float(v)) for v in m.values())
-        assert int(pm.pool.count) == 1
+    # each trains now (SERVED_ONLY: the options that served only before
+    # this port's A8); a batch of 2, which grad_accum 2 divides
+    m = pm.train_step(batch)
+    assert pm.step == 1
+    assert all(np.isfinite(float(v)) for v in m.values())
+    if field == "pool_size":
+        assert int(pm.pool.count) == 2
+
+
+# ---------------------------------------------------------------------------
+# grad-accum, EMA, bf16 Adam moments, remat
+# ---------------------------------------------------------------------------
+
+def _with(pm, **train):
+    """A port model of ``pm``'s config with ``train`` fields changed and
+    ``pm``'s weights."""
+    cfg = pm.cfg.replace(train=dataclasses.replace(pm.cfg.train, **train))
+    twin = create_model(cfg, device="cpu", steps_per_epoch=1)
+    for name, net in (*twin.g_nets().items(), *twin.d_nets().items()):
+        net.load_state_dict(getattr(pm, name).state_dict())
+    return twin
+
+
+def test_grad_accum_matches_full_batch(steps):
+    # accum 2 on JAX's pinned batch of 2: the mean of the two micro-batch
+    # gradients, taken at the same parameters, is the full batch's (every
+    # loss a batch mean, instance norm per sample): JAX's full-batch
+    # gradient at the port's forward point, under the same bar
+    _, port, jax_side = steps("accum_full")
+    acc = _with(port["pm"], grad_accum=2)
+    metrics = acc.compute_grads({k: torch.from_numpy(v)
+                                 for k, v in port["batch"].items()})
+    want = {k: np.asarray(v) for k, v in jax_side["metrics"].items()}
+    for k, v in metrics.items():
+        np.testing.assert_allclose(v.numpy(), want[k], rtol=1e-5, err_msg=k)
+    want_g, want_d = state_dicts(acc, jax_side["grads"])
+    got_g = {k: p.grad for k, p in acc.netG.named_parameters()}
+    got_d = {k: p.grad for k, p in acc.netD.named_parameters()}
+    assert _mixed_bar(got_g, {k: want_g[k] for k in got_g}, 1e-4) == {}
+    assert _mixed_bar(got_d, {k: want_d[k] for k in got_d}, 1e-4) == {}
+
+
+def _tiny(**changes):
+    """JAX's tiny_cfg (tests/test_train_step.py:18) in the port."""
+    from ir2rgb_tpu_torch.config import (
+        Config,
+        DataConfig,
+        LossConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    model = dict(model="pix2pix", net_g="resnet_6blocks", net_d="n_layers",
+                 ngf=8, ndf=8)
+    model.update(changes.pop("model", {}))
+    return Config(model=ModelConfig(**model),
+                  data=DataConfig(crop_size=32, **changes.pop("data", {})),
+                  loss=LossConfig(no_vgg_loss=True, **changes.pop("loss", {})),
+                  train=TrainConfig(niter=1, niter_decay=1,
+                                    **changes.pop("train", {})))
+
+
+def _pairs(n, size=32, lead=()):
+    r = np.random.RandomState(n)
+    return {k: torch.from_numpy(r.uniform(-1, 1, (n,) + lead
+                                          + (size, size, 3))
+                                .astype(np.float32)) for k in "ab"}
+
+
+def test_grad_accum_indivisible_raises():
+    pm = create_model(_tiny(train=dict(grad_accum=2)), device="cpu")
+    with pytest.raises(ValueError, match="grad_accum"):
+        pm.train_step(_pairs(3))
+    assert pm.step == 0
+
+
+def test_grad_accum_pool_sees_every_micro_batch():
+    # the pool threads through the micro-batches: all 4 fakes entered it
+    pm = create_model(_tiny(loss=dict(pool_size=8),
+                            train=dict(grad_accum=2)), device="cpu")
+    pm.train_step(_pairs(4))
+    assert int(pm.pool.count) == 4
+
+
+def test_grad_accum_temporal_smoke():
+    cfg = _tiny(model=dict(model="temporal", n_frames_g=2),
+                data=dict(dataset_mode="temporal", n_frames_total=3),
+                train=dict(grad_accum=2))
+    pm = create_model(cfg, device="cpu")
+    metrics = pm.train_step(_pairs(2, lead=(3,)))
+    assert np.isfinite(float(metrics["G_GAN"])) and pm.step == 1
+
+
+def test_ema_tracks_generator():
+    # decay 0: no shadow (the checkpoint's layout unchanged); decay 0.5:
+    # the shadow starts at G's parameters, in distinct buffers, and after
+    # a step is JAX's d·e + (1 − d)·p (model.py:537-541) at JAX's own
+    # test's tolerance
+    assert create_model(_tiny(), device="cpu").ema is None
+    assert "ema_g" not in create_model(_tiny(), device="cpu").state_dict()
+    pm = create_model(_tiny(train=dict(ema_decay=0.5)), device="cpu")
+    p0 = {k: p.detach().clone() for k, p in pm.netG.named_parameters()}
+    for k, p in pm.netG.named_parameters():
+        assert torch.equal(pm.ema["netG"][k], p)
+        assert pm.ema["netG"][k].data_ptr() != p.data_ptr()
+    pm.train_step(_pairs(2))
+    p1 = {k: p.detach().numpy() for k, p in pm.netG.named_parameters()}
+    want = jax.tree.map(lambda e, p: 0.5 * e + (1.0 - 0.5) * p,
+                        {k: jnp.asarray(v.numpy()) for k, v in p0.items()},
+                        {k: jnp.asarray(v) for k, v in p1.items()})
+    for k, v in want.items():
+        np.testing.assert_allclose(pm.ema["netG"][k].numpy(), np.asarray(v),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    assert max(float((pm.ema["netG"][k] - torch.from_numpy(p1[k]))
+                     .abs().max()) for k in p1) > 0
+    # the checkpoint carries it as netG's state_dict, and restores it
+    state = pm.state_dict()
+    assert set(state["ema_g"]) == set(pm.netG.state_dict())
+    twin = create_model(_tiny(train=dict(ema_decay=0.5)), device="cpu")
+    twin.load_state_dict(state)
+    for k, v in pm.ema["netG"].items():
+        assert torch.equal(twin.ema["netG"][k], v)
+
+
+def test_adam_mu_dtype_bf16_matches_optax():
+    # optax.scale_by_adam(mu_dtype=bf16) on the same numpy parameters and
+    # gradients over 3 steps, then the lr: the stored mu bit for bit, nu
+    # and the parameters within rtol 1e-6
+    import optax
+
+    from ir2rgb_tpu_torch.train.optim import AdamBf16Mu
+    r = np.random.RandomState(0)
+    shapes = [(8, 3, 3, 3), (8,), (5, 7)]
+    params = [r.randn(*s).astype(np.float32) * 0.1 for s in shapes]
+    grads = [[r.randn(*s).astype(np.float32) * 10.0 ** -r.randint(0, 4)
+              for s in shapes] for _ in range(3)]
+    lr, b1, b2 = 2e-4, 0.5, 0.999
+    tx = optax.scale_by_adam(b1=b1, b2=b2, eps=1e-8, mu_dtype=jnp.bfloat16)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    opt = AdamBf16Mu(tp, lr=lr, betas=(b1, b2), eps=1e-8)
+    for step in range(3):
+        upd, state = tx.update([jnp.asarray(g) for g in grads[step]], state)
+        jp = [p - lr * u for p, u in zip(jp, upd)]
+        for p, g in zip(tp, grads[step]):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+        for i, p in enumerate(tp):
+            st = opt.state[p]
+            assert st["exp_avg"].dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                st["exp_avg"].float().numpy(),
+                np.asarray(state.mu[i]).astype(np.float32))
+            np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
+                                       np.asarray(state.nu[i]), rtol=1e-6)
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[i]),
+                                       rtol=1e-6, atol=1e-9)
+
+
+def test_adam_mu_dtype_bf16_in_the_model():
+    # --train.adam_mu_dtype bf16: G's and D's first moments are bf16, the
+    # second fp32; a checkpoint round trip keeps them so; the unfreeze's
+    # reset composes (JAX's test_adam_mu_dtype_bf16)
+    from ir2rgb_tpu_torch.train.optim import AdamBf16Mu
+    cfg = _tiny(train=dict(adam_mu_dtype="bf16"))
+    pm = create_model(cfg, device="cpu", steps_per_epoch=1)
+    assert isinstance(pm.opt_g, AdamBf16Mu) and isinstance(pm.opt_d,
+                                                           AdamBf16Mu)
+    metrics = pm.train_step(_pairs(2))
+    assert np.isfinite(float(metrics["G_GAN"]))
+    for opt in (pm.opt_g, pm.opt_d):
+        assert opt.state and all(
+            st["exp_avg"].dtype == torch.bfloat16
+            and st["exp_avg_sq"].dtype == torch.float32
+            for st in opt.state.values())
+    twin = create_model(cfg, device="cpu", steps_per_epoch=1)
+    twin.load_state_dict(pm.state_dict())
+    for a, b in zip(pm.opt_g.state.values(), twin.opt_g.state.values()):
+        assert b["exp_avg"].dtype == torch.bfloat16
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+    local = _narrow("pix2pixhd_512")
+    local = local.replace(
+        loss=dataclasses.replace(local.loss, no_vgg_loss=True),
+        train=dataclasses.replace(local.train, adam_mu_dtype="bf16",
+                                  niter_fix_global=1))
+    pm = create_model(local, device="cpu", steps_per_epoch=1)
+    pm.train_step(_pairs(1, 64))
+    pm.train_step(_pairs(1, 64))  # the unfreeze: G's state restarts
+    assert all(st["step"] == 1 for st in pm.opt_g.state.values())
+    assert all(st["step"] == 2 for st in pm.opt_d.state.values())
+
+
+@pytest.mark.parametrize("use_dropout", [False, True])
+@pytest.mark.parametrize("net_g", ["local", "resnet_6blocks"])
+def test_remat_matches_plain(net_g, use_dropout):
+    # JAX's test_remat_matches_plain (tests/test_variants.py:83), with
+    # dropout too: the same weights and generator seed, the residual
+    # blocks (the trunk's and the enhancer's, or ResNet-6's) recomputed
+    # in the backward on the mask drawn before them: losses and every
+    # gradient bit for bit
+    name = "pix2pixhd_512" if net_g == "local" else "resnet9_256"
+    models = []
+    for remat in (False, True):
+        cfg = _narrow(name, net_g=net_g, use_dropout=use_dropout,
+                      remat=remat)
+        cfg = cfg.replace(loss=dataclasses.replace(cfg.loss,
+                                                   no_vgg_loss=True),
+                          train=dataclasses.replace(cfg.train,
+                                                    niter_fix_global=0))
+        pm = create_model(cfg, device="cpu")
+        models.append((pm, pm.compute_grads(_pairs(2, 64))))
+    (plain, m0), (remat, m1) = models
+    assert remat.gen_cfg.remat and not plain.gen_cfg.remat
+    for k in m0:
+        assert torch.equal(m0[k], m1[k]), k
+    for (k, p), q in zip(plain.netG.named_parameters(),
+                         remat.netG.parameters()):
+        assert torch.equal(p.grad, q.grad), k
+    for (k, p), q in zip(plain.netD.named_parameters(),
+                         remat.netD.parameters()):
+        assert torch.equal(p.grad, q.grad), k
 
 
 # the smallest frame of each preset's narrow generator (the U-Net 2^8)
@@ -278,30 +525,50 @@ def _chip_smoke():
     return mod
 
 
-def _meta_step_launches(monkeypatch, name, frozen):
+def _meta_step_launches(monkeypatch, name, frozen, model=None, loss=None,
+                        train=None):
     """What one full-size bf16 train step of ``name`` (batch 1, its crop
-    size, a temporal preset's whole window) sends to each kernel: B1
-    forward and backward (shape, act) -> count, d2s (phase shape, C) ->
-    count, s2d (image shape) -> count. Shapes only, on the meta device."""
+    size, a temporal preset's whole window; ``model`` / ``loss`` /
+    ``train``: config fields changed) sends to each kernel: B1 forward
+    and backward (shape, act) -> count, d2s (phase shape, C) -> count,
+    s2d (image shape) -> count. Shapes only, on the meta device. The B1
+    stand-in's backward is itself a Function whose backward reaches x, as
+    B1's (WGAN-GP's outer backward runs through it)."""
     from ir2rgb_tpu_torch.kernels import d2s as b3
+    from ir2rgb_tpu_torch.losses import gan
     from ir2rgb_tpu_torch.nn import Vgg19, define_d, define_g, ops
     from ir2rgb_tpu_torch.train import GanModel, network_configs
+    from ir2rgb_tpu_torch.train.cycle import (
+        CycleGanModel,
+        cycle_network_configs,
+    )
     fwd, bwd, d2s, s2d = {}, {}, {}, {}
 
     def add(table, key):
         table[key] = table.get(key, 0) + 1
 
+    class NormBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, g, key):
+            add(bwd, key)
+            return g.clone()
+
+        @staticmethod
+        def backward(ctx, gg):
+            return gg.clone(), gg.clone(), None
+
     class Norm(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, act):
             ctx.key = (tuple(x.shape), act)
+            ctx.save_for_backward(x)
             add(fwd, ctx.key)
             return x.clone()
 
         @staticmethod
         def backward(ctx, g):
-            add(bwd, ctx.key)
-            return g, None
+            (x,) = ctx.saved_tensors
+            return NormBackward.apply(x, g, ctx.key), None
 
     def norm(x, act="relu", negative_slope=0.2):
         if torch.is_grad_enabled() and x.requires_grad:
@@ -328,15 +595,28 @@ def _meta_step_launches(monkeypatch, name, frozen):
 
     monkeypatch.setattr(ops, "fused_instance_norm_act", norm)
     monkeypatch.setattr(ops, "d2s_fn", interleave)
+    monkeypatch.setattr(gan, "draw_eps",
+                        lambda n, generator: torch.full((n, 1, 1, 1), 0.5))
     cfg = PRESETS[name]
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                compute_dtype="bf16"))
-    gen_cfg, disc_cfg = network_configs(cfg)
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype="bf16",
+                                  **(model or {})),
+        loss=dataclasses.replace(cfg.loss, **(loss or {})),
+        train=dataclasses.replace(cfg.train, **(train or {})))
+    dev = torch.device("meta")
     with torch.device("meta"):
-        model = GanModel(cfg=cfg, gen_cfg=gen_cfg, netG=define_g(gen_cfg),
-                         device=torch.device("meta"), disc_cfg=disc_cfg,
-                         netD=define_d(disc_cfg),
-                         vgg=None if cfg.loss.no_vgg_loss else Vgg19())
+        if cfg.model.model == "cycle_gan":
+            g_a, g_b, d_a, d_b = cycle_network_configs(cfg)
+            model = CycleGanModel(
+                cfg=cfg, gen_cfg=g_a, netG=define_g(g_a), device=dev,
+                disc_cfg=d_a, netD=define_d(d_a), gen_cfg_b=g_b,
+                disc_cfg_b=d_b, netG_B=define_g(g_b), netD_B=define_d(d_b))
+        else:
+            gen_cfg, disc_cfg = network_configs(cfg)
+            model = GanModel(cfg=cfg, gen_cfg=gen_cfg,
+                             netG=define_g(gen_cfg), device=dev,
+                             disc_cfg=disc_cfg, netD=define_d(disc_cfg),
+                             vgg=None if cfg.loss.no_vgg_loss else Vgg19())
         if model.vgg is not None:
             model.vgg.requires_grad_(False)
         size = cfg.data.crop_size
@@ -362,6 +642,38 @@ def test_train_step_sends_chip_smokes_shapes_to_the_kernels(monkeypatch,
         assert bwd == want["b1_bwd"], (name, frozen)
         assert d2s == want["d2s"], (name, frozen)
         assert s2d == want["s2d"], (name, frozen)
+
+
+# chip_smoke.py's train_options tables: (its key, the preset, the config
+# changes of the step it counts)
+OPTION_TABLES = [
+    ("gp pix2pixhd_512", "pix2pixhd_512", dict(loss=dict(gan_mode="wgangp"))),
+    ("gp pixel pix2pix_unet256", "pix2pix_unet256",
+     dict(model=dict(net_d="pixel"), loss=dict(gan_mode="wgangp"))),
+    ("pixel pix2pixhd_512", "pix2pixhd_512", dict(model=dict(net_d="pixel"))),
+    ("remat pix2pixhd_1024", "pix2pixhd_1024",
+     dict(model=dict(remat=True, use_dropout=True))),
+    ("remat pix2pixhd_2048", "pix2pixhd_2048",
+     dict(model=dict(remat=True, use_dropout=True))),
+]
+
+
+@pytest.mark.parametrize("key,name,changes", OPTION_TABLES,
+                         ids=[k for k, _, _ in OPTION_TABLES])
+def test_option_steps_send_chip_smokes_shapes_to_the_kernels(
+        monkeypatch, key, name, changes):
+    # WGAN-GP's extra D pass, its B1 backward inside the penalty and the
+    # B1 backward its second derivative reaches; the pixel D's one norm;
+    # remat's blocks recomputed in the backward
+    cs = _chip_smoke()
+    if key.startswith("remat"):
+        want = cs.REMAT[name]
+    else:
+        want = cs.TRAIN_OPTIONS[key]["unfrozen"]
+    fwd, bwd, d2s, s2d = _meta_step_launches(monkeypatch, name, False,
+                                             **changes)
+    assert fwd == want["b1"] and bwd == want["b1_bwd"], key
+    assert d2s == want["d2s"] and s2d == want["s2d"], key
 
 
 @pytest.mark.parametrize("name", [

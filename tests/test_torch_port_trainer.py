@@ -263,10 +263,20 @@ def test_every_visible_card_is_refused_not_one_silently(tmp_path,
 
 
 def test_unported_step_options_raise_through_fit(tmp_path):
+    # grad-accum is ported (the name predates it): two accumulated steps
+    # through fit equal two bare train steps of a twin model, parameter for
+    # parameter, and the run checkpoints them
     cfg = _cfg(tmp_path, grad_accum=2)
     trainer = _trainer(cfg, 2)
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        trainer.fit(_batches(2))
+    twin = _trainer(cfg, 2).model
+    trainer.fit(_batches(2))
+    for batch in _batches(2):
+        twin.train_step(batch)
+    assert trainer.model.step == twin.step == 2
+    for (k, p), q in zip(trainer.model.netG.named_parameters(),
+                         twin.netG.parameters()):
+        assert torch.equal(p, q), k
+    assert trainer.ckpt.all_steps()
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +349,26 @@ def _chip_smoke():
 def _meta_model(cfg):
     from ir2rgb_tpu_torch.nn import Vgg19, define_d, define_g
     from ir2rgb_tpu_torch.train import GanModel, network_configs
+    from ir2rgb_tpu_torch.train.cycle import (
+        CycleGanModel,
+        cycle_network_configs,
+    )
     from ir2rgb_tpu_torch.train.schedule import lr_schedule
+    if cfg.model.model == "cycle_gan":
+        g_a, g_b, d_a, d_b = cycle_network_configs(cfg)
+        with torch.device("meta"):
+            nets = [define_g(g_a), define_g(g_b), define_d(d_a),
+                    define_d(d_b)]
+        return CycleGanModel(
+            cfg=cfg, gen_cfg=g_a, netG=nets[0], netG_B=nets[1], gen_cfg_b=g_b,
+            disc_cfg=d_a, netD=nets[2], netD_B=nets[3], disc_cfg_b=d_b,
+            device=torch.device("meta"),
+            opt_g=torch.optim.Adam([*nets[0].parameters(),
+                                    *nets[1].parameters()]),
+            opt_d=torch.optim.Adam([*nets[2].parameters(),
+                                    *nets[3].parameters()]),
+            schedule=lr_schedule("linear", 2e-4, 1, 1, 1, 50),
+            steps_per_epoch=100)
     gen_cfg, disc_cfg = network_configs(cfg)
     with torch.device("meta"):
         g, d = define_g(gen_cfg), define_d(disc_cfg)
