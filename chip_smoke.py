@@ -88,7 +88,37 @@ Phases, each failing the run if it fails:
    with the aggregate frames/s and peak memory, and one pix2pixhd_2048
    tick at 16; ``cli.infer --torch_g`` then ``cli.evaluate`` on a
    512x512 folder; a ``cli.serve`` subprocess in fp32 with a raw and a
-   JPEG client, every reply held to a batch-1 stream.
+   JPEG client, every reply held to a batch-1 stream;
+11. ``quant`` (``quant_phase``): every served preset (``SERVE``) at full
+   width and batch 1 in each quantized serving mode (``nn/quant.py``:
+   int8, int8_mixed, int8_w) beside "none", bf16: uint8 frames through
+   ``StreamingGenerator.stream`` with the launches held to ``SERVE`` (B2
+   none under int8, ``quant_per_frame``), ms/frame, peak memory and the
+   PSNR against "none"; fp32 (TF32 off) card frames held to the port's
+   fp32 CPU frames of the same mode at 256x256 (max-abs <=
+   SLICE_FP32_TOL; int8 and int8_mixed also >= QUANT_MIN_PSNR dB, at the
+   CPU's quantized inputs, ``QuantPins``, with each int8 conv's own card
+   input flipping at most QUANT_MAX_FLIP_SHARE of its int8 activations
+   against the CPU's, and the unpinned frames >= QUANT_UNPINNED_MIN_PSNR
+   dB; a card path with one wrong layer, ``broken_norm``, must fail the
+   flips bar); one
+   ``MultiStreamServer`` tick of temporal_512 at QUANT_TICK_SLOTS streams
+   in int8_mixed; and the int32 product of ``torch._int_mm`` equal bit
+   for bit to the plain product at every distinct quantized conv shape
+   those runs gave it;
+12. ``netE`` (``nete_phase``): pix2pixhd_512 with the feature encoder and
+   the edge channel, 512x512, instance maps a seeded Voronoi of
+   NETE_CELLS cells: bf16 train steps with each step's launches held to
+   ``NETE`` (netE's B1 both ways and its ups' d2s / s2d on top of the
+   preset's), netE's weights moved, timed steps with peak memory; one
+   fp32 step on the card held to the CPU's at 256x256 (pinned, the
+   ``train`` phase's bars, netE's tail bias through float64 sums,
+   ``TailGrad``; ``inst_collisions`` equal; the pooling on its own); then
+   ``collect_dataset_features`` over 4 frames, ``kmeans``,
+   ``sample_feature_map`` and a served frame with those features, and a
+   ``use_encoded_image`` frame held fp32 card to CPU at 256x256. B1 and
+   B3 are checked above at every netE shape (``NETE`` is in the steps'
+   tables).
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -336,6 +366,34 @@ TRAIN = {p: train_table(p) for p in _TRAIN_SPEC}
 # CPU's
 TRAIN_256 = {p: train_table(p, 256) for p in _TRAIN_SPEC}
 
+# The netE phase: pix2pixhd_512 with the feature encoder (nef 16, 4 downs,
+# the preset's defaults) and the edge channel. netE runs once a step on
+# the real target, forward and backward (its gradient comes through G's
+# losses); its B1 and ups are the headless trunk's pattern at nef wide.
+# The input channels G and D gain move no kernel shape.
+NETE_PRESET, NETE_NEF, NETE_DOWNS = "pix2pixhd_512", 16, 4
+
+
+def nete_forward(size: int) -> tuple:
+    """netE's forward at ``size``: B1 (shape, act) -> count, d2s (phase
+    shape, C) -> count."""
+    b1, d2s = _trunk(size, NETE_NEF, NETE_DOWNS, 0)
+    return b1, Counter(d2s)
+
+
+def nete_table(size: int) -> dict:
+    """One unfrozen train step of the netE phase at ``size``."""
+    base = train_table(NETE_PRESET, size)["unfrozen"]
+    b1, d2s = nete_forward(size)
+    return dict(b1=base["b1"] + b1, b1_bwd=base["b1_bwd"] + b1,
+                d2s=base["d2s"] + d2s,
+                s2d=base["s2d"] + Counter({(n, 2 * h, 2 * w, c): m for (
+                    (n, h, w, _), c), m in d2s.items()}))
+
+
+NETE = {"netE " + NETE_PRESET: nete_table(512),
+        "netE " + NETE_PRESET + " 256": nete_table(256)}
+
 
 def at_batch(table: dict, n: int) -> dict:
     """A ``TRAIN``-style table's shapes at batch ``n``."""
@@ -396,13 +454,24 @@ def per_frame(preset: str) -> dict:
             "d2s": len(t["d2s"]), "s2d": 0}
 
 
+def quant_per_frame(preset: str, mode: str) -> dict:
+    """``per_frame`` in a quantized serving mode: the norms and ups are
+    the same; under int8 the tail is an int8 conv + bias + tanh in
+    PyTorch ops, not B2 (under int8_mixed its 3-wide conv stays fp and
+    B2 serves it; under int8_w B2 takes the dequantized weight)."""
+    want = per_frame(preset)
+    if mode == "int8":
+        want["tail_fused"] = 0
+    return want
+
+
 def _keys(tables, field):
     return {k for t in tables for v in t.values() for k in v[field]}
 
 
 _STEPS = (list(TRAIN.values()) + list(TRAIN_256.values())
           + [t if "unfrozen" in t else {"unfrozen": t}
-             for t in TRAIN_OPTIONS.values()])
+             for t in (*TRAIN_OPTIONS.values(), *NETE.values())])
 # every (shape, act) B1 runs at, in serving, in each preset's train step
 # and in its 256x256 fp32 step: the headline step's first, then the rest
 B1_FWD_SHAPES = list(B1_FWD_PER_STEP) + sorted(
@@ -479,6 +548,22 @@ N_FRAMES = 8
 TRAIN_STEPS, TIMED_STEPS, FIX_STEPS = 4, 5, 2
 TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_GRAD_REL = 1e-4, 1e-3
 BF16_LOSS_REL = 0.05
+# the quant phase: the modes beside "none", frames a mode through the
+# stream, and the PSNR bar of int8 / int8_mixed fp32 card frames against
+# the CPU's at the CPU's quantized inputs (QuantPins), beside max-abs;
+# the share (beside a few activations) of each pinned conv's int8
+# activations that the card's own input may quantize differently, and
+# the PSNR bar of the unpinned frames
+QUANT_MODES = ("int8", "int8_mixed", "int8_w")
+QUANT_FRAMES, QUANT_MIN_PSNR, QUANT_TICK_SLOTS = 4, 40.0, 4
+QUANT_MAX_FLIP_SHARE, QUANT_FLIP_ALLOWANCE = 0.01, 8
+QUANT_UNPINNED_MIN_PSNR = 30.0
+# the wrong layer those bars must catch: seeded noise of this share of
+# its std added to the output of a frame's middle B1 call on the card
+QUANT_PROBE_NOISE = 1e-2
+# the netE phase: Voronoi cells an instance map, bf16 steps checked one by
+# one, frames netE's features are collected over
+NETE_CELLS, NETE_STEPS, NETE_FEATURE_FRAMES = 24, 3, 4
 SEED = 0
 
 failures = []
@@ -1089,7 +1174,7 @@ def nets_of(model) -> dict:
 
 # the seed of each network's weights (seeded_state_dict)
 NET_SEEDS = {"netG": SEED, "netD": SEED + 1, "netG_B": SEED + 4,
-             "netD_B": SEED + 5}
+             "netD_B": SEED + 5, "netE": SEED + 6}
 
 
 def seeded_model(preset: str, dtype: str, fix_steps: int = 0,
@@ -2612,6 +2697,636 @@ def serve_phase(card: str):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Quantized serving and netE
+# ---------------------------------------------------------------------------
+
+def with_quant(model, mode: str):
+    """``model`` serving in quant ``mode``: ``generate`` reads the mode
+    from the model's config at every call."""
+    model.cfg = model.cfg.replace(infer=dataclasses.replace(
+        model.cfg.infer, quant=mode))
+    return model
+
+
+def serve_model(preset: str, dtype: str, device: str, sd):
+    """``preset``'s model for serving (no VGG), netG's weights ``sd``
+    (None: the seeded init)."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    from ir2rgb_tpu_torch.train import create_model
+    cfg = PRESETS[preset]
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+        loss=dataclasses.replace(cfg.loss, no_vgg_loss=True))
+    model = create_model(cfg, device=device)
+    if sd is not None:
+        model.netG.load_state_dict(sd)
+    return model
+
+
+@contextlib.contextmanager
+def product_shapes():
+    """The (M, K, N) of every int8 product run on the card inside the
+    block (``quant.int_mm``, wrapped)."""
+    from ir2rgb_tpu_torch.nn import quant
+    real, shapes = quant.int_mm, set()
+
+    def recording(a, b):
+        if a.is_cuda:
+            shapes.add((a.shape[0], a.shape[1], b.shape[0]))
+        return real(a, b)
+    quant.int_mm = recording
+    try:
+        yield shapes
+    finally:
+        quant.int_mm = real
+
+
+def int_mm_check(shapes, gen: torch.Generator) -> list:
+    """``torch._int_mm`` through the port's zero-padding
+    (``quant.int_mm_cuda``) against the plain float64 product on the
+    card, bit for bit, on full-range random int8 operands of each shape
+    (the plain product in row chunks of 128 MB of float64)."""
+    from ir2rgb_tpu_torch.nn import quant
+    rows = []
+    for m, k, n in sorted(shapes):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got = quant.int_mm_cuda(a, b)
+        step = max(1, (1 << 27) // (8 * k))
+        equal = got.dtype == torch.int32 and all(
+            torch.equal(got[i:i + step],
+                        quant.int_mm_reference(a[i:i + step], b))
+            for i in range(0, m, step))
+        rows.append(dict(m=m, k=k, n=n, equal=equal))
+        del a, b, got
+    bad = [(r["m"], r["k"], r["n"]) for r in rows if not r["equal"]]
+    check(bool(rows) and not bad,
+          f"quant: torch._int_mm equal bit for bit to the plain product at "
+          f"{len(rows) - len(bad)} of {len(rows)} (M, K, N) (differ: "
+          f"{bad[:4]})")
+    return rows
+
+
+class QuantPins:
+    """The input of every int8 conv (``quant.conv``), recorded on one run
+    and replayed in the same order on another, so that both devices
+    quantize the same activations. Unpinned, an activation that the two
+    devices' fp32 rounding puts on opposite sides of a rounding boundary
+    moves one quantization level, and at full width the next layers'
+    inputs differ by that much, which flips more: the frames part to the
+    quantization noise's own level (33-37 dB card vs CPU at 256x256,
+    NVIDIA H100 80GB HBM3, 700 W). Replayed, each conv's own input is
+    what the card made of the previous pinned conv's input, so comparing
+    it with the pin tests the layers between the two: ``flips`` counts,
+    per call, the int8 activations the card's own input would quantize
+    differently, out of ``sizes`` activations; a wrong layer flips a
+    large share."""
+
+    def __init__(self):
+        self.saved, self.flips, self.sizes, self.replayed = [], [], [], 0
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        from ir2rgb_tpu_torch.nn import quant
+        real = quant.conv
+
+        def conv(x, w, m, *a, **kw):
+            if m == "int8" and not replay:
+                self.saved.append(x.detach().cpu())
+            elif m == "int8":
+                pin = self.saved[self.replayed].to(x.device, x.dtype)
+                self.replayed += 1
+                own = quant._q8(x.float(), quant._act_scale(x))
+                self.flips.append(int((own != quant._q8(
+                    pin.float(), quant._act_scale(pin))).sum()))
+                self.sizes.append(pin.numel())
+                x = pin
+            return real(x, w, m, *a, **kw)
+        quant.conv = conv
+        try:
+            yield
+        finally:
+            quant.conv = real
+
+    def recording(self):
+        return self._patched(False)
+
+    def replaying(self):
+        return self._patched(True)
+
+    def over_bar(self) -> list:
+        """(call, flips, activations) of each conv flipped beyond
+        QUANT_MAX_FLIP_SHARE of its activations + QUANT_FLIP_ALLOWANCE."""
+        return [(i, f, n) for i, (f, n) in enumerate(zip(self.flips,
+                                                         self.sizes))
+                if f > QUANT_MAX_FLIP_SHARE * n + QUANT_FLIP_ALLOWANCE]
+
+    def worst_share(self) -> float:
+        return max((f / n for f, n in zip(self.flips, self.sizes)),
+                   default=0.0)
+
+    def again(self) -> "QuantPins":
+        """The same recording, for another replay."""
+        pins = QuantPins()
+        pins.saved = self.saved
+        return pins
+
+
+@contextlib.contextmanager
+def broken_norm(k: int):
+    """Inside the block the card's ``k``-th B1 output (``ops``' instance
+    norm) gets seeded noise of QUANT_PROBE_NOISE of its std: one wrong
+    layer, which the quant phase's bars must catch."""
+    from ir2rgb_tpu_torch.nn import ops
+    real, calls = ops.fused_instance_norm_act, [0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def norm(x, *a, **kw):
+        y = real(x, *a, **kw)
+        if x.is_cuda:
+            if calls[0] == k:
+                noise = torch.randn(y.shape, generator=gen, device=y.device)
+                y = y + (noise * (QUANT_PROBE_NOISE * y.float().std())
+                         ).to(y.dtype)
+            calls[0] += 1
+        return y
+    ops.fused_instance_norm_act = norm
+    try:
+        yield
+    finally:
+        ops.fused_instance_norm_act = real
+
+
+def quant_preset(preset: str, card: str) -> dict:
+    """``preset`` at full width in each quant mode beside "none": bf16
+    frames through the stream (launches, ms/frame, peak, PSNR against
+    "none"), then fp32 card frames against the CPU's at 256x256."""
+    from ir2rgb_tpu_torch.infer import StreamingGenerator
+    from ir2rgb_tpu_torch.infer.stream import _dev_normalize
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    bf16 = serve_model(preset, "bf16", "cuda", None)
+    sd = seeded_state_dict(bf16.netG, SEED)
+    bf16.netG.load_state_dict(sd)
+    temporal = bf16.cfg.model.model == "temporal"
+    hw = (bf16.cfg.data.crop_size,) * 2
+    in_nc = bf16.cfg.model.input_nc
+    rng = np.random.default_rng(SEED + 8)
+    frames = [rng.integers(0, 256, hw + (in_nc,), dtype=np.uint8)
+              for _ in range(QUANT_FRAMES)]
+    x0 = _dev_normalize(torch.from_numpy(frames[0][None])).cuda()
+    res, first, launches = {"preset": preset}, {}, Counter()
+    for mode in ("none",) + QUANT_MODES:
+        with_quant(bf16, mode)
+        stream = StreamingGenerator(bf16, hw)
+        list(stream.stream(frames[:2]))  # cuDNN's choices, the kept weights
+        stream.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        outs = list(stream.stream(frames))
+        torch.cuda.synchronize()
+        counts, peak = launch_counts(), torch.cuda.max_memory_allocated()
+        launches.update(counts)
+        want = quant_per_frame(preset, mode)
+        check(len(outs) == QUANT_FRAMES and all(
+            o.shape == hw + (3,) and o.dtype == np.uint8 for o in outs),
+            f"quant {preset} {mode}: {len(outs)} uint8 frames of "
+            f"{hw + (3,)}")
+        check(counts == {k: v * QUANT_FRAMES for k, v in want.items()},
+              f"quant {preset} {mode}: launches {counts} over "
+              f"{QUANT_FRAMES} frames (want {want} a frame)")
+        if temporal:
+            s = StreamingGenerator(bf16, hw)
+            step = partial(s.push_device, x0)
+        else:
+            state = {"x": x0}
+
+            def step():
+                state["x"] = bf16.generate(state["x"])
+        ms = cuda_ms(step, reps=10, warmup=2)
+        first[mode] = bf16.generate(x0).float()
+        res[mode] = dict(ms_per_frame=ms, peak_gib=peak / 2**30,
+                         launches_per_frame=want)
+        if mode != "none":
+            res[mode]["bf16_psnr_vs_none_db"] = psnr(first[mode],
+                                                     first["none"])
+    del bf16, stream, first
+    torch.cuda.empty_cache()
+
+    # fp32 (TF32 off) card frames against the CPU's at 256x256; int8 and
+    # int8_mixed at the CPU's quantized inputs (QuantPins) and unpinned,
+    # then with one wrong layer (broken_norm), which must fail
+    fp32 = serve_model(preset, "float32", "cuda", sd)
+    cpu = serve_model(preset, "float32", "cpu", sd)
+    a = _dev_normalize(torch.from_numpy(rng.integers(
+        0, 256, (1, 256, 256, in_nc), dtype=np.uint8)))
+    none32 = fp32.generate(a.cuda()).cpu()
+    for mode in QUANT_MODES:
+        pins = QuantPins()
+        t0 = time.perf_counter()
+        with pins.recording():
+            y_cpu = with_quant(cpu, mode).generate(a)
+        cpu_s = time.perf_counter() - t0
+        y_free = with_quant(fp32, mode).generate(a.cuda()).cpu()
+        with pins.replaying():
+            y_card = fp32.generate(a.cuda()).cpu()
+        err, p = float((y_card - y_cpu).abs().max()), psnr(y_card, y_cpu)
+        free = psnr(y_free, y_cpu)
+        res[mode].update(fp32_card_vs_cpu_max_abs=err,
+                         fp32_card_vs_cpu_psnr_db=p,
+                         fp32_unpinned_card_vs_cpu_psnr_db=free,
+                         pinned_convs=len(pins.saved), flips=pins.flips,
+                         activations=pins.sizes,
+                         worst_flip_share=pins.worst_share(),
+                         fp32_psnr_vs_none_db=psnr(y_free, none32),
+                         cpu_s=cpu_s)
+        check(pins.replayed == len(pins.saved)
+              and (mode == "int8_w") == (not pins.saved),
+              f"quant {preset} {mode}: {pins.replayed} of "
+              f"{len(pins.saved)} int8 conv inputs replayed")
+        check(err <= SLICE_FP32_TOL and p >= QUANT_MIN_PSNR,
+              f"quant {preset} {mode}: fp32 card vs CPU at 256x256 "
+              f"max-abs {err:.3g} (tol {SLICE_FP32_TOL}), PSNR {p:.2f} dB "
+              f"(bar {QUANT_MIN_PSNR})")
+        if pins.saved:
+            over = pins.over_bar()
+            check(not over,
+                  f"quant {preset} {mode}: each int8 conv's own card input "
+                  f"against the CPU's: {sum(pins.flips)} int8 activations "
+                  f"flipped over {sum(f > 0 for f in pins.flips)} of "
+                  f"{len(pins.flips)} convs, worst share "
+                  f"{pins.worst_share():.3g} (bar {QUANT_MAX_FLIP_SHARE} + "
+                  f"{QUANT_FLIP_ALLOWANCE}; over: {over[:4]})")
+            check(free >= QUANT_UNPINNED_MIN_PSNR,
+                  f"quant {preset} {mode}: unpinned fp32 card vs CPU at "
+                  f"256x256 PSNR {free:.2f} dB (bar "
+                  f"{QUANT_UNPINNED_MIN_PSNR})")
+            k, bad = len(SERVE[preset]["b1"]) // 2, pins.again()
+            with broken_norm(k), bad.replaying():
+                y_bad = fp32.generate(a.cuda()).cpu()
+            with broken_norm(k):
+                y_bad_free = fp32.generate(a.cuda()).cpu()
+            res[mode]["broken_layer"] = dict(
+                b1_call=k, convs_over_bar=len(bad.over_bar()),
+                worst_flip_share=bad.worst_share(),
+                pinned_psnr_db=psnr(y_bad, y_cpu),
+                unpinned_psnr_db=psnr(y_bad_free, y_cpu))
+            check(bool(bad.over_bar()),
+                  f"quant {preset} {mode}: B1 call {k} on the card with "
+                  f"noise of {QUANT_PROBE_NOISE} of its std fails the flips "
+                  f"bar: {len(bad.over_bar())} of {len(bad.flips)} convs "
+                  f"over it, worst share {bad.worst_share():.3g}; PSNR "
+                  f"{res[mode]['broken_layer']['pinned_psnr_db']:.2f} dB "
+                  "pinned, "
+                  f"{res[mode]['broken_layer']['unpinned_psnr_db']:.2f} "
+                  "unpinned")
+    res["launches"] = dict(launches)
+    del fp32, cpu
+    torch.cuda.empty_cache()
+    print(f"quant {preset} ({card}), bf16 at {hw[0]}: " + "; ".join(
+        f"{m} {res[m]['ms_per_frame']:.3f} ms/frame, launches B1/B2/d2s "
+        + "/".join(str(res[m]["launches_per_frame"][k]) for k in (
+            "instance_norm_act", "tail_fused", "d2s"))
+        + f", {res[m]['peak_gib']:.2f} GiB"
+        + (f", {res[m]['bf16_psnr_vs_none_db']:.2f} dB vs none"
+           if m != "none" else "")
+        for m in ("none",) + QUANT_MODES), flush=True)
+    return res
+
+
+def quant_tick(card: str) -> dict:
+    """One ``MultiStreamServer`` tick of temporal_512 in int8_mixed, bf16,
+    QUANT_TICK_SLOTS streams on as many physical rows: a served frame's
+    launches, uint8 frames out."""
+    from ir2rgb_tpu_torch.infer.multistream import MultiStreamServer
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    preset = "temporal_512"
+    model = with_quant(serve_model(preset, "bf16", "cuda", None),
+                       "int8_mixed")
+    model.netG.load_state_dict(seeded_state_dict(model.netG, SEED))
+    srv = MultiStreamServer(model, (512, 512), n_slots=QUANT_TICK_SLOTS)
+    sids = [srv.open() for _ in range(QUANT_TICK_SLOTS)]
+    rng = np.random.default_rng(SEED + 11)
+    feed = [{sid: rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+             for sid in sids} for _ in range(2)]
+    srv.step(feed[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = srv.step(feed[1])
+    wall = (time.perf_counter() - t0) * 1e3
+    counts, want = launch_counts(), quant_per_frame(preset, "int8_mixed")
+    check(srv.physical_slots == QUANT_TICK_SLOTS and counts == want,
+          f"quant tick {preset} int8_mixed x{QUANT_TICK_SLOTS}: launches "
+          f"{counts} (want one frame's, {want}) on "
+          f"{srv.physical_slots} rows")
+    check(sorted(out) == sorted(sids) and all(
+        o.shape == (512, 512, 3) and o.dtype == np.uint8
+        for o in out.values()),
+        f"quant tick: {len(out)} uint8 frames of (512, 512, 3)")
+    del model, srv
+    torch.cuda.empty_cache()
+    return dict(preset=preset, mode="int8_mixed", slots=QUANT_TICK_SLOTS,
+                launches=counts, wall_ms=wall)
+
+
+def quant_phase(card: str) -> dict:
+    """Every served preset in every quant mode (``quant_preset``), the
+    int8_mixed tick, then ``torch._int_mm`` at every product shape those
+    runs gave it."""
+    with product_shapes() as shapes:
+        presets = [quant_preset(p, card) for p in SERVE]
+        tick = quant_tick(card)
+    rows = int_mm_check(shapes, torch.Generator(device="cuda").manual_seed(
+        SEED + 12))
+    print(f"quant: torch._int_mm bit for bit at {len(rows)} product "
+          f"shapes, M {min(r['m'] for r in rows)}-"
+          f"{max(r['m'] for r in rows)}, K {min(r['k'] for r in rows)}-"
+          f"{max(r['k'] for r in rows)}", flush=True)
+    return dict(presets=presets, tick=tick, int_mm_shapes=rows)
+
+
+def voronoi(rng, size: int, cells: int = NETE_CELLS) -> np.ndarray:
+    """(1, size, size) int32 instance ids: each pixel the id of its
+    nearest of ``cells`` random sites, the ids random below 2^24."""
+    yy, xx = np.mgrid[:size, :size]
+    best = np.full((size, size), np.inf)
+    out = np.zeros((size, size), np.int32)
+    for (sy, sx), i in zip(rng.integers(0, size, (cells, 2)),
+                           rng.integers(0, 1 << 24, cells)):
+        d = (yy - sy) ** 2 + (xx - sx) ** 2
+        near = d < best
+        out[near], best[near] = i, d[near]
+    return out[None]
+
+
+def nete_batch(size: int, device: str, seed: int) -> dict:
+    """A batch-1 train batch with an instance map, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.uniform(
+        -1, 1, (1, size, size, 3)).astype(np.float32)) for k in "ab"}
+    batch["inst"] = torch.from_numpy(voronoi(rng, size))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def nete_frame(size: int, frames: int = 1) -> dict:
+    """Launches of ``frames`` netE forwards at ``size`` and one served
+    frame of the netE phase's generator."""
+    b1, d2s = nete_forward(size)
+    want = per_frame(NETE_PRESET)
+    want["instance_norm_act"] += frames * sum(b1.values())
+    want["d2s"] += frames * sum(d2s.values())
+    return want
+
+
+class TailGrad:
+    """The gradient at netE's tail conv output (pre-bias, pre-tanh),
+    captured in a run: netE's tail bias gradient is its sum over the
+    pixels. The instance norms right after G's head convs make the
+    gradient at G's input sum to zero over every channel in exact
+    arithmetic, so that sum is a small remainder of terms that cancel,
+    and the CPU's fp32 reduction rounds it by 4.0e-5 where the card's
+    rounds by 3.6e-9 (2.5 of the train bar card vs CPU at the pinned
+    forward point; NVIDIA H100 80GB HBM3, 700 W): the bias is held
+    through the float64 sums of each run's own gradient, the fp32 sums'
+    rounding reported."""
+
+    def __init__(self, netE):
+        self.weight, self.grad = netE.model[netE.tail].weight, None
+
+    @contextlib.contextmanager
+    def capturing(self):
+        from ir2rgb_tpu_torch.nn import ops
+        real = ops.conv
+
+        def keep(g):
+            self.grad = g.detach().cpu()
+
+        def conv(x, w, *a, **kw):
+            y = real(x, w, *a, **kw)
+            if w is self.weight and y.requires_grad:
+                y.register_hook(keep)
+            return y
+        ops.conv = conv
+        try:
+            yield
+        finally:
+            ops.conv = real
+
+    def exact_bias_grad(self) -> torch.Tensor:
+        """The bias gradient, summed in float64."""
+        return self.grad.double().sum((0, 1, 2))
+
+
+def pool_grad_check(inst: torch.Tensor) -> dict:
+    """netE's instance pooling, forward and backward, on the card against
+    the CPU on the same features, ids and output gradient (fp32): the
+    pooled features max-abs, the gradient ||delta|| / ||g_cpu||."""
+    from ir2rgb_tpu_torch.nn.encoders import instance_wise_avg_pool
+    rng = np.random.default_rng(SEED + 14)
+    feat, g = (torch.from_numpy(rng.standard_normal(
+        tuple(inst.shape) + (3,), dtype=np.float32)) for _ in range(2))
+
+    def run(dev):
+        f = feat.to(dev).requires_grad_(True)
+        y = instance_wise_avg_pool(f, inst.to(dev))
+        (gf,) = torch.autograd.grad(y, f, g.to(dev))
+        return y.detach().cpu(), gf.cpu()
+    (y_card, g_card), (y_cpu, g_cpu) = run("cuda"), run("cpu")
+    out = dict(max_abs=float((y_card - y_cpu).abs().max()),
+               grad_rel=float((g_card - g_cpu).norm() / g_cpu.norm()))
+    check(out["max_abs"] <= 1e-6 and out["grad_rel"] <= TRAIN_FP32_GRAD_REL,
+          f"netE pooling fp32 card vs CPU: pooled max-abs "
+          f"{out['max_abs']:.3g} (tol 1e-6), gradient rel "
+          f"{out['grad_rel']:.3g} (tol {TRAIN_FP32_GRAD_REL})")
+    return out
+
+
+def nete_phase(card: str) -> dict:
+    """The netE phase of the module docstring."""
+    from ir2rgb_tpu_torch.infer.features import (
+        collect_dataset_features,
+        kmeans,
+        sample_feature_map,
+    )
+    from ir2rgb_tpu_torch.infer.stream import _dev_normalize
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.nn.encoders import instance_edges
+    sections = dict(model=dict(use_instance_feat=True,
+                               use_instance_edges=True))
+    key = "netE " + NETE_PRESET
+    want = per_step(NETE[key])
+    bf16, weights = seeded_model(NETE_PRESET, "bf16", 0, **sections)
+    check(bf16.netE is not None and bf16.gen_cfg.input_nc == 7
+          and bf16.disc_cfg.input_nc == 7,
+          f"netE: G input {bf16.gen_cfg.input_nc}, D input "
+          f"{bf16.disc_cfg.input_nc} channels (want 7 and 7)")
+    batch = nete_batch(512, "cuda", SEED + 9)
+    res, losses, launches = {"preset": NETE_PRESET, "size": 512}, [], \
+        Counter()
+    for i in range(NETE_STEPS):
+        before = clone_params(bf16.netE)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        m = bf16.train_step(batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches.update(counts)
+        losses.append({k: float(v) for k, v in m.items()})
+        check(counts == want, f"netE train step {i}: launches {counts} "
+              f"(want {want})")
+        check("inst_collisions" in losses[-1] and all(
+            math.isfinite(v) for v in losses[-1].values()),
+            f"netE train step {i}: losses {losses[-1]}")
+        stuck = [k for k, v in changed(bf16.netE, before).items()
+                 if k.endswith("weight") and not v]
+        check(not stuck, f"netE train step {i}: {len(stuck)} netE "
+              f"weight(s) did not move {stuck[:3]}")
+    ms, peak, run = timed_steps(bf16, batch, TIMED_STEPS)
+    check(run == {k: v * TIMED_STEPS for k, v in want.items()},
+          f"netE train: launches {run} over {TIMED_STEPS} timed bf16 steps")
+    launches.update(run)
+    res.update(losses_bf16=losses, ms_per_step_bf16=ms,
+               peak_bytes_bf16=peak)
+    del bf16, before
+    torch.cuda.empty_cache()
+
+    # fp32 on the card against the CPU at 256x256, pinned as in the train
+    # phase (KinkPins), netE's tail bias through float64 sums (TailGrad);
+    # the collision count equal
+    cpu = train_model(NETE_PRESET, "float32", "cpu", weights, **sections)
+    card32 = train_model(NETE_PRESET, "float32", "cuda", weights,
+                         **sections)
+    b_cpu = nete_batch(256, "cpu", SEED + 10)
+    b_card = {k: v.cuda() for k, v in b_cpu.items()}
+    pins, tail_cpu, tail_card = KinkPins(), TailGrad(cpu.netE), TailGrad(
+        card32.netE)
+    with pins.recording(), tail_cpu.capturing():
+        m_cpu = cpu.compute_grads(b_cpu)
+    reset_launch_counts()
+    m_card = card32.compute_grads(b_card)
+    torch.cuda.synchronize()
+    got256, want256 = launch_counts(), per_step(NETE[key + " 256"])
+    launches.update(got256)
+    check(got256 == want256, f"netE train fp32 at 256px: launches "
+          f"{got256} (want {want256})")
+    collisions = (float(m_card["inst_collisions"]),
+                  float(m_cpu["inst_collisions"]))
+    check(collisions[0] == collisions[1], f"netE: inst_collisions card "
+          f"{collisions[0]} vs CPU {collisions[1]}")
+    loss_rel = {k: abs(float(m_card[k]) - float(v)) / abs(float(v))
+                for k, v in m_cpu.items() if k != "inst_collisions"}
+    want_g = grads_of(cpu)
+    free = {n: grad_bar(g, want_g[n], TRAIN_FP32_GRAD_REL)
+            for n, g in grads_of(card32).items()}
+    with pins.replaying(), tail_card.capturing():
+        card32.compute_grads(b_card)
+    check(pins.all_replayed(), f"netE train fp32 card vs CPU: "
+          f"{pins.replayed} of {len(pins.saved)} pins replayed")
+    got_g = grads_of(card32)
+    bias = f"model.{card32.netE.tail}.bias"
+    plain_bar = grad_bar(got_g["netE"], want_g["netE"], TRAIN_FP32_GRAD_REL)
+    got_g["netE"] = dict(got_g["netE"], **{bias: tail_card.exact_bias_grad()})
+    want_g["netE"] = dict(want_g["netE"],
+                          **{bias: tail_cpu.exact_bias_grad()})
+    worst = {n: grad_bar(g, want_g[n], TRAIN_FP32_GRAD_REL)
+             for n, g in got_g.items()}
+    rounding = {side: float((t.exact_bias_grad()
+                             - m.netE.model[m.netE.tail].bias.grad.cpu()
+                             .double()).norm())
+                for side, t, m in (("card", tail_card, card32),
+                                   ("cpu", tail_cpu, cpu))}
+    check(max(loss_rel.values()) <= TRAIN_FP32_LOSS_RTOL,
+          f"netE train fp32 card vs CPU at 256px: losses rel "
+          f"{max(loss_rel.values()):.3g} (tol {TRAIN_FP32_LOSS_RTOL})")
+    for name, (ratio, k) in worst.items():
+        check(ratio <= 1.0, f"netE train fp32 card vs CPU at 256px: {name} "
+              f"gradients, worst {k} at {ratio:.3g} of the bar; unpinned "
+              f"{free[name][1]} at {free[name][0]:.3g}")
+    print(f"netE tail bias gradient: fp32 as summed, card vs CPU, worst "
+          f"{plain_bar[1]} at {plain_bar[0]:.3g} of the bar; the fp32 sums' "
+          f"rounding ||fp32 - float64|| card {rounding['card']:.3g}, CPU "
+          f"{rounding['cpu']:.3g}", flush=True)
+    res.update(fp32_card_vs_cpu_loss_rel=loss_rel,
+               inst_collisions=collisions,
+               fp32_card_vs_cpu_worst_grad_pinned=worst,
+               fp32_card_vs_cpu_worst_grad_unpinned=free,
+               netE_fp32_summed_bias_worst=plain_bar,
+               netE_tail_bias_fp32_rounding=rounding,
+               pooling_fp32_card_vs_cpu=pool_grad_check(b_cpu["inst"]))
+
+    # --infer.use_encoded_image: the real target's features, fp32 card vs
+    # CPU at 256x256
+    def encoded(model, b):
+        feat = model.encode_features(b["b"], b["inst"])
+        return model.generate(b["a"], feat=feat,
+                              edges=instance_edges(b["inst"]))
+    reset_launch_counts()
+    y_card = encoded(card32, b_card)
+    counts = launch_counts()
+    launches.update(counts)
+    err = float((y_card.cpu() - encoded(cpu, b_cpu)).abs().max())
+    check(counts == nete_frame(256), f"netE encoded frame at 256px: "
+          f"launches {counts} (want {nete_frame(256)})")
+    check(err <= SLICE_FP32_TOL, f"netE use_encoded_image frame: fp32 card "
+          f"vs CPU max-abs {err:.3g} at 256x256 (tol {SLICE_FP32_TOL})")
+    res["encoded_frame_fp32_card_vs_cpu_max_abs"] = err
+    del cpu, card32
+    torch.cuda.empty_cache()
+
+    # precompute -> cluster -> sample -> serve, bf16 at 512x512
+    serve = train_model(NETE_PRESET, "bf16", "cuda", weights, **sections)
+    rng = np.random.default_rng(SEED + 13)
+    host = [{"b": rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8),
+             "inst": voronoi(rng, 512)} for _ in range(NETE_FEATURE_FRAMES)]
+    a = _dev_normalize(torch.from_numpy(rng.integers(
+        0, 256, (1, 512, 512, 3), dtype=np.uint8))).cuda()
+    inst = torch.from_numpy(host[0]["inst"]).cuda()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    feats = collect_dataset_features(serve, host)
+    collect_s = time.perf_counter() - t0
+    centers = kmeans(feats, serve.cfg.infer.n_clusters)
+    feat = sample_feature_map(
+        inst, torch.from_numpy(centers).cuda(),
+        torch.Generator(device="cuda").manual_seed(SEED),
+        serve.enc_cfg.num_instances)
+    y = serve.generate(a, feat=feat, edges=instance_edges(inst))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches.update(counts)
+    want_f = nete_frame(512, NETE_FEATURE_FRAMES)
+    check(counts == want_f, f"netE features: launches {counts} (want "
+          f"{want_f}: {NETE_FEATURE_FRAMES} netE forwards and a frame)")
+    rows = feat[0].reshape(-1, feat.shape[-1]).float().cpu().numpy()
+    ids = host[0]["inst"].reshape(-1)
+    one_each = all((rows[ids == i] == rows[ids == i][0]).all()
+                   for i in np.unique(ids))
+    zeros = serve.generate(a, edges=instance_edges(inst))
+    check(feats.ndim == 2 and feats.shape[1] == 3 and len(centers) > 1
+          and one_each and bool(torch.isfinite(y).all())
+          and y.shape == (1, 512, 512, 3) and not torch.equal(y, zeros),
+          f"netE features: {feats.shape[0]} instance vectors over "
+          f"{NETE_FEATURE_FRAMES} frames -> {len(centers)} centers; every "
+          f"instance one centroid {one_each}; a finite styled frame that "
+          "differs from the zero-feature frame")
+    res.update(launches=dict(launches), feature_vectors=int(feats.shape[0]),
+               centers=int(len(centers)), collect_s=collect_s)
+    del serve
+    torch.cuda.empty_cache()
+    print(f"netE {NETE_PRESET} b1 512px ({card}): {ms:.2f} ms/step bf16, "
+          f"peak {peak / 2**30:.2f} GiB; fp32 card vs CPU at 256px losses "
+          f"rel {max(loss_rel.values()):.3g}, worst gradient "
+          f"{max(r for r, _ in worst.values()):.3g} of the bar; "
+          f"inst_collisions {collisions[0]:.0f}; encoded frame max-abs "
+          f"{err:.3g}", flush=True)
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2674,6 +3389,8 @@ def main() -> int:
     options = phase("train_options", train_options_phase, card)
     cli = phase("train_cli", train_cli_phase, card)
     serve = phase("serve", serve_phase, card)
+    quant = phase("quant", quant_phase, card)
+    nete = phase("netE", nete_phase, card)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
@@ -2681,7 +3398,11 @@ def main() -> int:
                **{"train " + t["preset"]: t["launches"] for t in trains},
                "train_options": options["launches"],
                **{"train_cli " + p: c for p, c in cli["launches"].items()},
-               **{"serve " + p: c for p, c in serve["launches"].items()}}
+               **{"serve " + p: c for p, c in serve["launches"].items()},
+               **{"quant " + q["preset"]: q["launches"]
+                  for q in quant["presets"]},
+               "quant tick": quant["tick"]["launches"],
+               "netE": nete["launches"]}
     total = {k: sum(c.get(k, 0) for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
@@ -2797,6 +3518,8 @@ def main() -> int:
     print("train_options " + json.dumps(options))
     print("train_cli " + json.dumps(cli))
     print("serve " + json.dumps(serve))
+    print("quant " + json.dumps(quant))
+    print("netE " + json.dumps(nete))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -2853,7 +3576,7 @@ def main() -> int:
         json.dump({"card": card, "seconds": seconds, "failures": failures,
                    "slices": slices, "trains": trains,
                    "train_options": options, "train_cli": cli,
-                   "serve": serve,
+                   "serve": serve, "quant": quant, "netE": nete,
                    "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,

@@ -2,6 +2,7 @@ from .from_jax import (
     cycle_discriminators_from_jax,
     cycle_generators_from_jax,
     discriminator_state_dict_from_jax,
+    encoder_state_dict_from_jax,
     generator_state_dict_from_jax,
     vgg_state_dict_from_jax,
 )
@@ -16,6 +17,6 @@ from .torch_import import (
 __all__ = ["CheckpointManager", "convert_vgg19_pth",
            "cycle_discriminators_from_jax", "cycle_generators_from_jax",
            "discriminator_state_dict_from_jax",
-           "generator_state_dict_from_jax", "import_discriminator",
-           "import_generator", "load_state_dict", "restore_train_state",
+           "encoder_state_dict_from_jax", "generator_state_dict_from_jax",
+           "import_discriminator", "import_generator", "load_state_dict", "restore_train_state",
            "save_train_state", "vgg_state_dict_from_jax"]

@@ -16,8 +16,11 @@ arrays) into a port ``state_dict``, whose keys are the reference family's
 - batch norm: gamma -> weight, beta -> bias; running stats as given, else
   0 and 1 (batch statistics are what the generators compute with).
 
-A CycleGAN's composite trees (``{"G_A", "G_B"}``, ``{"D_A", "D_B"}``,
-and its EMA's) convert net by net (:func:`cycle_generators_from_jax`,
+netE's tree (``g_params["netE"]`` of a ``use_instance_feat`` model)
+converts to the ``Encoder``'s keys (:func:`encoder_state_dict_from_jax`;
+``generator_state_dict_from_jax`` reads only the generator's part of
+such a ``g_params``). A CycleGAN's composite trees (``{"G_A",
+"G_B"}``, ``{"D_A", "D_B"}``, and its EMA's) convert net by net (:func:`cycle_generators_from_jax`,
 :func:`cycle_discriminators_from_jax`). The pixel discriminator's
 ``conv0`` / ``conv1`` / ``head`` fill the reference's ``net.0`` /
 ``net.2`` (+ its batch norm at ``net.3``) / ``net.5``.
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d
+from ir2rgb_tpu_torch.nn.encoders import EncoderConfig, define_e
 from ir2rgb_tpu_torch.nn.generators import (
     Deconv,
     GenConfig,
@@ -190,6 +194,29 @@ def generator_state_dict_from_jax(params_np: Params, cfg: GenConfig
     else:  # resnet_9blocks, resnet_6blocks, global
         slots = _resnet_slots(g.model, params_np, cfg.norm)
     return _checked(g, slots)
+
+
+def encoder_state_dict_from_jax(params_np: Params, cfg: EncoderConfig
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """The port's netE state_dict (``define_e(cfg)``) from the JAX
+    ``encoder_init`` params (a ``use_instance_feat`` model's
+    ``g_params["netE"]``): ``head`` -> ``model.1``, ``down{i}`` and
+    ``up{i}`` -> their convs with the norms after them, ``tail`` ->
+    the last conv."""
+    with torch.device("meta"):
+        e = define_e(cfg)
+    p = params_np
+
+    def slots():
+        yield from _conv_norm_slots("model", 1, p["head"], cfg.norm)
+        for i, idx in enumerate(e.downs):
+            yield from _conv_norm_slots("model", idx, p[f"down{i}"],
+                                        cfg.norm)
+        for i, idx in enumerate(e.ups):
+            yield from _up_slots("model", idx, e.model[idx], p[f"up{i}"],
+                                 cfg.norm)
+        yield f"model.{e.tail}", p["tail"]["conv"], "conv"
+    return _checked(e, slots())
 
 
 def _disc_slots(d: torch.nn.Module, layers, p: Params, norm: str):

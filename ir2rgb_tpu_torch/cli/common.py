@@ -31,11 +31,11 @@ def pop_flag(argv: list, name: str) -> Optional[str]:
 def load_generator_params(cfg, model, torch_g: Optional[str] = None,
                           name: str = "netG"):
     """The serving state_dict of generator ``name`` (``netG``; a
-    CycleGAN's reverse generator is ``netG_B``) for ``model`` per
-    ``cfg.infer``.
+    CycleGAN's reverse generator is ``netG_B``; a ``use_instance_feat``
+    model's feature encoder is ``netE``) for ``model`` per ``cfg.infer``.
 
     ``torch_g`` imports a reference ``.pth`` of ``netG`` (None for
-    ``netG_B``: the import holds one network); otherwise the run's
+    any other: the import holds one network); otherwise the run's
     checkpoint at ``--infer.which_epoch``, or its EMA shadow with
     ``--infer.use_ema``. Raises SystemExit with the JAX CLI's messages
     when the flags ask for weights that are not there."""
@@ -57,5 +57,5 @@ def load_generator_params(cfg, model, torch_g: Optional[str] = None,
             raise SystemExit(
                 "--infer.use_ema: this checkpoint has no EMA weights "
                 "(train with --train.ema_decay > 0)")
-        return state["ema_g" + name[4:]]
+        return state[model.ema_key(name)]
     return state[name]

@@ -7,7 +7,7 @@ truth where there is some, and optionally an MJPEG video a sequence.
     python -m ir2rgb_tpu_torch.cli.infer --preset pix2pixhd_512 \\
         --data.dataroot /data/ir2rgb --train.name run1 \\
         [--infer.which_epoch 10] [--torch_g G.pth] [--infer.video out.avi] \\
-        [--device cpu]
+        [--infer.quant int8_mixed] [--device cpu]
 
 The generator comes from the run's checkpoint at ``--infer.which_epoch``
 (``--infer.use_ema`` for its EMA shadow), or from a reference ``.pth``
@@ -18,9 +18,13 @@ convolutions at HIGHEST precision. Temporal models stream frame by frame
 with the carry on the device, reset at every sequence boundary. A
 CycleGAN serves ``G_A``; its gallery adds the reconstruction column,
 ``G_B`` of the translation, when the checkpoint holds ``G_B`` (a
-``--torch_g`` import serves fake-only galleries). Not ported yet, and
-refused: netE's feature inputs (``--infer.use_encoded_image``,
-``--infer.cluster_path``; ROADMAP A12) and quantized serving (A11).
+``--torch_g`` import serves fake-only galleries). ``--infer.quant``
+serves in a quantized mode (``nn/quant.py``). A ``use_instance_feat``
+model conditions on netE's features where the frame has an instance
+map: with ``--infer.use_encoded_image`` those of the real target
+(netE's weights from the run checkpoint), with ``--infer.cluster_path``
+a centroid of ``cli.precompute_feats``'s table drawn per instance (the
+draws of frame i from seed i), else zeros.
 """
 
 from __future__ import annotations
@@ -32,16 +36,22 @@ import sys
 import numpy as np
 
 
-def _refuse_unported(cfg, single: bool) -> None:
+def _refuse_misapplied(cfg, single: bool) -> None:
+    """The JAX CLI's refusals of feature flags that would serve zeros
+    labelled as styles (``ir2rgb_tpu/cli/infer.py:47-49``, ``:80-90``)."""
     if single and cfg.infer.use_encoded_image:
         raise SystemExit("--infer.use_encoded_image needs ground-truth "
                          "images; dataset_mode=single has none")
-    if cfg.infer.use_encoded_image or cfg.infer.cluster_path:
-        raise SystemExit("--infer.use_encoded_image / --infer.cluster_path "
-                         "need netE, which is not ported yet (ROADMAP A12)")
-    if cfg.infer.quant != "none":
-        raise SystemExit(f"--infer.quant {cfg.infer.quant}: quantized "
-                         "serving is not ported yet (ROADMAP A11)")
+    if ((cfg.infer.use_encoded_image or cfg.infer.cluster_path)
+            and not cfg.model.use_instance_feat):
+        raise SystemExit(
+            "--infer.use_encoded_image/--infer.cluster_path need a "
+            "use_instance_feat model (this run has no netE)")
+    if cfg.infer.use_encoded_image and cfg.infer.cluster_path:
+        raise SystemExit(
+            "--infer.use_encoded_image and --infer.cluster_path are "
+            "mutually exclusive (encode the real image OR sample "
+            "clustered styles)")
 
 
 def main(argv=None) -> int:
@@ -51,6 +61,7 @@ def main(argv=None) -> int:
     from ir2rgb_tpu_torch.config import parse_cli
     from ir2rgb_tpu_torch.data import DataLoader, preprocess_pair_batch
     from ir2rgb_tpu_torch.data.video import sequence_key
+    from ir2rgb_tpu_torch.infer.features import sample_feature_map
     from ir2rgb_tpu_torch.infer.metrics import psnr, ssim
     from ir2rgb_tpu_torch.infer.stream import (
         StreamingGenerator,
@@ -75,7 +86,7 @@ def main(argv=None) -> int:
     # pairs in sequence order; dataset_mode single (input-only folders)
     # is kept. Serving needs no VGG.
     single = cfg.data.dataset_mode == "single"
-    _refuse_unported(cfg, single)
+    _refuse_misapplied(cfg, single)
     cfg = cfg.replace(
         data=dataclasses.replace(
             cfg.data, phase="test", serial_batches=True, no_flip=True,
@@ -87,6 +98,18 @@ def main(argv=None) -> int:
                          steps_per_epoch=max(len(loader), 1),
                          seed=cfg.train.seed)
     model.netG.load_state_dict(load_generator_params(cfg, model, torch_g))
+    centers = None
+    if cfg.infer.use_encoded_image:
+        enc = load_generator_params(cfg, model, torch_g, "netE")
+        if enc is None:
+            raise SystemExit("--infer.use_encoded_image needs netE's "
+                             "weights from a run checkpoint; --torch_g "
+                             "imports the generator only")
+        model.netE.load_state_dict(enc)
+    elif cfg.infer.cluster_path:
+        from ir2rgb_tpu_torch.infer.features import load_clusters
+        centers = torch.from_numpy(load_clusters(cfg.infer.cluster_path)
+                                   ).to(device)
     # a CycleGAN's gallery reconstructs the input from the translation
     # when the weights hold G_B (cli/infer.py:109-117 of the JAX package)
     reverse = None
@@ -175,12 +198,22 @@ def main(argv=None) -> int:
             inst=(on_device(host_batch["inst"]) if "inst" in host_batch
                   else None),
             label_a=label_nc > 0)
-        edges = None
-        if "inst" in batch and cfg.model.use_instance_edges:
-            edges = instance_edges(batch["inst"])
+        # test-time feature control: the real target's netE style, or a
+        # clustered style per instance; zeros without an instance map
+        feat = edges = None
+        if "inst" in batch:
+            if cfg.infer.use_encoded_image:
+                feat = model.encode_features(batch["b"], batch["inst"])
+            elif centers is not None:
+                feat = sample_feature_map(
+                    batch["inst"], centers,
+                    torch.Generator(device).manual_seed(count),
+                    model.enc_cfg.num_instances)
+            if cfg.model.use_instance_edges:
+                edges = instance_edges(batch["inst"])
         input_img = (label2im(batch["a"], label_nc) if label_nc > 0
                      else tensor2im(batch["a"]))
-        fake = stream.push_device(batch["a"], edges=edges)
+        fake = stream.push_device(batch["a"], feat=feat, edges=edges)
         if not single:  # single mode: batch['b'] is the input, not truth
             psnrs.append(float(psnr(fake, batch["b"])))
             ssims.append(float(ssim(fake, batch["b"])))

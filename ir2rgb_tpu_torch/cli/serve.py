@@ -15,8 +15,9 @@ PyTorch path on the CPU. An fp32 model (the presets' default) runs its
 convolutions without TF32, as the JAX package runs f32 convolutions at
 HIGHEST precision; ``--model.compute_dtype bf16`` serves in bf16. Frame
 geometry defaults to ``--data.crop_size`` square; ``--serve.hw HxW``
-sets another. ``--artifact`` (a sealed serving artifact) is not ported
-yet.
+sets another. ``--infer.quant`` serves in a quantized mode
+(``nn/quant.py``). ``--artifact`` (a sealed serving artifact) is not
+ported yet: it comes with the export slice (ROADMAP A11, with A14).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def main(argv=None) -> int:
     cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, no_vgg_loss=True))
     if artifact is not None:
         raise SystemExit("--artifact: serving artifacts (infer/export.py) "
-                         "are not ported yet (ROADMAP A11)")
+                         "are not ported yet; they come with the export "
+                         "slice (ROADMAP A11, with A14)")
     if hw_flag:
         try:
             h, w = (int(v) for v in hw_flag.lower().split("x"))

@@ -17,7 +17,6 @@ come from a CPU generator seeded ``train.seed + 1``.
 
 from __future__ import annotations
 
-import os
 import sys
 from itertools import chain
 
@@ -40,6 +39,7 @@ def main(argv=None) -> int:
         preprocess_pair_batch,
         preprocess_sequence_batch,
     )
+    from ir2rgb_tpu_torch.nn import quant
     from ir2rgb_tpu_torch.obs import Visualizer
     from ir2rgb_tpu_torch.runtime import resolve_device, set_parity_mode
     from ir2rgb_tpu_torch.train import Trainer, create_model
@@ -47,7 +47,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = resolve_device(pop_flag(argv, "--device"))
     cfg = parse_cli(argv)
-    if os.environ.get("IR2RGB_QUANT") or cfg.infer.quant != "none":
+    if quant.env_override() or cfg.infer.quant != "none":
         # int8 rounding has zero gradient: a quantized train step would
         # learn nothing (quantization is a serving-only path)
         raise SystemExit(

@@ -1,6 +1,7 @@
 """Inference and serving: batch-1 streaming (``stream``), quality metrics
-(``metrics``), multi-stream batched serving (``multistream``) and the TCP
-daemon's protocol (``server``).
+(``metrics``), multi-stream batched serving (``multistream``), the TCP
+daemon's protocol (``server``) and netE's test-time features
+(``features``).
 
 Exports resolve on first use (``_lazy.py``), so the protocol client
 (``infer.server``) imports without torch.
@@ -11,10 +12,15 @@ _EXPORTS = {
     "FrameServer": ".server",
     "MultiStreamServer": ".multistream",
     "StreamingGenerator": ".stream",
+    "collect_dataset_features": ".features",
     "flicker": ".metrics",
     "host_to_wire_u8": ".stream",
+    "kmeans": ".features",
     "label2im": ".stream",
+    "load_clusters": ".features",
     "psnr": ".metrics",
+    "sample_feature_map": ".features",
+    "save_clusters": ".features",
     "single_frame_infer": ".stream",
     "ssim": ".metrics",
     "tensor2im": ".stream",

@@ -29,6 +29,13 @@ its own previous-frame carry on the device:
   ahead.) A logical tick's chunks touch disjoint slots, so the outputs
   are the JAX package's whenever nothing fails.
 
+A quantized model (``cfg.infer.quant``) serves its tick through
+``generate`` in its mode, with the JAX package's semantics: the
+activation scale of ``int8`` and ``int8_mixed`` is one amax over the
+whole batched tick, pad rows included, so a stream's frame depends on
+the other streams of its tick, and a batched frame equals its batch-1
+frame only in ``"none"`` and ``int8_w``.
+
 ``KNEE_SLOTS`` caps the physical batch by default (``physical_slots``
 overrides it). ``chip_smoke.py``'s serve phase measures the batched tick
 at S = 1, 2, 4, 8, 16 (``PERF.md`` §5). 16 is the top of that ladder,
@@ -178,10 +185,11 @@ class MultiStreamServer:
     def from_artifact(cls, path: str, n_slots: Optional[int] = None,
                       clamp: bool = False) -> "MultiStreamServer":
         """Serve a sealed multi-stream artifact: not ported yet (it comes
-        with ``infer/export.py``, ROADMAP A11)."""
+        with ``infer/export.py``, the export slice: ROADMAP A11, with
+        A14)."""
         raise NotImplementedError(
             "serving artifacts (infer/export.py) are not ported yet "
-            "(ROADMAP A11)")
+            "(ROADMAP A11, with A14)")
 
     # -- slot lifecycle -------------------------------------------------
 

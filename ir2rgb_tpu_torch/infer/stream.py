@@ -109,8 +109,9 @@ class StreamingGenerator:
         """Device-in device-out step: NHWC ``a`` on the model's device ->
         the generated frame in the compute dtype. ``edges``: the
         (B, H, W, 1) instance-boundary map of a single-frame
-        ``use_instance_edges`` model (JAX's ``step_extra``); ``feat``, the
-        netE feature map, is not ported yet."""
+        ``use_instance_edges`` model, ``feat`` the (B, H, W, feat_num)
+        netE feature map of a ``use_instance_feat`` model (JAX's
+        ``step_extra``); a temporal stream refuses both."""
         if feat is not None or edges is not None:
             if self.temporal:
                 raise ValueError(

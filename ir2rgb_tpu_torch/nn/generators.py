@@ -62,7 +62,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ir2rgb_tpu_torch import kernels
-from . import ops
+from . import ops, quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,10 +134,18 @@ def _conv_norm_act(seq: nn.Sequential, i: int, x: torch.Tensor, norm: str,
 
 def _tail(conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     """reflect-pad 3 + c7s1-out + tanh: fused in kernel B2 when serving;
-    composed, with tanh in fp32, when training."""
+    composed, with tanh in fp32, when training. Under the serving quant
+    modes (``nn/quant.py``): ``int8_mixed`` leaves this 3-wide conv fp
+    (B2 as in "none"); ``int8_w`` feeds B2 the dequantized weight, the
+    same function as JAX's dequantized conv + bias + tanh; ``int8`` is an
+    int8 product, another function than B2's, so it runs composed."""
     if not train:
-        return kernels.tail_fused(x, conv.weight.permute(2, 3, 1, 0),
-                                  conv.bias)
+        m = quant.mode_for(conv.in_channels, conv.out_channels)
+        if m != "int8":
+            w = conv.weight
+            if m == "int8_w":
+                w = quant.dequantized(w.to(x.dtype), source=(w, "conv"))
+            return kernels.tail_fused(x, w.permute(2, 3, 1, 0), conv.bias)
     y = ops.conv(ops.reflect_pad(x, 3), conv.weight, conv.bias)
     return torch.tanh(y.float()).to(x.dtype)
 

@@ -1,5 +1,4 @@
-"""Core NN ops on NHWC tensors — the port of ``ir2rgb_tpu/nn/ops.py`` (all
-of it but the quantized conv of ``nn/quant.py``).
+"""Core NN ops on NHWC tensors — the port of ``ir2rgb_tpu/nn/ops.py``.
 
 Every function takes and returns NHWC tensors, the JAX package's layout.
 ``x.permute(0, 3, 1, 2)`` of a contiguous NHWC tensor is a channels-last
@@ -9,14 +8,17 @@ keep PyTorch's layouts (Conv2d OIHW, ConvTranspose2d IOHW), so a module's
 ``state_dict`` is the reference family's.
 
 Convolutions are plain ``F.conv2d``: the JAX package left them to XLA
-outside any Pallas kernel. A stride-2 transposed conv whose geometry the
-subpixel plan admits takes the JAX package's default ``subpixel``
-lowering (``ops.py:193-292``): a dense conv to 4·cout phase channels,
-then the depth-to-space of kernel B3 (``kernels.d2s_fn``), then the
-bias. Instance norm goes to kernel B1 (``kernels.fused_instance_norm_act``).
-Both kernels are differentiable. Batch norm, the pads, the resizes and
-dropout are plain PyTorch, as the JAX package computes them outside any
-Pallas kernel.
+outside any Pallas kernel. Under a quantized serving mode
+(``nn/quant.py``: ``quant.using``, set by ``GanModel.generate``) a conv
+the mode quantizes computes through ``quant.conv`` instead, and its bias
+is added after the rescale, as the JAX package adds it. A stride-2
+transposed conv whose geometry the subpixel plan admits takes the JAX
+package's default ``subpixel`` lowering (``ops.py:193-292``): a dense
+conv to 4·cout phase channels, then the depth-to-space of kernel B3
+(``kernels.d2s_fn``), then the bias. Instance norm goes to kernel B1
+(``kernels.fused_instance_norm_act``). Both kernels are differentiable.
+Batch norm, the pads, the resizes and dropout are plain PyTorch, as the
+JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ir2rgb_tpu_torch.kernels import d2s_fn, fused_instance_norm_act
+from . import quant
 # eps 1e-5 (torch InstanceNorm2d's) and the activations live with B1
 from ir2rgb_tpu_torch.kernels.instance_norm import (  # noqa: F401
     INSTANCE_NORM_EPS,
@@ -90,7 +93,12 @@ def conv(x: torch.Tensor, weight: torch.Tensor,
          bias: Optional[torch.Tensor] = None, stride: int = 1,
          padding: int = 0) -> torch.Tensor:
     """NHWC conv (cross-correlation) with an OIHW weight, computed in x's
-    dtype."""
+    dtype (quantized as the serving mode says, ``nn/quant.py``)."""
+    m = quant.mode_for(weight.shape[1], weight.shape[0])
+    if m != "none":
+        y = quant.conv(x, weight.to(x.dtype), m, stride, padding,
+                       source=(weight, "conv"))
+        return y if bias is None else y + bias.to(y.dtype)
     b = None if bias is None else bias.to(x.dtype)
     return _nhwc(F.conv2d(_nchw(x), weight.to(x.dtype), b, stride=stride,
                           padding=padding))
@@ -180,22 +188,38 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     the bias. ``wk`` is the already rearranged weight
     (:func:`subpixel_weight` of the weight in x's dtype), when the caller
     keeps one. ``lowering="dilated"``, and every geometry the plan does
-    not admit (as in the JAX package): ``F.conv_transpose2d``."""
+    not admit (as in the JAX package): ``F.conv_transpose2d``.
+
+    Under a quantized serving mode each route quantizes the conv it runs
+    (``nn/quant.py``): the subpixel route the rearranged weight (its
+    4·cout outputs are what ``int8_mixed`` gates on and what the weight
+    scales are per), the dilated route the flipped forward-conv weight
+    over the zero-dilated input; the bias comes last, as in "none"."""
     b = None if bias is None else bias.to(x.dtype)
-    k = weight.shape[2]
+    ci, co, k, _ = weight.shape
     if lowering not in ("subpixel", "dilated"):
         raise ValueError(f"unknown deconv lowering: {lowering!r}")
     if lowering == "dilated" or not subpixel_admits(k, padding,
                                                     output_padding):
-        return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), b,
-                                        stride=2, padding=padding,
-                                        output_padding=output_padding))
+        m = quant.mode_for(ci, co)
+        if m == "none":
+            return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), b,
+                                            stride=2, padding=padding,
+                                            output_padding=output_padding))
+        lo = k - 1 - padding
+        wf = weight.to(x.dtype).permute(1, 0, 2, 3).flip(2, 3)
+        y = quant.conv(x, wf, m, 1, ((lo, lo + output_padding),) * 2,
+                       lhs_dilation=2, source=(weight, "dilated"))
+        return y if b is None else y + b
     if wk is None:
         wk = subpixel_weight(weight.to(x.dtype), padding)
     _, kk, omin = _subpixel_plan(k, padding)
     lo, hi = -omin, kk - 1 + omin
-    y = _nhwc(F.conv2d(_nchw(F.pad(x, (0, 0, lo, hi, lo, hi))), wk))
-    y = d2s_fn(y, weight.shape[1])
+    xp = F.pad(x, (0, 0, lo, hi, lo, hi))
+    m = quant.mode_for(ci, 4 * co)
+    y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
+        xp, wk, m, source=(weight, ("subpixel", padding))))
+    y = d2s_fn(y, co)
     _, h, w, _ = x.shape
     out_h = (h - 1) * 2 - 2 * padding + k + output_padding
     out_w = (w - 1) * 2 - 2 * padding + k + output_padding

@@ -31,6 +31,7 @@ import torch.nn as nn
 
 from ir2rgb_tpu_torch.config import Config
 from ir2rgb_tpu_torch.losses import gan_loss_d_parts, gan_loss_g, l1_loss
+from ir2rgb_tpu_torch.nn import quant
 from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d
 from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
@@ -68,16 +69,18 @@ class CycleGanModel(GanModel):
         """Serve one direction: A -> B through ``G_A`` (the default; the
         stream, the trainer's display and the CLIs call this), or
         ``direction="BtoA"`` through ``G_B`` (the gallery's
-        reconstruction)."""
+        reconstruction). Either serves in the model's quant mode."""
         if direction not in ("AtoB", "BtoA"):
             raise ValueError(f"unknown direction {direction!r} (AtoB | BtoA)")
         net = self.serving_generator("netG" if direction == "AtoB"
                                      else "netG_B")
-        with torch.inference_mode():
+        with torch.inference_mode(), quant.using(
+                quant.resolve(self.cfg.infer.quant)):
             return net(a)
 
     def _g(self, net: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        return net(x, train=True, generator=self.generator)
+        with quant.using("none"):
+            return net(x, train=True, generator=self.generator)
 
     def loss_and_metrics(self, batch: Batch, freeze_trunk: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -158,9 +161,6 @@ def cycle_network_configs(cfg: Config
             f"through G_A (expects {m.input_nc}ch) — set "
             f"--loss.lambda_identity 0 when input_nc != output_nc, as "
             f"the reference requires")
-    if cfg.infer.quant != "none":
-        raise NotImplementedError(f"quant={cfg.infer.quant!r} is not "
-                                  "ported yet")
     dtype = resolve_dtype(m.compute_dtype)
     gen_a = GenConfig(
         net_g=m.net_g, input_nc=m.input_nc, output_nc=m.output_nc,

@@ -4,9 +4,10 @@ and for the train step, temporal windows included.
 ``create_model(cfg)`` builds, on the CUDA device (or the device the
 caller names), the generator ``netG`` (any ``net_g`` of ``define_g``),
 the discriminator ``netD`` (n-layer, multiscale or pixel), the VGG19 of
-the perceptual loss, two Adam optimizers, one seeded ``torch.Generator``
-on the device for dropout, the image pool and the gradient penalty's
-mixing weights (JAX's ``TrainState.rng``), with ``pool_size > 0`` the
+the perceptual loss, with ``use_instance_feat`` the feature encoder
+``netE`` (``nn/encoders.py``), two Adam optimizers, one seeded
+``torch.Generator`` on the device for dropout, the image pool and the
+gradient penalty's mixing weights (JAX's ``TrainState.rng``), with ``pool_size > 0`` the
 pool (``train/image_pool.py``, compute-dtype frames of the crop size)
 and with ``ema_decay > 0`` an fp32 shadow of G's parameters. A
 ``cycle_gan`` config builds the unpaired model instead
@@ -20,10 +21,15 @@ trained or JAX-converted weights with ``load_state_dict``.
   channel order (``model.py:199-221``): the frame, or with ``label_nc >
   0`` the one-hot of a (B, H, W, 1) class-id map (``encode_label``); the
   instance-edge channel (``use_instance_edges``; zeros when none is
-  given); in temporal mode the previous generated frames. In bf16 it
-  runs a bf16 copy of ``netG`` (batch-norm parameters stay fp32, as the
-  JAX package reads them) that is rebuilt when a weight of ``netG``
-  changes, so a serving frame casts nothing.
+  given); netE's feature map (``use_instance_feat``; zeros when none is
+  given: ``encode_features`` of a real image, or clustered styles from
+  ``infer/features.py``); in temporal mode the previous generated
+  frames. In bf16 it runs a bf16 copy of ``netG`` (batch-norm parameters
+  stay fp32, as the JAX package reads them) that is rebuilt when a
+  weight of ``netG`` changes, so a serving frame casts nothing. It
+  serves in the model's own quantization mode (``cfg.infer.quant``,
+  ``nn/quant.py``), set for the duration of the call; every training
+  forward runs in "none".
 - ``train_step(batch)`` is one G + D update with the JAX package's
   stop-gradient walls (``model.py:13-21``): G's gradient comes through D
   with D's parameters frozen, D's from the detached (pool-mixed) fake,
@@ -32,7 +38,11 @@ trained or JAX-converted weights with ``load_state_dict``.
   default. With ``gan_mode="wgangp"`` D's loss adds the gradient penalty
   on the detached real and fake pairs, a second derivative through D.
   The input may be a label map (one-hot on the device) with an
-  instance-edge channel (``batch["inst"]``); G drops out with
+  instance-edge channel (``batch["inst"]``); with netE, E encodes the
+  real target pooled per instance of ``batch["inst"]`` and G conditions
+  on it (D does not see it); E is in G's Adam, live through the
+  coarse-to-fine freeze, and the step reports ``inst_collisions``
+  (hash segments shared by distinct ids); G drops out with
   ``use_dropout``; a temporal model trains on (B, T, H, W, C) windows,
   the carry keeping G's graph (``_temporal_losses``). With ``grad_accum
   = K`` the batch is cut into K micro-batches in order, each one's
@@ -49,12 +59,11 @@ trained or JAX-converted weights with ``load_state_dict``.
   becomes ``d·e + (1 − d)·p`` (``model.py:537-541``).
 
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
-  reads (JAX's ``TrainState``, the EMA shadow as ``ema_g``), for
-  ``checkpoint/manager.py``.
+  reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
+  ``ema_e``), for ``checkpoint/manager.py``.
 
-Refused as the JAX package refuses them, or not ported (each raises at
-``create_model``): the netE feature input and the serving quantization
-modes.
+Refused as the JAX package refuses them (at ``create_model``): labels,
+instance edges or netE features with temporal mode.
 """
 
 from __future__ import annotations
@@ -77,9 +86,14 @@ from ir2rgb_tpu_torch.losses import (
     l1_loss,
     vgg_loss,
 )
-from ir2rgb_tpu_torch.nn import ops
+from ir2rgb_tpu_torch.nn import ops, quant
 from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d
-from ir2rgb_tpu_torch.nn.encoders import instance_edges
+from ir2rgb_tpu_torch.nn.encoders import (
+    EncoderConfig,
+    define_e,
+    instance_collision_count,
+    instance_edges,
+)
 from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g, init_weights
 from ir2rgb_tpu_torch.nn.vgg import Vgg19, load_vgg19_npz
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
@@ -127,6 +141,9 @@ class GanModel:
     # the fp32 EMA shadows of the generators' parameters (ema_decay > 0):
     # net name (g_nets) -> parameter name -> tensor
     ema: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+    # the feature encoder (use_instance_feat)
+    enc_cfg: Optional[EncoderConfig] = None
+    netE: Optional[nn.Module] = None
     # generator name -> (its parameters, their versions, the bf16 copy)
     _serving: Dict[str, Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -189,19 +206,38 @@ class GanModel:
         classes = torch.arange(label_nc, device=a.device)
         return (ids == classes).to(self.dtype)
 
+    def encode_features(self, image: torch.Tensor,
+                        inst: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """netE's serving forward (no autograd): the features of NHWC
+        ``image`` (a real RGB frame in [-1, 1]), pooled per instance of
+        the (B, H, W) ids ``inst`` when given, in the compute dtype
+        (``model.py:149-155``)."""
+        if self.netE is None:
+            raise ValueError("encode_features needs a use_instance_feat "
+                             "model (this one has no netE)")
+        with torch.inference_mode():
+            return self.netE(image.to(self.device), inst if inst is None
+                             else inst.to(self.device))
+
     def _generator_input(self, a: torch.Tensor,
                         prev: Optional[torch.Tensor] = None,
-                        edges: Optional[torch.Tensor] = None
+                        edges: Optional[torch.Tensor] = None,
+                        feat: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-        """G's input: the (encoded) frame, the edge channel, the temporal
-        prev, in that order (``model.py:199-221``); zeros for an edge map
-        or prev that is not given."""
+        """G's input: the (encoded) frame, the edge channel, netE's
+        features, the temporal prev, in that order (``model.py:199-221``);
+        zeros for any of the last three that is not given."""
         m = self.cfg.model
         a = self.encode_label(a)
         if m.use_instance_edges:
             if edges is None:
                 edges = a.new_zeros(a.shape[:-1] + (1,))
             a = torch.cat([a, edges.to(a.dtype)], dim=-1)
+        if self.enc_cfg is not None:
+            if feat is None:
+                feat = a.new_zeros(a.shape[:-1] + (self.enc_cfg.feat_num,))
+            a = torch.cat([a, feat.to(a.dtype)], dim=-1)
         if m.model == "temporal":
             if prev is None:
                 prev = a.new_zeros(a.shape[:-1] + (m.output_nc * self.n_prev,))
@@ -214,14 +250,14 @@ class GanModel:
         """Single-frame G forward on NHWC ``a`` (with ``label_nc > 0`` a
         (B, H, W, 1) id map). ``prev``: in temporal mode the previously
         generated frame stack; ``edges``: the (B, H, W, 1) instance
-        boundary map of a ``use_instance_edges`` model. Each is zeros when
-        None. Returns (B, H, W, output_nc) in the compute dtype."""
-        if feat is not None:
-            raise NotImplementedError(
-                "the netE feature input is not ported yet")
+        boundary map of a ``use_instance_edges`` model; ``feat``: the
+        (B, H, W, feat_num) netE feature map of a ``use_instance_feat``
+        model. Each is zeros when None. Runs in the model's quant mode.
+        Returns (B, H, W, output_nc) in the compute dtype."""
         net = self.serving_generator()
-        with torch.inference_mode():
-            return net(self._generator_input(a, prev, edges))
+        with torch.inference_mode(), quant.using(
+                quant.resolve(self.cfg.infer.quant)):
+            return net(self._generator_input(a, prev, edges, feat))
 
     # ------------------------------------------------------------------
     # Training
@@ -231,8 +267,11 @@ class GanModel:
         return self.netG.model.parameters()
 
     def g_nets(self) -> Dict[str, nn.Module]:
-        """The generators one Adam covers, by state_dict key."""
-        return {"netG": self.netG}
+        """The generators one Adam covers (netE with them, as the
+        reference's optimizer_G), by state_dict key."""
+        if self.netE is None:
+            return {"netG": self.netG}
+        return {"netG": self.netG, "netE": self.netE}
 
     def d_nets(self) -> Dict[str, nn.Module]:
         """The discriminators the other Adam covers, by state_dict key."""
@@ -240,14 +279,15 @@ class GanModel:
 
     def _fake(self, a: torch.Tensor, prev: Optional[torch.Tensor] = None,
               edges: Optional[torch.Tensor] = None,
-              freeze_trunk: bool = False) -> torch.Tensor:
+              freeze_trunk: bool = False,
+              feat: Optional[torch.Tensor] = None) -> torch.Tensor:
         """G's training forward (differentiable tail, dropout drawn from
-        ``generator``). ``freeze_trunk``: the global trunk's parameters
-        get no gradient; the graph still runs through the trunk where its
-        input needs one (a temporal carry)."""
+        ``generator``, quant mode "none"). ``freeze_trunk``: the global
+        trunk's parameters get no gradient; the graph still runs through
+        the trunk where its input needs one (a temporal carry)."""
         frozen = self.trunk_parameters() if freeze_trunk else ()
-        with _no_param_grads(frozen):
-            return self.netG(self._generator_input(a, prev, edges),
+        with _no_param_grads(frozen), quant.using("none"):
+            return self.netG(self._generator_input(a, prev, edges, feat),
                              train=True, generator=self.generator)
 
     def _for_d(self, fake: torch.Tensor) -> torch.Tensor:
@@ -363,7 +403,10 @@ class GanModel:
         (B, H, W, 1) class-id map), ``batch["b"]`` the target, NHWC; a
         temporal model takes (B, T, H, W, C) windows. With
         ``use_instance_edges``, ``batch["inst"]`` holds the (B, H, W)
-        instance ids, whose edge channel G and D both see. Metrics whose
+        instance ids, whose edge channel G and D both see. With netE, E
+        encodes the real ``b`` (pooled per instance when the batch has
+        ``inst``) and G conditions on it, its gradient reaching E through
+        G's losses; D does not see it (``model.py:346-382``). Metrics whose
         name starts with ``_`` are the totals (and a window's per-frame G
         losses), not reported by ``train_step``."""
         m = self.cfg.model
@@ -371,19 +414,28 @@ class GanModel:
             metrics = self._temporal_losses(batch, freeze_trunk)
         else:
             a, b = batch["a"].to(self.device), batch["b"].to(self.device)
-            edges = None
+            inst = batch.get("inst")
+            inst = None if inst is None else inst.to(self.device)
+            edges = feat = None
             if m.use_instance_edges:
-                if batch.get("inst") is None:
+                if inst is None:
                     raise ValueError(
                         "use_instance_edges is on but the batch has no "
                         "'inst' maps (<phase>Inst/ folder missing?)")
-                edges = instance_edges(batch["inst"].to(self.device))
-            fake = self._fake(a, edges=edges, freeze_trunk=freeze_trunk)
+                edges = instance_edges(inst)
+            if self.netE is not None:
+                feat = self.netE(b, inst)
+            fake = self._fake(a, edges=edges, freeze_trunk=freeze_trunk,
+                              feat=feat)
             # D conditions on the encoded input and the edge channel
             a_d = self.encode_label(a)
             if edges is not None:
                 a_d = torch.cat([a_d, edges.to(a_d.dtype)], dim=-1)
             metrics = self._frame_losses(a_d, b, self._for_d(fake), fake)
+            if self.netE is not None and inst is not None:
+                # a diagnostic count, not a loss term
+                metrics["inst_collisions"] = instance_collision_count(
+                    inst, self.enc_cfg.num_instances).to(torch.float32)
         return metrics["_loss_g"], metrics["_loss_d"], metrics
 
     def _params(self) -> Iterable[nn.Parameter]:
@@ -466,6 +518,12 @@ class GanModel:
             for k, p in net.named_parameters():
                 shadow[k].mul_(d).add_(p.float() * (1.0 - d))
 
+    @staticmethod
+    def ema_key(name: str) -> str:
+        """The checkpoint key of network ``name``'s EMA state_dict:
+        ``ema_g`` (netG), ``ema_g_B`` (netG_B), ``ema_e`` (netE)."""
+        return "ema_" + name[3].lower() + name[4:]
+
     def ema_state_dict(self, name: str = "netG") -> Dict[str, torch.Tensor]:
         """The state_dict of generator ``name`` with its parameters
         replaced by their EMA shadows (its buffers as they are): what
@@ -484,7 +542,8 @@ class GanModel:
         CycleGAN's ``netG_B`` / ``netD_B``), both optimizers' states, the
         step, the state of the device generator that draws dropout, the
         pool and the penalty's weights, the pool(s), the EMA shadows as
-        full state_dicts (``ema_g``, ``ema_g_B``) and the config as JSON.
+        full state_dicts (``ema_key``: ``ema_g``, ``ema_g_B``, ``ema_e``)
+        and the config as JSON (with netE, ``netE`` is a network too).
         Tensors are the live ones: a checkpoint manager copies them."""
         state = {name: net.state_dict() for name, net in
                  (*self.g_nets().items(), *self.d_nets().items())}
@@ -496,7 +555,7 @@ class GanModel:
                                        sort_keys=True))
         if self.ema is not None:
             for name in self.ema:
-                state["ema_g" + name[4:]] = self.ema_state_dict(name)
+                state[self.ema_key(name)] = self.ema_state_dict(name)
         return state
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
@@ -513,7 +572,7 @@ class GanModel:
         self.pool = _load_pool(self.pool, state["pool"], self.device)
         if self.ema is not None:
             for name, shadow in self.ema.items():
-                src = state["ema_g" + name[4:]]
+                src = state[self.ema_key(name)]
                 for k, v in shadow.items():
                     v.copy_(src[k])
 
@@ -537,26 +596,38 @@ def _load_pool(pool, saved, device: torch.device):
 
 
 def _check_supported(cfg: Config) -> None:
-    """Raise for what the port cannot build or serve."""
+    """Raise for what the JAX package's ``create_model`` refuses."""
     m = cfg.model
-    if m.use_instance_feat:
-        raise NotImplementedError("the netE feature input is not ported yet")
-    if cfg.infer.quant != "none":
-        raise NotImplementedError(f"quant={cfg.infer.quant!r} is not "
-                                  "ported yet")
     if m.model not in ("pix2pix", "pix2pixhd", "temporal", "cycle_gan"):
         raise ValueError(f"unknown model: {m.model!r}")
     if m.model == "temporal" and (m.label_nc > 0 or m.use_instance_edges):
         # as the JAX package's create_model asserts
         raise ValueError("label / instance-edge inputs and temporal mode "
                          "are not combined")
+    if m.model == "temporal" and m.use_instance_feat:
+        raise ValueError("instance features + temporal mode are not "
+                         "combined (the reference families keep them "
+                         "separate)")
+
+
+def encoder_config(cfg: Config) -> Optional[EncoderConfig]:
+    """netE's configuration (``model.py:587-596``): it encodes the
+    output_nc-channel real image; None without ``use_instance_feat``."""
+    m = cfg.model
+    if not m.use_instance_feat:
+        return None
+    return EncoderConfig(input_nc=m.output_nc, feat_num=m.feat_num,
+                         nef=m.nef, n_downsample_e=m.n_downsample_e,
+                         norm=m.norm, num_instances=m.num_instances,
+                         compute_dtype=resolve_dtype(m.compute_dtype))
 
 
 def network_configs(cfg: Config) -> Tuple[GenConfig, DiscConfig]:
     """G's and D's configurations for ``cfg`` (raises on what the port
     cannot build). Their input channels: the frame (or ``label_nc`` one-hot
     channels), the edge channel with ``use_instance_edges`` (G and D
-    both, ``model.py:565-585``), then G's temporal prev."""
+    both, ``model.py:565-585``), netE's ``feat_num`` with
+    ``use_instance_feat`` (G only), then G's temporal prev."""
     _check_supported(cfg)
     m = cfg.model
     n_prev = m.n_frames_g - 1 if m.model == "temporal" else 0
@@ -564,7 +635,8 @@ def network_configs(cfg: Config) -> Tuple[GenConfig, DiscConfig]:
     base_nc = (m.label_nc if m.label_nc > 0 else m.input_nc) + int(
         m.use_instance_edges)
     gen_cfg = GenConfig(
-        net_g=m.net_g, input_nc=base_nc + m.output_nc * n_prev,
+        net_g=m.net_g, input_nc=base_nc + m.output_nc * n_prev
+        + (m.feat_num if m.use_instance_feat else 0),
         output_nc=m.output_nc, ngf=m.ngf, norm=m.norm, upsample=m.upsample,
         use_dropout=m.use_dropout,
         n_downsample_global=m.n_downsample_global,
@@ -623,8 +695,9 @@ def create_model(cfg: Config,
     and the EMA shadow. ``device=None`` means the CUDA device and raises
     when there is none; pass ``device="cpu"`` for the CPU. G's weights
     come from ``seed``, D's from ``seed + 1``, a random VGG's from ``seed
-    + 2`` and the dropout, pool and penalty draws from ``seed + 3``. A
-    ``cycle_gan`` config builds ``train/cycle.py``'s model."""
+    + 2``, the dropout, pool and penalty draws from ``seed + 3`` and
+    netE's from ``seed + 6``. A ``cycle_gan`` config builds
+    ``train/cycle.py``'s model."""
     if cfg.model.model == "cycle_gan":
         from ir2rgb_tpu_torch.train.cycle import create_cycle_model
         return create_cycle_model(cfg, device, steps_per_epoch, seed)
@@ -633,6 +706,9 @@ def create_model(cfg: Config,
     m = cfg.model
     net_g = _build(lambda: define_g(gen_cfg), dev, seed, m.init_type)
     net_d = _build(lambda: define_d(disc_cfg), dev, seed + 1, m.init_type)
+    enc_cfg = encoder_config(cfg)
+    net_e = (None if enc_cfg is None else
+             _build(lambda: define_e(enc_cfg), dev, seed + 6, m.init_type))
 
     vgg = None
     if not cfg.loss.no_vgg_loss:
@@ -662,13 +738,14 @@ def create_model(cfg: Config,
                          gen_cfg.compute_dtype, dev)
     model = GanModel(cfg=cfg, gen_cfg=gen_cfg, netG=net_g, device=dev,
                      disc_cfg=disc_cfg, netD=net_d, vgg=vgg,
-                     opt_g=adam(net_g.parameters()),
+                     opt_g=adam([*net_g.parameters(), *(
+                         () if net_e is None else net_e.parameters())]),
                      opt_d=adam(net_d.parameters()),
                      schedule=schedule, steps_per_epoch=steps_per_epoch,
                      fix_steps=fix_steps if m.net_g == "local" else 0,
                      generator=torch.Generator(device=dev).manual_seed(
                          seed + 3),
-                     pool=pool)
+                     pool=pool, enc_cfg=enc_cfg, netE=net_e)
     if cfg.train.ema_decay > 0:
         model.init_ema()
     return model

@@ -186,7 +186,9 @@ class Trainer:
     def _display(self, batch: Dict[str, torch.Tensor], step: int) -> None:
         """The display hook: sample 0's input, generated and target frames
         (the first frame of a window), generated by the serving forward
-        (``generate``) and conditioned as training is (instance edges)."""
+        (``generate``) and conditioned as training is: the edge channel
+        and netE's style of the real target, where the batch has instance
+        maps (``trainer.py:120-135`` of the JAX package)."""
         from ir2rgb_tpu_torch.infer.stream import label2im, tensor2im
         from ir2rgb_tpu_torch.nn.encoders import instance_edges
         model = self.model
@@ -194,10 +196,14 @@ class Trainer:
         if a.ndim == 5:
             a, b = a[:, 0], b[:, 0]
         a, b = a[:1], b[:1]
-        edges = None
-        if "inst" in batch and self.cfg.model.use_instance_edges:
-            edges = instance_edges(batch["inst"][:1].to(model.device))
-        fake = model.generate(a.to(model.device), edges=edges)
+        edges = feat = None
+        if "inst" in batch:
+            inst = batch["inst"][:1].to(model.device)
+            if self.cfg.model.use_instance_edges:
+                edges = instance_edges(inst)
+            if model.netE is not None:
+                feat = model.encode_features(b, inst)
+        fake = model.generate(a.to(model.device), edges=edges, feat=feat)
         epoch = (step - 1) // model.steps_per_epoch + 1
         label_nc = self.cfg.model.label_nc
         self.visualizer.display_current_results(

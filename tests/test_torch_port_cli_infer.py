@@ -334,11 +334,15 @@ def test_use_ema_serves_the_shadow(aligned, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--infer.use_encoded_image", "true"], "A12"),
-    (["--infer.cluster_path", "c.npy"], "A12"),
-    (["--infer.quant", "int8"], "A11"),
-    # a CycleGAN serves (A13 is ported); quantized, it is refused
-    (["--model.model", "cycle_gan", "--infer.quant", "int8"], "A11"),
+    # netE's test flags on a model without netE: JAX's refusals (netE and
+    # quantized serving are ported: tests/test_torch_port_encoder.py,
+    # tests/test_torch_port_quant.py)
+    (["--infer.use_encoded_image", "true"], "use_instance_feat model"),
+    (["--infer.cluster_path", "c.npy"], "use_instance_feat model"),
+    (["--model.use_instance_feat", "true", "--infer.use_encoded_image",
+      "true", "--infer.cluster_path", "c.npy"], "mutually exclusive"),
+    (["--model.model", "cycle_gan", "--infer.cluster_path", "c.npy"],
+     "use_instance_feat model"),
     (["--infer.use_encoded_image", "true", "--data.dataset_mode", "single"],
      "ground-truth"),
 ])
@@ -353,7 +357,7 @@ def test_fp32_infer_turns_tf32_off(monkeypatch, dtype, tf32):
     JAX package's HIGHEST precision); bf16 leaves the TF32 flags alone."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    with pytest.raises(SystemExit, match="A12"):
+    with pytest.raises(SystemExit, match="use_instance_feat model"):
         pinfer.main(ARCH + ["--device", "cpu", "--model.compute_dtype",
                             dtype, "--infer.cluster_path", "c.npy"])
     assert torch.backends.cudnn.allow_tf32 is tf32

@@ -89,5 +89,13 @@ def test_unported_inputs_raise(field, value):
         assert isinstance(m, CycleGanModel)
         assert all(p.device.type == "cpu" for p in m.netG_B.parameters())
         return
-    with pytest.raises(NotImplementedError):
-        create_model(cfg, device="cpu")
+    # netE is ported now: it builds on the CPU as asked, G's input widens
+    # by feat_num, and only what JAX refuses (temporal + feat) raises
+    m = create_model(cfg, device="cpu")
+    assert m.gen_cfg.input_nc == 3 + cfg.model.feat_num
+    assert set(m.g_nets()) == {"netG", "netE"}
+    assert all(p.device.type == "cpu" for p in m.netE.parameters())
+    temporal = PRESETS["temporal_512"]
+    with pytest.raises(ValueError, match="instance features"):
+        create_model(temporal.replace(model=dataclasses.replace(
+            temporal.model, **{field: value})), device="cpu")

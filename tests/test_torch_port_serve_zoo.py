@@ -96,11 +96,11 @@ LAUNCHES = {"resnet9_256": (23, 1, 2), "temporal_256": (23, 1, 2),
             "pix2pixhd_2048": (45, 1, 6), "pix2pix_unet256": (13, 0, 8)}
 
 
-@pytest.mark.parametrize("name", sorted(PRESETS))
-def test_frame_sends_chip_smokes_shapes_to_the_kernels(monkeypatch, name):
-    # a full-size frame on the meta device (shapes only), recording what
-    # reaches each kernel wrapper; chip_smoke.py counts the same launches
-    # on the card and times its kernels at these shapes
+def kernel_inputs(monkeypatch, forward):
+    """Run ``forward()`` with the kernel wrappers replaced by recorders:
+    what reaches B1 ((shape, act) -> count), B2 (x shapes) and B3's d2s
+    ((phase shape, C), in order), and ``forward``'s output. On the meta
+    device this is shapes only."""
     from ir2rgb_tpu_torch import kernels
     from ir2rgb_tpu_torch.nn import ops
     b1, tails, d2s = {}, [], []
@@ -122,12 +122,30 @@ def test_frame_sends_chip_smokes_shapes_to_the_kernels(monkeypatch, name):
     monkeypatch.setattr(ops, "fused_instance_norm_act", norm)
     monkeypatch.setattr(kernels, "tail_fused", tail)
     monkeypatch.setattr(ops, "d2s_fn", interleave)
+    return b1, tails, d2s, forward()
+
+
+def served_frame(name):
+    """``forward`` for :func:`kernel_inputs`: one full-size frame of
+    preset ``name``'s generator on the meta device."""
     gen_cfg, _ = network_configs(PRESETS[name])
     size = PRESETS[name].data.crop_size
-    with torch.device("meta"):
-        y = define_g(gen_cfg)(torch.empty((1, size, size,
-                                           gen_cfg.input_nc)))
-    assert tuple(y.shape) == (1, size, size, 3)
+
+    def forward():
+        with torch.device("meta"):
+            y = define_g(gen_cfg)(torch.empty((1, size, size,
+                                               gen_cfg.input_nc)))
+        assert tuple(y.shape) == (1, size, size, 3)
+        return y
+    return forward
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_frame_sends_chip_smokes_shapes_to_the_kernels(monkeypatch, name):
+    # a full-size frame on the meta device (shapes only), recording what
+    # reaches each kernel wrapper; chip_smoke.py counts the same launches
+    # on the card and times its kernels at these shapes
+    b1, tails, d2s, _ = kernel_inputs(monkeypatch, served_frame(name))
     table = _chip_smoke().SERVE[name]
     assert b1 == table["b1"] and tails == table["tail"]
     assert d2s == table["d2s"]
