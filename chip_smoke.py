@@ -118,7 +118,23 @@ Phases, each failing the run if it fails:
    ``sample_feature_map`` and a served frame with those features, and a
    ``use_encoded_image`` frame held fp32 card to CPU at 256x256. B1 and
    B3 are checked above at every netE shape (``NETE`` is in the steps'
-   tables).
+   tables);
+13. ``export`` (``export_phase``): sealed artifacts (``infer/export.py``)
+   exported on the card, written, loaded and served at full width and
+   512x512, one seeded weight set a preset: pix2pixhd_512 and
+   temporal_512 in bf16 and fp32 and pix2pixhd_512 in int8_mixed bf16.
+   The program's ``ir2rgb::`` op nodes and a CUDA-graph-captured
+   frame's kernel nodes (by name, ``graph_kernels``) equal a live
+   frame's launches (``SERVE``), and so do the counted launches of
+   EXPORT_FRAMES frames; each frame, at the live stream's carry and
+   through a reset, is held to the live ``StreamingGenerator`` (fp32
+   within 1 LSB and the carry SLICE_FP32_TOL; bf16 and int8_mixed >=
+   EXPORT_MIN_PSNR dB); ms/frame beside the live path, cold start (load
+   and first frame, in process), bytes and the frames' peak memory are
+   reported. A temporal_512 multi-stream artifact at EXPORT_SLOTS slots
+   is held to the live ``MultiStreamServer`` tick by tick, and an fp32
+   artifact exported on the CPU is served on the card (the program
+   moved by ``move_to_device_pass``).
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -564,6 +580,13 @@ QUANT_PROBE_NOISE = 1e-2
 # the netE phase: Voronoi cells an instance map, bf16 steps checked one by
 # one, frames netE's features are collected over
 NETE_CELLS, NETE_STEPS, NETE_FEATURE_FRAMES = 24, 3, 4
+# the export phase: frames each artifact is held to the live path over
+# (both streams reset before frame EXPORT_RESET_AT), frames timed, the
+# bf16 / int8_mixed PSNR bar, the sealed multi-stream batch and its ticks
+EXPORT_FRAMES, EXPORT_RESET_AT, EXPORT_TIMED = 8, 5, 10
+EXPORT_MIN_PSNR = 40.0
+EXPORT_SLOTS = 4
+EXPORT_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3), (1, 3)]
 SEED = 0
 
 failures = []
@@ -3327,6 +3350,366 @@ def nete_phase(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Sealed serving artifacts
+# ---------------------------------------------------------------------------
+
+# device kernel names (substrings of the mangled names) -> launch counter
+KERNEL_NODE_NAMES = {"in_fwd_kernel": "instance_norm_act",
+                     "in_bwd_kernel": "instance_norm_act_bwd",
+                     "tail_tc_kernel": "tail_fused",
+                     "tail_kernel": "tail_fused", "d2s_kernel": "d2s"}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (libcuda's graph API)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernels(fn) -> Counter:
+    """What one call of ``fn`` puts on the card, by the nodes of a CUDA
+    graph captured around the call (as ``device_kernels``): our kernels
+    counted under their launch counters' names by the kernel's name
+    (``cuGraphKernelNodeGetParams``, ``cuFuncGetName``), every node under
+    ``"nodes"``. A node libcuda cannot name raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: plans, packings and the allocator's pool
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    lib = ctypes.CDLL("libcuda.so.1")
+    ptr, out = ctypes.c_void_p, ctypes.POINTER
+    lib.cuGraphGetNodes.argtypes = [ptr, ptr, out(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ptr, out(ctypes.c_int)]
+    lib.cuGraphKernelNodeGetParams_v2.argtypes = [ptr, out(_KernelNodeParams)]
+    lib.cuFuncGetName.argtypes = [out(ctypes.c_char_p), ptr]
+    lib.cuKernelGetName.argtypes = [out(ctypes.c_char_p), ptr]
+
+    def ok(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    g = ptr(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(lib.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    ok(lib.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts = Counter(nodes=n.value)
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(lib.cuGraphNodeGetType(node, ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = _KernelNodeParams()
+        ok(lib.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+           "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            ok(lib.cuFuncGetName(ctypes.byref(name), params.func),
+               "cuFuncGetName")
+        else:
+            ok(lib.cuKernelGetName(ctypes.byref(name), params.kern),
+               "cuKernelGetName")
+        text = name.value.decode()
+        for key, counter in KERNEL_NODE_NAMES.items():
+            if key in text:
+                counts[counter] += 1
+                break
+    graph.reset()
+    return counts
+
+
+def u8_gap(a: np.ndarray, b: np.ndarray) -> dict:
+    """uint8 frames ``a`` against ``b``: the largest LSB gap, the bytes
+    that differ, PSNR (peak 255)."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return dict(max_lsb=int(d.max()), differing=int((d > 0).sum()),
+                psnr_db=psnr(torch.from_numpy(a), torch.from_numpy(b),
+                             peak=255.0))
+
+
+def program_ops(fn) -> Counter:
+    """The ``ir2rgb::`` op nodes of a loaded program's graph, by launch
+    counter name."""
+    names = {"instance_norm_act": "instance_norm_act",
+             "instance_norm_act_bwd": "instance_norm_act_bwd",
+             "tail_fused": "tail_fused", "d2s": "d2s", "s2d": "s2d"}
+    out = Counter()
+    for node in fn.graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("ir2rgb."):
+            out[names[target.split(".")[1]]] += 1
+    return out
+
+
+def export_case(preset: str, dtype: str, mode: str, sd, card: str,
+                folder: Path, timed: bool = True) -> dict:
+    """Export ``preset`` (netG ``sd``) in ``dtype`` and quant ``mode`` on
+    the card, write, load and serve it, and hold it to the live
+    ``StreamingGenerator`` of the same weights."""
+    from ir2rgb_tpu_torch.infer import StreamingGenerator
+    from ir2rgb_tpu_torch.infer.export import (
+        export_serving_artifact,
+        load_serving_artifact,
+    )
+    from ir2rgb_tpu_torch.infer.stream import _dev_normalize, _dev_quantize
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    tag = f"export {preset} {dtype} {mode}"
+    res = dict(preset=preset, dtype=dtype, quant=mode)
+    want = {k: v for k, v in quant_per_frame(preset, mode).items() if v}
+    path = folder / f"{preset}_{dtype}_{mode}.ir2rgb"
+    frame0 = np.random.default_rng(SEED + 7).integers(
+        0, 256, (512, 512, 3), dtype=np.uint8)
+
+    # cold start of the live path: build, load the weights, first frame
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = with_quant(serve_model(preset, dtype, "cuda", sd), mode)
+    live = StreamingGenerator(model, (512, 512))
+    live.push(frame0)
+    res["live_cold_start_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_serving_artifact(model, (512, 512), str(path))
+    res["export_s"] = time.perf_counter() - t0
+    res["artifact_bytes"] = path.stat().st_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art = load_serving_artifact(str(path))
+    art.push(frame0)
+    res["artifact_cold_start_s"] = time.perf_counter() - t0
+    ops = program_ops(art._fn)
+    res["program_ops"] = dict(ops)
+    check(ops == Counter(want), f"{tag}: the program's ir2rgb ops {dict(ops)}"
+          f" (want {want}, a live frame's launches)")
+
+    # the frames, each at the live stream's carry, both reset once
+    temporal = art.temporal
+    live.reset()
+    art.reset()
+    rng = np.random.default_rng(SEED + 8)
+    frames = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+              for _ in range(EXPORT_FRAMES)]
+    gaps, carry_err = [], []
+    counts = Counter()
+    for i, f in enumerate(frames):
+        if i == EXPORT_RESET_AT:
+            live.reset()
+            art.reset()
+        elif temporal:
+            art._carry = live.carry.clone()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = art.push(f)
+        torch.cuda.synchronize()
+        counts.update(launch_counts())
+        gaps.append(u8_gap(got, live.push(f)))
+        if temporal:
+            carry_err.append(float((art.carry - live.carry).abs().max()))
+    counts = {k: v for k, v in counts.items() if v}
+    res.update(frames=gaps, carry_max_abs=carry_err, launches=counts)
+    check(counts == {k: v * EXPORT_FRAMES for k, v in want.items()},
+          f"{tag}: launches {counts} over {EXPORT_FRAMES} artifact frames "
+          f"(want {want} a frame)")
+    worst = max(g["max_lsb"] for g in gaps)
+    low = min(g["psnr_db"] for g in gaps)
+    if dtype == "float32":
+        check(worst <= 1 and max(carry_err, default=0.0) <= SLICE_FP32_TOL,
+              f"{tag}: frames within {worst} LSB of the live path (bar 1), "
+              f"carry max-abs {max(carry_err, default=0.0):.3g} (bar "
+              f"{SLICE_FP32_TOL}), over {EXPORT_FRAMES} frames")
+    else:
+        check(low >= EXPORT_MIN_PSNR,
+              f"{tag}: frames {low:.2f} dB against the live path (bar "
+              f"{EXPORT_MIN_PSNR}); largest gap {worst} LSB, "
+              f"{max(g['differing'] for g in gaps)} bytes differ at most")
+
+    # one frame captured in a CUDA graph: its kernels by name, both paths
+    a_dev = torch.from_numpy(frames[0][None]).cuda()
+    reset_launch_counts()
+    nodes_art = graph_kernels(lambda: art.push_device(a_dev))
+    counted = {k: v for k, v in launch_counts().items() if v}
+    reset_launch_counts()
+    nodes_live = graph_kernels(lambda: _dev_quantize(live.push_device(
+        _dev_normalize(a_dev))))
+    res.update(graph_nodes_artifact=dict(nodes_art),
+               graph_nodes_live=dict(nodes_live))
+    mine = {k: nodes_art[k] for k in want}
+    check(mine == want and counted == {k: 2 * v for k, v in want.items()}
+          and all(nodes_live[k] == v for k, v in want.items()),
+          f"{tag}: a captured artifact frame's kernel nodes {mine} and its "
+          f"live frame's equal {want}; {nodes_art['nodes']} graph nodes "
+          f"(live {nodes_live['nodes']})")
+
+    if timed:
+        # ms/frame, the output fed back as the next input (temporal: and
+        # the carry), CUDA events, three readings of each in turns (the
+        # frames are host-bound, and the host's time swings); peak memory
+        # over frames above the resident weights
+        steps = {}
+        for name, step_fn in (
+                ("artifact", art.push_device),
+                ("live", lambda x: _dev_quantize(live.push_device(
+                    _dev_normalize(x))))):
+            state = {"x": a_dev}
+
+            def step(step_fn=step_fn, state=state):
+                state["x"] = step_fn(state["x"])
+            steps[name] = step
+            res[f"{name}_ms_readings"] = []
+        for _ in range(3):
+            for name, step in steps.items():
+                res[f"{name}_ms_readings"].append(
+                    cuda_ms(step, reps=EXPORT_TIMED, warmup=3))
+        for name, step in steps.items():
+            res[f"{name}_ms_per_frame"] = sorted(
+                res[f"{name}_ms_readings"])[1]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(4):
+                step()
+            torch.cuda.synchronize()
+            res[f"{name}_frame_peak_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+        res["artifact_weight_bytes"] = sum(
+            v.numel() * v.element_size() for v in art._params.values())
+        print(f"{tag} ({card}): artifact {res['artifact_ms_per_frame']:.3f}"
+              f" ms/frame vs live {res['live_ms_per_frame']:.3f}; cold start"
+              f" {res['artifact_cold_start_s']:.2f} s vs live "
+              f"{res['live_cold_start_s']:.2f} s; {res['artifact_bytes']} "
+              f"bytes; frame peak {res['artifact_frame_peak_bytes'] / 2**20:.1f}"
+              f" vs {res['live_frame_peak_bytes'] / 2**20:.1f} MiB; worst "
+              f"{worst} LSB, {low:.2f} dB", flush=True)
+    path.unlink()
+    del art, live, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def export_tick(preset: str, sd, card: str, folder: Path) -> dict:
+    """A multi-stream artifact of ``preset`` at EXPORT_SLOTS slots, bf16,
+    against the live ``MultiStreamServer`` over EXPORT_TICKS (streams
+    skip, one closes and reopens), each tick at the live carries."""
+    from ir2rgb_tpu_torch.infer.export import export_multistream_artifact
+    from ir2rgb_tpu_torch.infer.multistream import MultiStreamServer
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    tag = f"export {preset} x{EXPORT_SLOTS} tick bf16"
+    path = folder / f"{preset}_x{EXPORT_SLOTS}.ir2rgb"
+    model = serve_model(preset, "bf16", "cuda", sd)
+    export_multistream_artifact(model, (512, 512), str(path),
+                                n_slots=EXPORT_SLOTS)
+    live = MultiStreamServer(model, (512, 512), n_slots=EXPORT_SLOTS)
+    sealed = MultiStreamServer.from_artifact(str(path))
+    check(sealed.model is None and sealed.physical_slots == EXPORT_SLOTS
+          and live.physical_slots == EXPORT_SLOTS,
+          f"{tag}: served with no model, {sealed.physical_slots} rows")
+    ids = [(live.open(), sealed.open()) for _ in range(EXPORT_SLOTS)]
+    rng = np.random.default_rng(SEED + 9)
+    gaps, counts, held = [], Counter(), True
+    want = {k: v for k, v in per_frame(preset).items() if v}
+    for t, sending in enumerate(EXPORT_TICKS):
+        if t == len(EXPORT_TICKS) - 1:  # slot 1 closes and reopens
+            live.close(ids[1][0])
+            sealed.close(ids[1][1])
+            ids[1] = (live.open(), sealed.open())
+        sealed._carry = live._carry.clone()
+        before = sealed._carry.clone()
+        frames = {k: rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+                  for k in sending}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = sealed.step({ids[k][1]: f for k, f in frames.items()})
+        torch.cuda.synchronize()
+        counts.update(launch_counts())
+        ref = live.step({ids[k][0]: f for k, f in frames.items()})
+        gaps += [u8_gap(got[ids[k][1]], ref[ids[k][0]]) for k in frames]
+        held &= all(torch.equal(sealed._carry[ids[k][1]],
+                                before[ids[k][1]])
+                    for k in range(EXPORT_SLOTS) if k not in frames)
+    counts = {k: v for k, v in counts.items() if v}
+    low = min(g["psnr_db"] for g in gaps)
+    check(counts == {k: v * len(EXPORT_TICKS) for k, v in want.items()},
+          f"{tag}: launches {counts} over {len(EXPORT_TICKS)} ticks (want "
+          f"{want} a tick)")
+    check(low >= EXPORT_MIN_PSNR and held,
+          f"{tag}: every stream's frame {low:.2f} dB against the live "
+          f"server (bar {EXPORT_MIN_PSNR}); largest gap "
+          f"{max(g['max_lsb'] for g in gaps)} LSB; skipped carries held "
+          f"{held}")
+    path.unlink()
+    del live, sealed, model
+    torch.cuda.empty_cache()
+    return dict(preset=preset, slots=EXPORT_SLOTS, frames=gaps,
+                launches=counts)
+
+
+def export_from_cpu(preset: str, sd, card: str, folder: Path) -> dict:
+    """An fp32 artifact of ``preset`` exported from a model on the CPU,
+    loaded on the card (the program moved by ``move_to_device_pass``) and
+    held to the live fp32 path on the card."""
+    from ir2rgb_tpu_torch.infer import StreamingGenerator
+    from ir2rgb_tpu_torch.infer.export import (
+        export_serving_artifact,
+        load_serving_artifact,
+    )
+    tag = f"export {preset} float32 from the CPU"
+    path = folder / f"{preset}_cpu.ir2rgb"
+    cpu = serve_model(preset, "float32", "cpu", sd)
+    export_serving_artifact(cpu, (512, 512), str(path))
+    del cpu
+    art = load_serving_artifact(str(path))
+    live = StreamingGenerator(serve_model(preset, "float32", "cuda", sd),
+                              (512, 512))
+    rng = np.random.default_rng(SEED + 10)
+    gaps = []
+    for _ in range(2):
+        f = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+        if art.temporal:
+            art._carry = live.carry.clone()
+        gaps.append(u8_gap(art.push(f), live.push(f)))
+    on_card = all(v.is_cuda for v in art._params.values())
+    worst = max(g["max_lsb"] for g in gaps)
+    check(on_card and worst <= 1,
+          f"{tag}: served on the card ({on_card}), frames within {worst} "
+          "LSB of the live card path (bar 1)")
+    path.unlink()
+    del art, live
+    torch.cuda.empty_cache()
+    return dict(preset=preset, frames=gaps)
+
+
+def export_phase(card: str) -> dict:
+    """Sealed artifacts (``infer/export.py``) on the card, one shared set
+    of seeded weights a preset: single-stream artifacts of pix2pixhd_512
+    and temporal_512 at 512x512 in bf16 and fp32, an int8_mixed bf16
+    pix2pixhd_512 artifact, a multi-stream temporal_512 artifact at
+    EXPORT_SLOTS slots, and an artifact exported on the CPU served on the
+    card."""
+    folder = Path("build") / "artifacts"
+    folder.mkdir(parents=True, exist_ok=True)
+    sds = {p: seeded_state_dict(generator_skeleton(p), SEED)
+           for p in ("pix2pixhd_512", "temporal_512")}
+    cases = [export_case(p, dt, "none", sds[p], card, folder)
+             for p in sds for dt in ("bf16", "float32")]
+    cases.append(export_case("pix2pixhd_512", "bf16", "int8_mixed",
+                             sds["pix2pixhd_512"], card, folder))
+    tick = export_tick("temporal_512", sds["temporal_512"], card, folder)
+    from_cpu = export_from_cpu("pix2pixhd_512", sds["pix2pixhd_512"], card,
+                               folder)
+    launches = Counter()
+    for c in cases + [tick]:
+        launches.update(c["launches"])
+    return dict(cases=cases, tick=tick, from_cpu=from_cpu,
+                launches=dict(launches))
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3391,6 +3774,7 @@ def main() -> int:
     serve = phase("serve", serve_phase, card)
     quant = phase("quant", quant_phase, card)
     nete = phase("netE", nete_phase, card)
+    export = phase("export", export_phase, card)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
@@ -3402,7 +3786,8 @@ def main() -> int:
                **{"quant " + q["preset"]: q["launches"]
                   for q in quant["presets"]},
                "quant tick": quant["tick"]["launches"],
-               "netE": nete["launches"]}
+               "netE": nete["launches"],
+               "export": export["launches"]}
     total = {k: sum(c.get(k, 0) for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
@@ -3520,6 +3905,7 @@ def main() -> int:
     print("serve " + json.dumps(serve))
     print("quant " + json.dumps(quant))
     print("netE " + json.dumps(nete))
+    print("export " + json.dumps(export))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -3577,7 +3963,7 @@ def main() -> int:
                    "slices": slices, "trains": trains,
                    "train_options": options, "train_cli": cli,
                    "serve": serve, "quant": quant, "netE": nete,
-                   "kernels": kernels}, fh)
+                   "export": export, "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

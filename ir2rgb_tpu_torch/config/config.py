@@ -177,8 +177,8 @@ class InferConfig:
     cluster_path: str = ""
     n_clusters: int = 10
     use_ema: bool = False
-    # serving quantization mode (none | int8 | int8_mixed | int8_w); only
-    # "none" is ported (ROADMAP A11)
+    # serving quantization mode (none | int8 | int8_mixed | int8_w;
+    # nn/quant.py)
     quant: str = "none"
     video: str = ""
     video_fps: float = 30.0

@@ -53,7 +53,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ir2rgb_tpu_torch.infer.stream import (
+from ir2rgb_tpu_torch.infer.wire import (
     _dev_normalize,
     _dev_quantize,
     host_to_wire_u8,
@@ -70,19 +70,23 @@ def default_physical_slots(n: int) -> int:
     return min(n, KNEE_SLOTS)
 
 
-def build_tick(model: GanModel, temporal: bool, carry_c: int):
+def build_tick(model: GanModel, temporal: bool, carry_c: int,
+               generate=None):
     """The batched tick on device tensors: temporal ``tick(frames_u8,
     carry, reset, valid) -> (uint8 out, new carry)``; otherwise
     ``tick(frames_u8, reset, valid) -> uint8 out`` (the masks are no-ops
     for a stateless model). A label model's frames are class ids and are
-    not normalised (``generate`` one-hot encodes them)."""
+    not normalised (``generate`` one-hot encodes them). ``generate(x,
+    prev=None)`` is the generator's forward, ``model.generate`` by default
+    (``infer/export.py`` passes one over the program's weights)."""
+    generate = model.generate if generate is None else generate
     norm = ((lambda u8: u8.to(torch.float32))
             if model.cfg.model.label_nc > 0 else _dev_normalize)
     if temporal:
         def tick(frames_u8, carry, reset, valid):
             x = norm(frames_u8)
             carry_in = torch.where(reset[:, None, None, None], 0.0, carry)
-            fake = model.generate(x, prev=carry_in)
+            fake = generate(x, prev=carry_in)
             adv = torch.cat([fake.to(torch.float32), carry_in],
                             dim=-1)[..., :carry_c]
             new_carry = torch.where(valid[:, None, None, None], adv,
@@ -90,7 +94,7 @@ def build_tick(model: GanModel, temporal: bool, carry_c: int):
             return _dev_quantize(fake), new_carry
     else:
         def tick(frames_u8, reset, valid):
-            return _dev_quantize(model.generate(norm(frames_u8)))
+            return _dev_quantize(generate(norm(frames_u8)))
     return tick
 
 
@@ -183,13 +187,53 @@ class MultiStreamServer:
 
     @classmethod
     def from_artifact(cls, path: str, n_slots: Optional[int] = None,
-                      clamp: bool = False) -> "MultiStreamServer":
-        """Serve a sealed multi-stream artifact: not ported yet (it comes
-        with ``infer/export.py``, the export slice: ROADMAP A11, with
-        A14)."""
-        raise NotImplementedError(
-            "serving artifacts (infer/export.py) are not ported yet "
-            "(ROADMAP A11, with A14)")
+                      clamp: bool = False,
+                      device=None) -> "MultiStreamServer":
+        """Serve a sealed multi-stream artifact
+        (``infer/export.py::export_multistream_artifact``) on ``device``
+        (None: the CUDA device): the same slot lifecycle and ``step()``
+        surface with no model code behind it (``model`` is None).
+
+        The physical batch is sealed at export and there is no carry pool;
+        ``n_slots`` may cap the attachable streams below it (default: all
+        of them). A cap above the sealed batch raises, unless ``clamp``
+        (the CLI's forgiving mode) clips it to the sealed batch."""
+        from functools import partial
+
+        from ir2rgb_tpu_torch.infer.export import load_multistream_artifact
+        tick, params, meta = load_multistream_artifact(path, device)
+        self = cls.__new__(cls)
+        self.model = None  # a sealed program: no model code behind it
+        self.device = next(iter(params.values())).device
+        self.physical_slots = int(meta["batch"])
+        self.n_slots = int(n_slots if n_slots is not None
+                           else meta["batch"])
+        if self.n_slots < 1:
+            raise ValueError(f"n_slots={self.n_slots} must be >= 1")
+        if self.n_slots > self.physical_slots:
+            if not clamp:
+                raise ValueError(
+                    f"n_slots={self.n_slots} exceeds the artifact's "
+                    f"sealed batch {self.physical_slots}; re-export "
+                    f"with more slots")
+            self.n_slots = self.physical_slots
+        self._pooled = False  # the sealed batch is the physical batch
+        self.temporal = bool(meta["temporal"])
+        self.carry_c = int(meta["carry_c"])
+        h, w = meta["frame_hw"]
+        self.frame_hw = (h, w)
+        self._label = meta.get("label_nc", 0) > 0
+        self.in_nc = int(meta["input_nc"])
+        self.out_nc = int(meta["output_nc"])
+        self._free = list(range(self.n_slots))
+        self._attached = set()
+        self._pending_reset = np.zeros(self.n_slots, np.bool_)
+        self._carry = (torch.zeros((self.physical_slots, h, w,
+                                    self.carry_c), dtype=torch.float32,
+                                   device=self.device)
+                       if self.temporal else None)
+        self._tick = partial(tick, params)
+        return self
 
     # -- slot lifecycle -------------------------------------------------
 

@@ -1,11 +1,12 @@
 """Inference — single-frame apply, batch-1 streaming and whole clips (the
 port of ``ir2rgb_tpu/infer/stream.py``).
 
-- The uint8 wire: frames cross host<->device as uint8 and are normalised
-  and quantised on the device, bit-identically to the JAX package
-  (``_dev_normalize``, ``_dev_quantize``, ``host_to_wire_u8``). A label
-  model's frames are class ids: they go to the device as raw ids, not
-  normalised, and ``generate`` one-hot encodes them.
+- The uint8 wire (``infer/wire.py``): frames cross host<->device as
+  uint8 and are normalised and quantised on the device, bit-identically
+  to the JAX package (``_dev_normalize``, ``_dev_quantize``,
+  ``host_to_wire_u8``). A label model's frames are class ids: they go to
+  the device as raw ids, not normalised, and ``generate`` one-hot encodes
+  them.
 - The temporal carry (the last ``n_frames_g - 1`` generated frames, fp32)
   never leaves the device.
 - ``stream`` is a depth-1 pipeline: frame t is uploaded and its forward
@@ -23,34 +24,12 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ir2rgb_tpu_torch.infer.wire import (  # noqa: F401 (re-exported)
+    _dev_normalize,
+    _dev_quantize,
+    host_to_wire_u8,
+)
 from ir2rgb_tpu_torch.train.model import GanModel
-
-
-def _dev_normalize(a_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 frame -> [-1,1] float32 on the device. Bit-identical to the
-    host-side ``a.astype(np.float32) / 127.5 - 1.0`` (u8->f32 is exact;
-    the same IEEE division and subtraction)."""
-    return a_u8.to(torch.float32) / 127.5 - 1.0
-
-
-def _dev_quantize(fake: torch.Tensor) -> torch.Tensor:
-    """[-1,1] frame -> uint8 on the device; mirrors tensor2im's
-    clip/scale/truncate, so the device->host copy moves 1 byte/px."""
-    arr = (torch.clamp(fake.to(torch.float32), -1, 1) + 1.0) * 127.5
-    return arr.to(torch.uint8)
-
-
-def host_to_wire_u8(a: np.ndarray, label: bool) -> np.ndarray:
-    """Host-side conversion of a non-uint8 frame to the uint8 wire:
-
-    - image frames: [-1, 1] floats quantise like tensor2im;
-    - label frames (label_nc > 0): class ids round/clip to the id byte.
-    """
-    if label:
-        return np.clip(np.round(a.astype(np.float32)), 0,
-                       255).astype(np.uint8)
-    return ((np.clip(a.astype(np.float32), -1, 1) + 1.0)
-            * 127.5).astype(np.uint8)
 
 
 def tensor2im(t: torch.Tensor) -> np.ndarray:

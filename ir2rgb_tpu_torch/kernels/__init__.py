@@ -7,9 +7,16 @@
 - B3 ``d2s``: 2x depth-to-space and its inverse, each the other's
   gradient (replaces ``ir2rgb_tpu/kernels/d2s.py``).
 
-There is no switch and no fallback: a CPU tensor takes a kernel's plain
-version, a CUDA tensor launches the kernel or raises. Each wrapper counts
-its launches (:func:`launch_counts`).
+Each C entry point is a ``torch.library`` custom op in the ``ir2rgb``
+namespace (``ir2rgb::instance_norm_act``, ``ir2rgb::instance_norm_act_bwd``,
+``ir2rgb::tail_fused``, ``ir2rgb::d2s``, ``ir2rgb::s2d``), so that
+``torch.export`` records each call as one node of a sealed serving
+program (``infer/export.py``); eager code calls the same implementations
+without the dispatcher's host cost (``_build.define_op``). There is no
+switch and no fallback: an op's CPU implementation is the kernel's plain
+version, its CUDA implementation launches the kernel or raises. The CUDA
+implementations count their launches (:func:`launch_counts`), so an
+exported program's frame counts as an eager one does.
 
 The package attribute ``tail_fused`` is the wrapper function; the module
 of the same name is ``sys.modules["ir2rgb_tpu_torch.kernels.tail_fused"]``.

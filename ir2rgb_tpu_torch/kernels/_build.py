@@ -9,6 +9,8 @@ travel as ``ctypes.c_void_p``, and each entry point returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 
 Nothing here runs at import time: the first kernel launch builds.
+:func:`check` and :func:`check_device` are the wrappers' two refusals: a
+CUDA error from a launch, and a tensor on a device no op implements.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -130,3 +134,45 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().ir2rgb_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_device(t, what: str) -> None:
+    """Raise unless ``t`` lies on the CPU (the ops' plain versions) or a
+    CUDA device (the kernels): on any other device, ``meta`` included, a
+    wrapper refuses rather than run an op's fake implementation."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} takes a CPU or CUDA tensor, not "
+                         f"{t.device.type}")
+
+
+# the ops' namespace; the library object must live as long as its ops
+_LIBRARY = torch.library.Library("ir2rgb", "DEF")
+
+
+def define_op(schema: str, cpu, cuda, fake):
+    """Register ``ir2rgb::<schema>``: ``cpu`` (the plain version) as its
+    CPU kernel, ``cuda`` (the launch) as its CUDA kernel and ``fake``
+    (the outputs' shapes, dtypes and strides) for tracing, so that
+    ``torch.export`` keeps each call as one node. The op has no autograd
+    kernel: the autograd Functions around it call it where no graph is
+    recorded.
+
+    Returns the call the wrappers make: the op while a program is
+    exported (``infer/export.py``; a loaded program calls the op too),
+    else the same implementation for the first argument's device,
+    directly. The dispatcher's Python kernel costs ~9-17 us of host time
+    a call on an H100 machine (``op_overhead.py``; ``PERF.md`` §6), and
+    eager serving and training are host-bound."""
+    name = schema.split("(", 1)[0]
+    _LIBRARY.define(schema)
+    _LIBRARY.impl(name, cpu, "CPU")
+    _LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"ir2rgb::{name}", fake, lib=_LIBRARY)
+    op = getattr(torch.ops.ir2rgb, name).default
+
+    def call(*args):
+        if torch.compiler.is_exporting():
+            return op(*args)
+        return (cpu if args[0].device.type == "cpu" else cuda)(*args)
+    call.op = op
+    return call

@@ -14,12 +14,19 @@ This is the interleave of the subpixel transposed conv
 
 - :func:`d2s_reference` / :func:`s2d_reference`: plain PyTorch, the CPU
   path and the yardstick the kernel is held to;
-- :func:`d2s` / :func:`s2d`: the wrappers. A CPU tensor takes the plain
-  version; a CUDA tensor launches the kernel or raises;
+- the custom ops ``ir2rgb::d2s`` and ``ir2rgb::s2d``
+  (``_build.define_op``): their CPU implementations are the plain versions,
+  their CUDA implementations launch the kernel or raise, and their fake
+  implementations give the outputs' shapes, so ``torch.export`` keeps
+  each call as one node;
+- :func:`d2s` / :func:`s2d`: the wrappers, which call the ops (their
+  implementations directly, outside an export: ``_build.define_op``). A CPU
+  tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises;
 - :class:`D2S`: the ``torch.autograd.Function`` whose backward is
   :func:`s2d`, and :func:`d2s_fn`, what the networks call;
-- ``launches``: per direction, how many times the wrappers launched the
-  kernel.
+- ``launches``: per direction, how many times the ops' CUDA
+  implementations launched the kernel.
 
 The kernel takes any C. Where a pixel's C channels fill whole 16-byte
 words (every shape of the main path) it copies words; otherwise it
@@ -94,20 +101,45 @@ def s2d_cuda(x: torch.Tensor) -> torch.Tensor:
                    False)
 
 
+def _fresh(out: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``out`` in memory of its own: an op's output may not alias its
+    input, and the plain permutation is a view of it where the moved axes
+    have size 1 (a 1x1 phase tensor)."""
+    if out.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+        return out.clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def _d2s_fake(y, c):
+    n, hs, ws, _ = y.shape
+    return y.new_empty((n, 2 * hs, 2 * ws, c))
+
+
+def _s2d_fake(x):
+    n, h2, w2, c = x.shape
+    return x.new_empty((n, h2 // 2, w2 // 2, 4 * c))
+
+
+_D2S = _build.define_op("d2s(Tensor y, int c) -> Tensor",
+                        lambda y, c: _fresh(d2s_reference(y, c), y),
+                        d2s_cuda, _d2s_fake)
+_S2D = _build.define_op("s2d(Tensor x) -> Tensor",
+                        lambda x: _fresh(s2d_reference(x), x), s2d_cuda,
+                        _s2d_fake)
+
+
 def d2s(y: torch.Tensor, c: int) -> torch.Tensor:
     """Depth-to-space of NHWC ``y``. CPU tensors take the plain version;
-    CUDA tensors the kernel."""
-    if y.device.type == "cpu":
-        return d2s_reference(y, c)
-    return d2s_cuda(y, c)
+    CUDA tensors the kernel (the op ``ir2rgb::d2s``)."""
+    _build.check_device(y, "d2s")
+    return _D2S(y, c)
 
 
 def s2d(x: torch.Tensor) -> torch.Tensor:
     """Space-to-depth of NHWC ``x``. CPU tensors take the plain version;
-    CUDA tensors the kernel."""
-    if x.device.type == "cpu":
-        return s2d_reference(x)
-    return s2d_cuda(x)
+    CUDA tensors the kernel (the op ``ir2rgb::s2d``)."""
+    _build.check_device(x, "s2d")
+    return _S2D(x)
 
 
 class D2S(torch.autograd.Function):

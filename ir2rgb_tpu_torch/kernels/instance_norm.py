@@ -8,9 +8,16 @@ and how the design answers that); this module holds
 - :func:`instance_norm_act_reference` and
   :func:`instance_norm_act_backward_reference`: plain PyTorch, fp32
   arithmetic, the CPU path and the yardsticks the kernels are held to;
+- the custom ops ``ir2rgb::instance_norm_act`` and
+  ``ir2rgb::instance_norm_act_bwd`` (``_build.define_op``): their CPU
+  implementations are the plain versions, their CUDA implementations
+  launch the kernels or raise, and their fake implementations give the
+  outputs' shapes, so ``torch.export`` keeps each call as one node of
+  the exported program (``infer/export.py``);
 - :func:`instance_norm_act` and :func:`instance_norm_act_backward`: the
-  wrappers. A CPU tensor takes the plain version; a CUDA tensor launches
-  the kernel or raises;
+  wrappers, which call the ops (their implementations directly, outside
+  an export: ``_build.define_op``). A CPU tensor takes the plain version; a
+  CUDA tensor launches the kernel or raises;
 - :class:`InstanceNormAct`: the ``torch.autograd.Function`` joining the
   two. Its forward saves ``(x, mean, rstd)`` as ``_fused_fwd`` does, and
   its backward is :class:`InstanceNormActBackward`: the backward wrapper,
@@ -22,8 +29,8 @@ and how the design answers that); this module holds
   package's reference twice;
 - :func:`instance_norm_act_fn`: y only, differentiable; what the networks
   call;
-- ``launches`` / ``bwd_launches``: how many times the wrappers launched
-  the forward and the backward kernel;
+- ``launches`` / ``bwd_launches``: how many times the ops' CUDA
+  implementations launched the forward and the backward kernel;
 - :func:`_plan` / :func:`plan_for`: the launch (channel group, cluster
   size, shared memory per block, route), sized by bytes and checked
   against the card.
@@ -267,8 +274,9 @@ def instance_norm_act_cuda(x: torch.Tensor, act: str = "relu",
     n, h, w, c = x.shape
     p = plan or plan_for(x)
     y = torch.empty_like(x)
-    mean, rstd = torch.empty((2, n, c), device=x.device,
-                             dtype=torch.float32).unbind(0)
+    # two allocations: the op's outputs may not alias one another
+    mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    rstd = torch.empty_like(mean)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _build.lib().ir2rgb_instance_norm_act(
         x.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n,
@@ -313,15 +321,42 @@ def instance_norm_act_bwd_cuda(x: torch.Tensor, mean: torch.Tensor,
     return dx
 
 
+def _backward_cuda(x, mean, rstd, g, act, negative_slope):
+    """The backward op's CUDA implementation: a ``g`` the kernel cannot
+    read (a view: a slice of a concat's gradient, or contiguous memory at
+    an offset that breaks its word loads) is copied once to fresh
+    contiguous memory."""
+    if not g.is_contiguous() or g.data_ptr() % (_PER * g.element_size()):
+        g = g.clone(memory_format=torch.contiguous_format)
+    return instance_norm_act_bwd_cuda(x, mean, rstd, g, act, negative_slope)
+
+
+def _forward_fake(x, act, eps, negative_slope):
+    n, _, _, c = x.shape
+    stats = x.new_empty((n, c), dtype=torch.float32)
+    return torch.empty_like(x), stats, torch.empty_like(stats)
+
+
+_OPS = _build.define_op(
+    "instance_norm_act(Tensor x, str act, float eps, float negative_slope)"
+    " -> (Tensor, Tensor, Tensor)",
+    instance_norm_act_reference, instance_norm_act_cuda, _forward_fake)
+_BWD_OPS = _build.define_op(
+    "instance_norm_act_bwd(Tensor x, Tensor mean, Tensor rstd, Tensor g, "
+    "str act, float negative_slope) -> Tensor",
+    instance_norm_act_backward_reference, _backward_cuda,
+    lambda x, mean, rstd, g, act, negative_slope: torch.empty_like(x))
+
+
 def instance_norm_act(x: torch.Tensor, act: str = "relu",
                       eps: float = INSTANCE_NORM_EPS,
                       negative_slope: float = 0.2):
     """Instance norm + activation over NHWC ``x``: (y, mean, rstd).
 
-    CPU tensors take the plain version; CUDA tensors the kernel."""
-    if x.device.type == "cpu":
-        return instance_norm_act_reference(x, act, eps, negative_slope)
-    return instance_norm_act_cuda(x, act, eps, negative_slope)
+    CPU tensors take the plain version; CUDA tensors the kernel (the op
+    ``ir2rgb::instance_norm_act``)."""
+    _build.check_device(x, "instance_norm_act")
+    return _OPS(x, act, float(eps), float(negative_slope))
 
 
 def instance_norm_act_backward(x: torch.Tensor, mean: torch.Tensor,
@@ -330,16 +365,11 @@ def instance_norm_act_backward(x: torch.Tensor, mean: torch.Tensor,
                                negative_slope: float = 0.2) -> torch.Tensor:
     """dx of :func:`instance_norm_act` for the output gradient ``g``.
 
-    CPU tensors take the plain version; CUDA tensors the kernel. A ``g``
-    the kernel cannot read (a view: a slice of a concat's gradient, or
-    contiguous memory at an offset that breaks its word loads) is copied
-    once to fresh contiguous memory."""
-    if x.device.type == "cpu":
-        return instance_norm_act_backward_reference(x, mean, rstd, g, act,
-                                                    negative_slope)
-    if not g.is_contiguous() or g.data_ptr() % (_PER * g.element_size()):
-        g = g.clone(memory_format=torch.contiguous_format)
-    return instance_norm_act_bwd_cuda(x, mean, rstd, g, act, negative_slope)
+    CPU tensors take the plain version; CUDA tensors the kernel (the op
+    ``ir2rgb::instance_norm_act_bwd``), a ``g`` it cannot read copied
+    once to fresh contiguous memory first."""
+    _build.check_device(x, "instance_norm_act_backward")
+    return _BWD_OPS(x, mean, rstd, g, act, float(negative_slope))
 
 
 class InstanceNormActBackward(torch.autograd.Function):

@@ -14,12 +14,20 @@ accumulated in fp32. The weights are rounded to x's dtype first, as the
 JAX generator casts them to its compute dtype. This module holds
 
 - :func:`tail_fused_reference`: plain PyTorch, the CPU path and yardstick;
-- :func:`tail_fused`: the wrapper. A CPU tensor takes the plain version;
-  a CUDA tensor launches the kernel of its :func:`route` or raises;
+- the custom op ``ir2rgb::tail_fused`` (``_build.define_op``): its CPU
+  implementation is the plain version, its CUDA implementation launches
+  the kernel of its :func:`route` (packing the weights through
+  :func:`packed`) or raises, and its fake implementation gives the
+  output's shape, so ``torch.export`` keeps the call as one node;
+- :func:`tail_fused`: the wrapper, which calls the op (its
+  implementations directly, outside an export: ``_build.define_op``). A
+  CPU tensor takes the plain version; a CUDA tensor launches the kernel
+  or raises;
 - :func:`pack_fragments`: the bf16 route's weights in the order its
   tensor-core fragments read them, and :func:`packed`, which keeps each
   weight's packing until the weight changes;
-- ``launches``: how many times the wrapper launched a kernel.
+- ``launches``: how many times the op's CUDA implementation launched
+  a kernel.
 """
 
 from __future__ import annotations
@@ -199,10 +207,20 @@ def tail_fused_cuda(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+_OP = _build.define_op(
+    "tail_fused(Tensor x, Tensor w, Tensor b) -> Tensor",
+    tail_fused_reference, tail_fused_cuda,
+    lambda x, w, b: x.new_empty(tuple(x.shape[:3]) + (3,)))
+
+
 def tail_fused(x: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """The generator tail over NHWC ``x``. CPU tensors take the plain
-    version; CUDA tensors the kernel."""
-    if x.device.type == "cpu":
-        return tail_fused_reference(x, w, b)
-    return tail_fused_cuda(x, w, b)
+    version; CUDA tensors the kernel (the op ``ir2rgb::tail_fused``).
+    Inference only: the op has no gradient. Off the CPU, what no route
+    takes is refused here, before any launch (also while a program is
+    exported for the card)."""
+    if x.device.type != "cpu":
+        route(x, w, b)
+    _build.check_device(x, "tail_fused")
+    return _OP(x, w, b)

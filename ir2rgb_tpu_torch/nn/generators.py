@@ -155,7 +155,10 @@ class Deconv(nn.ConvTranspose2d):
     U-Net's k4 p1 op0), run as the subpixel conv + B3 depth-to-space
     (``ops.deconv``). Under ``torch.inference_mode`` the rearranged
     weight is kept, keyed on the weight tensor, its version counter and
-    the compute dtype, so a serving frame does not rebuild it."""
+    the compute dtype, so a serving frame does not rebuild it. While a
+    program is exported (``infer/export.py``) the weight is a program
+    input: the cache is neither read nor written, and the program
+    rearranges the weight itself."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, padding: int = 1,
                  output_padding: int = 1, bias: bool = True):
@@ -167,7 +170,8 @@ class Deconv(nn.ConvTranspose2d):
         w, wk = self.weight, None
         pad, op = self.padding[0], self.output_padding[0]
         # an inference tensor has no version counter to key on
-        if torch.is_inference_mode_enabled() and not w.is_inference():
+        if (torch.is_inference_mode_enabled() and not w.is_inference()
+                and not torch.compiler.is_exporting()):
             kept = self._wk
             if (kept is None or kept[0] is not w or kept[1] != w._version
                     or kept[2] != x.dtype):

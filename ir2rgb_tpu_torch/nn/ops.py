@@ -23,7 +23,6 @@ JAX package computes them outside any Pallas kernel.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -40,6 +39,27 @@ from ir2rgb_tpu_torch.kernels.instance_norm import (  # noqa: F401
 
 INIT_STD = 0.02  # reference weights_init: N(0, 0.02)
 BATCH_NORM_EPS = 1e-5
+
+
+def _kept_index(fn):
+    """``fn`` (an index tensor from ints and a device) computed once per
+    arguments and kept. While a program is exported (``infer/export.py``)
+    a kept index is read, and enters the program as a constant (the
+    exporter serves one frame first, which keeps every index the trace
+    asks for), but none is kept: a tensor made there is a fake one of the
+    trace, and the program computes it itself."""
+    kept = {}
+
+    def get(*args):
+        out = kept.get(args)
+        if out is None:
+            out = fn(*args)
+            if not torch.compiler.is_exporting():
+                kept[args] = out
+        return out
+    get.__doc__ = fn.__doc__
+    get.cache_clear = kept.clear
+    return get
 
 
 def apply_init_type(module: torch.nn.Module, init_type: str,
@@ -122,7 +142,7 @@ def _subpixel_plan(k: int, pad: int):
     return phases, omax - omin + 1, omin
 
 
-@lru_cache(maxsize=None)
+@_kept_index
 def _subpixel_index(ci: int, co: int, k: int, pad: int,
                     device: torch.device) -> torch.Tensor:
     """Gather index from the flattened IOHW ConvTranspose2d weight,
@@ -228,7 +248,7 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     return y if b is None else y + b
 
 
-@lru_cache(maxsize=None)
+@_kept_index
 def _reflect_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     # a normal tensor even when first asked for in inference mode, so that
     # a later training step may save it for backward
@@ -274,7 +294,7 @@ def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     return x.index_select(2, _edge_index(w, pad, x.device))
 
 
-@lru_cache(maxsize=None)
+@_kept_index
 def _edge_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # see _reflect_index
         return torch.arange(-pad, n + pad).clamp(0, n - 1).to(device)

@@ -152,7 +152,14 @@ def _weight_entry(w: torch.Tensor, source, what: str, make):
     depend only on the parameters, so a serving frame requantizes
     nothing, whatever temporary its caller casts or rearranges. Made
     outside inference mode and without a graph; an inference-tensor
-    parameter has no version counter and is quantized at every call."""
+    parameter has no version counter and is quantized at every call.
+    While a program is exported (``infer/export.py``) the parameter is a
+    program input: nothing is read from or written to the cache, and the
+    program quantizes the weight in every call, as the JAX package's
+    exported step quantizes its ``params``."""
+    if torch.compiler.is_exporting():
+        return make()
+
     def build():
         with torch.inference_mode(False), torch.no_grad():
             return make()

@@ -420,11 +420,6 @@ def test_failed_chunk_leaves_the_pooled_tick_uncommitted(models):
     assert not srv._pending_reset.any()
 
 
-def test_from_artifact_raises_until_export_is_ported():
-    with pytest.raises(NotImplementedError, match="A11"):
-        MultiStreamServer.from_artifact("model.ir2rgb")
-
-
 @pytest.mark.parametrize("surface", ["pooled_server", "stream"])
 def test_bf16_serving_keeps_the_rearranged_deconv_weight(surface):
     """bf16 serving: the serving copy is built with inference mode off
