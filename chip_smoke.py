@@ -134,7 +134,20 @@ Phases, each failing the run if it fails:
    reported. A temporal_512 multi-stream artifact at EXPORT_SLOTS slots
    is held to the live ``MultiStreamServer`` tick by tick, and an fp32
    artifact exported on the CPU is served on the card (the program
-   moved by ``move_to_device_pass``).
+   moved by ``move_to_device_pass``);
+14. ``parallel`` (``parallel_phase``): data-parallel training
+   (``ir2rgb_tpu_torch/parallel/``), pix2pixhd_512 at full width and its
+   crop size. (a) ``torchrun --standalone --nproc_per_node 1 -m
+   ir2rgb_tpu_torch.cli.train`` (NCCL, world 1) for 3 bf16 steps on
+   train_cli's PNG folder, its checkpoint equal bit for bit to the same
+   run without torchrun, ms/step of both; (b) two ranks on the one card
+   over gloo (``chip_smoke.py --parallel-rank R PORT DIR``), a global
+   batch of 2: one fp32 step (TF32 off) held to the one-process batch-2
+   step (metrics, every gradient, the weights after it), then 3 bf16
+   steps with each rank's launches held to ``TRAIN`` at batch 1 and the
+   replicas bit-equal after each, with ms/step, the gradient
+   all-reduce's bytes and ms (gloo stages CUDA tensors through the
+   host).
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -153,6 +166,7 @@ import importlib
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -546,7 +560,10 @@ D2S_SHAPES += sorted({k for t in SERVE_TICK.values() for k in t["d2s"]}
                      - set(D2S_SHAPES))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
-LONG_CALL_MS, REPS_LONG = 20.0, 4
+# (a reading of such a graph spans >= 4 ms; the plain and library
+# yardsticks of the largest shapes took ~75 s of the kernel phases at 20
+# calls)
+LONG_CALL_MS, REPS_LONG = 2.0, 2
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
 # a batched stream against its batch-1 stream, bf16 (the serve phase)
@@ -2351,7 +2368,9 @@ def train_cli_phase(card: str):
             {k: round(v / 2**30, 2) for k, v in peaks_named.items()}),
         flush=True)
     del run1, run2, rec
-    shutil.rmtree(root, ignore_errors=True)
+    # the pairs folder stays for the parallel phase
+    for sub in ("runs", "video"):
+        shutil.rmtree(root / sub, ignore_errors=True)
     torch.cuda.empty_cache()
     return res
 
@@ -3710,6 +3729,337 @@ def export_phase(card: str) -> dict:
                 launches=dict(launches))
 
 
+T0 = time.perf_counter()  # the process's start, for a rank's timeline
+
+# the parallel phase: the preset, its bf16 steps, and the limits on a
+# subprocess (a launched CLI, a rank) and on the group's collectives
+PARALLEL_PRESET = "pix2pixhd_512"
+PARALLEL_STEPS = 3
+PARALLEL_TIMEOUT_S = 240
+# the fp32 DP step against the one-process step of the global batch: the
+# CPU tests' bars (metrics rtol, gradients under the mixed bar, weights
+# after the step atol: Adam's first update is about lr·sign(g))
+PARALLEL_METRIC_RTOL, PARALLEL_GRAD_REL, PARALLEL_WEIGHT_ATOL = \
+    1e-5, 1e-4, 5e-4
+
+
+def start_group(cmd: list) -> subprocess.Popen:
+    """``cmd`` started in a process group of its own (a torchrun and its
+    workers are one group), its output piped."""
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def wait_group(procs: list, timeout: float) -> list:
+    """Every process's (stdout, stderr), each waited for up to
+    ``timeout`` s; on a timeout (or any error) every group still running
+    is killed, and the call raises."""
+    try:
+        return [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def parallel_batch(cfg) -> dict:
+    """The global batch of the two-rank check: two batch-1 batches of
+    ``train_batch`` (seeds SEED + 3, SEED + 4) stacked, on the card."""
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    parts = [train_batch(cfg, SEED + 3 + i, "cuda") for i in range(2)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def parallel_rank(rank: int, port: int, out: str) -> int:
+    """One of the two ranks of the parallel phase's gloo check, on the one
+    card: ``initialize(backend="gloo")`` on ``port``, then
+
+    - one fp32 step (TF32 off, cuDNN deterministic) of PARALLEL_PRESET at
+      full width on its row of the global batch of 2 (``parallel_batch``),
+      the state replicated from rank 0; rank 0 holds it to one process's
+      grad-accum 2 step of the global batch on the same weights (every
+      metric, every gradient and the weights after the step, the
+      PARALLEL_* bars) and to its batch-2 step (metrics and weights; the
+      gradients' spread reported: cuDNN runs a pair with other
+      algorithms than a single image);
+    - PARALLEL_STEPS bf16 steps, each one's launches held to ``TRAIN`` at
+      batch 1 and timed (CUDA synchronized around it), the gradient
+      all-reduce's bytes and seconds read around it, and after each the
+      two replicas' weights (and pool) held equal bit for bit (rank 0's
+      broadcast and compared on rank 1).
+
+    Writes its results to ``out/rank<rank>.json``; exits 1 on a failed
+    check."""
+    import torch.distributed as dist
+    from ir2rgb_tpu_torch import set_parity_mode
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.parallel import (
+        data_parallel_mesh,
+        multihost,
+        replicate,
+        shard_batch,
+    )
+    from ir2rgb_tpu_torch.parallel import mesh as pmesh
+    warnings.filterwarnings("ignore", message="VGG perceptual loss")
+    torch.cuda.set_device(0)
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=2, process_id=rank, backend="gloo",
+                         timeout_s=PARALLEL_TIMEOUT_S)
+    mesh = data_parallel_mesh(2, device="cuda:0")
+    set_parity_mode()
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "up_s": time.perf_counter() - T0}
+    want = per_step(TRAIN[PARALLEL_PRESET]["unfrozen"])
+
+    # one fp32 step against one process's steps of the global batch of 2,
+    # with cuDNN's deterministic algorithms (no atomics in a weight
+    # gradient): (1) its grad-accum 2 step, which runs an image per pass
+    # as a rank does, at the bars; (2) its batch-2 step, where cuDNN runs
+    # the pair with other algorithms and rounding flips a few ReLU / L1
+    # units across their kinks: metrics and weights at the bars, the
+    # gradients' spread reported
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    dp32, weights = seeded_model(PARALLEL_PRESET, "float32")
+    replicate(dp32, mesh)
+    glob = parallel_batch(dp32.cfg)
+    local = shard_batch(glob, mesh)
+    reset_launch_counts()
+    m_dp = {k: float(v) for k, v in dp32.train_step(local).items()}
+    torch.cuda.synchronize()
+    got = launch_counts()
+    check(got == want, f"parallel rank {rank} fp32 step: launches {got} "
+          f"(want {want}, TRAIN at batch 1)")
+    res["fp32_launches"] = got
+    if rank == 0:
+        dp_params = {n: dict(net.named_parameters())
+                     for n, net in nets_of(dp32).items()}
+        dp_grads = grads_of(dp32)
+        for tag, extra in (("accum2", dict(train=dict(grad_accum=2))),
+                           ("batch2", {})):
+            one = train_model(PARALLEL_PRESET, "float32", "cuda", weights,
+                              **extra)
+            m_one = {k: float(v) for k, v in one.train_step(glob).items()}
+            want_g = {n: {k: v.cpu() for k, v in g.items()}
+                      for n, g in grads_of(one).items()}
+            worst = {n: grad_bar(dp_grads[n], want_g[n], PARALLEL_GRAD_REL)
+                     for n in want_g}
+            equal = all(torch.equal(dp_grads[n][k], g)
+                        for n, gs in grads_of(one).items()
+                        for k, g in gs.items())
+            with torch.no_grad():
+                gap = max(float((p - dp_params[n][k]).abs().max())
+                          for n, net in nets_of(one).items()
+                          for k, p in net.named_parameters())
+            rel = {k: abs(m_dp[k] - v) / abs(v) for k, v in m_one.items()}
+            res[f"fp32_vs_{tag}"] = dict(metrics_one=m_one, metric_rel=rel,
+                                         worst_grad=worst,
+                                         grads_bit_equal=equal,
+                                         weight_max_abs=gap)
+            what = f"parallel fp32 DP step vs one process ({tag})"
+            check(set(m_dp) == set(m_one)
+                  and max(rel.values()) <= PARALLEL_METRIC_RTOL,
+                  f"{what}: metrics rel {rel} (tol {PARALLEL_METRIC_RTOL})")
+            check(gap <= PARALLEL_WEIGHT_ATOL, f"{what}: weights after the "
+                  f"step max |d| {gap:.3g} (atol {PARALLEL_WEIGHT_ATOL})")
+            if tag == "accum2":
+                for name, (ratio, key) in worst.items():
+                    check(ratio <= 1.0, f"{what}: {name} gradients, worst "
+                          f"{key} at {ratio:.3g} of the bar (||d|| <= "
+                          f"{PARALLEL_GRAD_REL}·||g|| + 1e-6·M); bit-equal "
+                          f"{equal}")
+            del one, want_g
+            torch.cuda.empty_cache()
+        res["fp32_metrics_dp"] = m_dp
+        del dp_params, dp_grads
+    del dp32
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        deterministic
+    res["fp32_done_s"] = time.perf_counter() - T0
+
+    # bf16 steps: launches, time, the all-reduce, the replicas bit-equal
+    dp16 = train_model(PARALLEL_PRESET, "bf16", "cuda", weights)
+    replicate(dp16, mesh)
+    reduce_grads, reduces = pmesh.all_reduce_grads, []
+
+    def timed_reduce(nets, m):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = reduce_grads(nets, m)
+        torch.cuda.synchronize()
+        reduces.append((n, time.perf_counter() - t))
+        return n
+    steps = []
+    pmesh.all_reduce_grads = timed_reduce
+    try:
+        for i in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            m = dp16.train_step(local)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got = launch_counts()
+            check(got == want, f"parallel rank {rank} bf16 step {i}: "
+                  f"launches {got} (want {want})")
+            check(all(math.isfinite(float(v)) for v in m.values()),
+                  f"parallel rank {rank} bf16 step {i}: finite losses")
+            state = {n: net.state_dict() for n, net in nets_of(dp16).items()}
+            state["pool"] = dp16.state_dict()["pool"]
+            diff = first_difference(state, pmesh.broadcast_state(state, mesh))
+            check(diff is None, f"parallel rank {rank} bf16 step {i}: the "
+                  f"replicas' weights and pool bit-equal (first difference "
+                  f"{diff})")
+            steps.append({"ms": ms, "launches": got,
+                          "allreduce_bytes": reduces[-1][0],
+                          "allreduce_ms": reduces[-1][1] * 1e3})
+    finally:
+        pmesh.all_reduce_grads = reduce_grads
+    res["bf16_steps"] = steps
+    res["bf16_done_s"] = time.perf_counter() - T0
+    res["failures"] = list(failures)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    mesh.barrier()
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def parallel_phase(card: str) -> dict:
+    """Data-parallel training (``ir2rgb_tpu_torch/parallel/``) on the one
+    card, PARALLEL_PRESET at full width and its crop size:
+
+    (a) NCCL through the real launcher at world 1: ``torchrun --standalone
+        --nproc_per_node 1 -m ir2rgb_tpu_torch.cli.train`` (``python -m
+        torch.distributed.run``, the module torchrun runs) for
+        PARALLEL_STEPS bf16 steps (``--deterministic``) on the first
+        PARALLEL_STEPS pairs of train_cli's PNG folder, and the same
+        command without torchrun (``cli.train``'s ``main`` in this
+        process, with a fresh process's TF32 and cuDNN settings); the two
+        checkpoints equal bit for bit (a one-rank average is the
+        identity); ms/step of each from its metrics.jsonl (one record a
+        step);
+    (b) two ranks on the card over gloo (NCCL puts one rank on a card),
+        spawned as ``chip_smoke.py --parallel-rank R PORT DIR``
+        (``parallel_rank``), a global batch of 2.
+
+    Each subprocess has PARALLEL_TIMEOUT_S; one that fails, hangs or exits
+    non-zero fails the phase, and its process group is killed."""
+    import socket
+    import shutil
+    from ir2rgb_tpu_torch.data import write_synthetic_dataset
+    root = Path("build") / "train_cli"
+    if not (root / "pairs").exists():
+        write_synthetic_dataset(str(root / "pairs"), n=CLI_PAIRS, size=572)
+    res = {"preset": PARALLEL_PRESET}
+    cli = ["-m", "ir2rgb_tpu_torch.cli.train", "--preset", PARALLEL_PRESET,
+           "--model.compute_dtype", "bf16", "--deterministic",
+           "--data.dataroot", str(root / "pairs"),
+           "--data.max_dataset_size", str(PARALLEL_STEPS),
+           "--train.checkpoints_dir", str(root / "parallel"),
+           "--train.niter", "1", "--train.niter_decay", "0",
+           "--train.niter_fix_global", "0", "--train.print_freq", "1",
+           "--train.display_freq", "1000", "--train.save_latest_freq",
+           "1000", "--dist_timeout", str(PARALLEL_TIMEOUT_S)]
+    runs = ("torchrun_nccl_world1", "one_process")
+    t0 = time.perf_counter()
+    proc = start_group([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", "1"] + cli
+                       + ["--train.name", runs[0]])
+    [(out, err)] = wait_group([proc], PARALLEL_TIMEOUT_S)
+    rc, sec = proc.returncode, time.perf_counter() - t0
+    check(rc == 0, f"parallel (a) {runs[0]}: exit {rc}" + (
+        "" if rc == 0 else f"\n{err[-3000:]}"))
+    # the same run without torchrun, in this process (its kernels built),
+    # with a fresh process's TF32 and cuDNN settings, restored after
+    from ir2rgb_tpu_torch.cli.train import main as cli_main
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        rc1 = cli_main(cli[2:] + ["--train.name", runs[1]])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    check(rc1 == 0, f"parallel (a) {runs[1]} (in process): exit {rc1}")
+    for name, seconds in zip(runs, (sec, time.perf_counter() - t0)):
+        records = [json.loads(x) for x in open(
+            root / "parallel" / name / "metrics.jsonl")]
+        res[name] = {"seconds": seconds,
+                     "steps": [r["step"] for r in records],
+                     "ms_per_step": [r["step_time"] * 1e3 for r in records]}
+    states = [torch.load(root / "parallel" / n / "ckpt" /
+                         f"{PARALLEL_STEPS}.pt", map_location="cpu",
+                         weights_only=False, mmap=True) for n in runs]
+    for st in states:
+        st.pop("config")
+    diff = first_difference(*states)
+    check(diff is None and states[0]["step"] == PARALLEL_STEPS,
+          f"parallel (a): torchrun's NCCL world-1 checkpoint equals the "
+          f"plain run's bit for bit (first difference {diff})")
+    del states
+    a = {n: res[n]["ms_per_step"] for n in runs}
+    print(f"parallel (a) {PARALLEL_PRESET} bf16 b1 ({card}): ms/step "
+          f"(steps 1-{PARALLEL_STEPS}, metrics.jsonl) torchrun NCCL world 1 "
+          f"{[round(x, 2) for x in a['torchrun_nccl_world1']]} (process "
+          f"{res[runs[0]]['seconds']:.1f} s), one process "
+          f"{[round(x, 2) for x in a['one_process']]} (in process "
+          f"{res[runs[1]]['seconds']:.1f} s)", flush=True)
+
+    # (b) two gloo ranks on the one card
+    out_dir = root / "parallel" / "ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [start_group([sys.executable, __file__, "--parallel-rank",
+                          str(r), str(port), str(out_dir)])
+             for r in range(2)]
+    outs = wait_group(procs, PARALLEL_TIMEOUT_S)
+    res["ranks_seconds"] = time.perf_counter() - t0
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"parallel (b) rank {r}: exit "
+              f"{p.returncode}" + ("" if p.returncode == 0 else
+                                   f"\n{o[-2000:]}\n{e[-3000:]}"))
+    if any(p.returncode for p in procs):
+        raise RuntimeError("parallel (b): a rank failed (above)")
+    ranks = [json.load(open(out_dir / f"rank{r}.json")) for r in range(2)]
+    res["ranks"] = ranks
+    for r in ranks:
+        for f in r["failures"]:
+            check(False, f"parallel (b) rank {r['rank']}: {f}")
+    steps = ranks[0]["bf16_steps"]
+    res["launches"] = {k: sum(s["launches"][k] for r in ranks
+                              for s in r["bf16_steps"]) for k in PER_STEP}
+    print(f"parallel (b) {PARALLEL_PRESET} 2 gloo ranks on one card, global "
+          f"batch 2 ({card}; gloo stages CUDA tensors through the host): "
+          f"bf16 ms/step {[round(s['ms'], 2) for s in steps]} (rank 0), "
+          f"gradient all-reduce {steps[-1]['allreduce_bytes']} bytes in "
+          f"{[round(s['allreduce_ms'], 2) for s in steps]} ms", flush=True)
+    for tag in ("accum2", "batch2"):
+        r = ranks[0][f"fp32_vs_{tag}"]
+        print(f"parallel (b) fp32 DP step vs one process {tag}: metrics rel "
+              f"max {max(r['metric_rel'].values()):.3g}, worst gradient "
+              f"{ {n: [round(v[0], 3), v[1]] for n, v in r['worst_grad'].items()} } "
+              f"of the {PARALLEL_GRAD_REL} bar, bit-equal "
+              f"{r['grads_bit_equal']}, weights max |d| "
+              f"{r['weight_max_abs']:.3g}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3724,6 +4074,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import _build
 
@@ -3775,6 +4127,7 @@ def main() -> int:
     quant = phase("quant", quant_phase, card)
     nete = phase("netE", nete_phase, card)
     export = phase("export", export_phase, card)
+    parallel = phase("parallel", parallel_phase, card)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
@@ -3787,7 +4140,8 @@ def main() -> int:
                   for q in quant["presets"]},
                "quant tick": quant["tick"]["launches"],
                "netE": nete["launches"],
-               "export": export["launches"]}
+               "export": export["launches"],
+               "parallel": parallel["launches"]}
     total = {k: sum(c.get(k, 0) for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
@@ -3906,6 +4260,7 @@ def main() -> int:
     print("quant " + json.dumps(quant))
     print("netE " + json.dumps(nete))
     print("export " + json.dumps(export))
+    print("parallel " + json.dumps(parallel))
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -3963,7 +4318,8 @@ def main() -> int:
                    "slices": slices, "trains": trains,
                    "train_options": options, "train_cli": cli,
                    "serve": serve, "quant": quant, "netE": nete,
-                   "export": export, "kernels": kernels}, fh)
+                   "export": export, "parallel": parallel,
+                   "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

@@ -13,10 +13,26 @@ convolutions at HIGHEST precision. Every model trains, ``cycle_gan`` on
 pinned and copied to the card without blocking, then cropped, flipped
 and normalized there (``data/transforms.py``); the crop and flip draws
 come from a CPU generator seeded ``train.seed + 1``.
+
+Data-parallel, one process a card (``parallel/``):
+
+    torchrun --standalone --nproc_per_node N -m ir2rgb_tpu_torch.cli.train \
+        --preset pix2pixhd_512 --train.num_devices N ...
+
+Under torchrun's environment (or ``--train.multihost true``, which
+requires a cluster) the process group comes up first
+(``multihost.initialize``: NCCL on the cards, gloo with ``--device cpu``)
+and each rank trains on ``cuda:LOCAL_RANK``. ``data.batch_size`` is the
+global batch: every rank decodes its own rows of it, crops and flips them
+as the one-process run would, and rank 0 alone writes the run.
+``--dist_timeout S`` bounds every collective (default 300 s): a rank that
+dies or hangs fails the others. ``--deterministic`` selects cuDNN's
+deterministic algorithms (a run repeats bit for bit).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from itertools import chain
 
@@ -24,11 +40,9 @@ import numpy as np
 import torch
 
 
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+def _launched() -> bool:
+    """Started by torchrun (its rank variables are set)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
 def main(argv=None) -> int:
@@ -41,12 +55,28 @@ def main(argv=None) -> int:
     )
     from ir2rgb_tpu_torch.nn import quant
     from ir2rgb_tpu_torch.obs import Visualizer
+    from ir2rgb_tpu_torch.parallel import data_parallel_mesh, multihost
+    from ir2rgb_tpu_torch.parallel.mesh import sharded
     from ir2rgb_tpu_torch.runtime import resolve_device, set_parity_mode
     from ir2rgb_tpu_torch.train import Trainer, create_model
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = resolve_device(pop_flag(argv, "--device"))
+    deterministic = "--deterministic" in argv
+    if deterministic:
+        argv.remove("--deterministic")
+    device_flag = pop_flag(argv, "--device")
+    timeout_s = pop_flag(argv, "--dist_timeout")
     cfg = parse_cli(argv)
+    if cfg.train.multihost or _launched():
+        multihost.initialize(
+            require=cfg.train.multihost,
+            backend="gloo" if device_flag == "cpu" else None,
+            timeout_s=float(timeout_s or multihost.DEFAULT_TIMEOUT_S))
+    if device_flag is None and torch.distributed.is_initialized():
+        # the rank's card, made current by initialize
+        device_flag = f"cuda:{torch.cuda.current_device()}"
+    device = resolve_device(device_flag)
+    mesh = data_parallel_mesh(cfg.train.num_devices, device=device)
     if quant.env_override() or cfg.infer.quant != "none":
         # int8 rounding has zero gradient: a quantized train step would
         # learn nothing (quantization is a serving-only path)
@@ -66,11 +96,16 @@ def main(argv=None) -> int:
     if cfg.model.compute_dtype == "float32":
         # full-fp32 convolutions, as the JAX package's HIGHEST precision
         set_parity_mode()
-    loader = DataLoader(cfg)
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    loader = DataLoader(cfg, shard=(mesh.world, mesh.rank))
     model = create_model(cfg, device=device,
                          steps_per_epoch=max(len(loader), 1),
                          seed=cfg.train.seed)
-    vis = Visualizer(cfg.run_dir(), cfg.train.name)
+    # rank 0 alone writes the run
+    vis = Visualizer(cfg.run_dir(), cfg.train.name) if mesh.rank == 0 \
+        else None
     trainer = Trainer(model, cfg, visualizer=vis)
 
     temporal = cfg.data.dataset_mode == "temporal"
@@ -80,26 +115,34 @@ def main(argv=None) -> int:
     # non-crop preprocess modes (scale_width / none) train at decode size
     crop = cfg.data.crop_size if "crop" in cfg.data.preprocess else None
 
+    accum = max(1, cfg.train.grad_accum)
+
     def batches():
-        for host in loader:
+        for i, host in enumerate(loader):
+            # this rank's rows; the first batch checks every rank feeds the
+            # same count (every later one has the same shape)
+            x = multihost.global_batch(
+                {k: np.ascontiguousarray(v) for k, v in host.items()
+                 if k in ("a", "b", "inst")}, mesh, check=i == 0)
             kw = {}
-            if not temporal and "inst" in host:
-                kw["inst"] = _to_device(host["inst"], device)
+            if not temporal and "inst" in x:
+                kw["inst"] = x["inst"]
             if not temporal and cfg.model.label_nc > 0:
                 kw["label_a"] = True
             if unpaired:
                 kw["unpaired"] = True
-            yield prep(_to_device(host["a"], device),
-                       _to_device(host["b"], device), generator,
-                       crop_size=crop, no_flip=cfg.data.no_flip, train=True,
-                       **kw)
+            with sharded(mesh, accum):
+                batch = prep(x["a"], x["b"], generator, crop_size=crop,
+                             no_flip=cfg.data.no_flip, train=True, **kw)
+            yield batch
 
     it = batches()
     first = next(it)
     trainer.init_or_restore()
     trainer.fit(chain([first], it))
-    # the final sample dump through the trainer's display hook
-    trainer._display(first, model.step)
+    if trainer.visualizer is not None:
+        # the final sample dump through the trainer's display hook
+        trainer._display(first, model.step)
     return 0
 
 

@@ -19,6 +19,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from ir2rgb_tpu_torch.config import Config
+from ir2rgb_tpu_torch.parallel.mesh import local_rows
 from .folder import find_aligned_pairs, find_temporal_sequences
 
 
@@ -84,7 +85,8 @@ class DataLoader:
     """
 
     def __init__(self, cfg: Config, phase: Optional[str] = None,
-                 shuffle: Optional[bool] = None):
+                 shuffle: Optional[bool] = None,
+                 shard: Optional[tuple] = None):
         d = cfg.data
         self.cfg = cfg
         self.phase = phase or d.phase
@@ -183,6 +185,10 @@ class DataLoader:
                 f"{self.batch_size}; partial batches are dropped, so no "
                 f"batch could ever be produced. Lower --data.batch_size "
                 f"or add data.")
+        # this rank's rows of each global batch (all of them: one process)
+        world, rank = shard or (1, 0)
+        accum = max(1, cfg.train.grad_accum) if world > 1 else 1
+        self.rows = local_rows(self.batch_size, world, rank, accum).tolist()
         self.shuffle = (not d.serial_batches if shuffle is None else shuffle)
         self._rng = np.random.RandomState(cfg.train.seed)
         first = (self.items[0][0][0] if self.temporal else self.items[0][0])
@@ -270,7 +276,7 @@ class DataLoader:
         order = self._epoch_order()
         for i in range(0, len(order) - self.batch_size + 1,
                        self.batch_size):
-            idxs = order[i:i + self.batch_size]
+            idxs = [order[i + r] for r in self.rows]
             if self.temporal:
                 windows = [self.items[j] for j in idxs]
                 t = len(windows[0])
@@ -293,8 +299,10 @@ class DataLoader:
                 # fixed pairing, the family's --serial_batches)
                 a_paths = [self.items[j][0] for j in idxs]
                 if self.shuffle:
-                    b_idx = self._rng.randint(0, len(self.b_items),
-                                              size=len(idxs))
+                    # drawn for the whole global batch on every rank
+                    b_all = self._rng.randint(0, len(self.b_items),
+                                              size=self.batch_size)
+                    b_idx = [b_all[r] for r in self.rows]
                 else:
                     b_idx = [j % len(self.b_items) for j in idxs]
                 b_paths = [self.b_items[int(j)] for j in b_idx]

@@ -19,6 +19,10 @@ Each transform is split in two:
 
 The draws are the port's own bits, not ``jax.random``'s; the apply takes
 any parameters, so a test can hand it the ones the JAX package chose.
+Inside ``parallel.mesh.sharded(mesh, accum)`` the batch in hand is this
+rank's rows of the global batch (``shard_batch``'s layout), and the draws
+are made at the global batch's shape and taken at those rows, so every
+rank crops and flips as the one-process run of the global batch does.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import torch
+
+from ir2rgb_tpu_torch.parallel import mesh as pmesh
 
 
 class CropFlip(NamedTuple):
@@ -100,7 +106,8 @@ def _draw(x: torch.Tensor, crop: Optional[int], train: bool,
     n, h, w = x.shape[0], x.shape[-3], x.shape[-2]
     if not train:
         return center_crop(n, h, w, crop)
-    return draw_crop_flip(n, h, w, crop, not no_flip, generator)
+    return pmesh.draw(lambda m: draw_crop_flip(m, h, w, crop, not no_flip,
+                                               generator), n)
 
 
 def preprocess_pair_batch(a_uint8: torch.Tensor, b_uint8: torch.Tensor,

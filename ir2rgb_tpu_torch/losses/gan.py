@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ir2rgb_tpu_torch.nn.discriminators import DiscOut
+from ir2rgb_tpu_torch.parallel import mesh as pmesh
 
 
 def _per_scale(logits: torch.Tensor, target_is_real: bool, mode: str,
@@ -63,9 +64,10 @@ def gan_loss_d_parts(disc_out_real: DiscOut, disc_out_fake: DiscOut,
 
 def draw_eps(n: int, generator: torch.Generator) -> torch.Tensor:
     """The penalty's per-sample mixing weights, (n, 1, 1, 1) fp32 uniform
-    in [0, 1), drawn from ``generator`` on its device."""
-    return torch.rand((n, 1, 1, 1), generator=generator,
-                      device=generator.device)
+    in [0, 1), drawn from ``generator`` on its device (in a data-parallel
+    step, this rank's rows of the global batch's draw)."""
+    return pmesh.draw(lambda m: torch.rand((m, 1, 1, 1), generator=generator,
+                                           device=generator.device), n)
 
 
 def gradient_penalty(d_fn: Callable[[torch.Tensor], DiscOut],

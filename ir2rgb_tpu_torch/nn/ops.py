@@ -18,7 +18,10 @@ conv to 4·cout phase channels, then the depth-to-space of kernel B3
 (``kernels.d2s_fn``), then the bias. Instance norm goes to kernel B1
 (``kernels.fused_instance_norm_act``). Both kernels are differentiable.
 Batch norm, the pads, the resizes and dropout are plain PyTorch, as the
-JAX package computes them outside any Pallas kernel.
+JAX package computes them outside any Pallas kernel. Inside a
+data-parallel step (``parallel/mesh.py``: ``sharded``) a dropout mask is
+drawn at the global batch's shape and sliced to the rank's rows, and
+batch norm takes its statistics over the global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ir2rgb_tpu_torch.kernels import d2s_fn, fused_instance_norm_act
+from ir2rgb_tpu_torch.parallel import mesh as pmesh
 from . import quant
 # eps 1e-5 (torch InstanceNorm2d's) and the activations live with B1
 from ir2rgb_tpu_torch.kernels.instance_norm import (  # noqa: F401
@@ -334,8 +338,11 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
 def dropout_mask(shape, rate: float, generator: torch.Generator
                  ) -> torch.Tensor:
     """:func:`dropout`'s draw alone: the bool mask of kept elements, on
-    ``generator``'s device."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    ``generator``'s device (in a data-parallel step, this rank's rows of
+    the global batch's draw)."""
+    u = pmesh.draw(lambda n: torch.rand((n,) + tuple(shape[1:]),
+                                        generator=generator,
+                                        device=generator.device), shape[0])
     return u < 1.0 - rate
 
 
@@ -355,13 +362,17 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     gamma (``weight``) and beta (``bias``); the result in x's dtype.
 
     Batch statistics by default, as the JAX package (``ops.py:351-371``)
-    and the reference family at test time compute it; with
-    ``use_running_stats`` (and running stats given) the stored ones,
-    ``model.eval()``'s semantics. Written out, so that no running stat
-    is ever updated."""
+    and the reference family at test time compute it (over every rank's
+    rows in a data-parallel step, ``pmesh.batch_moments``, as JAX's mean
+    over a sharded batch); with ``use_running_stats`` (and running stats
+    given) the stored ones, ``model.eval()``'s semantics. Written out, so
+    that no running stat is ever updated."""
     x32 = x.float()
+    dp = pmesh.active()
     if use_running_stats and running_mean is not None:
         mean, var = running_mean.float(), running_var.float()
+    elif dp is not None:
+        mean, var = pmesh.batch_moments(x32, dp)
     else:
         mean = x32.mean(dim=(0, 1, 2))
         var = (x32 - mean).square().mean(dim=(0, 1, 2))

@@ -18,7 +18,8 @@ discriminators. The loss (``cycle.py:127-197``), in JAX's call order:
 
 Metrics ``G_A G_B Cyc_A Cyc_B [Idt_A Idt_B] D_A D_B``. The model is a
 :class:`GanModel`, whose ``train_step`` it keeps: grad-accum, EMA (of
-both generators) and the bf16 Adam compose with it.
+both generators), the bf16 Adam and data parallelism compose with it
+(each pool queries the gathered global fakes, ``train/image_pool.py``).
 """
 
 from __future__ import annotations

@@ -13,6 +13,12 @@ The decisions (swap or not, which slot) come from a ``torch.Generator``:
 the port's own bits, not the JAX package's. :func:`query_pool` also takes
 them as arguments, so a test can hand it the decisions ``jax.random``
 draws and hold the outputs and the state to ``query_pool``'s.
+
+In a data-parallel step (``parallel/mesh.py``: ``sharded``) the pool
+works over the global batch, as JAX's replicated pool state does: every
+rank gathers the fakes of all ranks, queries its replica of the pool with
+them and the same draws (so the replicas stay equal), and keeps its own
+rows of the output.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ir2rgb_tpu_torch.parallel import mesh as pmesh
 
 
 class PoolState(NamedTuple):
@@ -63,7 +71,21 @@ def query_pool(pool: PoolState, fakes: torch.Tensor,
 
     ``swap`` (B,) bool and ``idx`` (B,) int are drawn from ``generator``
     when not given. ``fakes`` should carry no graph (the pool keeps
-    them)."""
+    them). In a data-parallel step ``fakes`` are this rank's rows: the
+    query runs on the global batch and returns this rank's rows."""
+    dp = pmesh.active()
+    if dp is not None:
+        n = fakes.shape[0]
+        out, pool = _query(pool, pmesh.gather(fakes, dp), generator, swap,
+                           idx)
+        return out[dp.rank * n:(dp.rank + 1) * n], pool
+    return _query(pool, fakes, generator, swap, idx)
+
+
+def _query(pool: PoolState, fakes: torch.Tensor,
+           generator: Optional[torch.Generator],
+           swap: Optional[torch.Tensor], idx: Optional[torch.Tensor]
+           ) -> Tuple[torch.Tensor, PoolState]:
     buffer, count = pool
     size = buffer.shape[0]
     if tuple(fakes.shape[1:]) != tuple(buffer.shape[1:]):

@@ -58,6 +58,18 @@ trained or JAX-converted weights with ``load_state_dict``.
   gradients are zero by definition. After the update the EMA shadow
   becomes ``d·e + (1 − d)·p`` (``model.py:537-541``).
 
+- Data-parallel (``parallel/``: ``replicate`` attaches ``mesh``): each
+  rank steps on its rows of the global batch and does exactly what JAX's
+  sharded ``train_step`` does over it. The passes run inside
+  ``parallel.mesh.sharded``: dropout masks and WGAN-GP's weights are
+  drawn at the global shape and sliced, the pool queries the gathered
+  global fakes, batch norm takes global statistics. After the last
+  backward one averaging all-reduce of every gradient (a flat buffer a
+  network) and one of the metrics (``inst_collisions`` summed); the
+  freeze, both Adams and the EMA then run unchanged on every rank. No
+  ``DistributedDataParallel``: ``netD`` runs outside any wrapper's
+  forward and the step is one backward of ``loss_g + loss_d``.
+
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
   reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
   ``ema_e``), for ``checkpoint/manager.py``.
@@ -96,6 +108,8 @@ from ir2rgb_tpu_torch.nn.encoders import (
 )
 from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g, init_weights
 from ir2rgb_tpu_torch.nn.vgg import Vgg19, load_vgg19_npz
+from ir2rgb_tpu_torch.parallel import mesh as pmesh
+from ir2rgb_tpu_torch.parallel.mesh import DataParallelMesh
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
 from ir2rgb_tpu_torch.train.image_pool import PoolState, init_pool, query_pool
 from ir2rgb_tpu_torch.train.optim import AdamBf16Mu
@@ -144,6 +158,9 @@ class GanModel:
     # the feature encoder (use_instance_feat)
     enc_cfg: Optional[EncoderConfig] = None
     netE: Optional[nn.Module] = None
+    # the data-parallel mesh the steps run over (``parallel.replicate``
+    # attaches it); None: one process
+    mesh: Optional[DataParallelMesh] = None
     # generator name -> (its parameters, their versions, the bf16 copy)
     _serving: Dict[str, Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -448,7 +465,14 @@ class GanModel:
         parameters (cleared first). With ``grad_accum = K`` the batch is
         cut into K micro-batches in order, whose gradients add up before
         the division by K. Returns the reported metrics (the mean over
-        the micro-batches), detached."""
+        the micro-batches), detached.
+
+        Over a mesh (``self.mesh`` with a process group) ``batch`` is this
+        rank's rows (``parallel.shard_batch``'s layout with K), the passes
+        run inside ``parallel.mesh.sharded`` (draws, pool and batch norm
+        over the global batch), and after the last backward one averaging
+        all-reduce of every gradient and one of the metrics make them the
+        global batch's on every rank."""
         accum = max(1, int(self.cfg.train.grad_accum))
         n = next(iter(batch.values())).shape[0]
         if n % accum:
@@ -457,21 +481,29 @@ class GanModel:
         for p in self._params():
             p.grad = None
         metrics = []
-        for i in range(accum):
-            micro = batch if accum == 1 else {
-                k: v[i * n // accum:(i + 1) * n // accum]
-                for k, v in batch.items()}
-            loss_g, loss_d, m = self.loss_and_metrics(micro, freeze_trunk)
-            (loss_g + loss_d).backward()
-            metrics.append({k: v.detach() for k, v in m.items()
-                            if not k.startswith("_")})
-        if accum == 1:
-            return metrics[0]
-        for p in self._params():
-            if p.grad is not None:
-                p.grad.div_(accum)
-        return {k: torch.stack([m[k] for m in metrics]).mean()
-                for k in metrics[0]}
+        with pmesh.sharded(self.mesh):
+            for i in range(accum):
+                micro = batch if accum == 1 else {
+                    k: v[i * n // accum:(i + 1) * n // accum]
+                    for k, v in batch.items()}
+                loss_g, loss_d, m = self.loss_and_metrics(micro,
+                                                          freeze_trunk)
+                (loss_g + loss_d).backward()
+                metrics.append({k: v.detach() for k, v in m.items()
+                                if not k.startswith("_")})
+        dp = self.mesh is not None and self.mesh.group is not None
+        if dp:
+            pmesh.all_reduce_grads((*self.g_nets().values(),
+                                    *self.d_nets().values()), self.mesh)
+        if accum > 1:
+            for p in self._params():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            metrics = [{k: torch.stack([m[k] for m in metrics]).mean()
+                        for k in metrics[0]}]
+        if dp:
+            return pmesh.all_reduce_metrics(metrics[0], self.mesh)
+        return metrics[0]
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One fused G + D update; returns the metrics as 0-dim tensors

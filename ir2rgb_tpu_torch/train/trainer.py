@@ -10,8 +10,17 @@ the ``load_pretrain`` warm start (a tolerant partial load of every
 network, which also grafts a global generator into a local enhancer's
 trunk, and restarts the EMA shadow from the loaded weights).
 
-Data-parallel, spatial and multi-host training are not ported: the
-trainer raises for them before any step.
+Data-parallel training, on one host or several, runs over the mesh of
+``parallel/``: the trainer builds it from ``train.num_devices`` (0: the
+process group's world size; more than one card without a group raises,
+naming ``torchrun``), brings the group up for ``train.multihost``
+(``multihost.initialize(require=True)``) and replicates rank 0's state
+after every restore. Only rank 0 does the run's I/O (``config.json``, the
+fresh run's clear, checkpoints and the epoch index, loss lines, display
+images); the other ranks wait at a barrier where they read what rank 0
+wrote. Every rank restores the same files. Spatial partitioning
+(``spatial_devices > 1``) is not ported (ROADMAP A16): the trainer
+raises for it before any step.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch.nn as nn
 
 from ir2rgb_tpu_torch.checkpoint import CheckpointManager
 from ir2rgb_tpu_torch.config import Config, save_config
+from ir2rgb_tpu_torch.parallel import data_parallel_mesh, multihost, replicate
 from ir2rgb_tpu_torch.train.model import GanModel
 
 log = logging.getLogger(__name__)
@@ -66,37 +76,41 @@ def _partial_merge(net: nn.Module, src: Dict[str, torch.Tensor],
 class Trainer:
     def __init__(self, model: GanModel, cfg: Config, visualizer=None):
         tcfg = cfg.train
-        # num_devices 0 means every visible device, as in the JAX package
-        devices = tcfg.num_devices or (torch.cuda.device_count()
-                                       if model.device.type == "cuda" else 1)
-        unported = {f"{devices} devices (data parallel; pass "
-                    "--train.num_devices 1 for one)": devices > 1,
-                    "spatial_devices > 1": tcfg.spatial_devices > 1,
-                    "multihost": tcfg.multihost}
-        for what, bad in unported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"training with {what} is not ported yet; the port "
-                    "trains on one device")
+        if tcfg.spatial_devices > 1:
+            raise NotImplementedError(
+                "training with spatial_devices > 1 (spatial partitioning) "
+                "is not ported yet (ROADMAP A16): the port trains "
+                "data-parallel only")
+        if tcfg.multihost:
+            multihost.initialize(require=True)
+        self.mesh = data_parallel_mesh(tcfg.num_devices, device=model.device)
+        self.writer = self.mesh.rank == 0
         self.model = model
         self.cfg = cfg
-        self.visualizer = visualizer
+        self.visualizer = visualizer if self.writer else None
         run_dir = cfg.run_dir()
-        os.makedirs(run_dir, exist_ok=True)
-        save_config(cfg, os.path.join(run_dir, "config.json"))
-        self.ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
-        if not tcfg.continue_train:
-            # a fresh run into an existing directory overwrites it, as the
-            # reference does; say what goes (a forgotten continue_train or
-            # a run-name typo should leave a trace)
-            existing = self.ckpt.all_steps()
-            if existing:
-                log.warning(
-                    "fresh run (no --continue_train) into %s: deleting %d "
-                    "existing checkpoint step(s) %s and the epoch index — "
-                    "pass --train.continue_train true to resume instead",
-                    run_dir, len(existing), existing)
-            self.ckpt.clear()
+        ckpt_dir = os.path.join(run_dir, "ckpt")
+        if self.writer:
+            os.makedirs(run_dir, exist_ok=True)
+            save_config(cfg, os.path.join(run_dir, "config.json"))
+            self.ckpt = CheckpointManager(ckpt_dir)
+            if not tcfg.continue_train:
+                # a fresh run into an existing directory overwrites it, as
+                # the reference does; say what goes (a forgotten
+                # continue_train or a run-name typo should leave a trace)
+                existing = self.ckpt.all_steps()
+                if existing:
+                    log.warning(
+                        "fresh run (no --continue_train) into %s: deleting "
+                        "%d existing checkpoint step(s) %s and the epoch "
+                        "index — pass --train.continue_train true to resume "
+                        "instead", run_dir, len(existing), existing)
+                self.ckpt.clear()
+        # the other ranks read the directory rank 0 made and cleared
+        self.mesh.barrier()
+        if not self.writer:
+            self.ckpt = CheckpointManager(ckpt_dir)
+        replicate(model, self.mesh)
         self._last_saved: Optional[int] = None
 
     # ------------------------------------------------------------------
@@ -123,8 +137,12 @@ class Trainer:
             step = self.ckpt.step_for_label(tcfg.which_epoch)
             if step is not None:
                 self.model.load_state_dict(self.ckpt.restore(step))
-                if any(s > step for s in self.ckpt.all_steps()):
+                # every rank has read the files before rank 0 forks them
+                self.mesh.barrier()
+                if self.writer and any(s > step
+                                       for s in self.ckpt.all_steps()):
                     self.ckpt.delete_after(step)
+        replicate(self.model, self.mesh)
 
     # ------------------------------------------------------------------
 
@@ -167,18 +185,23 @@ class Trainer:
                 epoch = step // steps_per_epoch
                 if epoch % tcfg.save_epoch_freq == 0:
                     self._save(step)
-                    self.ckpt.record_epoch(epoch, step)
-        # final save, unless the step is on disk already (a completed run
-        # relaunched with continue_train)
-        if step not in self.ckpt.all_steps():
-            self._save(step)
-        self.ckpt.wait()
+                    if self.writer:
+                        self.ckpt.record_epoch(epoch, step)
+        if self.writer:
+            # final save, unless the step is on disk already (a completed
+            # run relaunched with continue_train)
+            if step not in self.ckpt.all_steps():
+                self._save(step)
+            self.ckpt.wait()
+        # a restore on any rank reads what rank 0 has just written
+        self.mesh.barrier()
         if self.visualizer is not None:
             self.visualizer.flush()
 
     def _save(self, step: int) -> None:
-        """Save once per step (a step can land on both cadences)."""
-        if step == self._last_saved:
+        """Save once per step (a step can land on both cadences); rank 0
+        alone writes."""
+        if step == self._last_saved or not self.writer:
             return
         self.ckpt.save(step, self.model.state_dict())
         self._last_saved = step

@@ -239,23 +239,36 @@ def test_completed_run_relaunch_is_noop(tmp_path):
                                          ("spatial_devices", 2),
                                          ("multihost", True)])
 def test_unported_parallel_training_raises_before_any_step(tmp_path, field,
-                                                           value):
+                                                           value,
+                                                           monkeypatch):
+    # data parallelism and multihost are ported (the name predates them):
+    # spatial partitioning still raises, naming A16; two devices without
+    # a process group name the torchrun launch; multihost with no cluster
+    # raises from multihost.initialize(require=True). Nothing is written.
+    from ir2rgb_tpu_torch.parallel import multihost
+    for k in multihost.ENV:
+        monkeypatch.delenv(k, raising=False)
     cfg = _cfg(tmp_path, **{field: value})
     model = create_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    want = {"num_devices": (ValueError, "torchrun --standalone "
+                                        "--nproc_per_node 2"),
+            "spatial_devices": (NotImplementedError, "A16"),
+            "multihost": (RuntimeError, "require=True")}[field]
+    with pytest.raises(want[0], match=want[1]):
         Trainer(model, cfg)
     assert not os.path.exists(cfg.run_dir())
 
 
 def test_every_visible_card_is_refused_not_one_silently(tmp_path,
                                                       monkeypatch):
-    # num_devices 0 means every visible device; with two cards the port
-    # would train on one, so it refuses before anything is written
+    # num_devices 0 means every visible device; with two cards and no
+    # process group one process would train on one, so it refuses, naming
+    # the torchrun launch, before anything is written
     import types
     cfg = _cfg(tmp_path)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     card_model = types.SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="2 devices"):
+    with pytest.raises(ValueError, match="every visible card .2.*torchrun"):
         Trainer(card_model, cfg)
     assert not os.path.exists(cfg.run_dir())
     cfg1 = _cfg(tmp_path, num_devices=1)
