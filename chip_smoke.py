@@ -147,7 +147,29 @@ Phases, each failing the run if it fails:
    steps with each rank's launches held to ``TRAIN`` at batch 1 and the
    replicas bit-equal after each, with ms/step, the gradient
    all-reduce's bytes and ms (gloo stages CUDA tensors through the
-   host).
+   host);
+15. ``spatial`` (``spatial_phase``): spatially partitioned serving
+   (``parallel/spatial.py``) on gloo ranks sharing the one card
+   (``chip_smoke.py --spatial-rank R WORLD PORT DIR``). B1 split
+   (``ir2rgb::instance_norm_stats`` and ``ir2rgb::instance_norm_apply``)
+   at every shard shape (``B1_SPLIT_SHAPES``) against its plain
+   versions, bf16 and fp32, one device kernel a call, timed beside the
+   plain versions, the library's and the bound; B2 at the tails'
+   extended shapes and d2s at the shard shapes are in the kernel phases
+   above. Frames (``SPATIAL_CASES``): pix2pixhd_2048 at full width on
+   sp 2 and 4, fp32 and bf16, 2 frames; pix2pixhd_512 on sp 2, bf16;
+   temporal_512 on sp 4, 3 frames, each rank's carry rows held to the
+   one-process carry's. Each gathered frame against the one-process
+   frame of the same weights (fp32 max-abs <= SLICE_FP32_TOL, bf16 >=
+   SPATIAL_BF16_PSNR dB; bf16 temporal frames at the one-process carry),
+   the merged B1 statistics bit-identical on every rank, every rank's
+   launches a frame equal to ``SPATIAL``. MultiStreamServer of
+   temporal_512, SPATIAL_SLOTS streams, SPATIAL_TICKS, on dp_sp_mesh(2,
+   1) and (1, 2) against the one-process server (fp32 within 1 LSB, its
+   carry blocks SLICE_FP32_TOL; bf16 SPATIAL_BF16_PSNR). The negative
+   control (one halo row a layer from the wrong shard) must fail the
+   fp32 bar. Per rank: ms/frame, the exchange's bytes and ms, peak
+   memory, labelled as gloo ranks sharing one card.
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -458,6 +480,7 @@ def per_step(table: dict) -> dict:
     """Kernel launches of one train step from its ``TRAIN`` table."""
     return {"instance_norm_act": sum(table["b1"].values()),
             "instance_norm_act_bwd": sum(table["b1_bwd"].values()),
+            "instance_norm_stats": 0, "instance_norm_apply": 0,
             "tail_fused": 0, "d2s": sum(table["d2s"].values()),
             "s2d": sum(table["s2d"].values())}
 
@@ -480,8 +503,20 @@ def per_frame(preset: str) -> dict:
     """Kernel launches of one served frame of ``preset``."""
     t = SERVE[preset]
     return {"instance_norm_act": sum(t["b1"].values()),
-            "instance_norm_act_bwd": 0, "tail_fused": len(t["tail"]),
+            "instance_norm_act_bwd": 0, "instance_norm_stats": 0,
+            "instance_norm_apply": 0, "tail_fused": len(t["tail"]),
             "d2s": len(t["d2s"]), "s2d": 0}
+
+
+def spatial_per_frame(preset: str) -> dict:
+    """Kernel launches of one served frame of ``preset`` on one rank of
+    a spatially partitioned mesh (the ``SPATIAL`` table): every norm is
+    B1 split, two launches (statistics, apply) and no fused one; the
+    tail (B2, over the halo) and the ups (d2s) as unsharded."""
+    want = per_frame(preset)
+    norms = want["instance_norm_act"]
+    return {**want, "instance_norm_act": 0, "instance_norm_stats": norms,
+            "instance_norm_apply": norms}
 
 
 def quant_per_frame(preset: str, mode: str) -> dict:
@@ -557,6 +592,52 @@ B1_FWD_SHAPES += sorted({k for t in SERVE_TICK.values() for k in t["b1"]}
 B2_SHAPES += sorted({x for t in SERVE_TICK.values() for x in t["tail"]}
                     - set(B2_SHAPES))
 D2S_SHAPES += sorted({k for t in SERVE_TICK.values() for k in t["d2s"]}
+                     - set(D2S_SHAPES))
+
+# The spatial phase (``spatial_phase``): frames served with their rows
+# spread over the sp gloo ranks of a dp×sp mesh on the one card
+# (``parallel/spatial.py``), each held to the one-process frame of the
+# same weights. Frame cases (preset, sp, dtypes, frames); then
+# MultiStreamServer on SPATIAL_SERVER_MESHES ((dp, sp), world 2) with
+# SPATIAL_SLOTS streams of SPATIAL_SERVER over SPATIAL_TICKS (the slots
+# with a frame each tick); the negative control, SPATIAL_BROKEN (preset,
+# sp, dtype), serves one frame with one halo row a layer taken from the
+# wrong shard and must fail the fp32 bar.
+SPATIAL_CASES = [("pix2pixhd_2048", 2, ("float32", "bf16"), 2),
+                 ("pix2pixhd_512", 2, ("bf16",), 2),
+                 ("pix2pixhd_2048", 4, ("float32", "bf16"), 2),
+                 ("temporal_512", 4, ("float32", "bf16"), 3)]
+SPATIAL_SERVER, SPATIAL_SLOTS = "temporal_512", 4
+SPATIAL_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3)]
+SPATIAL_SERVER_MESHES = [(2, 1), (1, 2)]
+SPATIAL_BROKEN = ("pix2pixhd_512", 2, "float32")
+SPATIAL_BF16_PSNR = 40.0
+SPATIAL_TIMEOUT_S = 300
+# the frame whose B1 split launches the kernel table's times sum over
+SPLIT_FRAME = ("pix2pixhd_2048", 4)
+
+
+def shard_table(table: dict, sp: int, n: int = 1) -> dict:
+    """A ``SERVE`` entry's kernel shapes on one of ``sp`` ranks at batch
+    ``n``: H / sp, the tail's x extended by 3 halo rows each side."""
+    def at(shape, grow=0):
+        return (n, shape[1] // sp + grow) + tuple(shape[2:])
+    return dict(b1={(at(s), a): c for (s, a), c in table["b1"].items()},
+                tail=[at(s, 6) for s in table["tail"]],
+                d2s=[(at(s), c) for s, c in table["d2s"]])
+
+
+# every (preset, sp, batch) the phase serves partitioned, and its shapes
+SPATIAL_TABLES = {k: shard_table(SERVE[k[0]], k[1], k[2]) for k in sorted(
+    {(p, sp, 1) for p, sp, _, _ in SPATIAL_CASES}
+    | {(SPATIAL_SERVER, sp, SPATIAL_SLOTS // dp)
+       for dp, sp in SPATIAL_SERVER_MESHES if sp > 1})}
+SPATIAL = {p: spatial_per_frame(p) for p, _, _ in SPATIAL_TABLES}
+B1_SPLIT_SHAPES = sorted({k for t in SPATIAL_TABLES.values()
+                          for k in t["b1"]})
+B2_SHAPES += sorted({x for t in SPATIAL_TABLES.values() for x in t["tail"]}
+                    - set(B2_SHAPES))
+D2S_SHAPES += sorted({k for t in SPATIAL_TABLES.values() for k in t["d2s"]}
                      - set(D2S_SHAPES))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
@@ -3375,7 +3456,9 @@ def nete_phase(card: str) -> dict:
 
 # device kernel names (substrings of the mangled names) -> launch counter
 KERNEL_NODE_NAMES = {"in_fwd_kernel": "instance_norm_act",
+                     "in_stats_kernel": "instance_norm_stats",
                      "in_bwd_kernel": "instance_norm_act_bwd",
+                     "in_apply_kernel": "instance_norm_apply",
                      "tail_tc_kernel": "tail_fused",
                      "tail_kernel": "tail_fused", "d2s_kernel": "d2s"}
 
@@ -4060,6 +4143,464 @@ def parallel_phase(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The spatial phase: spatially partitioned serving on gloo ranks
+# ---------------------------------------------------------------------------
+
+def b1_split_phase(bw: float, gen: torch.Generator):
+    """B1 split (``ir2rgb::instance_norm_stats`` and
+    ``ir2rgb::instance_norm_apply``) at every shard shape of the spatial
+    phase's frames (``B1_SPLIT_SHAPES``), bf16 and fp32, each held to its
+    plain version on the card (the statistics to 1e-4 relative, the
+    apply at the fused forward's tolerances) with one device kernel a
+    call; bf16 timed beside the plain version, the library's
+    (``torch.var_mean`` over H, W; ``(x - mean) * rstd`` + act) and the
+    bound (bytes)."""
+    from ir2rgb_tpu_torch.kernels import instance_norm as b1
+    rows, timed_stats = [], set()
+    # the worst error of each op and dtype: the statistics' (mean, or M2
+    # relative), the apply's max |y - plain|
+    worst = {(op, d): 0.0 for op in ("stats", "apply")
+             for d in ("bfloat16", "float32")}
+    for (shape, act) in B1_SPLIT_SHAPES:
+        n, h, w, c = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3
+                 + 1).to(dtype)
+            mean, m2 = b1.instance_norm_stats(x)
+            mean_ref, m2_ref = b1.instance_norm_stats_reference(x.float())
+            rstd = torch.rsqrt(m2 / (h * w) + b1.INSTANCE_NORM_EPS)
+            y = b1.instance_norm_apply(x, mean, rstd, act)
+            y_ref = b1.instance_norm_apply_reference(x.float(), mean, rstd,
+                                                     act)
+            torch.cuda.synchronize()
+            stat_err = max(float((mean - mean_ref).abs().max()),
+                           float(((m2 - m2_ref) / m2_ref).abs().max()))
+            err = float((y.float() - y_ref).abs().max())
+            for op, e in (("stats", stat_err), ("apply", err)):
+                key = (op, dtype_name(dtype))
+                worst[key] = max(worst[key], e)
+            tag = f"B1 split {shape} {act} {dtype_name(dtype)}"
+            stats = lambda: b1.instance_norm_stats(x)  # noqa: E731
+            apply = lambda: b1.instance_norm_apply(  # noqa: E731
+                x, mean, rstd, act)
+            kernels = (device_kernels(stats), device_kernels(apply))
+            check(stat_err <= 1e-4 and err <= TOL[dtype]
+                  and kernels == (1, 1),
+                  f"{tag}: stats {stat_err:.3g} (tol 1e-4), max|y - plain| "
+                  f"{err:.3g} (tol {TOL[dtype]}), {kernels} device "
+                  "kernel(s) per call (want 1 each)")
+            if dtype != torch.bfloat16:
+                continue
+            x_nchw = x.permute(0, 3, 1, 2)
+            xb = x.numel() * x.element_size()
+            if shape not in timed_stats:
+                timed_stats.add(shape)
+                rows.append(dict(
+                    name="stats", key=shape, shape=list(shape),
+                    dtype=dtype_name(dtype), max_abs_err=stat_err,
+                    device_kernels=kernels[0], ms=graph_ms(stats),
+                    plain_ms=graph_ms(
+                        lambda: b1.instance_norm_stats_reference(x)),
+                    library_ms=graph_ms(lambda: torch.var_mean(
+                        x_nchw, dim=(2, 3), correction=0)),
+                    eager_ms=cuda_ms(stats),
+                    bound_ms=(xb + 2 * n * c * 4) / bw * 1e3))
+            m4, r4 = mean[:, None, None], rstd[:, None, None]
+            rows.append(dict(
+                name="apply", key=(shape, act), shape=list(shape), act=act,
+                dtype=dtype_name(dtype), max_abs_err=err,
+                device_kernels=kernels[1], ms=graph_ms(apply),
+                plain_ms=graph_ms(lambda: b1.instance_norm_apply_reference(
+                    x, mean, rstd, act)),
+                library_ms=graph_ms(lambda: act_fn((x - m4) * r4, act)),
+                eager_ms=cuda_ms(apply),
+                bound_ms=(2 * xb + 2 * n * c * 4) / bw * 1e3))
+    return rows, worst
+
+
+def crop_of(preset: str) -> int:
+    from ir2rgb_tpu_torch.config import PRESETS
+    return PRESETS[preset].data.crop_size
+
+
+def spatial_model(preset: str, dtype: str):
+    """``preset`` at full width on the card, built to serve (no VGG), its
+    G drawn by ``create_model`` from SEED: the same fp32 weights in every
+    process and either dtype."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    from ir2rgb_tpu_torch.train import create_model
+    cfg = PRESETS[preset]
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype=dtype),
+                      loss=dataclasses.replace(cfg.loss, no_vgg_loss=True))
+    return create_model(cfg, device="cuda", seed=SEED)
+
+
+def spatial_frames(preset: str, n: int) -> list:
+    """``n`` seeded uint8 frames of ``preset``'s crop size, normalized on
+    the card: (1, H, W, C) fp32 each."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    from ir2rgb_tpu_torch.infer.stream import _dev_normalize
+    cfg = PRESETS[preset]
+    hw = (cfg.data.crop_size,) * 2
+    rng = np.random.default_rng(SEED + 7)
+    return [_dev_normalize(torch.from_numpy(rng.integers(
+        0, 256, (1,) + hw + (cfg.model.input_nc,), dtype=np.uint8)).cuda())
+        for _ in range(n)]
+
+
+def spatial_ticks(preset: str) -> list:
+    """The server's seeded uint8 frames: one dict {slot: frame} a tick."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    cfg = PRESETS[preset]
+    hw = (cfg.data.crop_size,) * 2
+    rng = np.random.default_rng(SEED + 8)
+    return [{s: rng.integers(0, 256, hw + (cfg.model.input_nc,),
+                             dtype=np.uint8) for s in slots}
+            for slots in SPATIAL_TICKS]
+
+
+def serve_ticks(srv, ticks: list, start=None, end=None) -> tuple:
+    """Every tick of ``ticks`` through ``srv.step`` (streams opened in
+    slot order), ``start(i)`` before each and ``end(i, start's value)``
+    after. Returns (outputs, carries: the server's carry after each
+    tick, on the CPU)."""
+    sids = [srv.open() for _ in range(SPATIAL_SLOTS)]
+    outs, carries = [], []
+    for i, t in enumerate(ticks):
+        t0 = start(i) if start is not None else None
+        outs.append(srv.step({sids[s]: f for s, f in t.items()}))
+        if end is not None:
+            end(i, t0)
+        carries.append(srv._carry.cpu())
+    return outs, carries
+
+
+def spatial_bar(got: torch.Tensor, want: torch.Tensor, dtype: str) -> dict:
+    """A partitioned frame (or carry rows) against the one-process one:
+    max-abs and PSNR (peak 2), and whether the dtype's bar holds (fp32
+    max-abs <= SLICE_FP32_TOL, bf16 >= SPATIAL_BF16_PSNR dB)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err, db = float((got - want).abs().max()), psnr(got, want)
+    ok = (err <= SLICE_FP32_TOL if dtype == "float32"
+          else db >= SPATIAL_BF16_PSNR)
+    return dict(max_abs=err, psnr_db=db, ok=ok)
+
+
+def spatial_refs(folder: Path) -> None:
+    """The one-process frames (and carries) of every frame case and of the
+    negative control, and the one-process server's outputs and carries,
+    written under ``folder`` for the ranks."""
+    from ir2rgb_tpu_torch.infer import MultiStreamServer, StreamingGenerator
+    cases = {(p, d): n for p, _, ds, n in SPATIAL_CASES for d in ds}
+    cases.setdefault(SPATIAL_BROKEN[::2], 1)
+    for d in ("float32", "bf16"):
+        cases.setdefault((SPATIAL_SERVER, d), 0)
+    for (preset, dtype), n in sorted(cases.items()):
+        model = spatial_model(preset, dtype)
+        hw = (model.cfg.data.crop_size,) * 2
+        stream = StreamingGenerator(model, hw)
+        frames, carries = [], []
+        for a in spatial_frames(preset, n):
+            frames.append(stream.push_device(a).cpu())
+            carries.append(None if stream.carry is None
+                           else stream.carry.cpu())
+        torch.save({"frames": frames, "carries": carries},
+                   folder / f"ref_{preset}_{dtype}.pt")
+        if preset == SPATIAL_SERVER:
+            srv = MultiStreamServer(model, hw, n_slots=SPATIAL_SLOTS)
+            outs, carries = serve_ticks(srv, spatial_ticks(SPATIAL_SERVER))
+            torch.save({"outs": outs, "carries": carries},
+                       folder / f"server_{dtype}.pt")
+            del srv
+        del model, stream
+        torch.cuda.empty_cache()
+
+
+def spatial_rank(rank: int, world: int, port: int, out: str) -> int:
+    """One of the ``world`` gloo ranks of the spatial phase on the one
+    card: every frame case of SPATIAL_CASES with ``sp == world`` on
+    ``dp_sp_mesh(1, sp)``, and with ``world == 2`` the server on each of
+    SPATIAL_SERVER_MESHES and the negative control. Per frame: the
+    launches held to ``SPATIAL``, ms (CUDA synchronized around it), the
+    exchange's bytes and ms (every ``mesh.all_reduce_bytes``, the
+    output's gather included, synchronized around it), the merged B1
+    statistics' digest (the first frame of a case, SHA-256 of every
+    merged mean and rstd in order), the frame against the one-process
+    frame (rank 0: every rank returns the same gathered frame), the
+    carry's rows against the one-process carry's (every rank). A
+    temporal bf16 frame (or tick) starts from the one-process carry's
+    rows before it, as the serve and export phases hold a frame at the
+    same carry: with random weights the feedback through the carry
+    multiplies a difference ~5x a frame, and free-running bf16 streams
+    part whatever the arithmetic (fp32 runs free). Writes
+    ``out/rank<world>_<rank>.json``; exits 1 on a failed check."""
+    import hashlib
+    import torch.distributed as dist
+    from ir2rgb_tpu_torch import set_parity_mode
+    from ir2rgb_tpu_torch.infer import MultiStreamServer, StreamingGenerator
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.parallel import dp_sp_mesh, multihost, spatial
+    from ir2rgb_tpu_torch.parallel import mesh as pmesh
+    folder = Path(out)
+    torch.cuda.set_device(0)
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=world, process_id=rank,
+                         backend="gloo", timeout_s=SPATIAL_TIMEOUT_S)
+    set_parity_mode()
+    res = {"rank": rank, "world": world, "up_s": time.perf_counter() - T0,
+           "frames": [], "ticks": []}
+    xfer, merged = [0, 0.0], []
+    reduce_bytes, merge = pmesh.all_reduce_bytes, spatial.merge_stats
+
+    def timed_reduce(t, group, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = reduce_bytes(t, group, device)
+        torch.cuda.synchronize()
+        xfer[0] += t.numel() * t.element_size()
+        xfer[1] += time.perf_counter() - t0
+        return y
+
+    def kept_merge(*args):
+        mean, rstd = merge(*args)
+        merged.append(torch.stack([mean, rstd]).clone())
+        return mean, rstd
+    pmesh.all_reduce_bytes, spatial.merge_stats = timed_reduce, kept_merge
+
+    def frame_start():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        xfer[:] = [0, 0.0]
+        merged.clear()
+        return time.perf_counter()
+
+    def frame_end(t0, rec, want):
+        torch.cuda.synchronize()
+        got = launch_counts()
+        digest = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in merged)).hexdigest()
+        rec.update(ms=(time.perf_counter() - t0) * 1e3, launches=got,
+                   exchange_bytes=xfer[0], exchange_ms=xfer[1] * 1e3,
+                   merges=len(merged), stats_digest=digest)
+        check(got == want, f"spatial {rec['tag']} rank {rank}: launches "
+              f"{got} (want {want}, SPATIAL)")
+
+    try:
+        for preset, sp, dtypes, n in SPATIAL_CASES:
+            if sp != world:
+                continue
+            mesh = dp_sp_mesh(1, sp, device="cuda:0")
+            h = crop_of(preset) // sp
+            for dtype in dtypes:
+                model = spatial_model(preset, dtype)
+                ref = torch.load(folder / f"ref_{preset}_{dtype}.pt")
+                hw = (model.cfg.data.crop_size,) * 2
+                stream = StreamingGenerator(model, hw, mesh=mesh)
+                torch.cuda.reset_peak_memory_stats()
+                for i, a in enumerate(spatial_frames(preset, n)):
+                    rec = {"tag": f"{preset} sp {sp} {dtype} frame {i}"}
+                    if stream.carry is not None and dtype == "bf16" and i:
+                        stream._carry = ref["carries"][i - 1][
+                            :, rank * h:(rank + 1) * h].cuda()
+                    t0 = frame_start()
+                    y = stream.push_device(a)
+                    frame_end(t0, rec, SPATIAL[preset])
+                    if rank == 0:
+                        rec["frame"] = spatial_bar(y, ref["frames"][i], dtype)
+                        check(rec["frame"]["ok"] and y.shape == a.shape[:3]
+                              + (3,), f"spatial {rec['tag']}: the gathered "
+                              f"frame against one process {rec['frame']}")
+                    if stream.carry is not None:
+                        want = ref["carries"][i][:, rank * h:(rank + 1) * h]
+                        rec["carry"] = spatial_bar(stream.carry, want, dtype)
+                        check(rec["carry"]["ok"], f"spatial {rec['tag']} "
+                              f"rank {rank}: its carry rows against one "
+                              f"process's {rec['carry']}")
+                    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                    res["frames"].append(rec)
+                del model, stream, ref
+                torch.cuda.empty_cache()
+        if world == 2:
+            ticks = spatial_ticks(SPATIAL_SERVER)
+            meshes = [dp_sp_mesh(dp, sp, device="cuda:0")
+                      for dp, sp in SPATIAL_SERVER_MESHES]
+            for dtype in ("float32", "bf16"):
+                model = spatial_model(SPATIAL_SERVER, dtype)
+                ref = torch.load(folder / f"server_{dtype}.pt",
+                                 weights_only=False)
+                hw = (model.cfg.data.crop_size,) * 2
+                for mesh in meshes:
+                    dp, sp = mesh.dp, mesh.sp
+                    want = (SPATIAL if sp > 1 else
+                            {p: per_frame(p) for p in SERVE})[SPATIAL_SERVER]
+                    srv = MultiStreamServer(model, hw, n_slots=SPATIAL_SLOTS,
+                                            mesh=mesh)
+                    recs = []
+                    b = SPATIAL_SLOTS // dp
+                    h = crop_of(SPATIAL_SERVER) // sp
+
+                    def block(t):
+                        return t[mesh.dp_rank * b:(mesh.dp_rank + 1) * b,
+                                 mesh.sp_rank * h:(mesh.sp_rank + 1) * h]
+
+                    def start(i):
+                        if dtype == "bf16" and i:
+                            srv._carry = block(ref["carries"][i - 1]).cuda()
+                        return frame_start()
+
+                    def end(i, t0):
+                        recs.append({"tag": f"server dp {dp} sp {sp} "
+                                            f"{dtype} tick {i}"})
+                        frame_end(t0, recs[-1], want)
+                    outs, carries = serve_ticks(srv, ticks, start, end)
+                    for i, rec in enumerate(recs):
+                        gaps = [u8_gap(outs[i][s], ref["outs"][i][s])
+                                for s in ref["outs"][i]]
+                        rec["frames"] = gaps
+                        ok = (sorted(outs[i]) == sorted(ref["outs"][i]) and (
+                            max(g["max_lsb"] for g in gaps) <= 1
+                            if dtype == "float32" else min(
+                                g["psnr_db"] for g in gaps)
+                            >= SPATIAL_BF16_PSNR))
+                        rec["carry"] = spatial_bar(
+                            carries[i], block(ref["carries"][i]), dtype)
+                        check(ok and rec["carry"]["ok"],
+                              f"spatial {rec['tag']} rank {rank}: frames "
+                              f"{gaps} (fp32 <= 1 LSB, bf16 >= "
+                              f"{SPATIAL_BF16_PSNR} dB), carry block "
+                              f"{rec['carry']}")
+                    res["ticks"] += recs
+                    del srv
+                del model
+                torch.cuda.empty_cache()
+
+            # the negative control: the row above rank 1's first row, at
+            # every layer, taken from the last shard's rows instead
+            preset, sp, dtype = SPATIAL_BROKEN
+            source = spatial._source
+
+            def wrong(p, n, mode):
+                return source(n - 1 if p == n // 2 - 1 else p, n, mode)
+            model = spatial_model(preset, dtype)
+            ref = torch.load(folder / f"ref_{preset}_{dtype}.pt")
+            hw = (model.cfg.data.crop_size,) * 2
+            spatial._source = wrong
+            spatial.halo_plan.cache_clear()
+            try:
+                stream = StreamingGenerator(model, hw,
+                                            mesh=dp_sp_mesh(1, sp,
+                                                            device="cuda:0"))
+                y = stream.push_device(spatial_frames(preset, 1)[0])
+            finally:
+                spatial._source = source
+                spatial.halo_plan.cache_clear()
+            res["broken"] = spatial_bar(y, ref["frames"][0], dtype)
+            check(not res["broken"]["ok"], f"spatial negative control "
+                  f"({preset} sp {sp} {dtype}, one halo row a layer from the "
+                  f"wrong shard) fails the bar: {res['broken']}")
+    finally:
+        pmesh.all_reduce_bytes, spatial.merge_stats = reduce_bytes, merge
+    res["failures"] = list(failures)
+    res["done_s"] = time.perf_counter() - T0
+    with open(folder / f"rank{world}_{rank}.json", "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+
+
+def spatial_phase(card: str, bw: float, gen: torch.Generator) -> dict:
+    """Spatially partitioned serving (``parallel/spatial.py``) on the one
+    card: B1 split at every shard shape (``b1_split_phase``; B2 at the
+    extended tail shapes and d2s at the shard shapes are in the kernel
+    phases), the one-process references (``spatial_refs``), then the
+    ranks of world 2 and of world 4 (``chip_smoke.py --spatial-rank R
+    WORLD PORT DIR``, ``spatial_rank``), one group after the other, each
+    with SPATIAL_TIMEOUT_S. The ranks are gloo processes sharing one
+    card: their exchanges stage through the host, so their times are
+    not a multi-card speedup."""
+    import shutil
+    import socket
+    t0 = time.perf_counter()
+    split_rows, split_worst = b1_split_phase(bw, gen)
+    res = {"b1_split_s": time.perf_counter() - t0,
+           "b1_split_worst": {f"{op} {d}": v
+                              for (op, d), v in split_worst.items()}}
+    folder = Path("build") / "spatial"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    t0 = time.perf_counter()
+    spatial_refs(folder)
+    res["refs_s"] = time.perf_counter() - t0
+    ranks = []
+    for world in (2, 4):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [start_group([sys.executable, __file__, "--spatial-rank",
+                              str(r), str(world), str(port), str(folder)])
+                 for r in range(world)]
+        outs = wait_group(procs, SPATIAL_TIMEOUT_S)
+        res[f"world{world}_s"] = time.perf_counter() - t0
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"spatial world {world} rank {r}: exit "
+                  f"{p.returncode}" + ("" if p.returncode == 0 else
+                                       f"\n{o[-3000:]}\n{e[-3000:]}"))
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"spatial world {world}: a rank failed "
+                               "(above)")
+        ranks += [json.load(open(folder / f"rank{world}_{r}.json"))
+                  for r in range(world)]
+    for r in ranks:
+        for f in r["failures"]:
+            check(False, f"spatial world {r['world']} rank {r['rank']}: {f}")
+    # the merged statistics: the same bits on every rank of a case
+    for world in (2, 4):
+        mine = [r for r in ranks if r["world"] == world]
+        for i, rec in enumerate(mine[0]["frames"]):
+            digests = {r["frames"][i]["stats_digest"] for r in mine}
+            check(len(digests) == 1 and rec["merges"] > 0,
+                  f"spatial {rec['tag']}: the {rec['merges']} merged B1 "
+                  f"statistics bit-identical on the {world} ranks")
+    res["launches"] = dict(sum((Counter(f["launches"]) for r in ranks
+                                for f in r["frames"] + r["ticks"]),
+                               Counter()))
+    res["ranks"] = ranks
+    res["b1_split_rows"] = split_rows
+    label = f"gloo ranks sharing one card: host staging, not a " \
+            f"multi-card speedup ({card})"
+    for world in (2, 4):
+        mine = [r for r in ranks if r["world"] == world]
+        for i, rec in enumerate(mine[0]["frames"]):
+            per = [r["frames"][i] for r in mine]
+            frame = rec.get("frame", {})
+            print(f"spatial {rec['tag']}: ms/frame per rank "
+                  f"{[round(f['ms'], 1) for f in per]}, exchange "
+                  f"{rec['exchange_bytes']} B in "
+                  f"{[round(f['exchange_ms'], 1) for f in per]} ms, peak "
+                  f"{max(f['peak_gib'] for f in per):.2f} GiB a rank, "
+                  f"max-abs {frame.get('max_abs', float('nan')):.3g}, "
+                  f"{frame.get('psnr_db', float('nan')):.2f} dB; {label}",
+                  flush=True)
+    for rec in next(r for r in ranks if r["world"] == 2 and
+                    r["rank"] == 0)["ticks"]:
+        print(f"spatial {rec['tag']}: {rec['ms']:.1f} ms, exchange "
+              f"{rec['exchange_bytes']} B in {rec['exchange_ms']:.1f} ms, "
+              f"worst frame {max(g['max_lsb'] for g in rec['frames'])} LSB / "
+              f"{min(g['psnr_db'] for g in rec['frames']):.2f} dB; {label}",
+              flush=True)
+    broken = next(r for r in ranks if r["world"] == 2 and r["rank"] == 0)
+    res["broken"] = broken["broken"]
+    print(f"spatial negative control: {broken['broken']}", flush=True)
+    shutil.rmtree(folder, ignore_errors=True)
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -4076,6 +4617,9 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--parallel-rank"]:
         return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        return spatial_rank(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), sys.argv[5])
     from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import _build
 
@@ -4128,6 +4672,7 @@ def main() -> int:
     nete = phase("netE", nete_phase, card)
     export = phase("export", export_phase, card)
     parallel = phase("parallel", parallel_phase, card)
+    spatial = phase("spatial", spatial_phase, card, bw, gen)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
@@ -4141,7 +4686,8 @@ def main() -> int:
                "quant tick": quant["tick"]["launches"],
                "netE": nete["launches"],
                "export": export["launches"],
-               "parallel": parallel["launches"]}
+               "parallel": parallel["launches"],
+               "spatial": spatial["launches"]}
     total = {k: sum(c.get(k, 0) for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
@@ -4168,6 +4714,15 @@ def main() -> int:
                              for k in ("ms", "plain_ms", "library_ms",
                                        "bound_ms", "eager_ms")}
                for (p, n), t in SERVE_TICK.items()}
+    # B1 split over one rank's frame of SPLIT_FRAME (preset, sp), bf16
+    split_counts = SPATIAL_TABLES[SPLIT_FRAME + (1,)]["b1"]
+    split_frame = {
+        "stats": per_path_totals(
+            [r for r in spatial["b1_split_rows"] if r["name"] == "stats"],
+            Counter({s: c for (s, _), c in split_counts.items()})),
+        "apply": per_path_totals(
+            [r for r in spatial["b1_split_rows"] if r["name"] == "apply"],
+            split_counts)}
     kernels = [
         kernel_entry(
             "instance_norm_act",
@@ -4228,6 +4783,32 @@ def main() -> int:
                                         "device_kernels")}
                      for r in b2_rows]),
         kernel_entry(
+            "instance_norm_stats",
+            "ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
+            "ir2rgb_tpu/kernels/instance_norm.py:136",
+            total["instance_norm_stats"], split_frame["stats"],
+            spatial["b1_split_worst"]["stats bfloat16"],
+            f"times: one {SPLIT_FRAME[0]} frame on one of {SPLIT_FRAME[1]} "
+            f"ranks ({SPATIAL[SPLIT_FRAME[0]]['instance_norm_stats']} "
+            "launches at its shard shapes), bf16; max_abs_err: of mean or "
+            "relative M2; library: torch.var_mean over H, W",
+            max_abs_err_fp32=spatial["b1_split_worst"]["stats float32"],
+            device_kernels_per_call=max(r["device_kernels"]
+                                        for r in spatial["b1_split_rows"]),
+            launches_by_path=path_launches("instance_norm_stats")),
+        kernel_entry(
+            "instance_norm_apply",
+            "ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
+            "ir2rgb_tpu/kernels/instance_norm.py:136",
+            total["instance_norm_apply"], split_frame["apply"],
+            spatial["b1_split_worst"]["apply bfloat16"],
+            f"times: one {SPLIT_FRAME[0]} frame on one of {SPLIT_FRAME[1]} "
+            f"ranks ({SPATIAL[SPLIT_FRAME[0]]['instance_norm_apply']} "
+            "launches), bf16; max_abs_err: the applied y; library: "
+            "(x - mean) * rstd + act",
+            max_abs_err_fp32=spatial["b1_split_worst"]["apply float32"],
+            launches_by_path=path_launches("instance_norm_apply")),
+        kernel_entry(
             "d2s", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
             "ir2rgb_tpu/kernels/d2s.py:107", total["d2s"], d2s_step["d2s"],
             max(r["max_abs_err"] for r in d2s_rows if r["name"] == "d2s"),
@@ -4261,6 +4842,13 @@ def main() -> int:
     print("netE " + json.dumps(nete))
     print("export " + json.dumps(export))
     print("parallel " + json.dumps(parallel))
+    print("spatial " + json.dumps({k: v for k, v in spatial.items()
+                                   if k != "b1_split_rows"}))
+    for r in spatial["b1_split_rows"]:
+        print(f"  B1 split {r['name']} {r['shape']} {r.get('act', ''):10s} "
+              f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} lib "
+              f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} eager "
+              f"{r['eager_ms']:.4f}")
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \
@@ -4319,7 +4907,7 @@ def main() -> int:
                    "train_options": options, "train_cli": cli,
                    "serve": serve, "quant": quant, "netE": nete,
                    "export": export, "parallel": parallel,
-                   "kernels": kernels}, fh)
+                   "spatial": spatial, "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

@@ -384,9 +384,15 @@ class ExportedStream:
             yield self._fetch(*pending)
 
 
-def load_serving_artifact(path: str, device=None) -> ExportedStream:
+def load_serving_artifact(path: str, device=None,
+                          mesh=None) -> ExportedStream:
     """Load an artifact written by :func:`export_serving_artifact` onto
-    ``device`` (None: the CUDA device) and return a ready stream."""
+    ``device`` (None: the CUDA device) and return a ready stream. A
+    sealed program serves one card: a ``mesh`` raises (ROADMAP A16b)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sealed artifact on a mesh: its program is one card's "
+            "(ROADMAP A16b)")
     program, params, meta = _read_artifact(path, device)
     if meta.get("multistream"):
         raise ValueError(

@@ -36,6 +36,15 @@ whole batched tick, pad rows included, so a stream's frame depends on
 the other streams of its tick, and a batched frame equals its batch-1
 frame only in ``"none"`` and ``int8_w``.
 
+On a dp×sp mesh (``mesh=``, ``parallel.dp_sp_mesh``; JAX's
+``multistream.py:151-211``) every rank makes the same server and ticks
+with the same frames: the physical rows split over the ``dp`` ranks
+(``dp`` must divide them), each frame's rows over ``sp`` (the ops
+exchange what they read, ``parallel/spatial.py``), each rank keeps its
+block of the carry, and ``step`` / ``step_device`` return every stream's
+whole frame on every rank. Chunked serving over a carry pool is
+single-card logic and refuses a mesh, as in JAX.
+
 ``KNEE_SLOTS`` caps the physical batch by default (``physical_slots``
 overrides it). ``chip_smoke.py``'s serve phase measures the batched tick
 at S = 1, 2, 4, 8, 16 (``PERF.md`` §5). 16 is the top of that ladder,
@@ -58,6 +67,7 @@ from ir2rgb_tpu_torch.infer.wire import (
     _dev_quantize,
     host_to_wire_u8,
 )
+from ir2rgb_tpu_torch.parallel import spatial
 from ir2rgb_tpu_torch.train.model import GanModel
 
 KNEE_SLOTS = 16
@@ -138,12 +148,14 @@ class MultiStreamServer:
     """
 
     def __init__(self, model: GanModel, frame_hw: Tuple[int, int],
-                 n_slots: int = 8, physical_slots: Optional[int] = None):
+                 n_slots: int = 8, physical_slots: Optional[int] = None,
+                 mesh=None):
         """``physical_slots``: the batch of one tick, by default
         ``default_physical_slots(n_slots)``. Smaller than ``n_slots``, the
         extra slots are served by chunked round-robin ticks over a carry
         pool (one gather a chunk, one scatter a tick); larger, the pad rows
-        are masked."""
+        are masked. ``mesh``: a dp×sp ``DataParallelMesh`` (the module
+        docstring); not with a carry pool."""
         cfgm = model.cfg.model
         self.model = model
         self.device = model.device
@@ -157,6 +169,20 @@ class MultiStreamServer:
                              f"be >= 1")
         self.physical_slots = int(physical_slots)
         self._pooled = self.physical_slots < self.n_slots
+        if self._pooled and mesh is not None:
+            raise ValueError(
+                "physical_slots < n_slots (chunked round-robin) is "
+                "single-chip knee logic — a mesh shards slots across "
+                "chips instead; give each chip's server <= "
+                f"{KNEE_SLOTS} slots")
+        self.mesh, self._shards = mesh, None
+        if mesh is not None:
+            if self.physical_slots % mesh.dp:
+                raise ValueError(
+                    f"physical_slots={self.physical_slots} does not split "
+                    f"over dp = {mesh.dp} ranks")
+            self._shards = (spatial.Shards.of(mesh) if mesh.sp > 1
+                            else None)
         self.temporal = cfgm.model == "temporal"
         self.carry_c = cfgm.output_nc * model.n_prev
         h, w = frame_hw
@@ -176,8 +202,11 @@ class MultiStreamServer:
         if self.temporal:
             rows = (self.n_slots + 1 if self._pooled
                     else self.physical_slots)
-            self._carry = torch.zeros((rows, h, w, self.carry_c),
-                                      dtype=torch.float32,
+            shape = (rows, h, w, self.carry_c)
+            if mesh is not None:  # this rank's block of the carry
+                shape = spatial.local_block(
+                    torch.empty(shape, device="meta"), mesh).shape
+            self._carry = torch.zeros(shape, dtype=torch.float32,
                                       device=self.device)
             self._tick = (build_pool_tick(model, self.carry_c)
                           if self._pooled
@@ -187,8 +216,8 @@ class MultiStreamServer:
 
     @classmethod
     def from_artifact(cls, path: str, n_slots: Optional[int] = None,
-                      clamp: bool = False,
-                      device=None) -> "MultiStreamServer":
+                      clamp: bool = False, device=None,
+                      mesh=None) -> "MultiStreamServer":
         """Serve a sealed multi-stream artifact
         (``infer/export.py::export_multistream_artifact``) on ``device``
         (None: the CUDA device): the same slot lifecycle and ``step()``
@@ -197,8 +226,13 @@ class MultiStreamServer:
         The physical batch is sealed at export and there is no carry pool;
         ``n_slots`` may cap the attachable streams below it (default: all
         of them). A cap above the sealed batch raises, unless ``clamp``
-        (the CLI's forgiving mode) clips it to the sealed batch."""
+        (the CLI's forgiving mode) clips it to the sealed batch. A sealed
+        program serves one card: a ``mesh`` raises (ROADMAP A16b)."""
         from functools import partial
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sealed artifact on a mesh: its program is one card's "
+                f"({spatial.A16B})")
 
         from ir2rgb_tpu_torch.infer.export import load_multistream_artifact
         tick, params, meta = load_multistream_artifact(path, device)
@@ -218,6 +252,7 @@ class MultiStreamServer:
                     f"with more slots")
             self.n_slots = self.physical_slots
         self._pooled = False  # the sealed batch is the physical batch
+        self.mesh, self._shards = None, None
         self.temporal = bool(meta["temporal"])
         self.carry_c = int(meta["carry_c"])
         h, w = meta["frame_hw"]
@@ -294,24 +329,43 @@ class MultiStreamServer:
             rowmap[row] = sid
         carry = None
         with torch.inference_mode():
-            frames_dev = self._dev(batch)
-            reset_dev, valid_dev = self._dev(reset), self._dev(valid)
-            if self.temporal and self._pooled:
+            if self.mesh is not None:
+                out, carry = self._mesh_tick(batch, reset, valid)
+            elif self.temporal and self._pooled:
                 idx_dev = self._dev(idx)
-                out, rows = self._tick(frames_dev, self._carry, idx_dev,
-                                       reset_dev, valid_dev)
+                out, rows = self._tick(self._dev(batch), self._carry,
+                                       idx_dev, self._dev(reset),
+                                       self._dev(valid))
                 carry = (idx_dev, rows)
             elif self.temporal:
-                out, carry = self._tick(frames_dev, self._carry, reset_dev,
-                                        valid_dev)
+                out, carry = self._tick(self._dev(batch), self._carry,
+                                        self._dev(reset), self._dev(valid))
             else:
-                out = self._tick(frames_dev, reset_dev, valid_dev)
+                out = self._tick(self._dev(batch), self._dev(reset),
+                                 self._dev(valid))
         if self.device.type != "cuda":
             return out, None, rowmap, carry
         host = out.to("cpu", non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return host, done, rowmap, carry
+
+    def _mesh_tick(self, frames, reset, valid):
+        """The tick of the whole physical batch on a mesh: this rank's
+        block of the frames (host or device) and masks ticks under
+        ``spatial.serving``; returns (the whole output gathered from every
+        rank, this rank's new carry or None)."""
+        def mine(t):
+            t = spatial.local_block(torch.as_tensor(t), self.mesh)
+            return t.contiguous().to(self.device)
+        frames, reset, valid = mine(frames), mine(reset), mine(valid)
+        carry = None
+        with spatial.serving(self.mesh, self._shards):
+            if self.temporal:
+                out, carry = self._tick(frames, self._carry, reset, valid)
+            else:
+                out = self._tick(frames, reset, valid)
+        return spatial.gather_block(out, self.mesh), carry
 
     def _dispatch(self, frames: Dict[int, np.ndarray]):
         """Dispatch one logical tick as one or more chunk ticks (chunked
@@ -386,7 +440,8 @@ class MultiStreamServer:
         """Device-in device-out tick of the whole physical batch (no host
         sync), the benchmark path: ``frames_dev`` is (physical_slots, h,
         w, in_nc) uint8 on the model's device and is not written. Pooled,
-        physical row i is slot i."""
+        physical row i is slot i. On a mesh every rank passes the whole
+        batch and gets the whole output."""
         p = self.physical_slots
         dev = self.device
         if reset is None:
@@ -394,7 +449,11 @@ class MultiStreamServer:
         if valid is None:
             valid = torch.ones(p, dtype=torch.bool, device=dev)
         with torch.inference_mode():
-            if self.temporal and self._pooled:
+            if self.mesh is not None:
+                out, carry = self._mesh_tick(frames_dev, reset, valid)
+                if self.temporal:
+                    self._carry = carry
+            elif self.temporal and self._pooled:
                 idx = torch.arange(p, device=dev)
                 out, rows = self._tick(frames_dev, self._carry, idx, reset,
                                        valid)

@@ -14,6 +14,15 @@ port of ``ir2rgb_tpu/infer/stream.py``).
   device->host copy was queued right behind its forward, so the host's
   handling of t-1 overlaps the device's work on t.
 
+- On a dp×sp mesh (``mesh=``, ``parallel.dp_sp_mesh``), as JAX's
+  ``StreamingGenerator(mesh=)`` (``stream.py:84-107``): every rank makes
+  the same stream and pushes the same whole frame. Each takes its block
+  (batch rows over ``dp``, image rows over ``sp``), serves it under
+  ``parallel.spatial.serving`` (the ops exchange the rows and statistics
+  the whole frame's computation reads), keeps its rows of the carry, and
+  returns the whole output, gathered from every rank, as JAX's global
+  array is whole.
+
 CUDA-graph capture and pinned asynchronous uploads are not ported yet.
 """
 
@@ -29,6 +38,7 @@ from ir2rgb_tpu_torch.infer.wire import (  # noqa: F401 (re-exported)
     _dev_quantize,
     host_to_wire_u8,
 )
+from ir2rgb_tpu_torch.parallel import spatial
 from ir2rgb_tpu_torch.train.model import GanModel
 
 
@@ -59,7 +69,11 @@ class StreamingGenerator:
     """
 
     def __init__(self, model: GanModel, frame_hw: Tuple[int, int],
-                 batch: int = 1):
+                 batch: int = 1, mesh=None):
+        """``mesh``: a dp×sp ``DataParallelMesh`` (``dp_sp_mesh``), the
+        same on every rank: ``batch`` splits over ``dp``, the frame's rows
+        over ``sp``, and the carry stays split (:attr:`carry` is this
+        rank's rows)."""
         self.model = model
         cfgm = model.cfg.model
         self.temporal = cfgm.model == "temporal"
@@ -69,7 +83,14 @@ class StreamingGenerator:
         self.carry_c = cfgm.output_nc * model.n_prev
         self.out_nc = cfgm.output_nc
         self.device = model.device
+        self.mesh, self._shards = mesh, None
         h, w = frame_hw
+        if mesh is not None:
+            # the rank's block of a whole (batch, h, w) frame
+            batch, h, _ = spatial.local_block(
+                torch.empty((batch, h, w, 0), device="meta"), mesh).shape[:3]
+            self._shards = (spatial.Shards.of(mesh) if mesh.sp > 1
+                            else None)
         self._carry = (torch.zeros((batch, h, w, self.carry_c),
                                    dtype=torch.float32, device=self.device)
                        if self.temporal else None)
@@ -90,16 +111,31 @@ class StreamingGenerator:
         (B, H, W, 1) instance-boundary map of a single-frame
         ``use_instance_edges`` model, ``feat`` the (B, H, W, feat_num)
         netE feature map of a ``use_instance_feat`` model (JAX's
-        ``step_extra``); a temporal stream refuses both."""
+        ``step_extra``); a temporal stream refuses both. On a mesh ``a``
+        is the whole frame on every rank, and so is the output."""
         if feat is not None or edges is not None:
             if self.temporal:
                 raise ValueError(
                     "feature/edge maps are a pix2pixHD (single-frame) "
                     "test surface; temporal streaming has no such input")
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "netE features and instance edges on a mesh "
+                    f"({spatial.A16B})")
             return self.model.generate(a, feat=feat, edges=edges)
-        if not self.temporal:
-            return self.model.generate(a)
-        fake = self.model.generate(a, prev=self._carry)
+        if self.mesh is None:
+            return self._generate(a)
+        with torch.inference_mode():
+            a = spatial.local_block(a, self.mesh).contiguous()
+            return spatial.gather_block(self._generate(a), self.mesh)
+
+    def _generate(self, a: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of the frame -> its rows of the output, the
+        carry advanced."""
+        with spatial.serving(self.mesh, self._shards):
+            if not self.temporal:
+                return self.model.generate(a)
+            fake = self.model.generate(a, prev=self._carry)
         with torch.inference_mode():
             self._carry = torch.cat([fake.to(torch.float32), self._carry],
                                     dim=-1)[..., :self.carry_c].contiguous()
@@ -112,16 +148,21 @@ class StreamingGenerator:
         if a.ndim == 3:
             a = a[None]
         with torch.inference_mode():
-            if a.dtype == np.uint8:
-                a_dev = torch.from_numpy(a).to(self.device)
-                out = _dev_quantize(self.push_device(self._norm(a_dev)))
+            # on a mesh only the rank's block goes to the device
+            a = torch.from_numpy(a)
+            if self.mesh is not None:
+                a = spatial.local_block(a, self.mesh).contiguous()
+            if a.dtype == torch.uint8:
+                out = _dev_quantize(self._generate(self._norm(
+                    a.to(self.device))))
                 is_u8 = True
             else:
-                out = self.push_device(torch.from_numpy(
-                    a.astype(np.float32)).to(self.device))
+                out = self._generate(a.to(self.device, torch.float32))
                 is_u8 = False
             if out.dtype == torch.bfloat16:
                 out = out.to(torch.float32)
+            if self.mesh is not None:
+                out = spatial.gather_block(out, self.mesh)
         if self.device.type != "cuda":
             return out, None, is_u8
         host = out.to("cpu", non_blocking=True)

@@ -42,6 +42,16 @@
 // So no partials go through device memory, there is no second launch, and
 // the wrapper allocates only the outputs.
 //
+// The split forward, for a frame whose rows are spread over several ranks
+// (ir2rgb_tpu_torch/parallel/spatial.py): ir2rgb_instance_norm_stats runs
+// the same kernel with the apply (step 4) compiled out, and writes each
+// (n, c)'s mean and M2 (the sum of squared deviations about the mean) of
+// the rows in hand; the ranks merge those in rank order (Chan's formula,
+// plain PyTorch on (N, C) tensors), and ir2rgb_instance_norm_apply reads
+// the merged (mean, rstd) and writes act((x - mean) * rstd) in one
+// elementwise pass over NHWC words. Both are bound by bytes: the stats
+// read x once, the apply reads x once and writes y once.
+//
 // Why these choices:
 // - Clusters and distributed shared memory replace the TPU kernel's
 //   sequential grid, which carried its sums in VMEM from step to step:
@@ -79,6 +89,7 @@
 
 #include <cooperative_groups.h>
 
+#include <algorithm>
 #include <mutex>
 #include <type_traits>
 
@@ -313,11 +324,13 @@ __device__ __forceinline__ void each_word(const Where& w, Get get, Use use) {
   }
 }
 
-template <typename T, bool kTile>
-__global__ void __launch_bounds__(Route<kTile>::kThreads)
-in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-              float* __restrict__ mean_out, float* __restrict__ rstd_out,
-              Plan p, int act, float slope, float eps) {
+// The forward's body. kApply false: the statistics alone (the split
+// forward's first half); rstd_out then receives M2, and y is not touched.
+template <typename T, bool kTile, bool kApply>
+__device__ __forceinline__ void
+in_fwd_body(const T* __restrict__ x, T* __restrict__ y,
+            float* __restrict__ mean_out, float* __restrict__ rstd_out,
+            Plan p, int act, float slope, float eps) {
   using W = Word<T>;
   using Raw = typename W::Raw;
   using R = Route<kTile>;
@@ -391,10 +404,14 @@ in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
     if (w.rank == 0) {
       const size_t o = (size_t)w.n * p.c + (size_t)w.grp * p.cg * N + ch;
       mean_out[o] = mean;
-      rstd_out[o] = rstd;
+      rstd_out[o] = kApply ? rstd : m2;
     }
   }
   cluster_arrive();
+  if constexpr (!kApply) {
+    cluster_wait();
+    return;
+  }
   __syncthreads();
 
   float mean[N], rstd[N];
@@ -413,6 +430,23 @@ in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
     dst[q * w.stride] = W::pack(v);
   });
   cluster_wait();
+}
+
+// Two kernels of one body, so that each launch has a name of its own.
+template <typename T, bool kTile>
+__global__ void __launch_bounds__(Route<kTile>::kThreads)
+in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
+              float* __restrict__ mean_out, float* __restrict__ rstd_out,
+              Plan p, int act, float slope, float eps) {
+  in_fwd_body<T, kTile, true>(x, y, mean_out, rstd_out, p, act, slope, eps);
+}
+
+template <typename T, bool kTile>
+__global__ void __launch_bounds__(Route<kTile>::kThreads)
+in_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
+                float* __restrict__ m2_out, Plan p) {
+  in_fwd_body<T, kTile, false>(x, nullptr, mean_out, m2_out, p, 0, 0.f,
+                               0.f);
 }
 
 template <typename T, bool kTile>
@@ -518,11 +552,40 @@ in_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   cluster_wait();
 }
 
+// y = act((x - mean) * rstd) with (N, C) fp32 statistics: one thread a
+// word of 4 channels, grid-stride over the tensor's words.
+template <typename T>
+__global__ void __launch_bounds__(256)
+in_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                const float* __restrict__ rstd, T* __restrict__ y,
+                long long words, int cw, long long image_words, int act,
+                float slope) {
+  using W = Word<T>;
+  using Raw = typename W::Raw;
+  const Raw* src = reinterpret_cast<const Raw*>(x);
+  Raw* dst = reinterpret_cast<Raw*>(y);
+  const float4* m4 = reinterpret_cast<const float4*>(mean);
+  const float4* r4 = reinterpret_cast<const float4*>(rstd);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < words; i += (long long)gridDim.x * blockDim.x) {
+    const long long s = i / image_words * cw + i % cw;  // (n, word of c)
+    const float4 m = m4[s];
+    const float4 r = r4[s];
+    float v[kPer];
+    W::unpack(src[i], v);
+    v[0] = activate((v[0] - m.x) * r.x, act, slope);
+    v[1] = activate((v[1] - m.y) * r.y, act, slope);
+    v[2] = activate((v[2] - m.z) * r.z, act, slope);
+    v[3] = activate((v[3] - m.w) * r.w, act, slope);
+    dst[i] = W::pack(v);
+  }
+}
+
 // Once per kernel: allow the card's whole opt-in shared memory as dynamic
 // shared memory, and clusters of up to 16 blocks.
 cudaError_t prepare(const void* fn) {
   static std::mutex mu;
-  static const void* done[8];
+  static const void* done[16];
   static int n_done = 0;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < n_done; ++i)
@@ -540,7 +603,7 @@ cudaError_t prepare(const void* fn) {
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess && n_done < 8) done[n_done++] = fn;
+  if (e == cudaSuccess && n_done < 16) done[n_done++] = fn;
   return e;
 }
 
@@ -620,6 +683,61 @@ extern "C" int ir2rgb_instance_norm_act(
                                   static_cast<float*>(rstd), p, act, slope,
                                   eps);
       }));
+}
+
+// x (n, hw, c) NHWC; mean, m2 (n, c) fp32, written: the forward's launch
+// (the same plan) with the apply compiled out. Returns the launch's error
+// (0 on success).
+extern "C" int ir2rgb_instance_norm_stats(const void* x, void* mean, void* m2,
+                                          int n, int hw, int c, int k,
+                                          int share, int cg, int tile,
+                                          int smem_bytes, int is_bf16,
+                                          void* stream) {
+  const Plan p{n, hw, c, k, share, cg};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dispatch(is_bf16, tile, [&](auto kind) -> cudaError_t {
+        using T = typename decltype(kind)::Type;
+        if (!plan_ok(p, kPer * sizeof(T), tile, smem_bytes, 1))
+          return cudaErrorInvalidValue;
+        const auto fn = &in_stats_kernel<T, decltype(kind)::kTileRoute>;
+        const cudaError_t e = prepare(reinterpret_cast<const void*>(fn));
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg = cluster_config(
+            k, k * (c / (kPer * cg)), n,
+            Route<decltype(kind)::kTileRoute>::kThreads, smem_bytes, s,
+            &attr);
+        return cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x),
+                                  static_cast<float*>(mean),
+                                  static_cast<float*>(m2), p);
+      }));
+}
+
+// x, y (n, hw, c) NHWC; mean, rstd (n, c) fp32, 16-byte aligned. One
+// launch of 256-thread blocks, at most 16 a multiprocessor's worth.
+// Returns the launch's error (0 on success).
+extern "C" int ir2rgb_instance_norm_apply(const void* x, const void* mean,
+                                          const void* rstd, void* y, int n,
+                                          int hw, int c, int act, float slope,
+                                          int is_bf16, void* stream) {
+  if (n <= 0 || hw <= 0 || c <= 0 || c % kPer) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cw = c / kPer;
+  const long long image_words = (long long)hw * cw;
+  const long long words = image_words * n;
+  const long long blocks = std::min<long long>((words + 255) / 256, 132 * 16);
+  if (is_bf16)
+    in_apply_kernel<__nv_bfloat16><<<(int)blocks, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const float*>(mean), static_cast<const float*>(rstd),
+        static_cast<__nv_bfloat16*>(y), words, cw, image_words, act, slope);
+  else
+    in_apply_kernel<float><<<(int)blocks, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(mean),
+        static_cast<const float*>(rstd), static_cast<float*>(y), words, cw,
+        image_words, act, slope);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x, g, dx (n, hw, c) NHWC; mean, rstd (n, c) fp32 from the forward. The

@@ -29,8 +29,20 @@ and how the design answers that); this module holds
   package's reference twice;
 - :func:`instance_norm_act_fn`: y only, differentiable; what the networks
   call;
-- ``launches`` / ``bwd_launches``: how many times the ops' CUDA
-  implementations launched the forward and the backward kernel;
+- the split forward, for a frame whose rows lie on several ranks
+  (``parallel/spatial.py`` merges the ranks' statistics between the
+  two): :func:`instance_norm_stats` (the ops ``ir2rgb::instance_norm_stats``:
+  each (n, c)'s mean and M2, the sum of squared deviations, over the rows
+  in hand; the forward kernel's plan and statistics with its apply
+  compiled out) and :func:`instance_norm_apply`
+  (``ir2rgb::instance_norm_apply``: act((x - mean) * rstd) for given
+  (N, C) statistics, one elementwise pass), with their plain versions
+  :func:`instance_norm_stats_reference` and
+  :func:`instance_norm_apply_reference`. Serving only: neither records a
+  graph;
+- ``launches`` / ``bwd_launches`` / ``stats_launches`` /
+  ``apply_launches``: how many times the ops' CUDA implementations
+  launched each kernel;
 - :func:`_plan` / :func:`plan_for`: the launch (channel group, cluster
   size, shared memory per block, route), sized by bytes and checked
   against the card.
@@ -55,6 +67,8 @@ ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 
 launches = 0
 bwd_launches = 0
+stats_launches = 0
+apply_launches = 0
 
 _SMEM_OPTIN = 232_448   # shared memory one block may opt into on sm_90
 _KS = (1, 2, 4, 8, 16)  # blocks per cluster; above 8 is non-portable
@@ -94,6 +108,27 @@ def instance_norm_act_reference(x: torch.Tensor, act: str = "relu",
     mean, rstd = _stats(x, eps)
     y = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
     return apply_act(y, act, negative_slope).to(x.dtype), mean, rstd
+
+
+def instance_norm_stats_reference(x: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N,H,W,C) -> (mean (N,C), m2 (N,C)), fp32: the mean over H and W,
+    then the sum of squared deviations about it (two passes, as
+    :func:`_stats`)."""
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2))
+    m2 = (x32 - mean[:, None, None, :]).square().sum(dim=(1, 2))
+    return mean, m2
+
+
+def instance_norm_apply_reference(x: torch.Tensor, mean: torch.Tensor,
+                                  rstd: torch.Tensor, act: str = "relu",
+                                  negative_slope: float = 0.2
+                                  ) -> torch.Tensor:
+    """act((x - mean) * rstd) in fp32 with (N, C) statistics, in x's
+    dtype: :func:`instance_norm_act_reference`'s y for given statistics."""
+    y = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
+    return apply_act(y, act, negative_slope).to(x.dtype)
 
 
 def instance_norm_act_backward_reference(x: torch.Tensor, mean: torch.Tensor,
@@ -321,6 +356,61 @@ def instance_norm_act_bwd_cuda(x: torch.Tensor, mean: torch.Tensor,
     return dx
 
 
+def instance_norm_stats_cuda(x: torch.Tensor, plan: Plan = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the statistics kernel (the forward's plan, its apply
+    compiled out); raise on anything it does not take. ``plan`` replaces
+    :func:`plan_for`'s."""
+    global stats_launches
+    _check_nhwc(x, "instance_norm_stats_cuda")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "instance_norm_stats_cuda records no graph: the split B1 serves "
+            "only (its backward is ROADMAP A16b)")
+    n, h, w, c = x.shape
+    p = plan or plan_for(x)
+    mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    m2 = torch.empty_like(mean)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _build.lib().ir2rgb_instance_norm_stats(
+        x.data_ptr(), mean.data_ptr(), m2.data_ptr(), n, h * w, c, p.k,
+        p.share, p.cg, int(p.route == "smem"), p.smem_bytes,
+        int(x.dtype == torch.bfloat16), stream)
+    _build.check(code, "instance_norm_stats")
+    stats_launches += 1
+    return mean, m2
+
+
+def instance_norm_apply_cuda(x: torch.Tensor, mean: torch.Tensor,
+                             rstd: torch.Tensor, act: str = "relu",
+                             negative_slope: float = 0.2) -> torch.Tensor:
+    """Launch the apply kernel; raise on anything it does not take."""
+    global apply_launches
+    _check_nhwc(x, "instance_norm_apply_cuda")
+    if act not in ACTS:
+        raise ValueError(f"unknown act: {act}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "instance_norm_apply_cuda records no graph: the split B1 serves "
+            "only (its backward is ROADMAP A16b)")
+    n, h, w, c = x.shape
+    for s in (mean, rstd):
+        if (tuple(s.shape) != (n, c) or s.dtype != torch.float32
+                or not s.is_contiguous() or s.device != x.device
+                or s.data_ptr() % 16):
+            raise ValueError("mean and rstd must be contiguous (N, C) fp32 "
+                             "on x's device, 16-byte aligned")
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _build.lib().ir2rgb_instance_norm_apply(
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), y.data_ptr(), n,
+        h * w, c, ACTS[act], float(negative_slope),
+        int(x.dtype == torch.bfloat16), stream)
+    _build.check(code, "instance_norm_apply")
+    apply_launches += 1
+    return y
+
+
 def _backward_cuda(x, mean, rstd, g, act, negative_slope):
     """The backward op's CUDA implementation: a ``g`` the kernel cannot
     read (a view: a slice of a concat's gradient, or contiguous memory at
@@ -346,6 +436,41 @@ _BWD_OPS = _build.define_op(
     "str act, float negative_slope) -> Tensor",
     instance_norm_act_backward_reference, _backward_cuda,
     lambda x, mean, rstd, g, act, negative_slope: torch.empty_like(x))
+
+
+def _stats_fake(x):
+    n, _, _, c = x.shape
+    mean = x.new_empty((n, c), dtype=torch.float32)
+    return mean, torch.empty_like(mean)
+
+
+_STATS_OPS = _build.define_op(
+    "instance_norm_stats(Tensor x) -> (Tensor, Tensor)",
+    instance_norm_stats_reference, instance_norm_stats_cuda, _stats_fake)
+_APPLY_OPS = _build.define_op(
+    "instance_norm_apply(Tensor x, Tensor mean, Tensor rstd, str act, "
+    "float negative_slope) -> Tensor",
+    instance_norm_apply_reference, instance_norm_apply_cuda,
+    lambda x, mean, rstd, act, negative_slope: torch.empty_like(x))
+
+
+def instance_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """(mean, m2) of NHWC ``x`` over its H and W, fp32 (N, C). CPU tensors
+    take the plain version; CUDA tensors the kernel (the op
+    ``ir2rgb::instance_norm_stats``)."""
+    _build.check_device(x, "instance_norm_stats")
+    return _STATS_OPS(x)
+
+
+def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor,
+                        rstd: torch.Tensor, act: str = "relu",
+                        negative_slope: float = 0.2) -> torch.Tensor:
+    """act((x - mean) * rstd) over NHWC ``x`` with (N, C) fp32 statistics.
+    CPU tensors take the plain version; CUDA tensors the kernel (the op
+    ``ir2rgb::instance_norm_apply``)."""
+    _build.check_device(x, "instance_norm_apply")
+    return _APPLY_OPS(x, mean, rstd, act, float(negative_slope))
 
 
 def instance_norm_act(x: torch.Tensor, act: str = "relu",

@@ -47,6 +47,14 @@ backward instead of kept. A block's dropout mask is drawn before the
 checkpointed body and passed in, so the recompute applies the forward's
 mask: checkpoint restores the global RNGs, not an explicit generator.
 
+A frame whose rows lie on several ranks (``parallel/spatial.py``) runs
+the same forward: the ops of ``nn/ops.py`` exchange what they read across
+ranks, the divisibility check reads the global H, and the served tail
+runs B2 on this rank's rows extended by three halo rows each side
+(reflected at the global edge), keeping the rows between. The U-Net is
+not partitioned (its innermost levels have fewer rows than ranks,
+ROADMAP A16b).
+
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
 ``nn/s2d_space.py``) are exact rewrites of the same math and are not
 ported; the port is held to the generator's output.
@@ -62,6 +70,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ir2rgb_tpu_torch import kernels
+from ir2rgb_tpu_torch.parallel import spatial
 from . import ops, quant
 
 
@@ -139,6 +148,18 @@ def _tail(conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     (B2 as in "none"); ``int8_w`` feeds B2 the dequantized weight, the
     same function as JAX's dequantized conv + bias + tanh; ``int8`` is an
     int8 product, another function than B2's, so it runs composed."""
+    part = spatial.active()
+    if part is not None:
+        if train:
+            raise NotImplementedError(
+                "the training tail on a spatially partitioned frame "
+                f"({spatial.A16B})")
+        # B2 on the rows and 3 halo rows each side; the kept rows read
+        # real rows only, so they are this rank's rows of the frame's tail
+        h = x.shape[1]
+        y = kernels.tail_fused(part.halo(x, 3, 3, "reflect"),
+                               conv.weight.permute(2, 3, 1, 0), conv.bias)
+        return y[:, 3:3 + h]
     if not train:
         m = quant.mode_for(conv.in_channels, conv.out_channels)
         if m != "int8":
@@ -307,6 +328,9 @@ class ResnetStack(nn.Sequential):
 def _check_divisible(x: torch.Tensor, downs: int, net: str) -> None:
     d = 1 << downs
     h, w = x.shape[1], x.shape[2]
+    part = spatial.active()
+    if part is not None:
+        h = part.global_rows(h)
     if h % d or w % d:
         raise ValueError(
             f"net_g={net}: input {h}x{w} must be divisible by {d} "
@@ -542,6 +566,11 @@ class UnetGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if spatial.active() is not None:
+            raise NotImplementedError(
+                f"net_g={self.cfg.net_g} on a spatially partitioned frame: "
+                "its innermost levels have fewer rows than ranks "
+                f"({spatial.A16B})")
         _check_divisible(x, self.num_downs, self.cfg.net_g)
         return self.model(x.to(self.cfg.compute_dtype),
                           generator if train else None)

@@ -22,6 +22,18 @@ JAX package computes them outside any Pallas kernel. Inside a
 data-parallel step (``parallel/mesh.py``: ``sharded``) a dropout mask is
 drawn at the global batch's shape and sliced to the rank's rows, and
 batch norm takes its statistics over the global batch.
+
+While a frame is served with its rows spread over several ranks
+(``parallel/spatial.py``: ``spatial.active()``), each op computes this
+rank's rows of the whole frame's result: a conv, a subpixel deconv, a
+pad, a pool or a bilinear up first takes the rows above and below that
+it reads (``Shards.halo``, mapped by its edge rule at the global image
+edge), and runs with its H padding 0; a pad returns the extended rows,
+which the next conv takes as they are. Instance norm runs B1 split: this
+rank's statistics (``kernels.instance_norm_stats``), the ranks' merged
+(``Shards.norm_stats``), then ``kernels.instance_norm_apply``; batch norm
+takes the moments over every rank. A stride-2 op raises ``ValueError``
+unless the global H divides by 2·sp. Serving only, in quant mode "none".
 """
 
 from __future__ import annotations
@@ -33,7 +45,12 @@ import torch
 import torch.nn.functional as F
 
 from ir2rgb_tpu_torch.kernels import d2s_fn, fused_instance_norm_act
+from ir2rgb_tpu_torch.kernels.instance_norm import (
+    instance_norm_apply,
+    instance_norm_stats,
+)
 from ir2rgb_tpu_torch.parallel import mesh as pmesh
+from ir2rgb_tpu_torch.parallel import spatial
 from . import quant
 # eps 1e-5 (torch InstanceNorm2d's) and the activations live with B1
 from ir2rgb_tpu_torch.kernels.instance_norm import (  # noqa: F401
@@ -119,6 +136,13 @@ def conv(x: torch.Tensor, weight: torch.Tensor,
     """NHWC conv (cross-correlation) with an OIHW weight, computed in x's
     dtype (quantized as the serving mode says, ``nn/quant.py``)."""
     m = quant.mode_for(weight.shape[1], weight.shape[0])
+    part = spatial.active()
+    if part is not None:
+        _refuse_quant(m)
+        return _nhwc(F.conv2d(
+            _nchw(_conv_rows(part, x, weight.shape[2], stride, padding)),
+            weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+            stride=stride, padding=(0, padding)))
     if m != "none":
         y = quant.conv(x, weight.to(x.dtype), m, stride, padding,
                        source=(weight, "conv"))
@@ -126,6 +150,33 @@ def conv(x: torch.Tensor, weight: torch.Tensor,
     b = None if bias is None else bias.to(x.dtype)
     return _nhwc(F.conv2d(_nchw(x), weight.to(x.dtype), b, stride=stride,
                           padding=padding))
+
+
+def _refuse_quant(m: str) -> None:
+    if m != "none":
+        raise NotImplementedError(
+            f"quant mode {m!r} on a spatially partitioned frame: its "
+            "per-tensor activation scale spans every rank's rows "
+            f"({spatial.A16B})")
+
+
+def _conv_rows(part, x: torch.Tensor, k: int, stride: int,
+               padding: int) -> torch.Tensor:
+    """The rows a k x k conv (stride 1 or 2, zero padding ``padding``)
+    reads for this rank's output rows, the global edge's zero rows
+    included; the conv then pads W alone. Rows a pad extended
+    (``Shards.mark``) are taken as they are, by a stride-1 conv without
+    padding that they fit."""
+    ext = part.extension(x)
+    if ext is not None:
+        if stride != 1 or padding or sum(ext) != k - 1:
+            raise ValueError(f"conv k{k} s{stride} p{padding} on rows "
+                             f"extended by {ext}: a pad feeds a stride-1 "
+                             "conv that it fits")
+        return x
+    part.check_rows(x.shape[1], k, stride, padding,
+                    f"conv k{k} s{stride} p{padding} at {tuple(x.shape)}")
+    return part.halo(x, padding, k - stride - padding, "zero")
 
 
 def _subpixel_plan(k: int, pad: int):
@@ -223,8 +274,15 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     ci, co, k, _ = weight.shape
     if lowering not in ("subpixel", "dilated"):
         raise ValueError(f"unknown deconv lowering: {lowering!r}")
-    if lowering == "dilated" or not subpixel_admits(k, padding,
-                                                    output_padding):
+    part = spatial.active()
+    sub = lowering == "subpixel" and subpixel_admits(k, padding,
+                                                    output_padding)
+    if part is not None and not sub:
+        raise NotImplementedError(
+            f"a {lowering} k{k} p{padding} op{output_padding} transposed "
+            "conv on a spatially partitioned frame: only the subpixel "
+            f"lowering is ({spatial.A16B})")
+    if not sub:
         m = quant.mode_for(ci, co)
         if m == "none":
             return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), b,
@@ -239,14 +297,26 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
         wk = subpixel_weight(weight.to(x.dtype), padding)
     _, kk, omin = _subpixel_plan(k, padding)
     lo, hi = -omin, kk - 1 + omin
-    xp = F.pad(x, (0, 0, lo, hi, lo, hi))
     m = quant.mode_for(ci, 4 * co)
-    y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
-        xp, wk, m, source=(weight, ("subpixel", padding))))
-    y = d2s_fn(y, co)
     _, h, w, _ = x.shape
     out_h = (h - 1) * 2 - 2 * padding + k + output_padding
     out_w = (w - 1) * 2 - 2 * padding + k + output_padding
+    if part is None:
+        xp = F.pad(x, (0, 0, lo, hi, lo, hi))
+    else:
+        # the rows from the halo; the trim is against the global size
+        _refuse_quant(m)
+        g = part.global_rows(h)
+        if (g - 1) * 2 - 2 * padding + k + output_padding != 2 * g:
+            raise ValueError(f"transposed conv k{k} p{padding} "
+                             f"op{output_padding} at {tuple(x.shape)}: its "
+                             "output trims global rows, which do not split "
+                             f"evenly over sp = {part.sp}")
+        xp = F.pad(part.halo(x, lo, hi, "zero"), (0, 0, lo, hi))
+        out_h = 2 * h
+    y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
+        xp, wk, m, source=(weight, ("subpixel", padding))))
+    y = d2s_fn(y, co)
     if out_h != 2 * h or out_w != 2 * w:
         y = y[:, :out_h, :out_w, :]
     return y if b is None else y + b
@@ -263,10 +333,19 @@ def _reflect_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """torch ReflectionPad2d over H and W of NHWC ``x``; the result is
-    contiguous NHWC."""
+    contiguous NHWC. On a partitioned frame the H side comes from the
+    halo, mirrored at the global edge."""
+    return _pad(x, pad, "reflect", _reflect_index)
+
+
+def _pad(x: torch.Tensor, pad: int, mode: str, index) -> torch.Tensor:
     _, h, w, _ = x.shape
-    x = x.index_select(1, _reflect_index(h, pad, x.device))
-    return x.index_select(2, _reflect_index(w, pad, x.device))
+    part = spatial.active()
+    if part is None:
+        x = x.index_select(1, index(h, pad, x.device))
+        return x.index_select(2, index(w, pad, x.device))
+    x = part.halo(x, pad, pad, mode).index_select(2, index(w, pad, x.device))
+    return part.mark(x, pad, pad)
 
 
 def avg_pool(x: torch.Tensor, window: int = 3, stride: int = 2, pad: int = 1,
@@ -280,8 +359,27 @@ def avg_pool(x: torch.Tensor, window: int = 3, stride: int = 2, pad: int = 1,
     CPU, whatever count_include_pad; ``chip_smoke.py`` checks both
     layouts). The inputs are a few channels wide, so the two layout
     copies are small."""
-    y = F.avg_pool2d(_nchw(x.float()).contiguous(), window, stride, pad,
+    part = spatial.active()
+    if part is None:
+        y = F.avg_pool2d(_nchw(x.float()).contiguous(), window, stride, pad,
+                         count_include_pad=count_include_pad)
+        return _nhwc(y).to(x.dtype)
+    # this rank's output rows from the halo's; where the global edge's
+    # pad rows (zeros here) fall in a window, count_include_pad=False
+    # divides by the real rows alone: the interior divisor stays whole
+    h, g = x.shape[1], part.global_rows(x.shape[1])
+    part.check_rows(h, window, stride, pad,
+                    f"avg_pool {window}/{stride}/{pad} at {tuple(x.shape)}")
+    ext = part.halo(x.float(), pad, window - stride - pad, "zero")
+    y = F.avg_pool2d(_nchw(ext).contiguous(), window, stride, (0, pad),
                      count_include_pad=count_include_pad)
+    if not count_include_pad:
+        first = part.rank * h - pad  # global row of ext's first row
+        real = [sum(0 <= first + stride * i + j < g for j in range(window))
+                for i in range(y.shape[2])]
+        if min(real) < window:
+            y = y * torch.tensor([window / r for r in real],
+                                 device=y.device)[:, None]
     return _nhwc(y).to(x.dtype)
 
 
@@ -292,10 +390,8 @@ def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
 
 def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """torch ReplicationPad2d (``jnp.pad`` mode "edge") over H and W of
-    NHWC ``x``."""
-    _, h, w, _ = x.shape
-    x = x.index_select(1, _edge_index(h, pad, x.device))
-    return x.index_select(2, _edge_index(w, pad, x.device))
+    NHWC ``x``; on a partitioned frame, as :func:`reflect_pad`."""
+    return _pad(x, pad, "edge", _edge_index)
 
 
 @_kept_index
@@ -320,10 +416,27 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False
     triangle kernel widened when shrinking (``jax.image.resize``'s
     "linear", torch's ``antialias=True``); ``True``: the end pixels map
     to the end pixels, no widening."""
-    y = F.interpolate(_nchw(x.float()).contiguous(), size=tuple(out_hw),
-                      mode="bilinear", align_corners=align_corners,
-                      antialias=not align_corners)
-    return _nhwc(y).to(x.dtype)
+    part = spatial.active()
+    if part is None:
+        y = F.interpolate(_nchw(x.float()).contiguous(), size=tuple(out_hw),
+                          mode="bilinear", align_corners=align_corners,
+                          antialias=not align_corners)
+        return _nhwc(y).to(x.dtype)
+    # an integer up-scale of the rows: half-pixel centres read the rows
+    # next to the shard's (edge rows at the global edge), so the rows of
+    # the halo-extended shard scaled by s, less s at each end, are this
+    # rank's; any other scale's rows would not split over the ranks
+    h = x.shape[1]
+    s = out_hw[0] // part.global_rows(h)
+    if align_corners or s < 1 or s * part.global_rows(h) != out_hw[0]:
+        raise NotImplementedError(
+            f"resize_bilinear {part.global_rows(h)} -> {out_hw[0]} rows "
+            f"(align_corners={align_corners}) on a partitioned frame: "
+            f"only integer up-scales are ({spatial.A16B})")
+    ext = part.halo(x.float(), 1, 1, "edge")
+    y = F.interpolate(_nchw(ext).contiguous(), size=(s * (h + 2), out_hw[1]),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return _nhwc(y[:, :, s:s * (h + 1)]).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
@@ -380,6 +493,22 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def _split_instance_norm_act(part, x: torch.Tensor, act: str,
+                             negative_slope: float) -> torch.Tensor:
+    """Instance norm + act over the whole frame of which ``x`` holds this
+    rank's rows: B1's statistics of the rows, the ranks' merged in rank
+    order, then B1's apply."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "the split B1 under autograd: spatially partitioned training "
+            f"is not ported ({spatial.A16B})")
+    mean, m2 = instance_norm_stats(x)
+    mean, rstd = part.norm_stats(mean, m2, x.shape[1] * x.shape[2],
+                                 INSTANCE_NORM_EPS)
+    return instance_norm_apply(x, mean.contiguous(), rstd.contiguous(), act,
+                               negative_slope)
+
+
 def norm_act(x: torch.Tensor, norm: str, act: str = "relu",
              negative_slope: float = 0.2,
              bn: Optional[torch.nn.BatchNorm2d] = None) -> torch.Tensor:
@@ -388,7 +517,10 @@ def norm_act(x: torch.Tensor, norm: str, act: str = "relu",
     (batch statistics, the affine ``bn``'s gamma and beta) and ``none``
     apply the activation after, in plain PyTorch."""
     if norm == "instance":
-        return fused_instance_norm_act(x, act, negative_slope)
+        part = spatial.active()
+        if part is None:
+            return fused_instance_norm_act(x, act, negative_slope)
+        return _split_instance_norm_act(part, x, act, negative_slope)
     if norm == "batch":
         x = batch_norm(x, bn.weight, bn.bias, bn.eps)
     elif norm != "none":

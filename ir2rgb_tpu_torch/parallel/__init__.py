@@ -1,4 +1,4 @@
-from . import multihost
+from . import multihost, spatial
 from .mesh import (
     DataParallelMesh,
     data_parallel_mesh,
@@ -10,6 +10,7 @@ from .mesh import (
 __all__ = [
     "DataParallelMesh",
     "multihost",
+    "spatial",
     "data_parallel_mesh",
     "dp_sp_mesh",
     "replicate",

@@ -34,9 +34,14 @@ it):
   which each rank writes its own rows, as bytes, so it is exact on every
   backend (gloo has no ``all_gather`` of CUDA tensors).
 
-``dp_sp_mesh`` keeps JAX's argument checks; spatial partitioning itself
-is not ported (no SPMD partitioner: it needs hand-written halo exchanges,
-ROADMAP A16).
+:func:`dp_sp_mesh` keeps JAX's argument checks and, for ``sp > 1``,
+lays the group out as JAX's ``devices.reshape(dp, sp)``: rank ``r`` is
+``(dp_rank, sp_rank) = divmod(r, sp)``, with a ``dp`` subgroup (the ranks
+of one spatial column) and an ``sp`` subgroup (the ranks of one data
+row). Such a mesh serves: a frame's rows spread over the ``sp`` ranks
+(``parallel/spatial.py``: the halo exchanges and the instance-norm merge
+that XLA's partitioner writes in JAX), slots over the ``dp`` ranks. The
+dp×sp train step is not ported (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -55,11 +60,35 @@ LAUNCH = ("torchrun --standalone --nproc_per_node {n} -m "
 
 @dataclasses.dataclass(frozen=True)
 class DataParallelMesh:
+    """The group as one rank sees it; with ``sp > 1`` a dp×sp mesh
+    (:func:`dp_sp_mesh`): ``world = dp * sp`` ranks, ``dp_group`` the
+    ranks of this rank's spatial column (None when ``dp == 1``),
+    ``sp_group`` those of its data row. With ``sp == 1`` every rank is its
+    own data row and ``dp_group`` is ``group``."""
     world: int
     rank: int
     local_rank: int
     device: torch.device
     group: Optional[Any] = None  # a torch.distributed ProcessGroup
+    sp: int = 1
+    dp_group: Optional[Any] = None
+    sp_group: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.sp == 1 and self.dp_group is None:
+            object.__setattr__(self, "dp_group", self.group)
+
+    @property
+    def dp(self) -> int:
+        return self.world // self.sp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.sp
+
+    @property
+    def sp_rank(self) -> int:
+        return self.rank % self.sp
 
     def barrier(self) -> None:
         """Wait for every rank (a one-element all-reduce, read back, so it
@@ -113,12 +142,22 @@ def data_parallel_mesh(num_devices: int = 0,
     return DataParallelMesh(1, 0, 0, dev, None)
 
 
+SP_LAUNCH = ("launch {n} processes, one a card (torchrun --standalone "
+             "--nproc_per_node {n} <serving script>), and build the mesh "
+             "on each")
+
+
 def dp_sp_mesh(dp: int = 0, sp: int = 1,
-               devices: Optional[Sequence[Any]] = None) -> DataParallelMesh:
+               devices: Optional[Sequence[Any]] = None,
+               device: Optional[torch.device] = None) -> DataParallelMesh:
     """JAX's ``dp_sp_mesh`` argument checks (``mesh.py:50-75``) over
     ``devices`` (default: one a rank of the group, else the visible
-    cards), then the data-parallel mesh for ``sp == 1``. Spatial
-    partitioning (``sp > 1``) raises ``NotImplementedError``."""
+    cards), then the mesh: for ``sp == 1`` the data-parallel mesh; for
+    ``sp > 1`` the initialized group laid out as ``(dp, sp)`` in JAX's
+    order (``ValueError`` unless there is a group of ``dp * sp`` ranks).
+    Every rank must call it, in the same order: it makes the ``dp`` and
+    ``sp`` subgroups with ``dist.new_group``. ``device``: the rank's
+    device (as :func:`data_parallel_mesh`'s)."""
     if devices is None:
         n_dev = (dist.get_world_size() if dist.is_available()
                  and dist.is_initialized() else max(
@@ -140,12 +179,30 @@ def dp_sp_mesh(dp: int = 0, sp: int = 1,
     if n > n_dev:
         raise ValueError(f"dp*sp = {dp}*{sp} = {n} exceeds "
                          f"{n_dev} visible devices")
-    if sp > 1:
-        raise NotImplementedError(
-            "spatial partitioning (sp > 1) is not ported: it needs halo "
-            "exchanges at every conv, pad, pool and up and a split B1 "
-            "(ROADMAP A16); train data-parallel with sp = 1")
-    return data_parallel_mesh(dp)
+    if sp == 1:
+        return data_parallel_mesh(dp, device)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"dp*sp = {dp}*{sp} = {n} ranks but no process "
+                         "group is initialized: " + SP_LAUNCH.format(n=n))
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"dp*sp = {dp}*{sp} = {n} but the process group "
+                         f"has {world} rank(s): " + SP_LAUNCH.format(n=n))
+    base = data_parallel_mesh(0, device)
+    # every rank makes every subgroup, in the same order
+    rows = [list(range(d * sp, (d + 1) * sp)) for d in range(dp)]
+    cols = [list(range(k, n, sp)) for k in range(sp)]
+
+    def mine(groups):
+        if len(groups[0]) == 1:
+            return None
+        if len(groups[0]) == world:
+            return base.group
+        made = [dist.new_group(g) for g in groups]
+        return next(h for g, h in zip(groups, made) if base.rank in g)
+    sp_group, dp_group = mine(rows), mine(cols)
+    return dataclasses.replace(base, sp=sp, dp_group=dp_group,
+                               sp_group=sp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -176,17 +233,44 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def image_dim(x: torch.Tensor, mesh: DataParallelMesh) -> Optional[int]:
+    """The dim of ``x`` split over the ``sp`` ranks (JAX's
+    ``batch_sharding`` rule, ``mesh.py:78-95``): H (dim 1) of a rank-4
+    leaf, dim 2 of a rank-5 one (time stays whole); None for any other
+    leaf, and for every leaf with ``sp == 1``."""
+    if mesh.sp == 1 or x.dim() not in (4, 5):
+        return None
+    return 1 if x.dim() == 4 else 2
+
+
+def image_rows(x: torch.Tensor, mesh: DataParallelMesh) -> torch.Tensor:
+    """This rank's image rows of a leaf (a view): :func:`image_dim` split
+    evenly over the ``sp`` ranks, a leaf it does not split as it is.
+    ``ValueError`` unless ``sp`` divides H."""
+    d = image_dim(x, mesh)
+    if d is None:
+        return x
+    if x.shape[d] % mesh.sp:
+        raise ValueError(f"{x.shape[d]} image rows do not split evenly over "
+                         f"sp = {mesh.sp} ranks")
+    h = x.shape[d] // mesh.sp
+    return x.narrow(d, mesh.sp_rank * h, h)
+
+
 def shard_batch(batch: Any, mesh: DataParallelMesh, accum: int = 1) -> Any:
     """This rank's rows of the global ``batch`` (a tensor, numpy array,
     or dict / list / tuple of them), on the rank's device. Dim 0 is split
-    for every leaf: frames (B, H, W, C), windows (B, T, H, W, C),
-    instance maps (B, H, W), labels (B,). With ``accum = K`` the rows are
-    the rank's slice of each of the K micro-batches (:func:`local_rows`);
-    ``ValueError`` unless ``world × K`` divides the batch."""
+    over the ``dp`` ranks for every leaf: frames (B, H, W, C), windows
+    (B, T, H, W, C), instance maps (B, H, W), labels (B,); on a dp×sp
+    mesh the image leaves' rows too (:func:`image_rows`). With
+    ``accum = K`` the rows are the rank's slice of each of the K
+    micro-batches (:func:`local_rows`); ``ValueError`` unless ``dp × K``
+    divides the batch."""
     def take(x):
         x = torch.as_tensor(x)
-        rows = local_rows(x.shape[0], mesh.world, mesh.rank, accum)
-        return x.index_select(0, rows.to(x.device)).to(mesh.device)
+        rows = local_rows(x.shape[0], mesh.dp, mesh.dp_rank, accum)
+        x = image_rows(x.index_select(0, rows.to(x.device)), mesh)
+        return x.contiguous().to(mesh.device)
     return _tree_map(take, batch)
 
 
@@ -241,18 +325,26 @@ def _bytes(x: torch.Tensor) -> torch.Tensor:
     return x.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
+def all_reduce_bytes(t: torch.Tensor, group: Any,
+                     device: torch.device) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of ``t``'s bytes (through
+    ``device``), each byte written by one rank and zero on the others, so
+    the sum is that rank's byte: exact for any dtype on any backend. A
+    tensor of ``t``'s dtype and shape on ``t``'s device."""
+    buf = _bytes(t).to(device)
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.device).view(t.dtype).reshape(t.shape)
+
+
 def gather(x: torch.Tensor, mesh: DataParallelMesh) -> torch.Tensor:
     """Every rank's ``x`` (the same shape on each) stacked on dim 0 in
-    rank order: an all-reduce (sum) of a zero byte buffer into which each
-    rank writes its own rows' bytes, exact for any dtype on any backend.
-    No graph."""
+    rank order: an all-reduce of a zero buffer into which each rank
+    writes its own rows (:func:`all_reduce_bytes`). No graph."""
     n = x.shape[0]
     out = torch.zeros((mesh.world * n,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     out[mesh.rank * n:(mesh.rank + 1) * n] = x.detach()
-    buf = _bytes(out).to(mesh.device)
-    dist.all_reduce(buf, group=mesh.group)
-    return buf.to(x.device).view(x.dtype).reshape(out.shape)
+    return all_reduce_bytes(out, mesh.group, mesh.device)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -274,7 +366,9 @@ class _AllReduceSum(torch.autograd.Function):
 
 def batch_moments(x32: torch.Tensor, mesh: DataParallelMesh):
     """The (C,) mean and biased variance over (N, H, W) of NHWC fp32
-    ``x32`` across every rank's rows, in ``ops.batch_norm``'s two passes:
+    ``x32`` across every rank's rows (on a dp×sp mesh the group spans
+    both axes: the batch's rows and the image's), in ``ops.batch_norm``'s
+    two passes:
     the summed sum and count give the mean, then the summed squared
     deviations about it the variance. Differentiable: the backward sums
     the statistics' gradients over ranks."""
@@ -407,7 +501,8 @@ def replicate(model, mesh: DataParallelMesh):
     return model
 
 
-__all__ = ["DataParallelMesh", "active", "all_reduce_grads",
-           "all_reduce_metrics", "batch_moments", "broadcast_state",
-           "data_parallel_mesh", "dp_sp_mesh", "draw", "gather",
-           "local_rows", "replicate", "shard_batch", "sharded"]
+__all__ = ["DataParallelMesh", "active", "all_reduce_bytes",
+           "all_reduce_grads", "all_reduce_metrics", "batch_moments",
+           "broadcast_state", "data_parallel_mesh", "dp_sp_mesh", "draw",
+           "gather", "image_dim", "image_rows", "local_rows", "replicate",
+           "shard_batch", "sharded"]

@@ -31,11 +31,11 @@ PHASES = ("load", "reduce", "merge", "apply")
 # per kernel, the source lines that open each phase and the one that
 # closes the last; a stamp is taken just before each
 ANCHORS = {
-    "in_fwd_kernel": ("  const Where w(p, R::kThreads);",
-                      "  // the share's mean",
-                      "  // merge the cluster's shares",
-                      "  float mean[N], rstd[N];",
-                      "  cluster_wait();"),
+    "in_fwd_body": ("  const Where w(p, R::kThreads);",
+                    "  // the share's mean",
+                    "  // merge the cluster's shares",
+                    "  float mean[N], rstd[N];",
+                    "  cluster_wait();"),
     "in_bwd_kernel": ("  const Where w(p, R::kThreads);",
                       "  float mean[N], rstd[N];",
                       "  cluster.sync();",

@@ -18,9 +18,10 @@ naming ``torchrun``), brings the group up for ``train.multihost``
 after every restore. Only rank 0 does the run's I/O (``config.json``, the
 fresh run's clear, checkpoints and the epoch index, loss lines, display
 images); the other ranks wait at a barrier where they read what rank 0
-wrote. Every rank restores the same files. Spatial partitioning
-(``spatial_devices > 1``) is not ported (ROADMAP A16): the trainer
-raises for it before any step.
+wrote. Every rank restores the same files. Spatially partitioned
+training (``spatial_devices > 1``) is not ported (ROADMAP A16b; a dp×sp
+mesh serves, ``parallel/spatial.py``): the trainer raises for it before
+any step.
 """
 
 from __future__ import annotations
@@ -79,8 +80,9 @@ class Trainer:
         if tcfg.spatial_devices > 1:
             raise NotImplementedError(
                 "training with spatial_devices > 1 (spatial partitioning) "
-                "is not ported yet (ROADMAP A16): the port trains "
-                "data-parallel only")
+                "is not ported yet (ROADMAP A16b): the port trains "
+                "data-parallel only; a dp×sp mesh serves "
+                "(StreamingGenerator / MultiStreamServer mesh=)")
         if tcfg.multihost:
             multihost.initialize(require=True)
         self.mesh = data_parallel_mesh(tcfg.num_devices, device=model.device)

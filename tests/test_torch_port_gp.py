@@ -75,8 +75,9 @@ def test_b1_second_derivative_matches_jax(shape, act):
         return jax.grad(lambda v: jnp.sum(jnp.asarray(w1) * jax_norm(v, act)))(
             xj)
 
-    want = np.asarray(jax.grad(lambda v: jnp.sum(jnp.asarray(w2)
-                                                 * first(v)))(jnp.asarray(x)))
+    # jitted: one compile of the double backward, not one per eager op
+    want = np.asarray(jax.jit(jax.grad(lambda v: jnp.sum(
+        jnp.asarray(w2) * first(v))))(jnp.asarray(x)))
     got = _second_derivative_port(x, w1, w2, act)
     np.testing.assert_allclose(got, want, rtol=1e-4,
                                atol=1e-4 * np.abs(want).max())
@@ -127,7 +128,9 @@ def test_gradient_penalty_matches_jax(name):
         return jax_gp(lambda x: d_apply(p, x), jnp.asarray(real),
                       jnp.asarray(fake), key, lambda_gp=10.0)
 
-    want, want_grads = jax.value_and_grad(penalty)(params)
+    # jitted: one compile of JAX's penalty and its gradient, not one per
+    # eager op of the double backward
+    want, want_grads = jax.jit(jax.value_and_grad(penalty))(params)
     got = gan.gradient_penalty(d, torch.from_numpy(real),
                                torch.from_numpy(fake), lambda_gp=10.0,
                                eps=torch.from_numpy(eps))

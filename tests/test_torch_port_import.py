@@ -21,6 +21,7 @@ def test_importing_every_module_loads_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert 'ir2rgb_tpu_torch.parallel.spatial' in names, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ir2rgb_tpu' or m.startswith('ir2rgb_tpu.')]\n"
         "assert not bad, bad\n"

@@ -604,8 +604,11 @@ def test_plain_versions_do_not_count_as_launches():
     x = torch.from_numpy(_x((1, 8, 8, 32), seed=4))
     fused_instance_norm_act(x, "relu")
     tail_fused(x, torch.zeros((7, 7, 32, 3)), torch.zeros(3))
+    pin.instance_norm_apply(x, *pin.instance_norm_stats(x))
     assert launch_counts() == {"instance_norm_act": 0,
-                               "instance_norm_act_bwd": 0, "tail_fused": 0,
+                               "instance_norm_act_bwd": 0,
+                               "instance_norm_stats": 0,
+                               "instance_norm_apply": 0, "tail_fused": 0,
                                "d2s": 0, "s2d": 0}
 
 

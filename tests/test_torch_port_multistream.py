@@ -1,8 +1,8 @@
 """The port's MultiStreamServer (infer/multistream.py) held to the JAX
 package's on the CPU, on the same generator weights (carried across with
 checkpoint/from_jax.py): every scenario of tests/test_multistream.py but
-the mesh guard (the port has no mesh argument) runs on both servers, each
-side also checks its own batched streams against its batch-1
+the mesh guard (held in tests/test_torch_port_spatial.py) runs on both
+servers, each side also checks its own batched streams against its batch-1
 StreamingGenerator (within 1 LSB, as the JAX tests do), and the port's
 outputs are held to JAX's: uint8 within 1 LSB with at most 0.1% of the
 values differing at all (JAX's jitted tick normalises with one fused

@@ -22,7 +22,9 @@ global batch, and against the JAX package's 8-device data-parallel step.
   both restore rank 0's files bit for bit.
 - (e) ``torchrun`` of ``cli.train --device cpu`` on two ranks.
 - (f)-(i) ``shard_batch``'s layout, ``initialize``'s rules, ``num_devices``'
-  rules and ``dp_sp_mesh``'s ``ValueError``s (JAX's).
+  rules and ``dp_sp_mesh``'s ``ValueError``s (JAX's), and its dp×sp
+  layout (JAX's; spatially partitioned serving itself is
+  ``tests/test_torch_port_spatial.py``).
 
 The file is also its own worker (``python tests/test_torch_port_parallel.py
 PORT RANK WORLD OUT JOB``): each case starts its ranks on a free port, one
@@ -734,8 +736,24 @@ def test_dp_sp_mesh_value_errors_are_jaxs(dp_, sp):
 
 
 def test_dp_sp_mesh_spatial_is_a16_and_dp_is_the_mesh():
-    with pytest.raises(NotImplementedError, match="A16"):
-        dp_sp_mesh(2, 4, devices=list(range(8)))
+    # A16a: dp_sp_mesh(2, 4) on a group of 8 ranks (a fake one, each rank
+    # in turn) is the mesh JAX builds: rank r at JAX's devices[dp, sp],
+    # its sp subgroup JAX's row and its dp subgroup JAX's column
+    from ir2rgb_tpu.parallel import dp_sp_mesh as jax_dp_sp_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    ids = np.vectorize(lambda d: d.id)(jax_dp_sp_mesh(2, 4).devices)
+    for rank in range(8):
+        torch.distributed.init_process_group(
+            "fake", rank=rank, world_size=8, store=FakeStore())
+        try:
+            m = dp_sp_mesh(2, 4, device="cpu")
+            get = torch.distributed.get_process_group_ranks
+            assert (m.world, m.dp, m.sp) == (8, 2, 4)
+            assert ids[m.dp_rank, m.sp_rank] == rank
+            assert get(m.sp_group) == ids[m.dp_rank].tolist()
+            assert get(m.dp_group) == ids[:, m.sp_rank].tolist()
+        finally:
+            torch.distributed.destroy_process_group()
     assert dp_sp_mesh(1, 1, devices=[0]).world == 1
 
 

@@ -88,9 +88,11 @@ def test_discriminator_matches_jax_every_tap(net_d):
     # tap and the logits; scales finest first on both sides
     jcfg, params, d = _disc_pair(net_d)
     x = _pair_image(1)
-    outs_j = (multiscale_disc_apply(params, jnp.asarray(x), jcfg)
-              if net_d == "multiscale"
-              else [n_layer_disc_apply(params, jnp.asarray(x), jcfg)])
+    # jitted: one compile of JAX's D, not one per eager op
+    outs_j = (jax.jit(multiscale_disc_apply, static_argnums=2)(
+        params, jnp.asarray(x), jcfg) if net_d == "multiscale"
+        else [jax.jit(n_layer_disc_apply, static_argnums=2)(
+            params, jnp.asarray(x), jcfg)])
     with torch.no_grad():
         outs_p = d(torch.from_numpy(x))
     assert len(outs_p) == len(outs_j)
