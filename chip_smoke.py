@@ -153,11 +153,17 @@ Phases, each failing the run if it fails:
    (``chip_smoke.py --spatial-rank R WORLD PORT DIR``). B1 split
    (``ir2rgb::instance_norm_stats`` and ``ir2rgb::instance_norm_apply``)
    at every shard shape (``B1_SPLIT_SHAPES``) against its plain
-   versions, bf16 and fp32, one device kernel a call, timed beside the
-   plain versions, the library's and the bound; B2 at the tails'
-   extended shapes and d2s at the shard shapes are in the kernel phases
-   above. Frames (``SPATIAL_CASES``): pix2pixhd_2048 at full width on
-   sp 2 and 4, fp32 and bf16, 2 frames; pix2pixhd_512 on sp 2, bf16;
+   versions, bf16 and fp32, one device kernel a call, the statistics of
+   two calls bit-identical and, for an fp32 input of mean 1e3 x std,
+   within SPLIT_LARGE_MEAN_REL of float64; timed beside the plain
+   versions, the library's and the bound, the statistics also beside the
+   fused forward at each shape and on a cold L2 from SPLIT_COLD_BYTES,
+   and summed over all of a ``SPLIT_FRAME`` rank's launches; a bf16
+   tensor off the statistics' 16-byte loads refused; B2 at the tails'
+   extended shapes and d2s at the shard
+   shapes are in the kernel phases above. Frames (``SPATIAL_CASES``):
+   pix2pixhd_2048 at full width on sp 2 and 4, fp32 and bf16, 2 frames;
+   pix2pixhd_512 on sp 2, bf16;
    temporal_512 on sp 4, 3 frames, each rank's carry rows held to the
    one-process carry's. Each gathered frame against the one-process
    frame of the same weights (fp32 max-abs <= SLICE_FP32_TOL, bf16 >=
@@ -615,6 +621,15 @@ SPATIAL_BF16_PSNR = 40.0
 SPATIAL_TIMEOUT_S = 300
 # the frame whose B1 split launches the kernel table's times sum over
 SPLIT_FRAME = ("pix2pixhd_2048", 4)
+# the split statistics of an fp32 input of mean 1e3 x std against
+# float64: M2's relative error
+SPLIT_LARGE_MEAN_REL = 1e-5
+SPLIT_STATS_KEYS = ("ms", "plain_ms", "library_ms", "eager_ms", "bound_ms",
+                    "fused_ms")
+# the split statistics' shapes of at least this many bytes are timed on a
+# cold L2 as well: from 16 MB a shape's reads repeated in a graph replay
+# are partly L2 hits (the H100's L2 holds 50 MB)
+SPLIT_COLD_BYTES = 16 << 20
 
 
 def shard_table(table: dict, sp: int, n: int = 1) -> dict:
@@ -813,11 +828,13 @@ def device_kernels(fn) -> int:
     return count.value
 
 
-def cold_ms(fn, flush: torch.Tensor) -> float:
+def cold_ms(fn, flush: torch.Tensor, read: bool = False) -> float:
     """Device time of one ``fn`` call on a cold L2: ``flush`` (more than
-    the 50 MB L2) is written before every call, and the graph-replay time
-    of the flush alone is taken off."""
-    wipe = flush.zero_
+    the 50 MB L2) is written before every call, or with ``read`` read (so
+    that the L2 holds no dirty line that ``fn``'s reads must write back
+    first), and the graph-replay time of the flush alone is taken off."""
+    wipe = ((lambda: torch.amax(flush.view(torch.int32))) if read
+            else flush.zero_)
     return graph_ms(lambda: (wipe(), fn())) - graph_ms(wipe)
 
 
@@ -4153,21 +4170,30 @@ def b1_split_phase(bw: float, gen: torch.Generator):
     phase's frames (``B1_SPLIT_SHAPES``), bf16 and fp32, each held to its
     plain version on the card (the statistics to 1e-4 relative, the
     apply at the fused forward's tolerances) with one device kernel a
-    call; bf16 timed beside the plain version, the library's
-    (``torch.var_mean`` over H, W; ``(x - mean) * rstd`` + act) and the
-    bound (bytes)."""
+    call, the statistics of two calls bit-identical; the statistics of an
+    fp32 input of mean 1e3 x its std held to float64 at every shard
+    shape (SPLIT_LARGE_MEAN_REL, relative M2); bf16 timed beside the
+    plain version, the library's (``torch.var_mean`` over H, W;
+    ``(x - mean) * rstd`` + act) and the bound (bytes), the statistics
+    also beside the fused forward at the same shape (``fused_ms``) and,
+    from SPLIT_COLD_BYTES, on a cold L2 (``cold_ms``, the L2 flushed by
+    reads). A bf16 tensor off the 16-byte boundary of the kernel's loads
+    must be refused with a ValueError."""
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
-    rows, timed_stats = [], set()
+    rows, timed_stats, large_mean = [], set(), set()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     # the worst error of each op and dtype: the statistics' (mean, or M2
-    # relative), the apply's max |y - plain|
+    # relative), the apply's max |y - plain|; and the large-mean case's
     worst = {(op, d): 0.0 for op in ("stats", "apply")
              for d in ("bfloat16", "float32")}
+    worst[("stats", "large mean")] = 0.0
     for (shape, act) in B1_SPLIT_SHAPES:
         n, h, w, c = shape
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
                  + 1).to(dtype)
             mean, m2 = b1.instance_norm_stats(x)
+            again = b1.instance_norm_stats(x)
             mean_ref, m2_ref = b1.instance_norm_stats_reference(x.float())
             rstd = torch.rsqrt(m2 / (h * w) + b1.INSTANCE_NORM_EPS)
             y = b1.instance_norm_apply(x, mean, rstd, act)
@@ -4176,20 +4202,43 @@ def b1_split_phase(bw: float, gen: torch.Generator):
             torch.cuda.synchronize()
             stat_err = max(float((mean - mean_ref).abs().max()),
                            float(((m2 - m2_ref) / m2_ref).abs().max()))
+            same = torch.equal(mean, again[0]) and torch.equal(m2, again[1])
             err = float((y.float() - y_ref).abs().max())
             for op, e in (("stats", stat_err), ("apply", err)):
                 key = (op, dtype_name(dtype))
                 worst[key] = max(worst[key], e)
-            tag = f"B1 split {shape} {act} {dtype_name(dtype)}"
+            plan = b1.stats_plan_for(x)
+            tag = (f"B1 split {shape} {act} {dtype_name(dtype)} (stats: "
+                   f"{plan.channels} ch x {plan.chunks} chunks of "
+                   f"{plan.chunk} px)")
             stats = lambda: b1.instance_norm_stats(x)  # noqa: E731
             apply = lambda: b1.instance_norm_apply(  # noqa: E731
                 x, mean, rstd, act)
             kernels = (device_kernels(stats), device_kernels(apply))
-            check(stat_err <= 1e-4 and err <= TOL[dtype]
+            check(stat_err <= 1e-4 and err <= TOL[dtype] and same
                   and kernels == (1, 1),
-                  f"{tag}: stats {stat_err:.3g} (tol 1e-4), max|y - plain| "
-                  f"{err:.3g} (tol {TOL[dtype]}), {kernels} device "
-                  "kernel(s) per call (want 1 each)")
+                  f"{tag}: stats {stat_err:.3g} (tol 1e-4), two calls "
+                  f"bit-identical {same}, max|y - plain| {err:.3g} (tol "
+                  f"{TOL[dtype]}), {kernels} device kernel(s) per call "
+                  "(want 1 each)")
+            if dtype == torch.float32 and shape not in large_mean:
+                large_mean.add(shape)
+                big = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=torch.float64) + 1e3).float()
+                got = b1.instance_norm_stats(big)
+                x64 = big.double()
+                mean64 = x64.mean(dim=(1, 2))
+                m2_64 = (x64 - mean64[:, None, None]).square().sum(
+                    dim=(1, 2))
+                rel = float(((got[1].double() - m2_64) / m2_64).abs().max())
+                mean_rel = float(((got[0].double() - mean64)
+                                  / mean64).abs().max())
+                worst[("stats", "large mean")] = max(
+                    worst[("stats", "large mean")], rel)
+                check(rel <= SPLIT_LARGE_MEAN_REL,
+                      f"B1 split stats {shape} float32 at mean 1e3 x std: "
+                      f"M2 {rel:.3g} relative to float64 (tol "
+                      f"{SPLIT_LARGE_MEAN_REL}), mean {mean_rel:.3g}")
             if dtype != torch.bfloat16:
                 continue
             x_nchw = x.permute(0, 3, 1, 2)
@@ -4199,11 +4248,15 @@ def b1_split_phase(bw: float, gen: torch.Generator):
                 rows.append(dict(
                     name="stats", key=shape, shape=list(shape),
                     dtype=dtype_name(dtype), max_abs_err=stat_err,
-                    device_kernels=kernels[0], ms=graph_ms(stats),
+                    device_kernels=kernels[0], plan=plan._asdict(),
+                    ms=graph_ms(stats),
                     plain_ms=graph_ms(
                         lambda: b1.instance_norm_stats_reference(x)),
                     library_ms=graph_ms(lambda: torch.var_mean(
                         x_nchw, dim=(2, 3), correction=0)),
+                    fused_ms=graph_ms(lambda: b1.instance_norm_act(x, act)),
+                    cold_ms=(cold_ms(stats, flush, read=True)
+                             if xb >= SPLIT_COLD_BYTES else None),
                     eager_ms=cuda_ms(stats),
                     bound_ms=(xb + 2 * n * c * 4) / bw * 1e3))
             m4, r4 = mean[:, None, None], rstd[:, None, None]
@@ -4216,6 +4269,21 @@ def b1_split_phase(bw: float, gen: torch.Generator):
                 library_ms=graph_ms(lambda: act_fn((x - m4) * r4, act)),
                 eager_ms=cuda_ms(apply),
                 bound_ms=(2 * xb + 2 * n * c * 4) / bw * 1e3))
+    # a bf16 view 8 bytes off a 16-byte boundary, at a shape whose group
+    # of 32 channels the kernel reads 16 bytes a load: refused before the
+    # launch, where the loads would fault the card
+    shape = B1_SPLIT_SHAPES[0][0]
+    buf = torch.zeros(int(np.prod(shape)) + 4, dtype=torch.bfloat16,
+                      device="cuda")
+    off = buf[4:].view(shape)
+    try:
+        b1.instance_norm_stats_cuda(off)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(off.data_ptr() % 16 == 8 and "16-byte aligned" in refused,
+          f"B1 split stats {shape} bf16 at {off.data_ptr() % 16} bytes past "
+          f"16: refused ({refused or 'launched'})")
     return rows, worst
 
 
@@ -4716,10 +4784,13 @@ def main() -> int:
                for (p, n), t in SERVE_TICK.items()}
     # B1 split over one rank's frame of SPLIT_FRAME (preset, sp), bf16
     split_counts = SPATIAL_TABLES[SPLIT_FRAME + (1,)]["b1"]
+    stats_counts = Counter()  # per shape, over both activations
+    for (s, _), c in split_counts.items():
+        stats_counts[s] += c
     split_frame = {
         "stats": per_path_totals(
             [r for r in spatial["b1_split_rows"] if r["name"] == "stats"],
-            Counter({s: c for (s, _), c in split_counts.items()})),
+            stats_counts, SPLIT_STATS_KEYS),
         "apply": per_path_totals(
             [r for r in spatial["b1_split_rows"] if r["name"] == "apply"],
             split_counts)}
@@ -4789,10 +4860,18 @@ def main() -> int:
             total["instance_norm_stats"], split_frame["stats"],
             spatial["b1_split_worst"]["stats bfloat16"],
             f"times: one {SPLIT_FRAME[0]} frame on one of {SPLIT_FRAME[1]} "
-            f"ranks ({SPATIAL[SPLIT_FRAME[0]]['instance_norm_stats']} "
-            "launches at its shard shapes), bf16; max_abs_err: of mean or "
-            "relative M2; library: torch.var_mean over H, W",
+            f"ranks ({sum(stats_counts.values())} launches at its shard "
+            "shapes), bf16; max_abs_err: of mean or relative M2; library: "
+            "torch.var_mean over H, W; fused_ms: the fused forward at "
+            "the same shapes; cold_ms_by_shape: a call on a cold L2 at the "
+            "shapes of SPLIT_COLD_BYTES and more",
+            fused_ms=split_frame["stats"]["fused_ms"],
+            cold_ms_by_shape={str(r["shape"]): r["cold_ms"]
+                              for r in spatial["b1_split_rows"]
+                              if r.get("cold_ms") is not None},
             max_abs_err_fp32=spatial["b1_split_worst"]["stats float32"],
+            max_rel_m2_err_large_mean=spatial["b1_split_worst"][
+                "stats large mean"],
             device_kernels_per_call=max(r["device_kernels"]
                                         for r in spatial["b1_split_rows"]),
             launches_by_path=path_launches("instance_norm_stats")),
@@ -4845,10 +4924,25 @@ def main() -> int:
     print("spatial " + json.dumps({k: v for k, v in spatial.items()
                                    if k != "b1_split_rows"}))
     for r in spatial["b1_split_rows"]:
+        more = "" if r["name"] != "stats" else (
+            f" fused fwd {r['fused_ms']:.4f}"
+            + ("" if r["cold_ms"] is None else
+               f" cold-L2 {r['cold_ms']:.4f} ("
+               f"{r['bound_ms'] / r['cold_ms']:.0%} of bound)")
+            + f" ({r['bound_ms'] / r['ms']:.0%} of bound, "
+            f"{r['library_ms'] / r['ms']:.2f}x var_mean); plan "
+            f"{r['plan']['channels']} ch x {r['plan']['chunks']} chunks of "
+            f"{r['plan']['chunk']} px")
         print(f"  B1 split {r['name']} {r['shape']} {r.get('act', ''):10s} "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} lib "
               f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} eager "
-              f"{r['eager_ms']:.4f}")
+              f"{r['eager_ms']:.4f}{more}")
+    t = split_frame["stats"]
+    print(f"  B1 split stats over one {SPLIT_FRAME[0]} sp-{SPLIT_FRAME[1]} "
+          f"rank's frame ({sum(stats_counts.values())} launches), bf16: "
+          f"{t['ms']:.4f} ms (bound "
+          f"{t['bound_ms']:.4f}: {t['bound_ms'] / t['ms']:.0%}; var_mean "
+          f"{t['library_ms']:.4f}, fused forward {t['fused_ms']:.4f})")
     for tag, rows in (("B1", b1_rows), ("B1 bwd", bwd_rows)):
         for r in rows:
             cold = "" if r["cold_ms"] is None else \

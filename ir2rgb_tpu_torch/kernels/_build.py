@@ -42,9 +42,12 @@ _SIGNATURES = {
     # slope, is_bf16, stream
     "ir2rgb_instance_norm_act_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _P],
-    # x, mean, m2, n, hw, c, k, share, cg, tile, smem_bytes, is_bf16, stream
-    "ir2rgb_instance_norm_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _P],
+    # x, mean, m2, part, tickets, n, hw, c, cg, chunks, chunk, smem_bytes,
+    # is_bf16, stream
+    "ir2rgb_instance_norm_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P],
+    # cg, smem_bytes, is_bf16, out (int*)
+    "ir2rgb_instance_norm_stats_occupancy": [_I, _I, _I, _P],
     # x, mean, rstd, y, n, hw, c, act, slope, is_bf16, stream
     "ir2rgb_instance_norm_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                    _P],

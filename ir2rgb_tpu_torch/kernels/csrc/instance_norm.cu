@@ -43,14 +43,45 @@
 // the wrapper allocates only the outputs.
 //
 // The split forward, for a frame whose rows are spread over several ranks
-// (ir2rgb_tpu_torch/parallel/spatial.py): ir2rgb_instance_norm_stats runs
-// the same kernel with the apply (step 4) compiled out, and writes each
-// (n, c)'s mean and M2 (the sum of squared deviations about the mean) of
-// the rows in hand; the ranks merge those in rank order (Chan's formula,
-// plain PyTorch on (N, C) tensors), and ir2rgb_instance_norm_apply reads
-// the merged (mean, rstd) and writes act((x - mean) * rstd) in one
-// elementwise pass over NHWC words. Both are bound by bytes: the stats
-// read x once, the apply reads x once and writes y once.
+// (ir2rgb_tpu_torch/parallel/spatial.py): ir2rgb_instance_norm_stats
+// writes each (n, c)'s mean and M2 (the sum of squared deviations about
+// the mean) of the rows in hand; the ranks merge those in rank order
+// (Chan's formula, plain PyTorch on (N, C) tensors), and
+// ir2rgb_instance_norm_apply reads the merged (mean, rstd) and writes
+// act((x - mean) * rstd) in one elementwise pass over NHWC words. Both
+// are bound by bytes: the stats read x once, the apply reads x once and
+// writes y once.
+//
+// The statistics kernel (in_stats_kernel) has a plan of its own
+// (kernels/instance_norm.py::_stats_plan), with two levels:
+//   1. Chunks. A slab (one image's pixels of one group of at most 64
+//      bytes a pixel) is cut into chunks of `chunk` pixels, one block of
+//      256 threads a chunk, the grid at most one wave of the blocks the
+//      card holds at once (each block streams its chunk). A thread reads
+//      16 bytes of a pixel's group a load (8 bf16 or 4 fp32 channels),
+//      eight loads in flight at a time, each byte once, into registers;
+//      it takes each batch's exact two-pass (mean, M2) from them and
+//      merges it into its running statistics with Chan's formula, and
+//      keeps the plain sum too. The chunk's mean is the block's sum over
+//      its count (a fixed order); its M2 adds each thread's M2
+//      moved to that mean, M2 + n (mean_t - mean)^2 (Chan's formula for
+//      many parts: every term positive), the same way. All values are
+//      taken less the image's first pixel (the shift), so that the means
+//      stay small beside |mean| and keep their digits.
+//   2. Tickets. Each block of a slab writes its chunk's (mean, M2) to a
+//      scratch buffer and draws a ticket (an acq_rel atomicInc on the
+//      slab's counter, after a barrier that orders the partial before
+//      it); the block that draws the last merges the slab's partials
+//      the same way: the mean from the chunks' count x mean, then the M2
+//      from each chunk's M2 moved to it, each a plain sum in chunk order
+//      (each of 256 / channels threads of a channel a run of consecutive
+//      chunks, the runs added in order). It adds the shift back and
+//      writes mean and M2. atomicInc wraps the counter to 0 on the last
+//      ticket, so the counters stay zero between launches without a
+//      memset.
+//   A slab of at most 32768 values (pixels x channels), or a launch of a
+//   wave of slabs, takes one chunk a slab: its block writes mean and M2
+//   and touches no counter or scratch.
 //
 // Why these choices:
 // - Clusters and distributed shared memory replace the TPU kernel's
@@ -86,7 +117,22 @@
 //   A launch the card refuses returns its error.
 // - The launch is cudaLaunchKernelEx with a cluster attribute, with no
 //   host sync or allocation, so it captures in a CUDA graph.
-
+// - The statistics kernel streams its chunk through registers rather
+//   than holding it for a block-wide two-pass: held 64 KB a block (two
+//   blocks an SM), the blocks loaded, then reduced, in lockstep, well
+//   under half the byte bound on an H100. A block past one wave would
+//   start only as the first wave ends, so the plan keeps the grid to one
+//   wave of the blocks the card holds.
+// - Its second level is a ticket rather than a cluster or a grid-wide
+//   barrier: a cluster merges at most 16 blocks, where a slab of a 2048²
+//   shard wants 128-264; a cooperative launch's grid.sync makes every
+//   block wait for the slowest. With tickets no block waits: the last of
+//   a slab to finish merges. The counters are per stream (the wrapper's
+//   arena, zeroed once), so two launches on two streams never share one.
+// - The merges add plain sums in a fixed order (the mean, then the M2
+//   moved to it): a chain of Chan's pairwise merges, a division each,
+//   cost several µs in the last block. The order is fixed by the plan, so
+//   a launch gives the same bits in every run.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -324,13 +370,11 @@ __device__ __forceinline__ void each_word(const Where& w, Get get, Use use) {
   }
 }
 
-// The forward's body. kApply false: the statistics alone (the split
-// forward's first half); rstd_out then receives M2, and y is not touched.
-template <typename T, bool kTile, bool kApply>
-__device__ __forceinline__ void
-in_fwd_body(const T* __restrict__ x, T* __restrict__ y,
-            float* __restrict__ mean_out, float* __restrict__ rstd_out,
-            Plan p, int act, float slope, float eps) {
+template <typename T, bool kTile>
+__global__ void __launch_bounds__(Route<kTile>::kThreads)
+in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
+              float* __restrict__ mean_out, float* __restrict__ rstd_out,
+              Plan p, int act, float slope, float eps) {
   using W = Word<T>;
   using Raw = typename W::Raw;
   using R = Route<kTile>;
@@ -404,14 +448,10 @@ in_fwd_body(const T* __restrict__ x, T* __restrict__ y,
     if (w.rank == 0) {
       const size_t o = (size_t)w.n * p.c + (size_t)w.grp * p.cg * N + ch;
       mean_out[o] = mean;
-      rstd_out[o] = kApply ? rstd : m2;
+      rstd_out[o] = rstd;
     }
   }
   cluster_arrive();
-  if constexpr (!kApply) {
-    cluster_wait();
-    return;
-  }
   __syncthreads();
 
   float mean[N], rstd[N];
@@ -430,23 +470,6 @@ in_fwd_body(const T* __restrict__ x, T* __restrict__ y,
     dst[q * w.stride] = W::pack(v);
   });
   cluster_wait();
-}
-
-// Two kernels of one body, so that each launch has a name of its own.
-template <typename T, bool kTile>
-__global__ void __launch_bounds__(Route<kTile>::kThreads)
-in_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-              float* __restrict__ mean_out, float* __restrict__ rstd_out,
-              Plan p, int act, float slope, float eps) {
-  in_fwd_body<T, kTile, true>(x, y, mean_out, rstd_out, p, act, slope, eps);
-}
-
-template <typename T, bool kTile>
-__global__ void __launch_bounds__(Route<kTile>::kThreads)
-in_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
-                float* __restrict__ m2_out, Plan p) {
-  in_fwd_body<T, kTile, false>(x, nullptr, mean_out, m2_out, p, 0, 0.f,
-                               0.f);
 }
 
 template <typename T, bool kTile>
@@ -581,6 +604,331 @@ in_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+// The statistics kernel's launch (kernels/instance_norm.py::StatsPlan):
+// n * groups slabs of cg words a pixel, each cut into `chunks` chunks of
+// `chunk` pixels (the last may hold fewer), one block a chunk.
+struct StatsPlan {
+  int n, hw, c;  // batch, pixels per image, channels
+  int cg;        // words (of 4 channels) of a slab at one pixel
+  int chunks;    // chunks (blocks) per slab
+  int chunk;     // pixels per chunk
+};
+
+constexpr int kStatsThreads = 256;
+constexpr int kStatsWarps = kStatsThreads / 32;
+constexpr int kStatsBatch = 8;  // loads a thread keeps in flight
+
+// kCh channels of T read by one load: 16 bytes (8 bf16 or 4 fp32), or 8
+// bytes for a bf16 group of 4 channels.
+template <typename T, int kCh>
+struct Lane;
+
+template <>
+struct Lane<float, 4> {
+  using Raw = uint4;
+  __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
+    ir2rgb::Vec<float>::unpack(r, v);
+  }
+};
+
+template <>
+struct Lane<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
+    ir2rgb::Vec<__nv_bfloat16>::unpack(r, v);
+  }
+};
+
+template <>
+struct Lane<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
+    Word<__nv_bfloat16>::unpack(r, v);
+  }
+};
+
+// A load through the read-only path, placed where it is written: the
+// compiler may neither sink it to its use nor load it again for the
+// second pass, so a batch's loads are all in flight at once.
+__device__ __forceinline__ void load_word(uint2& r, const uint2* p) {
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];"
+               : "=r"(r.x), "=r"(r.y)
+               : "l"(p));
+}
+
+__device__ __forceinline__ void load_word(uint4& r, const uint4* p) {
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+}
+
+// A partial of another block, from L2 (written before its ticket), placed
+// where it is written as load_word is.
+__device__ __forceinline__ void load_partial(float2& r, const float2* p) {
+  asm volatile("ld.global.cg.v2.f32 {%0, %1}, [%2];"
+               : "=f"(r.x), "=f"(r.y)
+               : "l"(p));
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Chan's merge of (nb, mb[], m2b[]) into (cnt, mean[], m2[]), K channels
+// that share one count.
+template <int K>
+__device__ __forceinline__ void chan_merge_n(float& cnt, float* mean,
+                                             float* m2, float nb,
+                                             const float* mb,
+                                             const float* m2b) {
+  if (nb <= 0.f) return;
+  const float tot = cnt + nb;
+  const float wb = nb / tot;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float d = mb[j] - mean[j];
+    mean[j] += d * wb;
+    m2[j] += m2b[j] + d * d * cnt * wb;
+  }
+  cnt = tot;
+}
+
+// Pixels of chunk k (the last may hold fewer).
+__device__ __forceinline__ int chunk_count(const StatsPlan& p, int k) {
+  return min(p.chunk, p.hw - k * p.chunk);
+}
+
+// Dynamic shared memory: block_col_sum's scratch (a float a warp and
+// channel of the slab) and a float a thread for the merge.
+inline int stats_smem_need(const StatsPlan& p) {
+  return (kStatsWarps * p.cg * kPer + kStatsThreads) * 4;
+}
+
+// The block's sums of v[0..K) over the threads of each column (threadIdx
+// % cv): a butterfly in each warp, then warp 0 adds the warps' totals in
+// order. With `all`, every thread receives its column's sums; else only
+// the threads of warp 0 below cv hold them. red holds kStatsWarps * cv * K
+// floats.
+template <int K>
+__device__ __forceinline__ void block_col_sum(float* v, float* red, int cv,
+                                              bool all) {
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    for (int off = 16; off >= cv; off >>= 1)
+      v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane < cv)
+#pragma unroll
+    for (int j = 0; j < K; ++j) red[(warp * cv + lane) * K + j] = v[j];
+  __syncthreads();
+  if (warp == 0 && lane < cv)
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kStatsWarps; ++w) s += red[(w * cv + lane) * K + j];
+      v[j] = s;
+      red[lane * K + j] = s;  // its own slot, read by no other lane
+    }
+  if (!all) return;
+  __syncthreads();
+  const int col = threadIdx.x % cv;
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = red[col * K + j];
+  __syncthreads();  // red is reused by the next call
+}
+
+template <typename T, int kCh>
+__global__ void __launch_bounds__(kStatsThreads, 2)
+in_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
+                float* __restrict__ m2_out, float2* __restrict__ part,
+                unsigned* __restrict__ tickets, StatsPlan p) {
+  using L = Lane<T, kCh>;
+  using Raw = typename L::Raw;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+  const int cs = p.cg * kPer;  // channels of the slab
+  const int cv = cs / kCh;     // loads a pixel
+  const int k = blockIdx.x % p.chunks;
+  const int grp = blockIdx.x / p.chunks;
+  const int n = blockIdx.y;
+  const int col = threadIdx.x % cv;
+  const int row = threadIdx.x / cv;
+  const int rows = kStatsThreads / cv;
+  const int cnt = chunk_count(p, k);
+  const size_t stride = p.c / kCh;  // loads between neighbouring pixels
+  const Raw* image = reinterpret_cast<const Raw*>(x) +
+                     (size_t)n * p.hw * stride + (size_t)grp * cv + col;
+  const Raw* src = image + (size_t)k * p.chunk * stride;
+
+  // the shift: the image's first pixel, taken off every value so that the
+  // means merged below stay small beside |mean| and Chan's merge keeps its
+  // digits when |mean| >> std
+  float sh[kCh];
+  {
+    Raw r0;
+    load_word(r0, image);
+    L::unpack(r0, sh);
+  }
+  // this thread's pixels row, row + rows, ... of the chunk, kStatsBatch at
+  // a time, read once: each batch's exact two-pass (mean, M2), merged into
+  // the thread's running statistics in order
+  float tot = 0.f, mean[kCh], m2[kCh], sum[kCh];
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) mean[j] = m2[j] = sum[j] = 0.f;
+  for (int q0 = row; q0 < cnt; q0 += kStatsBatch * rows) {
+    Raw r[kStatsBatch];
+#pragma unroll
+    for (int i = 0; i < kStatsBatch; ++i)
+      if (q0 + i * rows < cnt)
+        load_word(r[i], src + (size_t)(q0 + i * rows) * stride);
+    const int nb = min(kStatsBatch, (cnt - q0 + rows - 1) / rows);
+    float s[kCh], mb[kCh];
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kStatsBatch; ++i)
+      if (i < nb) {
+        float v[kCh];
+        L::unpack(r[i], v);
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) s[j] += v[j] - sh[j];
+      }
+    const float inv = 1.f / (float)nb;
+    float ctr[kCh];  // the batch's mean, unshifted: M2 about it is M2
+                     // about mb up to a second-order term of its rounding
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) {
+      sum[j] += s[j];
+      mb[j] = s[j] * inv;
+      ctr[j] = sh[j] + mb[j];
+      s[j] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kStatsBatch; ++i)
+      if (i < nb) {
+        float v[kCh];
+        L::unpack(r[i], v);
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          const float d = v[j] - ctr[j];
+          s[j] += d * d;
+        }
+      }
+    chan_merge_n<kCh>(tot, mean, m2, (float)nb, mb, s);
+  }
+
+  // the chunk's statistics: its mean, from the threads' sums of x - shift
+  // added over the block (block_col_sum, a fixed order) over its count;
+  // then its M2, each thread's M2 about its own mean moved to the
+  // chunk's (M2 + n (mean - cm)^2, Chan's formula for many parts: all
+  // terms positive, no E[x^2] - mean^2) added the same way
+  float* red = reinterpret_cast<float*>(smem);  // [warp][cv][kCh]
+  float* acc = red + kStatsWarps * cs;          // [thread], the merge
+  block_col_sum<kCh>(sum, red, cv, true);
+  const float inv = 1.f / (float)cnt;
+  float cm[kCh];
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) {
+    cm[j] = sum[j] * inv;
+    const float d = mean[j] - cm[j];
+    m2[j] += tot * d * d;
+  }
+  block_col_sum<kCh>(m2, red, cv, false);
+  const int slab = n * (p.c / cs) + grp;
+  const size_t o = (size_t)n * p.c + (size_t)grp * cs;
+  float2* sp = part + (size_t)slab * p.chunks * cs;
+  if (row == 0) {  // threads 0 .. cv - 1: column col
+    if (p.chunks == 1) {  // one level: the chunk is the slab
+#pragma unroll
+      for (int j = 0; j < kCh; ++j) {
+        mean_out[o + col * kCh + j] = sh[j] + cm[j];
+        m2_out[o + col * kCh + j] = m2[j];
+      }
+    } else {  // the partial
+#pragma unroll
+      for (int j = 0; j < kCh; ++j)
+        sp[(size_t)k * cs + col * kCh + j] = make_float2(cm[j], m2[j]);
+    }
+  }
+  if (p.chunks == 1) return;
+  // the ticket: a release of this block's partial (ordered before it by
+  // the barrier) and an acquire of every earlier block's
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(tickets + slab), "r"(p.chunks - 1)
+                 : "memory");
+    last = old == p.chunks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: the slab's mean from the chunks' count x mean, then
+  // its M2 from each chunk's M2 moved to that mean, as plain sums in a
+  // fixed order: thread (run, ch) adds chunks [run * len, ...) of channel
+  // ch in order (the first kMerge of them loaded at once and kept for
+  // both sums), and the runs are added in order
+  constexpr int kMerge = 16;
+  const int ch = threadIdx.x % cs;
+  const int run = threadIdx.x / cs;
+  const int nruns = kStatsThreads / cs;
+  const int len = (p.chunks + nruns - 1) / nruns;
+  const int k0 = run * len;
+  const int end = min(p.chunks, k0 + len);
+  const int k1 = min(end, k0 + kMerge);
+  float pm[kMerge], pq[kMerge];
+#pragma unroll
+  for (int i = 0; i < kMerge; ++i) {
+    float2 v = make_float2(0.f, 0.f);
+    if (k0 + i < k1) load_partial(v, sp + (size_t)(k0 + i) * cs + ch);
+    pm[i] = v.x;
+    pq[i] = v.y;
+  }
+  float a = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMerge; ++i)
+    if (k0 + i < k1) a += (float)chunk_count(p, k0 + i) * pm[i];
+  for (int kk = k1; kk < end; ++kk) {
+    float2 v;
+    load_partial(v, sp + (size_t)kk * cs + ch);
+    a += (float)chunk_count(p, kk) * v.x;
+  }
+  acc[threadIdx.x] = a;
+  __syncthreads();
+  float sa = 0.f;
+  for (int r2 = 0; r2 < nruns; ++r2) sa += acc[r2 * cs + ch];
+  const float mean_s = sa / (float)p.hw;
+  __syncthreads();  // acc is written again below
+  float b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMerge; ++i)
+    if (k0 + i < k1) {
+      const float d = pm[i] - mean_s;
+      b += pq[i] + (float)chunk_count(p, k0 + i) * d * d;
+    }
+  for (int kk = k1; kk < end; ++kk) {
+    float2 v;
+    load_partial(v, sp + (size_t)kk * cs + ch);
+    const float d = v.x - mean_s;
+    b += v.y + (float)chunk_count(p, kk) * d * d;
+  }
+  acc[threadIdx.x] = b;
+  __syncthreads();
+  if (run == 0) {
+    float sb = 0.f;
+    for (int r2 = 0; r2 < nruns; ++r2) sb += acc[r2 * cs + ch];
+    // the shift: channel ch of the image's first pixel
+    mean_out[o + ch] =
+        to_float(x[(size_t)n * p.hw * p.c + grp * cs + ch]) + mean_s;
+    m2_out[o + ch] = sb;
+  }
+}
+
 // Once per kernel: allow the card's whole opt-in shared memory as dynamic
 // shared memory, and clusters of up to 16 blocks.
 cudaError_t prepare(const void* fn) {
@@ -685,33 +1033,64 @@ extern "C" int ir2rgb_instance_norm_act(
       }));
 }
 
-// x (n, hw, c) NHWC; mean, m2 (n, c) fp32, written: the forward's launch
-// (the same plan) with the apply compiled out. Returns the launch's error
-// (0 on success).
+// x (n, hw, c) NHWC, aligned to its loads (16 bytes; 8 for bf16 with cg
+// 1); mean, m2 (n, c) fp32, written. One launch of
+// (groups * chunks, n) blocks of kStatsThreads, groups of 4 * cg channels
+// and at most 64 bytes a pixel. part: n * c * chunks float2 of scratch,
+// and tickets: n * groups zeroed counters (left zero), both unused (may be
+// null) when chunks is 1. Returns the launch's error (0 on success).
 extern "C" int ir2rgb_instance_norm_stats(const void* x, void* mean, void* m2,
-                                          int n, int hw, int c, int k,
-                                          int share, int cg, int tile,
-                                          int smem_bytes, int is_bf16,
-                                          void* stream) {
-  const Plan p{n, hw, c, k, share, cg};
+                                          void* part, void* tickets, int n,
+                                          int hw, int c, int cg, int chunks,
+                                          int chunk, int smem_bytes,
+                                          int is_bf16, void* stream) {
+  const StatsPlan p{n, hw, c, cg, chunks, chunk};
+  const int item = is_bf16 ? 2 : 4;
+  const int load = is_bf16 && cg == 1 ? 8 : 16;  // bytes of one load
+  const bool ok =
+      reinterpret_cast<uintptr_t>(x) % load == 0 && n > 0 && hw > 0 &&
+      c % kPer == 0 && cg >= 1 &&
+      (cg & (cg - 1)) == 0 && cg * kPer * item <= 64 &&
+      (c / kPer) % cg == 0 && chunks >= 1 && chunk >= 1 &&
+      (long long)(chunks - 1) * chunk < hw &&
+      (long long)chunks * chunk >= hw && smem_bytes >= stats_smem_need(p) &&
+      (chunks == 1 || (part != nullptr && tickets != nullptr));
+  if (!ok) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      dispatch(is_bf16, tile, [&](auto kind) -> cudaError_t {
-        using T = typename decltype(kind)::Type;
-        if (!plan_ok(p, kPer * sizeof(T), tile, smem_bytes, 1))
-          return cudaErrorInvalidValue;
-        const auto fn = &in_stats_kernel<T, decltype(kind)::kTileRoute>;
-        const cudaError_t e = prepare(reinterpret_cast<const void*>(fn));
-        if (e != cudaSuccess) return e;
-        cudaLaunchAttribute attr;
-        const cudaLaunchConfig_t cfg = cluster_config(
-            k, k * (c / (kPer * cg)), n,
-            Route<decltype(kind)::kTileRoute>::kThreads, smem_bytes, s,
-            &attr);
-        return cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x),
-                                  static_cast<float*>(mean),
-                                  static_cast<float*>(m2), p);
-      }));
+  const dim3 grid((c / (kPer * cg)) * chunks, n);
+  float* mo = static_cast<float*>(mean);
+  float* qo = static_cast<float*>(m2);
+  float2* po = static_cast<float2*>(part);
+  unsigned* to = static_cast<unsigned*>(tickets);
+  // a thread loads 16 bytes of a pixel's group: 4 fp32 or 8 bf16
+  // channels, or 4 bf16 channels (8 bytes) where the group has 4
+  if (!is_bf16)
+    in_stats_kernel<float, 4><<<grid, kStatsThreads, smem_bytes, s>>>(
+        static_cast<const float*>(x), mo, qo, po, to, p);
+  else if (cg > 1)
+    in_stats_kernel<__nv_bfloat16, 8><<<grid, kStatsThreads, smem_bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(x), mo, qo, po, to, p);
+  else
+    in_stats_kernel<__nv_bfloat16, 4><<<grid, kStatsThreads, smem_bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(x), mo, qo, po, to, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many blocks of the statistics kernel for this dtype and group (4 *
+// cg channels) with smem_bytes of dynamic shared memory one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Written to *out;
+// returns the query's error (0 on success).
+extern "C" int ir2rgb_instance_norm_stats_occupancy(int cg, int smem_bytes,
+                                                    int is_bf16, int* out) {
+  *out = 0;
+  const void* fn =
+      !is_bf16  ? reinterpret_cast<const void*>(&in_stats_kernel<float, 4>)
+      : cg > 1 ? reinterpret_cast<const void*>(
+                     &in_stats_kernel<__nv_bfloat16, 8>)
+               : reinterpret_cast<const void*>(
+                     &in_stats_kernel<__nv_bfloat16, 4>);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, kStatsThreads, smem_bytes));
 }
 
 // x, y (n, hw, c) NHWC; mean, rstd (n, c) fp32, 16-byte aligned. One

@@ -33,19 +33,22 @@ and how the design answers that); this module holds
   (``parallel/spatial.py`` merges the ranks' statistics between the
   two): :func:`instance_norm_stats` (the ops ``ir2rgb::instance_norm_stats``:
   each (n, c)'s mean and M2, the sum of squared deviations, over the rows
-  in hand; the forward kernel's plan and statistics with its apply
-  compiled out) and :func:`instance_norm_apply`
+  in hand; a kernel of its own with two reduction levels, planned by
+  :func:`_stats_plan`) and :func:`instance_norm_apply`
   (``ir2rgb::instance_norm_apply``: act((x - mean) * rstd) for given
   (N, C) statistics, one elementwise pass), with their plain versions
   :func:`instance_norm_stats_reference` and
-  :func:`instance_norm_apply_reference`. Serving only: neither records a
-  graph;
+  :func:`instance_norm_apply_reference`, and
+  :func:`instance_norm_stats_chunked_reference`, the statistics kernel's
+  chunks and merge order in plain PyTorch (for the tests). Serving only:
+  neither records a graph;
 - ``launches`` / ``bwd_launches`` / ``stats_launches`` /
   ``apply_launches``: how many times the ops' CUDA implementations
   launched each kernel;
 - :func:`_plan` / :func:`plan_for`: the launch (channel group, cluster
   size, shared memory per block, route), sized by bytes and checked
-  against the card.
+  against the card; :func:`_stats_plan` / :func:`stats_plan_for`: the
+  statistics kernel's (channel group, chunks a slab, pixels a chunk).
 
 All take and return NHWC tensors. The kernels read NHWC memory directly,
 so ``x`` and the gradient must be contiguous in that order (a
@@ -55,6 +58,7 @@ channels-last NCHW tensor permuted to NHWC is).
 from __future__ import annotations
 
 import ctypes
+import threading
 from functools import lru_cache
 from typing import Callable, NamedTuple, Tuple
 
@@ -76,6 +80,14 @@ _PER = 4                # channels a thread loads per pixel (one word)
 # blocks a plan grows toward (the H100 has 132 SMs); the backward's tile
 # holds x and g, and more, smaller blocks pay (ir2rgb_tpu_torch/sweep_b1.py)
 _TARGET_BLOCKS = {"fwd": 64, "bwd": 128, "l2": 64}
+# the statistics kernel (ir2rgb_tpu_torch/sweep_b1.py --stats): threads a
+# block; loads a thread keeps in flight (kStatsBatch); partials a thread of
+# a slab's last block merges a round (kMerge); the largest slab, in values
+# (pixels x channels), that one block takes alone (one level)
+_STATS_THREADS = 256
+_STATS_BATCH = 8
+_STATS_MERGE = 16
+_STATS_ONE_LEVEL = 32768
 
 
 def apply_act(y: torch.Tensor, act: str,
@@ -119,6 +131,46 @@ def instance_norm_stats_reference(x: torch.Tensor
     mean = x32.mean(dim=(1, 2))
     m2 = (x32 - mean[:, None, None, :]).square().sum(dim=(1, 2))
     return mean, m2
+
+
+def instance_norm_stats_chunked_reference(x: torch.Tensor, plan: "StatsPlan"
+                                          ) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """(mean, m2) as the statistics kernel reduces under ``plan``, in
+    plain fp32 PyTorch: each chunk's (mean, M2) of x less the image's
+    first pixel (the shift; a two-pass here, where the kernel merges its
+    threads' two-pass batches: another order), then the slab's mean from
+    the chunks' count x mean and its M2 from each chunk's M2 moved to that
+    mean (Chan's formula for many parts), each a plain sum in the last
+    block's order: each of ``256 / channels`` threads of a channel adds a
+    run of consecutive chunks in order, and the runs are added in order.
+    The shift is added back to the mean. The tests hold the plan's chunks
+    and this merge to float64 and to JAX with it."""
+    n, h, w, c = x.shape
+    x32 = x.float().reshape(n, h * w, c)
+    shift = x32[:, 0]
+    x32 = x32 - shift[:, None]
+    parts = []
+    for k in range(plan.chunks):
+        xs = x32[:, k * plan.chunk:(k + 1) * plan.chunk]
+        mu = xs.mean(dim=1)
+        parts.append((xs.shape[1], mu,
+                      (xs - mu[:, None]).square().sum(dim=1)))
+    runs = _STATS_THREADS // plan.channels
+    length = _ceil_div(plan.chunks, runs)
+
+    def in_order(term):
+        total = torch.zeros_like(shift)
+        for r in range(runs):
+            acc = torch.zeros_like(shift)
+            for part in parts[r * length:(r + 1) * length]:
+                acc = acc + term(*part)
+            total = total + acc
+        return total
+
+    mean = in_order(lambda k, mu, m2: k * mu) / float(h * w)
+    m2 = in_order(lambda k, mu, m2: m2 + k * (mu - mean).square())
+    return shift + mean, m2
 
 
 def instance_norm_apply_reference(x: torch.Tensor, mean: torch.Tensor,
@@ -277,6 +329,145 @@ def plan_for(x: torch.Tensor, bwd: bool = False) -> Plan:
     return _card_plan(n, h * w, c, x.dtype == torch.bfloat16, bwd)
 
 
+class StatsPlan(NamedTuple):
+    """One launch of the statistics kernel (``in_stats_kernel``), as
+    ``csrc/instance_norm.cu`` reads it: ``n * groups`` slabs, each one
+    image's pixels of one group of ``channels`` channels (``cg`` words a
+    pixel), cut into ``chunks`` chunks of ``chunk`` pixels (the last may
+    hold fewer), one block a chunk. One chunk a slab is one level; with
+    more, the last block of a slab to finish merges its chunks."""
+    cg: int           # words of a group at one pixel
+    channels: int     # channels per group
+    groups: int       # channel groups per image
+    chunks: int       # chunks (blocks) per slab
+    chunk: int        # pixels per chunk
+    smem_bytes: int   # dynamic shared memory per block
+
+
+def _stats_lane(channels: int, itemsize: int) -> int:
+    """Channels of a pixel's group one thread of the statistics kernel
+    loads at once: 16 bytes (8 bf16 or 4 fp32), or 8 bytes for a bf16
+    group of 4 channels."""
+    return 8 if itemsize == 2 and channels > 4 else 4
+
+
+def _stats_rows(channels: int, itemsize: int) -> int:
+    """Pixels the statistics kernel's 256 threads read side by side."""
+    return _STATS_THREADS // (channels // _stats_lane(channels, itemsize))
+
+
+def _check_stats_aligned(ptr: int, p: "StatsPlan", itemsize: int) -> None:
+    """Raise unless ``ptr`` is aligned to the statistics kernel's loads
+    under ``p``: 16 bytes, where ``_check_nhwc`` asks 8 of bf16."""
+    load = _stats_lane(p.channels, itemsize) * itemsize
+    if ptr % load:
+        raise ValueError(f"instance_norm_stats_cuda: a group of "
+                         f"{p.channels} channels is read {load} bytes a "
+                         f"load; the tensor must be {load}-byte aligned")
+
+
+def _make_stats_plan(hw: int, c: int, itemsize: int, cg: int,
+                     chunk: int) -> StatsPlan:
+    """The statistics launch with chunks of ``chunk`` pixels (at most the
+    image's). Shared memory as the kernel's ``stats_smem_need``: a float
+    for each of 8 warps and channel of the group, a float a thread."""
+    chunk = min(chunk, hw)
+    channels = cg * _PER
+    smem = (8 * channels + _STATS_THREADS) * 4
+    return StatsPlan(cg, channels, c // channels, _ceil_div(hw, chunk),
+                     chunk, smem)
+
+
+def _stats_plan(n: int, hw: int, c: int, itemsize: int, sms: int = 132,
+                resident: int = 2) -> StatsPlan:
+    """The statistics launch for an (n, hw, c) tensor of ``itemsize``
+    bytes on a card of ``sms`` SMs that each hold ``resident`` of its
+    blocks at once. The widest group of at most 64 bytes a pixel
+    (``_choices``). A slab of at most ``_STATS_ONE_LEVEL`` values, or a
+    launch of at least a wave of slabs, takes one chunk a slab: one
+    level. Otherwise as many chunks a slab as keep the grid to one wave
+    (a block streams its chunk, and one past the wave would start only as
+    the first ended), each thread of the last block to one round of
+    ``_STATS_MERGE`` partials, and every thread to at least one round of
+    ``_STATS_BATCH`` loads."""
+    cg = _choices(hw, c, itemsize)[0][0]
+    channels = cg * _PER
+    slabs = n * (c // channels)
+    rows = _stats_rows(channels, itemsize)
+    per = min(sms * resident // slabs,
+              _STATS_MERGE * (_STATS_THREADS // channels),
+              hw // (_STATS_BATCH * rows))
+    if hw * channels <= _STATS_ONE_LEVEL or per < 2:
+        return _make_stats_plan(hw, c, itemsize, cg, hw)
+    return _make_stats_plan(hw, c, itemsize, cg, _ceil_div(hw, per))
+
+
+@lru_cache(maxsize=None)
+def stats_resident(cg: int, smem_bytes: int, is_bf16: bool) -> int:
+    """How many statistics blocks of this group and shared memory one SM
+    holds at once, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().ir2rgb_instance_norm_stats_occupancy(
+        cg, smem_bytes, int(is_bf16), ctypes.byref(out)),
+        "instance_norm_stats occupancy")
+    return out.value
+
+
+@lru_cache(maxsize=None)
+def _card_stats_plan(n: int, hw: int, c: int, itemsize: int,
+                     index: int) -> StatsPlan:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    one = _stats_plan(n, hw, c, itemsize, sms, 1)
+    return _stats_plan(n, hw, c, itemsize, sms, stats_resident(
+        one.cg, one.smem_bytes, itemsize == 2))
+
+
+def stats_plan_for(x: torch.Tensor) -> StatsPlan:
+    """The statistics plan a CUDA NHWC ``x`` launches with (queries the
+    card)."""
+    n, h, w, c = x.shape
+    return _card_stats_plan(n, h * w, c, x.element_size(), x.device.index)
+
+
+# The statistics kernel's ticket counters: per device, an arena of
+# _TICKET_SLOTS slots of _TICKETS_PER_SLOT counters, zeroed once; one slot
+# a stream
+_TICKET_SLOTS, _TICKETS_PER_SLOT = 128, 4096
+_tickets = {}
+_tickets_lock = threading.Lock()
+
+
+def _stream_tickets(device: torch.device, slabs: int) -> torch.Tensor:
+    """The counters a launch of ``slabs`` slabs on ``device``'s current
+    stream draws its tickets from: that stream's slot of the device's
+    arena. The arena is zeroed when first used, which cannot be inside a
+    CUDA graph capture, and the kernel leaves every counter it draws at
+    zero. Launches on two streams never share a counter; a CUDA graph
+    keeps the slot of the stream it was captured on."""
+    if slabs > _TICKETS_PER_SLOT:
+        raise ValueError(f"instance_norm_stats: {slabs} slabs a launch, at "
+                         f"most {_TICKETS_PER_SLOT}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with _tickets_lock:
+        if device.index not in _tickets:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "instance_norm_stats: the first launch on a device "
+                    "zeroes the kernel's counters; make it before capturing "
+                    "a CUDA graph")
+            arena = torch.zeros((_TICKET_SLOTS, _TICKETS_PER_SLOT),
+                                dtype=torch.int32, device=device)
+            torch.cuda.synchronize(device)  # zero before any stream draws
+            _tickets[device.index] = (arena, {})
+        arena, slots = _tickets[device.index]
+        if stream not in slots:
+            if len(slots) == _TICKET_SLOTS:
+                raise RuntimeError(f"instance_norm_stats: launches on more "
+                                   f"than {_TICKET_SLOTS} streams")
+            slots[stream] = len(slots)
+        return arena[slots[stream]]
+
+
 def _check_nhwc(t: torch.Tensor, what: str) -> None:
     """Raise unless ``t`` is what the kernels read."""
     if not t.is_cuda:
@@ -356,11 +547,11 @@ def instance_norm_act_bwd_cuda(x: torch.Tensor, mean: torch.Tensor,
     return dx
 
 
-def instance_norm_stats_cuda(x: torch.Tensor, plan: Plan = None
+def instance_norm_stats_cuda(x: torch.Tensor, plan: StatsPlan = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the statistics kernel (the forward's plan, its apply
-    compiled out); raise on anything it does not take. ``plan`` replaces
-    :func:`plan_for`'s."""
+    """Launch the statistics kernel; raise on anything it does not take.
+    ``plan`` replaces :func:`stats_plan_for`'s (``sweep_b1 --stats``
+    times each)."""
     global stats_launches
     _check_nhwc(x, "instance_norm_stats_cuda")
     if x.requires_grad and torch.is_grad_enabled():
@@ -368,13 +559,21 @@ def instance_norm_stats_cuda(x: torch.Tensor, plan: Plan = None
             "instance_norm_stats_cuda records no graph: the split B1 serves "
             "only (its backward is ROADMAP A16b)")
     n, h, w, c = x.shape
-    p = plan or plan_for(x)
+    p = plan or stats_plan_for(x)
+    _check_stats_aligned(x.data_ptr(), p, x.element_size())
     mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
     m2 = torch.empty_like(mean)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = tickets = None  # one level: neither
+    if p.chunks > 1:
+        part = torch.empty(n * c * p.chunks * 2, device=x.device,
+                           dtype=torch.float32)
+        tickets = _stream_tickets(x.device, n * p.groups)
     code = _build.lib().ir2rgb_instance_norm_stats(
-        x.data_ptr(), mean.data_ptr(), m2.data_ptr(), n, h * w, c, p.k,
-        p.share, p.cg, int(p.route == "smem"), p.smem_bytes,
+        x.data_ptr(), mean.data_ptr(), m2.data_ptr(),
+        part.data_ptr() if part is not None else 0,
+        tickets.data_ptr() if tickets is not None else 0, n, h * w, c,
+        p.cg, p.chunks, p.chunk, p.smem_bytes,
         int(x.dtype == torch.bfloat16), stream)
     _build.check(code, "instance_norm_stats")
     stats_launches += 1

@@ -7,7 +7,10 @@ shared-memory layout, argument checks) is tested."""
 
 import gc
 import importlib
+import importlib.util
+from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +27,11 @@ from ir2rgb_tpu_torch.kernels import fused_instance_norm_act, tail_fused
 
 pin = importlib.import_module("ir2rgb_tpu_torch.kernels.instance_norm")
 ptail = importlib.import_module("ir2rgb_tpu_torch.kernels.tail_fused")
+
+# jitted: the B2 tests at C 32 and 64 share one compile of the Pallas
+# kernel in interpret mode per width (an eager call traces and compiles it
+# anew each time)
+_jax_tail = jax.jit(jax_tail_fused, static_argnames=("tile", "interpret"))
 
 ACTS = ["none", "relu", "leaky_relu", "tanh"]
 
@@ -397,6 +405,142 @@ def test_b1_backward_reduction_order_matches_plain_backward(shape):
     assert err < 1e-6, f"max|dx - plain| / max|dx| {err:.3g}"
 
 
+# ---------------------------------------------------------------------------
+# B1 split: the statistics kernel's plan and its two-level merge
+# ---------------------------------------------------------------------------
+
+sweep_b1 = importlib.import_module("ir2rgb_tpu_torch.sweep_b1")
+
+
+def test_b1_stats_shapes_are_the_partitioned_frames_shard_shapes():
+    # sweep_b1 --stats and the plan tests below cover every shape
+    # chip_smoke.py's spatial phase gives the statistics kernel
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert sorted(sweep_b1.STATS_SHAPES) == sorted(
+        {s for s, _ in cs.B1_SPLIT_SHAPES})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sweep_b1.STATS_SHAPES)
+def test_b1_stats_plan_covers_every_pixel_once(shape, dtype):
+    # the plan on an H100: 132 SMs, two blocks of the kernel on each
+    # (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the card); the
+    # kernel launches no cluster, so no cluster count enters it
+    n, h, w, c = shape
+    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
+    p = pin._stats_plan(n, hw, c, item, sms=132, resident=2)
+    # chunk k owns pixels [k * chunk, min((k + 1) * chunk, hw)): together
+    # every pixel exactly once, and the last chunk holds at least one
+    ends = [min((k + 1) * p.chunk, hw) for k in range(p.chunks)]
+    starts = [k * p.chunk for k in range(p.chunks)]
+    assert starts[0] == 0 and ends[-1] == hw and starts[1:] == ends[:-1]
+    assert all(s < e for s, e in zip(starts, ends))
+    # every channel in one group of cg words: the widest of at most 64
+    # bytes a pixel that divides C
+    assert p.groups * p.channels == c and p.channels == 4 * p.cg
+    assert 32 % p.cg == 0 and p.channels * item <= 64
+    assert p.channels * item >= 32 or p.channels == c
+    # shared memory as the kernel lays it out (col_sum's float a warp and
+    # channel, a float a thread), within the 227 KB opt-in
+    assert p.smem_bytes == (8 * p.channels + 256) * 4 <= 232_448
+    blocks = n * p.groups * p.chunks
+    if hw * p.channels <= 32768:  # a slab one block reads alone
+        assert p.chunks == 1
+        return
+    # two levels: one wave of blocks, each thread of the last block
+    # merging one round of at most 16 partials, each thread of a block at
+    # least one round of 8 loads; from 16 MB up, a block an SM or more
+    rows = pin._stats_rows(p.channels, item)
+    assert p.chunks > 1 and blocks <= 264
+    assert -(-p.chunks // (256 // p.channels)) <= 16
+    assert p.chunk >= 8 * rows
+    if n * hw * c * item >= 16 << 20:
+        assert blocks >= 128
+
+
+@pytest.mark.parametrize("channels,itemsize,rows", [
+    (4, 2, 256), (8, 2, 256), (16, 2, 128), (32, 2, 64), (4, 4, 256),
+    (16, 4, 64)])
+def test_b1_stats_threads_read_16_bytes_of_a_pixel(channels, itemsize, rows):
+    # a thread loads 16 bytes of a pixel's group (8 bf16 or 4 fp32
+    # channels; 8 bytes for a bf16 group of 4), as the kernel's lane
+    # choice: the 256 threads of a block read `rows` pixels side by side
+    assert pin._stats_rows(channels, itemsize) == rows
+
+
+@pytest.mark.parametrize("channels,itemsize,load", [
+    (4, 2, 8), (8, 2, 16), (32, 2, 16), (4, 4, 16), (16, 4, 16)])
+def test_b1_stats_refuses_a_tensor_off_its_loads(channels, itemsize, load):
+    # the wrapper's check before a launch: a pointer off the kernel's
+    # load width (16 bytes, where _check_nhwc asks 8 of bf16) raises a
+    # ValueError that names the width, and one on it passes
+    p = pin._make_stats_plan(64, channels, itemsize, channels // 4, 64)
+    pin._check_stats_aligned(4096 + load, p, itemsize)
+    for off in range(4, load, 4):
+        with pytest.raises(ValueError, match=f"{load}-byte aligned"):
+            pin._check_stats_aligned(4096 + off, p, itemsize)
+
+
+def _stats_plan_at(shape, chunk):
+    """The fp32 statistics plan of ``shape`` with chunks of ``chunk``
+    pixels, in the widest group the kernel takes."""
+    n, h, w, c = shape
+    cg = pin._choices(h * w, c, 4)[0][0]
+    return pin._make_stats_plan(h * w, c, 4, cg, chunk)
+
+
+# (shape, pixels a chunk, mean; std 1): an odd H x W whose last chunk is
+# short at mean 1e3 and -1e3, whole chunks at mean 0, and one level
+STATS_CHUNK_CASES = [((1, 33, 65, 16), 97, 1e3), ((2, 17, 19, 32), 40, 0.0),
+                     ((1, 31, 31, 64), 33, -1e3), ((1, 32, 64, 16), 2048, 5.0)]
+
+
+@pytest.mark.parametrize("shape,chunk,mean", STATS_CHUNK_CASES)
+def test_b1_stats_chunked_reference_matches_float64(shape, chunk, mean):
+    # the plan's chunks and the kernel's merge order (runs of consecutive
+    # chunks, then the runs), in fp32, against float64 two-pass
+    # statistics: 1e-6 relative (they read ~1e-7). The image's first
+    # pixel is taken off before the chunks' means: without that shift,
+    # Chan's merge of fp32 means at 1e3 misses by ~1e-5
+    n, h, w, c = shape
+    hw = h * w
+    p = _stats_plan_at(shape, chunk)
+    assert p.chunks == -(-hw // chunk)
+    x = _x(shape, seed=31, scale=1.0, shift=mean)
+    got_mean, got_m2 = pin.instance_norm_stats_chunked_reference(
+        torch.from_numpy(x), p)
+    x64 = x.astype(np.float64).reshape(n, hw, c)
+    mean64 = x64.mean(1)
+    m2_64 = ((x64 - mean64[:, None]) ** 2).sum(1)
+    scale = np.maximum(np.abs(mean64), np.sqrt(m2_64 / hw))
+    assert (np.abs(got_mean.numpy() - mean64) / scale).max() < 1e-6
+    assert (np.abs(got_m2.numpy() - m2_64) / m2_64).max() < 1e-6
+    assert got_mean.dtype == got_m2.dtype == torch.float32
+
+
+@pytest.mark.parametrize("act", ["none", "relu"])
+@pytest.mark.parametrize("shape,chunk", [(s, k) for s, k, _ in
+                                         STATS_CHUNK_CASES[:3]])
+def test_b1_stats_chunked_reference_normalises_as_jax(shape, chunk, act):
+    # the chunked statistics, applied, against JAX's
+    # instance_norm_act_reference (its own mean and var) on the same
+    # numpy input, at the B1 tests' scale and mean (at mean 1e3 JAX's own
+    # fp32 mean is 6e-5 from float64 in y; the test above holds that case
+    # to float64)
+    n, h, w, c = shape
+    x = _x(shape, seed=32)
+    mean_t, m2 = pin.instance_norm_stats_chunked_reference(
+        torch.from_numpy(x), _stats_plan_at(shape, chunk))
+    rstd = torch.rsqrt(m2 / (h * w) + pin.INSTANCE_NORM_EPS)
+    got = pin.instance_norm_apply_reference(torch.from_numpy(x), mean_t,
+                                            rstd, act)
+    want = np.asarray(jax_in_reference(jnp.asarray(x), act))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
+
+
 def _tail_inputs(hs, c, seed=0):
     r = np.random.RandomState(seed)
     x = r.randn(1, 2 * hs, 2 * hs, c).astype(np.float32)
@@ -411,8 +555,8 @@ def test_b2_plain_matches_pallas_interpret(hs, c):
     # the port computes the same image from image space. fp32 both sides,
     # summation order differs (2e-5, as the JAX package's own kernel test)
     x, w, b = _tail_inputs(hs, c)
-    y_j = np.asarray(jax_tail_fused(to_s2d(jnp.asarray(x)), jnp.asarray(w),
-                                    jnp.asarray(b), tile=16, interpret=True))
+    y_j = np.asarray(_jax_tail(to_s2d(jnp.asarray(x)), jnp.asarray(w),
+                               jnp.asarray(b), tile=16, interpret=True))
     y_p = tail_fused(torch.from_numpy(x), torch.from_numpy(w),
                      torch.from_numpy(b)).numpy()
     assert y_p.shape == (1, 2 * hs, 2 * hs, 3)
@@ -497,7 +641,7 @@ def test_b2_tensor_core_arithmetic_matches_plain_and_jax(c):
         y_j = jnp.tanh(jops.conv_apply({"w": wj, "b": bj},
                                        jops.reflect_pad(xj, 3)))
     else:
-        y_j = jax_tail_fused(to_s2d(xj), wj, bj, tile=16, interpret=True)
+        y_j = _jax_tail(to_s2d(xj), wj, bj, tile=16, interpret=True)
     np.testing.assert_allclose(y_e.numpy(), np.asarray(y_j), atol=2e-5,
                                rtol=0)
     # in bf16, as the kernel stores it: within one rounding of the plain

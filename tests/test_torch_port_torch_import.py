@@ -7,6 +7,7 @@ writes the JAX converter's npz."""
 
 import collections
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,11 +104,12 @@ def test_generator_import_matches_jax(name, tmp_path):
     jparams = jti.import_generator(_np_sd(t), jcfg,
                                    **({} if n_blocks is None
                                       else {"n_blocks": n_blocks}))
+    # jitted: one compile a generator instead of one per eager op
     if n_blocks is None:
-        y_j = jdefine_g(jcfg)[1](jparams, jnp.asarray(x))
+        y_j = jax.jit(jdefine_g(jcfg)[1])(jparams, jnp.asarray(x))
     else:
-        y_j = resnet_generator_apply(jparams, jnp.asarray(x), jcfg,
-                                     n_blocks=n_blocks)
+        y_j = jax.jit(lambda p, v: resnet_generator_apply(
+            p, v, jcfg, n_blocks=n_blocks))(jparams, jnp.asarray(x))
 
     pcfg = GenConfig(**kw)
     sd = pti.import_generator(pth, pcfg, n_blocks=n_blocks)
@@ -134,7 +136,8 @@ def test_discriminator_import_matches_jax(net_d, num_d):
     kw = dict(net_d=net_d, input_nc=6, ndf=8, num_d=num_d)
     x = _input((1, 64, 64, 6), seed=2)
     jparams = jti.import_discriminator(_np_sd(t), JDiscConfig(**kw))
-    out_j = jdefine_d(JDiscConfig(**kw))[1](jparams, jnp.asarray(x))
+    out_j = jax.jit(jdefine_d(JDiscConfig(**kw))[1])(jparams,
+                                                     jnp.asarray(x))
     d = define_d(DiscConfig(**kw))
     d.load_state_dict(pti.import_discriminator(t.state_dict(),
                                                DiscConfig(**kw)))
