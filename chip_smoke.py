@@ -176,6 +176,32 @@ Phases, each failing the run if it fails:
    control (one halo row a layer from the wrong shard) must fail the
    fp32 bar. Per rank: ms/frame, the exchange's bytes and ms, peak
    memory, labelled as gloo ranks sharing one card.
+16. ``spatial_train`` (``spatial_train_phase``): spatially partitioned
+   training (``parallel/spatial.py`` under autograd) on gloo ranks
+   sharing the one card (``chip_smoke.py --spatial-train-rank R WORLD
+   PORT DIR``). B1's split backward (``ir2rgb::instance_norm_bwd_stats``
+   and ``ir2rgb::instance_norm_bwd_apply``) at every shard shape of the
+   phase's steps (``B1_SPLIT_BWD_SHAPES``) against its plain versions,
+   bf16 and fp32, one device kernel a call, the sums of two calls
+   bit-identical; bf16 timed beside the plain versions, the library's
+   (the formula in eager torch) and the bound, and summed over one
+   ``SPLIT_TRAIN_STEP`` rank's launches. Steps (``SPATIAL_TRAIN_CASES``):
+   pix2pixhd_512 at full width on sp 2, fp32 and bf16, 2 steps each;
+   on dp 2 x sp 2, fp32, against one process's batch-2 step;
+   pix2pixhd_2048 bf16 on sp 4, 2 timed steps. Every rank's launches a step equal to
+   ``SPATIAL_TRAIN`` (no fused B1; statistics, apply, sums and dx
+   apply for every norm), the merged statistics and summed sums
+   bit-identical on every rank of a data row, finite losses; each
+   pix2pixhd_512 step held to one process's step from the same train
+   state at SPATIAL_TRAIN_BARS, the fp32 one with one process pinned to
+   the partitioned forward point (``ShardPins``: rounding flips ReLU and
+   L1 kinks). The negative control (one halo row a layer from the wrong
+   shard) must fail the fp32 bars. Beside world 2, one ``torchrun`` of
+   ``cli.train --train.spatial_devices 2 --dist_backend gloo`` for two
+   steps of SPATIAL_TRAIN_CLI from a folder, rank 0's checkpoint read
+   back. Per rank and step: ms, the exchange's bytes and ms, the
+   gradient all-reduce's bytes, peak memory, labelled as gloo ranks
+   sharing one card.
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -487,6 +513,7 @@ def per_step(table: dict) -> dict:
     return {"instance_norm_act": sum(table["b1"].values()),
             "instance_norm_act_bwd": sum(table["b1_bwd"].values()),
             "instance_norm_stats": 0, "instance_norm_apply": 0,
+            "instance_norm_bwd_stats": 0, "instance_norm_bwd_apply": 0,
             "tail_fused": 0, "d2s": sum(table["d2s"].values()),
             "s2d": sum(table["s2d"].values())}
 
@@ -510,7 +537,8 @@ def per_frame(preset: str) -> dict:
     t = SERVE[preset]
     return {"instance_norm_act": sum(t["b1"].values()),
             "instance_norm_act_bwd": 0, "instance_norm_stats": 0,
-            "instance_norm_apply": 0, "tail_fused": len(t["tail"]),
+            "instance_norm_apply": 0, "instance_norm_bwd_stats": 0,
+            "instance_norm_bwd_apply": 0, "tail_fused": len(t["tail"]),
             "d2s": len(t["d2s"]), "s2d": 0}
 
 
@@ -654,12 +682,82 @@ B2_SHAPES += sorted({x for t in SPATIAL_TABLES.values() for x in t["tail"]}
                     - set(B2_SHAPES))
 D2S_SHAPES += sorted({k for t in SPATIAL_TABLES.values() for k in t["d2s"]}
                      - set(D2S_SHAPES))
+
+# The spatial_train phase (``spatial_train_phase``): train steps with each
+# frame's rows spread over the sp gloo ranks of a dp×sp mesh on the one
+# card, the partitioned step held to one process's step of the same
+# weights and batch. Cases (preset, dp, sp, dtypes, steps): world 2
+# runs the first, world 4 the others; pix2pixhd_2048's steps are timed
+# alone (no reference). SPATIAL_TRAIN_BROKEN (preset, sp, dtype):
+# one step with one halo row a layer from the wrong shard, which must
+# fail the bars; SPATIAL_TRAIN_CLI: the preset of one torchrun of
+# cli.train on sp 2 for two steps from a folder.
+SPATIAL_TRAIN_CASES = [("pix2pixhd_512", 1, 2, ("float32", "bf16"), 2),
+                       ("pix2pixhd_512", 2, 2, ("float32",), 1),
+                       ("pix2pixhd_2048", 1, 4, ("bf16",), 2)]
+SPATIAL_TRAIN_BROKEN = ("pix2pixhd_512", 2, "float32")
+SPATIAL_TRAIN_CLI = "resnet9_256"
+SPATIAL_TRAIN_TIMEOUT_S = 420
+# the step whose split backward launches the kernel table's times sum over
+SPLIT_TRAIN_STEP = ("pix2pixhd_512", 1, 2, 0)
+# the bars against one process (PERF.md §2): fp32 (TF32 off) the train
+# bars, losses rel and each gradient tensor's ||d|| <= rel·||g|| +
+# 1e-6·M; bf16 the bars PERF.md states for it: losses rel, and each
+# network's whole gradient no further from one process's bf16 one than
+# that is from one process's fp32 step of the same state, times the
+# factor (a bias an instance norm follows has a zero gradient, which
+# bf16 rounding turns into noise as large as the weights' gradients)
+SPATIAL_TRAIN_BARS = {"float32": (1e-4, 1e-3), "bf16": (2e-2, 2.0)}
+
+
+def shard_rows(h: int, sp: int, q: int) -> int:
+    """Rank q's rows of ``h`` global rows over ``sp`` ranks (the
+    partition ``parallel/spatial.py::bounds``: ⌊q·h/sp⌋ ...)."""
+    return (q + 1) * h // sp - q * h // sp
+
+
+def spatial_train_table(preset: str, sp: int, q: int, n: int = 1) -> dict:
+    """One unfrozen ``TRAIN`` step of ``preset`` on rank q of ``sp`` at
+    batch ``n`` a rank: every shape's rows split as the partition splits
+    them (the discriminator's 4x4 convs give uneven shards)."""
+    t = TRAIN[preset]["unfrozen"]
+
+    def at(shape):
+        return (n, shard_rows(shape[1], sp, q)) + tuple(shape[2:])
+    return dict(b1=Counter({(at(s), a): c for (s, a), c in t["b1"].items()}),
+                b1_bwd=Counter({(at(s), a): c
+                                for (s, a), c in t["b1_bwd"].items()}),
+                d2s=Counter({(at(s), c): m for (s, c), m in t["d2s"].items()}),
+                s2d=Counter({at(s): m for s, m in t["s2d"].items()}))
+
+
+def spatial_per_step(table: dict) -> dict:
+    """Kernel launches of one partitioned train step on one rank: every
+    norm of the step is B1 split, statistics and apply forward, the sums
+    and apply backward, none fused, and none on a rank without rows."""
+    def live(c):
+        return sum(m for (s, _), m in c.items() if s[1])
+    return {"instance_norm_act": 0, "instance_norm_act_bwd": 0,
+            "instance_norm_stats": live(table["b1"]),
+            "instance_norm_apply": live(table["b1"]),
+            "instance_norm_bwd_stats": live(table["b1_bwd"]),
+            "instance_norm_bwd_apply": live(table["b1_bwd"]),
+            "tail_fused": 0, "d2s": sum(table["d2s"].values()),
+            "s2d": sum(table["s2d"].values())}
+
+
+# every (preset, dp, sp, rank) the phase trains on, and its table
+SPATIAL_TRAIN = {(p, dp, sp, q): spatial_train_table(p, sp, q)
+                 for p, dp, sp, _, _ in SPATIAL_TRAIN_CASES
+                 for q in range(sp)}
+# the split backward's shapes: every (shape, act) of those tables with rows
+B1_SPLIT_BWD_SHAPES = sorted({k for t in SPATIAL_TRAIN.values()
+                              for k in t["b1_bwd"] if k[0][1]})
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
-# (a reading of such a graph spans >= 4 ms; the plain and library
-# yardsticks of the largest shapes took ~75 s of the kernel phases at 20
-# calls)
-LONG_CALL_MS, REPS_LONG = 2.0, 2
+# (a reading of such a graph spans >= 0.5 ms; the plain and library
+# yardsticks of the large shapes are most of the kernel phases' time)
+LONG_CALL_MS, REPS_LONG = 0.25, 2
 SLICE_FP32_TOL = 1e-3
 BF16_MIN_PSNR = 30.0
 # a batched stream against its batch-1 stream, bf16 (the serve phase)
@@ -674,7 +772,7 @@ N_FRAMES = 8
 # train steps a preset: the first FIX_STEPS frozen where the preset trains
 # coarse to fine (niter_fix_global 1 x steps_per_epoch FIX_STEPS), then
 # unfrozen; then TIMED_STEPS timed in bf16 and in fp32
-TRAIN_STEPS, TIMED_STEPS, FIX_STEPS = 4, 5, 2
+TRAIN_STEPS, TIMED_STEPS, FIX_STEPS = 4, 3, 2
 TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_GRAD_REL = 1e-4, 1e-3
 BF16_LOSS_REL = 0.05
 # the quant phase: the modes beside "none", frames a mode through the
@@ -696,7 +794,7 @@ NETE_CELLS, NETE_STEPS, NETE_FEATURE_FRAMES = 24, 3, 4
 # the export phase: frames each artifact is held to the live path over
 # (both streams reset before frame EXPORT_RESET_AT), frames timed, the
 # bf16 / int8_mixed PSNR bar, the sealed multi-stream batch and its ticks
-EXPORT_FRAMES, EXPORT_RESET_AT, EXPORT_TIMED = 8, 5, 10
+EXPORT_FRAMES, EXPORT_RESET_AT, EXPORT_TIMED = 8, 5, 5
 EXPORT_MIN_PSNR = 40.0
 EXPORT_SLOTS = 4
 EXPORT_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3), (1, 3)]
@@ -725,7 +823,13 @@ def peaks(name: str):
     raise SystemExit(f"no published peaks for card {name!r}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+# Timing depth (cut in PR 15 so that the whole run keeps a margin under
+# its limit as phases are added): calls a CUDA-graph capture or an eager
+# reading takes, and replays a graph reading takes the median of
+TIMING_REPS, TIMING_REPLAYS = 8, 3
+
+
+def cuda_ms(fn, reps: int = TIMING_REPS, warmup: int = 2) -> float:
     """Mean wall time on the card of ``fn`` over ``reps`` back-to-back
     calls (CUDA events, after warmup, L2 warm)."""
     for _ in range(warmup):
@@ -741,11 +845,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
+def graph_ms(fn, reps: int = TIMING_REPS) -> float:
     """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
     graph, replayed between CUDA events, so Python launch overhead is out
-    of the measurement; the median of five replays, so that one replay
-    slowed by the card's clocks or its host does not set the reading. A
+    of the measurement; the median of TIMING_REPLAYS replays, so that one
+    replay slowed by the card's clocks or its host does not set the
+    reading. A
     call of more than LONG_CALL_MS is captured REPS_LONG times, which
     keeps the batched serving tick's largest shapes to seconds."""
     side = torch.cuda.Stream()
@@ -769,13 +874,13 @@ def graph_ms(fn, reps: int = 20) -> float:
     graph.replay()
     torch.cuda.synchronize()
     times = []
-    for _ in range(5):
+    for _ in range(TIMING_REPLAYS):
         start.record()
         graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[2]
+    return sorted(times)[TIMING_REPLAYS // 2]
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, peak: float = 2.0) -> float:
@@ -1266,7 +1371,7 @@ def slice_phase(preset: str, seed: int, card: str, cmp_size=None):
 
         def step():
             state["x"] = bf16.generate(state["x"])
-    ms = cuda_ms(step, reps=30, warmup=5)
+    ms = cuda_ms(step, reps=15, warmup=3)
     res["ms_per_frame"] = ms
     res["fps"] = 1e3 / ms
     print(f"{preset}: {ms:.3f} ms/frame, {1e3 / ms:.1f} fps at batch 1, bf16"
@@ -1515,6 +1620,45 @@ class KinkPins:
 
     def replaying(self):
         return self._patched(True)
+
+
+class ShardPins(KinkPins):
+    """:class:`KinkPins` recorded on a spatially partitioned step: every
+    conv output and split-B1 input and output this rank records with a
+    graph (its rows), and the merged B1 statistics of every call.
+    :meth:`whole` joins the ranks' records of a data row along the rows,
+    in rank order, for one process's step to replay."""
+
+    @contextlib.contextmanager
+    def recording(self):
+        from ir2rgb_tpu_torch.nn import ops
+        conv, split = ops.conv, ops._split_instance_norm_act
+        forward = ops._split_forward
+        self._replay = False
+
+        def stats(*a):
+            y, mean, rstd, count = forward(*a)
+            return (y, *self._stats(mean, rstd), count)
+        ops.conv = lambda *a, **kw: self.pin(conv(*a, **kw))
+        ops._split_instance_norm_act = (
+            lambda part, x, act, slope: self.pin(split(part, self.pin(x),
+                                                       act, slope)))
+        ops._split_forward = stats
+        try:
+            yield
+        finally:
+            ops.conv, ops._split_instance_norm_act = conv, split
+            ops._split_forward = forward
+
+    @classmethod
+    def whole(cls, rows: list) -> "KinkPins":
+        """Pins for one process from the records of a data row's ranks
+        (each ``(saved, stats)``, in rank order)."""
+        pins = KinkPins()
+        pins.saved = [torch.cat(parts, dim=1)
+                      for parts in zip(*(r[0] for r in rows))]
+        pins.stats = list(rows[0][1])
+        return pins
 
 
 def train_phase(preset: str, card: str):
@@ -3046,7 +3190,7 @@ def quant_preset(preset: str, card: str) -> dict:
 
             def step():
                 state["x"] = bf16.generate(state["x"])
-        ms = cuda_ms(step, reps=10, warmup=2)
+        ms = cuda_ms(step, reps=5, warmup=2)
         first[mode] = bf16.generate(x0).float()
         res[mode] = dict(ms_per_frame=ms, peak_gib=peak / 2**30,
                          launches_per_frame=want)
@@ -3834,7 +3978,7 @@ T0 = time.perf_counter()  # the process's start, for a rank's timeline
 # the parallel phase: the preset, its bf16 steps, and the limits on a
 # subprocess (a launched CLI, a rank) and on the group's collectives
 PARALLEL_PRESET = "pix2pixhd_512"
-PARALLEL_STEPS = 3
+PARALLEL_STEPS = 2
 PARALLEL_TIMEOUT_S = 240
 # the fp32 DP step against the one-process step of the global batch: the
 # CPU tests' bars (metrics rtol, gradients under the mixed bar, weights
@@ -4669,6 +4813,546 @@ def spatial_phase(card: str, bw: float, gen: torch.Generator) -> dict:
     return res
 
 
+def b1_split_bwd_phase(bw: float, gen: torch.Generator):
+    """The split backward (``ir2rgb::instance_norm_bwd_stats`` and
+    ``ir2rgb::instance_norm_bwd_apply``) at every shard shape of the
+    spatial_train phase's steps (``B1_SPLIT_BWD_SHAPES``), bf16 and fp32,
+    each held to its plain version on the card (the sums to 1e-4 of their
+    largest, dx at the fused backward's tolerances over max|dx|), one
+    device kernel a call, the sums of two calls bit-identical; bf16 timed
+    (CUDA-graph replay) beside the plain version, the library's (the
+    same formula as eager torch in x's dtype) and the bound (bytes: x and
+    g read once, dx written once)."""
+    from ir2rgb_tpu_torch.kernels import instance_norm as b1
+    rows = []
+    worst = {(op, d): 0.0 for op in ("sums", "apply")
+             for d in ("bfloat16", "float32")}
+    for (shape, act) in B1_SPLIT_BWD_SHAPES:
+        n, h, w, c = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3
+                 + 1).to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            x32 = x.float()
+            mean = x32.mean(dim=(1, 2)).contiguous()
+            rstd = torch.rsqrt(x32.var(dim=(1, 2), unbiased=False)
+                               + b1.INSTANCE_NORM_EPS).contiguous()
+            # a shard's pixels and those of the rest of the frame
+            count = float(h * w * 2)
+            s1, s2 = b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
+            again = b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
+            r1, r2 = b1.instance_norm_bwd_stats_reference(x, mean, rstd, g,
+                                                          act)
+            dx = b1.instance_norm_bwd_apply(x, mean, rstd, g, s1, s2, count,
+                                            act)
+            ref = b1.instance_norm_bwd_apply_reference(x, mean, rstd, g, s1,
+                                                       s2, count, act)
+            torch.cuda.synchronize()
+            sum_err = max(float((s1 - r1).abs().max() / r1.abs().max()),
+                          float((s2 - r2).abs().max() / r2.abs().max()))
+            same = torch.equal(s1, again[0]) and torch.equal(s2, again[1])
+            err = float((dx.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            for op, e in (("sums", sum_err), ("apply", err)):
+                key = (op, dtype_name(dtype))
+                worst[key] = max(worst[key], e)
+            plan = b1.bwd_stats_plan_for(x)
+
+            def sums():
+                return b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
+
+            def apply():
+                return b1.instance_norm_bwd_apply(x, mean, rstd, g, s1, s2,
+                                                  count, act)
+            kernels = (device_kernels(sums), device_kernels(apply))
+            tag = (f"B1 split bwd {shape} {act} {dtype_name(dtype)} (sums: "
+                   f"{plan.channels} ch x {plan.chunks} chunks of "
+                   f"{plan.chunk} px)")
+            check(sum_err <= 1e-4 and err <= TOL[dtype] and same
+                  and kernels == (1, 1),
+                  f"{tag}: sums {sum_err:.3g} of their largest (tol 1e-4), "
+                  f"two calls bit-identical {same}, dx {err:.3g} of max|dx| "
+                  f"(tol {TOL[dtype]}), {kernels} device kernel(s) per call "
+                  "(want 1 each)")
+            if dtype != torch.bfloat16:
+                continue
+            m4, r4 = mean[:, None, None].to(dtype), rstd[:, None, None].to(
+                dtype)
+
+            def eager_gp():
+                xh = (x - m4) * r4
+                gp = (g * (xh > 0) if act == "relu" else
+                      torch.where(xh >= 0, g, g * 0.2)
+                      if act == "leaky_relu" else g)
+                return xh, gp
+
+            def lib_sums():
+                xh, gp = eager_gp()
+                return gp.sum(dim=(1, 2)), (gp * xh).sum(dim=(1, 2))
+            a4 = (s1 / count)[:, None, None].to(dtype)
+            b4 = (s2 / count)[:, None, None].to(dtype)
+
+            def lib_apply():
+                xh, gp = eager_gp()
+                return r4 * (gp - a4 - xh * b4)
+            xb = x.numel() * x.element_size()
+            stats_b = 4 * n * c * 4
+            rows.append(dict(
+                name="sums", key=(shape, act), shape=list(shape), act=act,
+                dtype=dtype_name(dtype), max_abs_err=sum_err,
+                device_kernels=kernels[0], plan=plan._asdict(),
+                ms=graph_ms(sums),
+                plain_ms=graph_ms(lambda: b1.instance_norm_bwd_stats_reference(
+                    x, mean, rstd, g, act)),
+                library_ms=graph_ms(lib_sums),
+                bound_ms=(2 * xb + stats_b) / bw * 1e3))
+            rows.append(dict(
+                name="apply", key=(shape, act), shape=list(shape), act=act,
+                dtype=dtype_name(dtype), max_abs_err=err,
+                device_kernels=kernels[1],
+                ms=graph_ms(apply),
+                plain_ms=graph_ms(
+                    lambda: b1.instance_norm_bwd_apply_reference(
+                        x, mean, rstd, g, s1, s2, count, act)),
+                library_ms=graph_ms(lib_apply),
+                bound_ms=(3 * xb + stats_b) / bw * 1e3))
+    return rows, worst
+
+
+def spatial_train_batch(cfg, n: int) -> dict:
+    """The global batch of ``n`` frames of the spatial_train phase: ``n``
+    batch-1 batches of ``train_batch`` (seeds SEED + 3 ...) stacked, on
+    the card."""
+    from ir2rgb_tpu_torch.profile_train import train_batch
+    parts = [train_batch(cfg, SEED + 3 + i, "cuda") for i in range(n)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
+    """One of the ``world`` gloo ranks of the spatial_train phase on the
+    one card: every case of SPATIAL_TRAIN_CASES with ``dp * sp ==
+    world`` on ``dp_sp_mesh(dp, sp)``, from seeded weights replicated
+    from rank 0 (cuDNN deterministic, TF32 off). Each step: the launches
+    held to ``SPATIAL_TRAIN`` (``spatial_per_step``), ms (CUDA
+    synchronized around it), the exchange's bytes and ms (halos,
+    statistics and sums), the gradient all-reduce's bytes, the digests of
+    the merged B1 statistics and of the summed backward sums (SHA-256 in
+    order; the parent holds them equal on every rank of a data row),
+    peak memory, finite losses. Rank 0 of a case with a reference runs
+    one process's step of the global batch from the same train state
+    after each step (an fp32 one pinned to the partitioned forward point,
+    ``ShardPins``; a bf16 one beside one process's fp32 step, the bf16
+    bar's yardstick) and holds the partitioned step to it at
+    SPATIAL_TRAIN_BARS. With ``world == 2`` the negative
+    control follows: one fp32 step with one halo row a layer from the
+    wrong shard, which must fail the bars. Writes
+    ``out/train<world>_<rank>.json``; exits 1 on a failed check."""
+    import hashlib
+    import torch.distributed as dist
+    from ir2rgb_tpu_torch import set_parity_mode
+    from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.parallel import (
+        dp_sp_mesh,
+        multihost,
+        replicate,
+        shard_batch,
+        spatial,
+    )
+    from ir2rgb_tpu_torch.parallel import mesh as pmesh
+    warnings.filterwarnings("ignore", message="VGG perceptual loss")
+    folder = Path(out)
+    torch.cuda.set_device(0)
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=world, process_id=rank,
+                         backend="gloo", timeout_s=SPATIAL_TRAIN_TIMEOUT_S)
+    set_parity_mode()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    res = {"rank": rank, "world": world, "up_s": time.perf_counter() - T0,
+           "steps": []}
+    xfer, grads_xfer, merged = [0, 0.0], [0], []
+    reduce_bytes = pmesh.all_reduce_bytes
+    merge, sum_stats = spatial.merge_stats, spatial.Shards.sum_stats
+    reduce_grads = pmesh.all_reduce_grads
+
+    def timed_reduce(t, group, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = reduce_bytes(t, group, device)
+        torch.cuda.synchronize()
+        xfer[0] += t.numel() * t.element_size()
+        xfer[1] += time.perf_counter() - t0
+        return y
+
+    def kept_merge(*args):
+        mean, rstd = merge(*args)
+        merged.append(torch.stack([mean, rstd]).clone())
+        return mean, rstd
+
+    def kept_sums(self, t):
+        total = sum_stats(self, t)
+        merged.append(total.clone())
+        return total
+
+    def counted_grads(nets, mesh):
+        grads_xfer[0] = reduce_grads(nets, mesh)
+        return grads_xfer[0]
+    pmesh.all_reduce_bytes, spatial.merge_stats = timed_reduce, kept_merge
+    spatial.Shards.sum_stats = kept_sums
+    pmesh.all_reduce_grads = counted_grads
+
+    def step(model, batch, tag, want):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        xfer[:] = [0, 0.0]
+        merged.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in model.train_step(batch).items()}
+        torch.cuda.synchronize()
+        rec = {"tag": tag, "ms": (time.perf_counter() - t0) * 1e3,
+               "launches": launch_counts(), "metrics": m,
+               "exchange_bytes": xfer[0], "exchange_ms": xfer[1] * 1e3,
+               "allreduce_bytes": grads_xfer[0], "merges": len(merged),
+               "digest": hashlib.sha256(b"".join(
+                   t.cpu().numpy().tobytes() for t in merged)).hexdigest(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        check(rec["launches"] == want, f"spatial_train {tag} rank {rank}: "
+              f"launches {rec['launches']} (want {want}, SPATIAL_TRAIN)")
+        check(all(math.isfinite(v) for v in m.values()),
+              f"spatial_train {tag} rank {rank}: finite losses {m}")
+        return rec
+
+    def flat_grads(m):
+        return {n: torch.cat([v.detach().reshape(-1).float().cpu()
+                              for v in g.values()])
+                for n, g in grads_of(m).items()}
+
+    def versus(model, ref_m, ref, tag, dtype, ref32=None):
+        """The partitioned step (metrics of ``model``'s last step) against
+        one process's (``ref_m``, ``ref``'s gradients; ``ref32``: one
+        process's fp32 step of the same state, the bf16 bar's yardstick)."""
+        loss_rel, grad_rel = SPATIAL_TRAIN_BARS[dtype]
+        got = res["steps"][-1]["metrics"]
+        rel = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+               for k, v in ref_m.items()}
+        want_g = {n: {k: v.cpu() for k, v in g.items()}
+                  for n, g in grads_of(ref).items()}
+        mine = grads_of(model)
+        worst = {n: grad_bar(mine[n], want_g[n], grad_rel) for n in want_g}
+        a, b = flat_grads(model), flat_grads(ref)
+        whole = {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in b}
+        out = dict(tag=tag, metric_rel=rel, worst_grad=worst,
+                   net_grad_rel=whole)
+        if ref32 is None:
+            grads_ok = all(r <= 1.0 for r, _ in worst.values())
+        else:
+            c = flat_grads(ref32)
+            floor = {n: float((b[n] - c[n]).norm() / b[n].norm()) for n in b}
+            out["bf16_vs_fp32_rel"] = floor
+            grads_ok = all(whole[n] <= grad_rel * floor[n] for n in b)
+        out["ok"] = (set(got) == set(ref_m) and max(rel.values()) <= loss_rel
+                     and grads_ok)
+        return out
+
+    def shared_pins(pins, mesh):
+        """Rank 0: one process's pins from every rank's records (through
+        files in ``folder``): a data row's rows joined, the data rows
+        joined along the batch (``KinkPins``' merge); None elsewhere.
+        The partitioned forward is a ~1e-7 rounding away from one
+        process's, and the step's gradient is piecewise smooth: ReLU,
+        LeakyReLU and the L1 losses' signs (the VGG loss an L1 of ReLU
+        features) flip across their kinks and move a gradient by ~1%
+        (ROADMAP §C, traps for comparisons), so one process replays the
+        partitioned forward point (:class:`KinkPins`)."""
+        if rank:
+            torch.save((pins.saved, pins.stats),
+                       folder / f"pins{world}_{rank}.pt")
+        dist.barrier()
+        if rank:
+            return None
+        recs = [(pins.saved, pins.stats)] + [
+            torch.load(folder / f"pins{world}_{r}.pt")
+            for r in range(1, world)]
+        rows = [ShardPins.whole(recs[d * mesh.sp:(d + 1) * mesh.sp])
+                for d in range(mesh.dp)]
+        out = rows[0]
+        for more in rows[1:]:
+            out.saved += more.saved
+            out.stats += more.stats
+        out.merge = mesh.dp
+        return out
+
+    # the seeded weights of each preset and rank 0's one-process models,
+    # (preset, dtype, variant) -> model, made once and reloaded with the
+    # step's state before each reference step
+    weights_of, kept = {}, {}
+
+    def seeded(preset, dtype):
+        if preset not in weights_of:
+            model, weights_of[preset] = seeded_model(preset, dtype)
+            return model
+        return train_model(preset, dtype, "cuda", weights_of[preset])
+
+    def one_process(preset, dtype, variant, **kw):
+        key = (preset, dtype, variant)
+        if key not in kept:
+            kept[key] = train_model(preset, dtype, "cuda",
+                                    weights_of[preset], **kw)
+        return kept[key]
+
+    try:
+        for preset, dp, sp, dtypes, steps in SPATIAL_TRAIN_CASES:
+            if dp * sp != world:
+                continue
+            mesh = dp_sp_mesh(dp, sp, device="cuda:0")
+            want = spatial_per_step(SPATIAL_TRAIN[(preset, dp, sp,
+                                                   mesh.sp_rank)])
+            for dtype in dtypes:
+                model = seeded(preset, dtype)
+                replicate(model, mesh)
+                glob = spatial_train_batch(model.cfg, dp)
+                local = shard_batch(glob, mesh)
+                timed = preset == "pix2pixhd_2048"
+                refs = [] if rank or timed else [("one", {})]
+                ones = {t: one_process(preset, dtype, t, **kw)
+                        for t, kw in refs}
+                one32 = (one_process(preset, "float32", "one")
+                         if ones and dtype == "bf16" else None)
+                for i in range(steps):
+                    # the references start from the step's train state
+                    for one in (*ones.values(), one32):
+                        if one is not None:
+                            one.load_state_dict(model.state_dict())
+                    tag = f"{preset} dp {dp} sp {sp} {dtype} step {i}"
+                    # bf16 is held to one process's bf16-vs-fp32 spread,
+                    # which dwarfs the kinks: its references run unpinned
+                    pins = (ShardPins() if not timed and dtype == "float32"
+                            else None)
+                    with (pins.recording() if pins is not None
+                          else contextlib.nullcontext()):
+                        res["steps"].append(step(model, local, tag, want))
+                    res["steps"][-1].update(case=(preset, dp, sp, dtype), i=i)
+                    replay = shared_pins(pins, mesh) if pins else None
+                    ref_m = {}
+                    for t, one in ones.items():
+                        with (replay.replaying() if replay
+                              else contextlib.nullcontext()):
+                            ref_m[t] = {k: float(v) for k, v in
+                                        one.train_step(glob).items()}
+                        check(replay is None or replay.all_replayed(),
+                              f"spatial_train {tag} vs {t}: every pin "
+                              "replayed")
+                    if one32 is not None:
+                        one32.train_step(glob)
+                    for t, one in ones.items():
+                        v = versus(model, ref_m[t], one, f"{tag} vs {t}",
+                                   dtype, one32)
+                        res["steps"][-1]["vs_" + t] = v
+                        check(v["ok"], f"spatial_train {v['tag']}: metrics "
+                              f"rel {v['metric_rel']}, worst gradient "
+                              f"tensor {v['worst_grad']}, each network's "
+                              f"{v['net_grad_rel']} (bars "
+                              f"{SPATIAL_TRAIN_BARS[dtype]})")
+                del model
+                torch.cuda.empty_cache()
+        if world == 2:
+            # the negative control: the row above rank 1's first row, at
+            # every layer, taken from the last shard's rows instead
+            preset, sp, dtype = SPATIAL_TRAIN_BROKEN
+            mesh = dp_sp_mesh(1, sp, device="cuda:0")
+            model = seeded(preset, dtype)
+            replicate(model, mesh)
+            glob = spatial_train_batch(model.cfg, 1)
+            local = shard_batch(glob, mesh)
+            source = spatial._source
+
+            def wrong(p, n, mode):
+                return source(n - 1 if p == n // 2 - 1 else p, n, mode)
+            one = None
+            if rank == 0:
+                one = one_process(preset, dtype, "one")
+                one.load_state_dict(model.state_dict())
+            spatial._source = wrong
+            spatial.halo_plan.cache_clear()
+            try:
+                res["steps"].append(step(model, local, "negative control",
+                                         spatial_per_step(SPATIAL_TRAIN[(
+                                             preset, 1, sp, mesh.sp_rank)])))
+            finally:
+                spatial._source = source
+                spatial.halo_plan.cache_clear()
+            if rank == 0:
+                ref_m = {k: float(v) for k, v in one.train_step(glob).items()}
+                res["broken"] = versus(model, ref_m, one, "negative control",
+                                       dtype)
+                check(not res["broken"]["ok"], "spatial_train negative "
+                      f"control ({preset} sp {sp} {dtype}, one halo row a "
+                      f"layer from the wrong shard) fails the bars: "
+                      f"{res['broken']}")
+            del model, one
+        kept.clear()
+    finally:
+        pmesh.all_reduce_bytes, spatial.merge_stats = reduce_bytes, merge
+        spatial.Shards.sum_stats = sum_stats
+        pmesh.all_reduce_grads = reduce_grads
+    res["failures"] = list(failures)
+    res["done_s"] = time.perf_counter() - T0
+    with open(folder / f"train{world}_{rank}.json", "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def start_train_cli(folder: Path):
+    """Start ``torchrun`` of ``cli.train --train.spatial_devices 2`` (gloo,
+    world 2, the one card) for two steps of SPATIAL_TRAIN_CLI from a
+    folder of two synthetic pairs; (the process, its run directory)."""
+    from ir2rgb_tpu_torch.config import PRESETS
+    from ir2rgb_tpu_torch.data import write_synthetic_dataset
+    cfg = PRESETS[SPATIAL_TRAIN_CLI]
+    data = folder / "data"
+    write_synthetic_dataset(str(data), n=2, size=cfg.data.load_size)
+    proc = start_group([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", "2", "-m", "ir2rgb_tpu_torch.cli.train",
+        "--preset", SPATIAL_TRAIN_CLI, "--model.compute_dtype", "bf16",
+        "--train.spatial_devices", "2", "--dist_backend", "gloo",
+        "--data.dataroot", str(data), "--data.batch_size", "1",
+        "--train.name", "sp_cli", "--train.checkpoints_dir",
+        str(folder / "runs"), "--train.niter", "1", "--train.niter_decay",
+        "0", "--train.print_freq", "1", "--dist_timeout",
+        str(SPATIAL_TRAIN_TIMEOUT_S)])
+    return proc, folder / "runs" / "sp_cli"
+
+
+def finish_train_cli(proc, run: Path) -> dict:
+    """Wait for :func:`start_train_cli`'s run and read rank 0's checkpoint
+    of step 2 back."""
+    (o, e), = wait_group([proc], SPATIAL_TRAIN_TIMEOUT_S)
+    res = {"exit": proc.returncode}
+    ckpt = run / "ckpt" / "2.pt"
+    res["checkpoint"] = ckpt.exists()
+    if ckpt.exists():
+        state = torch.load(ckpt, map_location="cpu", weights_only=False)
+        res["step"] = int(state["step"])
+        res["finite"] = all(bool(torch.isfinite(v).all())
+                            for v in state["netG"].values())
+    res["loss_lines"] = (sum(1 for _ in open(run / "loss_log.txt"))
+                         if (run / "loss_log.txt").exists() else 0)
+    check(proc.returncode == 0 and res.get("step") == 2
+          and res.get("finite") and res["loss_lines"] > 0,
+          f"spatial_train cli.train on sp 2 (torchrun, gloo): {res}"
+          + ("" if proc.returncode == 0 else f"\n{o[-3000:]}\n{e[-3000:]}"))
+    return res
+
+
+def spatial_train_phase(card: str, bw: float, gen: torch.Generator) -> dict:
+    """Spatially partitioned training (``parallel/spatial.py`` under
+    autograd) on the one card: the split backward's kernels at every
+    shard shape (``b1_split_bwd_phase``), then the ranks of world 2 and
+    of world 4 (``chip_smoke.py --spatial-train-rank R WORLD PORT DIR``,
+    ``spatial_train_rank``), one group after the other, each with
+    SPATIAL_TRAIN_TIMEOUT_S, and beside world 2 one torchrun of
+    cli.train on sp 2 (``start_train_cli``; world 2's step times are
+    then not a lone group's). The ranks are gloo processes sharing one
+    card: their exchanges stage through the host, so their times are
+    not a multi-card speedup."""
+    import shutil
+    import socket
+    t0 = time.perf_counter()
+    rows, worst = b1_split_bwd_phase(bw, gen)
+    res = {"b1_split_bwd_s": time.perf_counter() - t0,
+           "b1_split_bwd_worst": {f"{op} {d}": v
+                                  for (op, d), v in worst.items()},
+           "b1_split_bwd_rows": rows}
+    folder = Path("build") / "spatial_train"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    ranks = []
+    # the torchrun of cli.train shares the card with world 2's ranks (their
+    # step times are not the phase's reported ones; world 4's are, alone)
+    t_cli = time.perf_counter()
+    cli = start_train_cli(folder)
+    for world in (2, 4):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [start_group([sys.executable, __file__,
+                              "--spatial-train-rank", str(r), str(world),
+                              str(port), str(folder)])
+                 for r in range(world)]
+        outs = wait_group(procs, SPATIAL_TRAIN_TIMEOUT_S)
+        if world == 2:
+            res["cli"] = finish_train_cli(*cli)
+            res["cli_s"] = time.perf_counter() - t_cli
+        res[f"world{world}_s"] = time.perf_counter() - t0
+        lost = False
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            path = folder / f"train{world}_{r}.json"
+            # a rank whose checks failed still writes its results
+            if path.exists():
+                ranks.append(json.load(open(path)))
+                for f in ranks[-1]["failures"]:
+                    check(False, f"spatial_train world {world} rank {r}: {f}")
+            lost |= not path.exists()
+            check(p.returncode == 0, f"spatial_train world {world} rank {r}: "
+                  f"exit {p.returncode}" + ("" if path.exists() else
+                                            f"\n{o[-3000:]}\n{e[-3000:]}"))
+        if lost:
+            raise RuntimeError(f"spatial_train world {world}: a rank failed "
+                               "(above)")
+    # the merged statistics and backward sums: the same bits on every
+    # rank of a data row (all of a world's ranks when dp is 1)
+    for world in (2, 4):
+        mine = [r for r in ranks if r["world"] == world]
+        for i, rec in enumerate(mine[0]["steps"]):
+            dp = rec.get("case", (None, 1))[1]
+            for d in range(dp):
+                row = [r for r in mine if r["rank"] // (world // dp) == d]
+                digests = {r["steps"][i]["digest"] for r in row}
+                check(len(digests) == 1 and rec["merges"] > 0,
+                      f"spatial_train {rec['tag']}: the {rec['merges']} "
+                      f"merged statistics and sums bit-identical on data "
+                      f"row {d}'s ranks")
+    res["launches"] = dict(sum((Counter(s["launches"]) for r in ranks
+                                for s in r["steps"]
+                                if s["tag"] != "negative control"),
+                               Counter()))
+    res["ranks"] = ranks
+    label = f"gloo ranks sharing one card: host staging, not a " \
+            f"multi-card speedup ({card})"
+    for world in (2, 4):
+        mine = [r for r in ranks if r["world"] == world]
+        for i, rec in enumerate(mine[0]["steps"]):
+            per = [r["steps"][i] for r in mine]
+            vs = {k: (max(v["metric_rel"].values()),
+                      {n: w[0] for n, w in v["worst_grad"].items()},
+                      v["net_grad_rel"])
+                  for k, v in rec.items() if k.startswith("vs_")}
+            print(f"spatial_train {rec['tag']}: ms/step per rank "
+                  f"{[round(s['ms'], 1) for s in per]}, exchange "
+                  f"{rec['exchange_bytes']} B in "
+                  f"{[round(s['exchange_ms'], 1) for s in per]} ms, gradient "
+                  f"all-reduce {rec['allreduce_bytes']} B, peak "
+                  f"{max(s['peak_gib'] for s in per):.2f} GiB a rank; "
+                  f"against one process (worst loss rel, worst gradient "
+                  f"tensor's share of the bar, each network's ||d||/||g||):"
+                  f" {vs}; {label}", flush=True)
+    broken = next(r for r in ranks if r["world"] == 2 and r["rank"] == 0)
+    res["broken"] = broken["broken"]
+    print(f"spatial_train negative control: {broken['broken']}", flush=True)
+    print(f"spatial_train cli: {res['cli']}", flush=True)
+    for r in rows:
+        print(f"  B1 split bwd {r['name']} {r['shape']} {r['act']:10s} ms "
+              f"{r['ms']:.4f} plain {r['plain_ms']:.4f} lib "
+              f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f}")
+    shutil.rmtree(folder, ignore_errors=True)
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
                  per, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -4688,6 +5372,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--spatial-rank"]:
         return spatial_rank(int(sys.argv[2]), int(sys.argv[3]),
                             int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--spatial-train-rank"]:
+        return spatial_train_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                  int(sys.argv[4]), sys.argv[5])
     from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import _build
 
@@ -4741,6 +5428,8 @@ def main() -> int:
     export = phase("export", export_phase, card)
     parallel = phase("parallel", parallel_phase, card)
     spatial = phase("spatial", spatial_phase, card, bw, gen)
+    spatial_train = phase("spatial_train", spatial_train_phase, card, bw,
+                          gen)
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
@@ -4755,7 +5444,8 @@ def main() -> int:
                "netE": nete["launches"],
                "export": export["launches"],
                "parallel": parallel["launches"],
-               "spatial": spatial["launches"]}
+               "spatial": spatial["launches"],
+               "spatial_train": spatial_train["launches"]}
     total = {k: sum(c.get(k, 0) for c in by_path.values())
              for k in PER_STEP}
     for k, n in total.items():
@@ -4794,6 +5484,14 @@ def main() -> int:
         "apply": per_path_totals(
             [r for r in spatial["b1_split_rows"] if r["name"] == "apply"],
             split_counts)}
+    # the split backward over one rank's partitioned step of
+    # SPLIT_TRAIN_STEP (preset, dp, sp, rank), bf16
+    bwd_counts = Counter({k: c for k, c in SPATIAL_TRAIN[SPLIT_TRAIN_STEP][
+        "b1_bwd"].items() if k[0][1]})
+    split_bwd = {name: per_path_totals(
+        [r for r in spatial_train["b1_split_bwd_rows"] if r["name"] == name],
+        bwd_counts, ("ms", "plain_ms", "library_ms", "bound_ms"))
+        for name in ("sums", "apply")}
     kernels = [
         kernel_entry(
             "instance_norm_act",
@@ -4887,6 +5585,45 @@ def main() -> int:
             "(x - mean) * rstd + act",
             max_abs_err_fp32=spatial["b1_split_worst"]["apply float32"],
             launches_by_path=path_launches("instance_norm_apply")),
+        dict(name="instance_norm_bwd_stats", route="cuda",
+             source="ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
+             replaces="ir2rgb_tpu/kernels/instance_norm.py:201",
+             launches=total["instance_norm_bwd_stats"],
+             max_abs_err=spatial_train["b1_split_bwd_worst"]["sums bfloat16"],
+             max_rel_err_fp32=spatial_train["b1_split_bwd_worst"][
+                 "sums float32"],
+             ms=split_bwd["sums"]["ms"],
+             plain_ms=split_bwd["sums"]["plain_ms"],
+             bound_ms=split_bwd["sums"]["bound_ms"], bound_by="bytes",
+             library_ms=split_bwd["sums"]["library_ms"],
+             per=f"times: one partitioned step of {SPLIT_TRAIN_STEP[0]} on "
+                 f"rank {SPLIT_TRAIN_STEP[3]} of dp {SPLIT_TRAIN_STEP[1]} x "
+                 f"sp {SPLIT_TRAIN_STEP[2]} ({sum(bwd_counts.values())} "
+                 "launches at its shard shapes), bf16; max_abs_err: of the "
+                 "sums, relative to their largest; library: the formula "
+                 "in eager torch",
+             device_kernels_per_call=max(
+                 r["device_kernels"] for r in
+                 spatial_train["b1_split_bwd_rows"] if r["name"] == "sums"),
+             launches_by_path=path_launches("instance_norm_bwd_stats")),
+        dict(name="instance_norm_bwd_apply", route="cuda",
+             source="ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
+             replaces="ir2rgb_tpu/kernels/instance_norm.py:201",
+             launches=total["instance_norm_bwd_apply"],
+             max_abs_err=spatial_train["b1_split_bwd_worst"][
+                 "apply bfloat16"],
+             max_rel_err_fp32=spatial_train["b1_split_bwd_worst"][
+                 "apply float32"],
+             ms=split_bwd["apply"]["ms"],
+             plain_ms=split_bwd["apply"]["plain_ms"],
+             bound_ms=split_bwd["apply"]["bound_ms"], bound_by="bytes",
+             library_ms=split_bwd["apply"]["library_ms"],
+             per="as instance_norm_bwd_stats; max_abs_err: dx relative to "
+                 "max|dx|",
+             device_kernels_per_call=max(
+                 r["device_kernels"] for r in
+                 spatial_train["b1_split_bwd_rows"] if r["name"] == "apply"),
+             launches_by_path=path_launches("instance_norm_bwd_apply")),
         kernel_entry(
             "d2s", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",
             "ir2rgb_tpu/kernels/d2s.py:107", total["d2s"], d2s_step["d2s"],
@@ -4923,6 +5660,17 @@ def main() -> int:
     print("parallel " + json.dumps(parallel))
     print("spatial " + json.dumps({k: v for k, v in spatial.items()
                                    if k != "b1_split_rows"}))
+    print("spatial_train " + json.dumps(
+        {k: v for k, v in spatial_train.items()
+         if k not in ("b1_split_bwd_rows", "ranks")}))
+    t = split_bwd
+    print(f"  B1 split bwd over one {SPLIT_TRAIN_STEP} rank's step, bf16: "
+          f"sums {t['sums']['ms']:.4f} ms (bound {t['sums']['bound_ms']:.4f},"
+          f" plain {t['sums']['plain_ms']:.4f}, lib "
+          f"{t['sums']['library_ms']:.4f}); apply {t['apply']['ms']:.4f} ms "
+          f"(bound {t['apply']['bound_ms']:.4f}, plain "
+          f"{t['apply']['plain_ms']:.4f}, lib "
+          f"{t['apply']['library_ms']:.4f})")
     for r in spatial["b1_split_rows"]:
         more = "" if r["name"] != "stats" else (
             f" fused fwd {r['fused_ms']:.4f}"
@@ -5001,7 +5749,8 @@ def main() -> int:
                    "train_options": options, "train_cli": cli,
                    "serve": serve, "quant": quant, "netE": nete,
                    "export": export, "parallel": parallel,
-                   "spatial": spatial, "kernels": kernels}, fh)
+                   "spatial": spatial, "spatial_train": spatial_train,
+                   "kernels": kernels}, fh)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures,
               sep="\n  ", file=sys.stderr)

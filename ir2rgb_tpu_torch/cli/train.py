@@ -27,7 +27,18 @@ global batch: every rank decodes its own rows of it, crops and flips them
 as the one-process run would, and rank 0 alone writes the run.
 ``--dist_timeout S`` bounds every collective (default 300 s): a rank that
 dies or hangs fails the others. ``--deterministic`` selects cuDNN's
-deterministic algorithms (a run repeats bit for bit).
+deterministic algorithms (a run repeats bit for bit). ``--dist_backend
+gloo`` runs the group on gloo with the ranks on the card (several ranks
+on one card, which NCCL refuses); each rank takes the current card.
+
+Spatially partitioned, each frame's rows over S ranks of a dp×S mesh
+(``parallel/spatial.py``), world = dp·S:
+
+    torchrun --standalone --nproc_per_node 4 -m ir2rgb_tpu_torch.cli.train \
+        --preset pix2pixhd_2048 --train.spatial_devices 4 ...
+
+The S ranks of a data row decode the same images (the loader is sharded
+over dp), crop and flip them alike, then each keeps its image rows.
 """
 
 from __future__ import annotations
@@ -55,8 +66,13 @@ def main(argv=None) -> int:
     )
     from ir2rgb_tpu_torch.nn import quant
     from ir2rgb_tpu_torch.obs import Visualizer
-    from ir2rgb_tpu_torch.parallel import data_parallel_mesh, multihost
-    from ir2rgb_tpu_torch.parallel.mesh import sharded
+    from ir2rgb_tpu_torch.parallel import (
+        data_parallel_mesh,
+        dp_sp_mesh,
+        multihost,
+    )
+    from ir2rgb_tpu_torch.parallel.mesh import image_rows, sharded
+    from ir2rgb_tpu_torch.train.model import spatial_train_refusal
     from ir2rgb_tpu_torch.runtime import resolve_device, set_parity_mode
     from ir2rgb_tpu_torch.train import Trainer, create_model
 
@@ -66,17 +82,23 @@ def main(argv=None) -> int:
         argv.remove("--deterministic")
     device_flag = pop_flag(argv, "--device")
     timeout_s = pop_flag(argv, "--dist_timeout")
+    backend = pop_flag(argv, "--dist_backend")
     cfg = parse_cli(argv)
     if cfg.train.multihost or _launched():
         multihost.initialize(
             require=cfg.train.multihost,
-            backend="gloo" if device_flag == "cpu" else None,
+            backend=backend or ("gloo" if device_flag == "cpu" else None),
             timeout_s=float(timeout_s or multihost.DEFAULT_TIMEOUT_S))
     if device_flag is None and torch.distributed.is_initialized():
         # the rank's card, made current by initialize
         device_flag = f"cuda:{torch.cuda.current_device()}"
     device = resolve_device(device_flag)
-    mesh = data_parallel_mesh(cfg.train.num_devices, device=device)
+    sp = cfg.train.spatial_devices
+    if sp > 1:
+        spatial_train_refusal(cfg)
+        mesh = dp_sp_mesh(cfg.train.num_devices, sp, device=device)
+    else:
+        mesh = data_parallel_mesh(cfg.train.num_devices, device=device)
     if quant.env_override() or cfg.infer.quant != "none":
         # int8 rounding has zero gradient: a quantized train step would
         # learn nothing (quantization is a serving-only path)
@@ -99,7 +121,7 @@ def main(argv=None) -> int:
     if deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    loader = DataLoader(cfg, shard=(mesh.world, mesh.rank))
+    loader = DataLoader(cfg, shard=(mesh.dp, mesh.dp_rank))
     model = create_model(cfg, device=device,
                          steps_per_epoch=max(len(loader), 1),
                          seed=cfg.train.seed)
@@ -123,7 +145,8 @@ def main(argv=None) -> int:
             # same count (every later one has the same shape)
             x = multihost.global_batch(
                 {k: np.ascontiguousarray(v) for k, v in host.items()
-                 if k in ("a", "b", "inst")}, mesh, check=i == 0)
+                 if k in ("a", "b", "inst")}, mesh, check=i == 0,
+                whole_images=True)
             kw = {}
             if not temporal and "inst" in x:
                 kw["inst"] = x["inst"]
@@ -134,15 +157,16 @@ def main(argv=None) -> int:
             with sharded(mesh, accum):
                 batch = prep(x["a"], x["b"], generator, crop_size=crop,
                              no_flip=cfg.data.no_flip, train=True, **kw)
-            yield batch
+            # on a dp×sp mesh, this rank's image rows of the cropped frames
+            yield {k: image_rows(v, mesh).contiguous()
+                   for k, v in batch.items()}
 
     it = batches()
     first = next(it)
     trainer.init_or_restore()
     trainer.fit(chain([first], it))
-    if trainer.visualizer is not None:
-        # the final sample dump through the trainer's display hook
-        trainer._display(first, model.step)
+    # the final sample dump through the trainer's display hook
+    trainer.display(first, model.step)
     return 0
 
 

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
 - B1 ``instance_norm``: fused instance norm + activation, forward and
-  backward, and the forward split into statistics and apply for a frame
-  whose rows lie on several ranks (replaces
+  backward, and both split (statistics and apply; the backward's sums
+  and apply) for a frame whose rows lie on several ranks (replaces
   ``ir2rgb_tpu/kernels/instance_norm.py``);
 - B2 ``tail_fused``: reflect-pad + 7x7 conv + bias + tanh output tail
   (replaces ``ir2rgb_tpu/kernels/tail_fused.py``);
@@ -12,6 +12,7 @@
 Each C entry point is a ``torch.library`` custom op in the ``ir2rgb``
 namespace (``ir2rgb::instance_norm_act``, ``ir2rgb::instance_norm_act_bwd``,
 ``ir2rgb::instance_norm_stats``, ``ir2rgb::instance_norm_apply``,
+``ir2rgb::instance_norm_bwd_stats``, ``ir2rgb::instance_norm_bwd_apply``,
 ``ir2rgb::tail_fused``, ``ir2rgb::d2s``, ``ir2rgb::s2d``), so that
 ``torch.export`` records each call as one node of a sealed serving
 program (``infer/export.py``); eager code calls the same implementations
@@ -52,6 +53,8 @@ def launch_counts() -> Dict[str, int]:
             "instance_norm_act_bwd": _instance_norm.bwd_launches,
             "instance_norm_stats": _instance_norm.stats_launches,
             "instance_norm_apply": _instance_norm.apply_launches,
+            "instance_norm_bwd_stats": _instance_norm.bwd_stats_launches,
+            "instance_norm_bwd_apply": _instance_norm.bwd_apply_launches,
             "tail_fused": _tail_fused.launches,
             "d2s": _d2s.launches["d2s"],
             "s2d": _d2s.launches["s2d"]}
@@ -62,6 +65,8 @@ def reset_launch_counts() -> None:
     _instance_norm.bwd_launches = 0
     _instance_norm.stats_launches = 0
     _instance_norm.apply_launches = 0
+    _instance_norm.bwd_stats_launches = 0
+    _instance_norm.bwd_apply_launches = 0
     _tail_fused.launches = 0
     _d2s.launches.update(d2s=0, s2d=0)
 

@@ -48,6 +48,17 @@ _SIGNATURES = {
                                    _I, _I, _I, _P],
     # cg, smem_bytes, is_bf16, out (int*)
     "ir2rgb_instance_norm_stats_occupancy": [_I, _I, _I, _P],
+    # x, g, mean, rstd, s1, s2, part, tickets, n, hw, c, cg, chunks, chunk,
+    # smem_bytes, act, slope, is_bf16, stream
+    "ir2rgb_instance_norm_bwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                       _P],
+    # cg, smem_bytes, is_bf16, out (int*)
+    "ir2rgb_instance_norm_bwd_stats_occupancy": [_I, _I, _I, _P],
+    # x, g, mean, rstd, s1, s2, dx, n, hw, c, count, act, slope, is_bf16,
+    # stream
+    "ir2rgb_instance_norm_bwd_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _F, _I, _F, _I, _P],
     # x, mean, rstd, y, n, hw, c, act, slope, is_bf16, stream
     "ir2rgb_instance_norm_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                    _P],

@@ -52,6 +52,16 @@
 // are bound by bytes: the stats read x once, the apply reads x once and
 // writes y once.
 //
+// The split backward, for the same frame under autograd:
+// ir2rgb_instance_norm_bwd_stats writes each (n, c)'s plain sums s1 =
+// sum g' and s2 = sum g' * xh over the rows in hand (xh from the merged
+// mean and rstd), on the statistics kernel's plan and tickets; the ranks
+// add those in rank order (plain PyTorch), and
+// ir2rgb_instance_norm_bwd_apply writes dx = rstd * (g' - s1 / count -
+// xh * s2 / count) with count the channel's pixels over every rank. Both
+// are bound by bytes: the sums read x and g once, the apply reads them
+// once and writes dx once. Together they are _fused_bwd.
+//
 // The statistics kernel (in_stats_kernel) has a plan of its own
 // (kernels/instance_norm.py::_stats_plan), with two levels:
 //   1. Chunks. A slab (one image's pixels of one group of at most 64
@@ -929,6 +939,178 @@ in_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   }
 }
 
+// The split backward's sums (in_bwd_stats_kernel): per (n, c), over the
+// rows in hand, s1 = sum g' and s2 = sum g' * xh, with xh = (x - mean) *
+// rstd from the merged statistics and g' = act'(xh) * g. The statistics
+// kernel's plan and tickets (StatsPlan): one block a chunk of a slab, each
+// thread kStatsBatch pixels' words of x and of g in flight, plain fp32
+// sums in pixel order, the block's in a fixed order (block_col_sum), and
+// with several chunks the last block of a slab to draw its ticket adds
+// the chunks' partials in chunk order (a run of consecutive chunks a
+// thread, the runs in order). So two launches give the same bits.
+template <typename T, int kCh>
+__global__ void __launch_bounds__(kStatsThreads, 2)
+in_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ rstd, float* __restrict__ s1_out,
+                    float* __restrict__ s2_out, float2* __restrict__ part,
+                    unsigned* __restrict__ tickets, StatsPlan p, int act,
+                    float slope) {
+  using L = Lane<T, kCh>;
+  using Raw = typename L::Raw;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+  const int cs = p.cg * kPer;  // channels of the slab
+  const int cv = cs / kCh;     // loads a pixel
+  const int k = blockIdx.x % p.chunks;
+  const int grp = blockIdx.x / p.chunks;
+  const int n = blockIdx.y;
+  const int col = threadIdx.x % cv;
+  const int row = threadIdx.x / cv;
+  const int rows = kStatsThreads / cv;
+  const int cnt = chunk_count(p, k);
+  const size_t stride = p.c / kCh;
+  const size_t first = (size_t)n * p.hw * stride + (size_t)grp * cv + col +
+                       (size_t)k * p.chunk * stride;
+  const Raw* xs = reinterpret_cast<const Raw*>(x) + first;
+  const Raw* gs = reinterpret_cast<const Raw*>(g) + first;
+  const size_t o = (size_t)n * p.c + (size_t)grp * cs;
+  float mu[kCh], rs[kCh], v[2 * kCh];  // v: s1 then s2 of each channel
+#pragma unroll
+  for (int j = 0; j < kCh; ++j) {
+    mu[j] = mean[o + col * kCh + j];
+    rs[j] = rstd[o + col * kCh + j];
+    v[j] = v[kCh + j] = 0.f;
+  }
+  for (int q0 = row; q0 < cnt; q0 += kStatsBatch * rows) {
+    Raw rx[kStatsBatch], rg[kStatsBatch];
+#pragma unroll
+    for (int i = 0; i < kStatsBatch; ++i)
+      if (q0 + i * rows < cnt) {
+        load_word(rx[i], xs + (size_t)(q0 + i * rows) * stride);
+        load_word(rg[i], gs + (size_t)(q0 + i * rows) * stride);
+      }
+#pragma unroll
+    for (int i = 0; i < kStatsBatch; ++i)
+      if (q0 + i * rows < cnt) {
+        float a[kCh], b[kCh];
+        L::unpack(rx[i], a);
+        L::unpack(rg[i], b);
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          const float xh = (a[j] - mu[j]) * rs[j];
+          const float gp = act_grad(b[j], xh, act, slope);
+          v[j] += gp;
+          v[kCh + j] += gp * xh;
+        }
+      }
+  }
+  float* red = reinterpret_cast<float*>(smem);  // [warp][cv][2 kCh]
+  float* acc = red + kStatsWarps * 2 * cs;      // [2][thread], the merge
+  block_col_sum<2 * kCh>(v, red, cv, false);
+  const int slab = n * (p.c / cs) + grp;
+  float2* sp = part + (size_t)slab * p.chunks * cs;
+  if (row == 0) {  // threads 0 .. cv - 1 of warp 0: column col
+#pragma unroll
+    for (int j = 0; j < kCh; ++j) {
+      if (p.chunks == 1) {
+        s1_out[o + col * kCh + j] = v[j];
+        s2_out[o + col * kCh + j] = v[kCh + j];
+      } else {
+        sp[(size_t)k * cs + col * kCh + j] = make_float2(v[j], v[kCh + j]);
+      }
+    }
+  }
+  if (p.chunks == 1) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(tickets + slab), "r"(p.chunks - 1)
+                 : "memory");
+    last = old == p.chunks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: thread (run, ch) adds chunks [run * len, ...) of
+  // channel ch in order; then the runs are added in order
+  const int ch = threadIdx.x % cs;
+  const int run = threadIdx.x / cs;
+  const int nruns = kStatsThreads / cs;
+  const int len = (p.chunks + nruns - 1) / nruns;
+  const int k0 = run * len;
+  const int end = min(p.chunks, k0 + len);
+  float a = 0.f, b = 0.f;
+  for (int kk = k0; kk < end; ++kk) {
+    float2 w;
+    load_partial(w, sp + (size_t)kk * cs + ch);
+    a += w.x;
+    b += w.y;
+  }
+  acc[threadIdx.x] = a;
+  acc[kStatsThreads + threadIdx.x] = b;
+  __syncthreads();
+  if (run == 0) {
+    float sa = 0.f, sb = 0.f;
+    for (int r2 = 0; r2 < nruns; ++r2) {
+      sa += acc[r2 * cs + ch];
+      sb += acc[kStatsThreads + r2 * cs + ch];
+    }
+    s1_out[o + ch] = sa;
+    s2_out[o + ch] = sb;
+  }
+}
+
+// Dynamic shared memory of the backward's sums: block_col_sum's scratch
+// (two floats a warp and channel of the slab) and two floats a thread.
+inline int bwd_stats_smem_need(const StatsPlan& p) {
+  return (kStatsWarps * 2 * p.cg * kPer + 2 * kStatsThreads) * 4;
+}
+
+// The split backward's apply: dx = rstd * (g' - s1 / count - xh * s2 /
+// count), with (N, C) fp32 statistics and sums and count the pixels of a
+// channel over every rank: one thread a word of 4 channels, grid-stride
+// over the tensor's words, in x's dtype.
+template <typename T>
+__global__ void __launch_bounds__(256)
+in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ rstd,
+                    const float* __restrict__ s1,
+                    const float* __restrict__ s2, T* __restrict__ dx,
+                    long long words, int cw, long long image_words,
+                    float count, int act, float slope) {
+  using W = Word<T>;
+  using Raw = typename W::Raw;
+  const Raw* xs = reinterpret_cast<const Raw*>(x);
+  const Raw* gs = reinterpret_cast<const Raw*>(g);
+  Raw* dst = reinterpret_cast<Raw*>(dx);
+  const float4* m4 = reinterpret_cast<const float4*>(mean);
+  const float4* r4 = reinterpret_cast<const float4*>(rstd);
+  const float4* a4 = reinterpret_cast<const float4*>(s1);
+  const float4* b4 = reinterpret_cast<const float4*>(s2);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < words; i += (long long)gridDim.x * blockDim.x) {
+    const long long s = i / image_words * cw + i % cw;  // (n, word of c)
+    const float4 m = m4[s], r = r4[s], a = a4[s], b = b4[s];
+    const float mv[kPer] = {m.x, m.y, m.z, m.w};
+    const float rv[kPer] = {r.x, r.y, r.z, r.w};
+    const float av[kPer] = {a.x, a.y, a.z, a.w};
+    const float bv[kPer] = {b.x, b.y, b.z, b.w};
+    float xv[kPer], gv[kPer];
+    W::unpack(xs[i], xv);
+    W::unpack(gs[i], gv);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const float xh = (xv[j] - mv[j]) * rv[j];
+      const float gp = act_grad(gv[j], xh, act, slope);
+      xv[j] = rv[j] * (gp - av[j] / count - xh * (bv[j] / count));
+    }
+    dst[i] = W::pack(xv);
+  }
+}
+
 // Once per kernel: allow the card's whole opt-in shared memory as dynamic
 // shared memory, and clusters of up to 16 blocks.
 cudaError_t prepare(const void* fn) {
@@ -1172,4 +1354,106 @@ extern "C" int ir2rgb_instance_norm_max_clusters(int k, int tile,
             k, k, 1, Route<kTile>::kThreads, smem_bytes, nullptr, &attr);
         return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
       }));
+}
+
+// x, g (n, hw, c) NHWC, aligned to their loads as the statistics kernel's
+// x; mean, rstd (n, c) fp32, read; s1, s2 (n, c) fp32, written. The
+// statistics kernel's launch shape (StatsPlan); part: n * c * chunks
+// float2 of scratch and tickets: n * groups zeroed counters (left zero),
+// both unused (may be null) when chunks is 1. Returns the launch's error
+// (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_stats(
+    const void* x, const void* g, const void* mean, const void* rstd,
+    void* s1, void* s2, void* part, void* tickets, int n, int hw, int c,
+    int cg, int chunks, int chunk, int smem_bytes, int act, float slope,
+    int is_bf16, void* stream) {
+  const StatsPlan p{n, hw, c, cg, chunks, chunk};
+  const int item = is_bf16 ? 2 : 4;
+  const int load = is_bf16 && cg == 1 ? 8 : 16;
+  const bool ok =
+      reinterpret_cast<uintptr_t>(x) % load == 0 &&
+      reinterpret_cast<uintptr_t>(g) % load == 0 && n > 0 && hw > 0 &&
+      c % kPer == 0 && cg >= 1 && (cg & (cg - 1)) == 0 &&
+      cg * kPer * item <= 64 && (c / kPer) % cg == 0 && chunks >= 1 &&
+      chunk >= 1 && (long long)(chunks - 1) * chunk < hw &&
+      (long long)chunks * chunk >= hw &&
+      smem_bytes >= bwd_stats_smem_need(p) &&
+      (chunks == 1 || (part != nullptr && tickets != nullptr));
+  if (!ok) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((c / (kPer * cg)) * chunks, n);
+  const float* mo = static_cast<const float*>(mean);
+  const float* ro = static_cast<const float*>(rstd);
+  float* ao = static_cast<float*>(s1);
+  float* bo = static_cast<float*>(s2);
+  float2* po = static_cast<float2*>(part);
+  unsigned* to = static_cast<unsigned*>(tickets);
+  if (!is_bf16)
+    in_bwd_stats_kernel<float, 4><<<grid, kStatsThreads, smem_bytes, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), mo, ro,
+        ao, bo, po, to, p, act, slope);
+  else if (cg > 1)
+    in_bwd_stats_kernel<__nv_bfloat16, 8>
+        <<<grid, kStatsThreads, smem_bytes, s>>>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<const __nv_bfloat16*>(g), mo, ro, ao, bo, po, to, p,
+            act, slope);
+  else
+    in_bwd_stats_kernel<__nv_bfloat16, 4>
+        <<<grid, kStatsThreads, smem_bytes, s>>>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<const __nv_bfloat16*>(g), mo, ro, ao, bo, po, to, p,
+            act, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many blocks of the backward's sums kernel one SM holds at once, as
+// ir2rgb_instance_norm_stats_occupancy. Written to *out; returns the
+// query's error (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_stats_occupancy(int cg,
+                                                        int smem_bytes,
+                                                        int is_bf16,
+                                                        int* out) {
+  *out = 0;
+  const void* fn =
+      !is_bf16 ? reinterpret_cast<const void*>(&in_bwd_stats_kernel<float, 4>)
+      : cg > 1 ? reinterpret_cast<const void*>(
+                     &in_bwd_stats_kernel<__nv_bfloat16, 8>)
+               : reinterpret_cast<const void*>(
+                     &in_bwd_stats_kernel<__nv_bfloat16, 4>);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fn, kStatsThreads, smem_bytes));
+}
+
+// x, g, dx (n, hw, c) NHWC; mean, rstd, s1, s2 (n, c) fp32, 16-byte
+// aligned; count: a channel's pixels over every rank. One launch of
+// 256-thread blocks, at most 16 a multiprocessor's worth. Returns the
+// launch's error (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_apply(
+    const void* x, const void* g, const void* mean, const void* rstd,
+    const void* s1, const void* s2, void* dx, int n, int hw, int c,
+    float count, int act, float slope, int is_bf16, void* stream) {
+  if (n <= 0 || hw <= 0 || c <= 0 || c % kPer || !(count > 0.f))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cw = c / kPer;
+  const long long image_words = (long long)hw * cw;
+  const long long words = image_words * n;
+  const long long blocks = std::min<long long>((words + 255) / 256, 132 * 16);
+  const float* mo = static_cast<const float*>(mean);
+  const float* ro = static_cast<const float*>(rstd);
+  const float* ao = static_cast<const float*>(s1);
+  const float* bo = static_cast<const float*>(s2);
+  if (is_bf16)
+    in_bwd_apply_kernel<__nv_bfloat16><<<(int)blocks, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(g), mo, ro, ao, bo,
+        static_cast<__nv_bfloat16*>(dx), words, cw, image_words, count, act,
+        slope);
+  else
+    in_bwd_apply_kernel<float><<<(int)blocks, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), mo, ro,
+        ao, bo, static_cast<float*>(dx), words, cw, image_words, count, act,
+        slope);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -40,11 +40,21 @@ and how the design answers that); this module holds
   :func:`instance_norm_stats_reference` and
   :func:`instance_norm_apply_reference`, and
   :func:`instance_norm_stats_chunked_reference`, the statistics kernel's
-  chunks and merge order in plain PyTorch (for the tests). Serving only:
-  neither records a graph;
+  chunks and merge order in plain PyTorch (for the tests). Neither
+  records a graph: the split B1's autograd Function (``nn/ops.py``)
+  calls them;
+- the split backward, its counterpart under autograd:
+  :func:`instance_norm_bwd_stats` (``ir2rgb::instance_norm_bwd_stats``:
+  each (n, c)'s sums of g' and g' * xh over the rows in hand, for the
+  merged statistics, on the statistics kernel's plan and tickets) and
+  :func:`instance_norm_bwd_apply` (``ir2rgb::instance_norm_bwd_apply``:
+  dx from the sums over every rank, one elementwise pass), with their
+  plain versions :func:`instance_norm_bwd_stats_reference` and
+  :func:`instance_norm_bwd_apply_reference`; the ranks add their sums
+  in rank order between the two, and together they are ``_fused_bwd``;
 - ``launches`` / ``bwd_launches`` / ``stats_launches`` /
-  ``apply_launches``: how many times the ops' CUDA implementations
-  launched each kernel;
+  ``apply_launches`` / ``bwd_stats_launches`` / ``bwd_apply_launches``:
+  how many times the ops' CUDA implementations launched each kernel;
 - :func:`_plan` / :func:`plan_for`: the launch (channel group, cluster
   size, shared memory per block, route), sized by bytes and checked
   against the card; :func:`_stats_plan` / :func:`stats_plan_for`: the
@@ -73,6 +83,8 @@ launches = 0
 bwd_launches = 0
 stats_launches = 0
 apply_launches = 0
+bwd_stats_launches = 0
+bwd_apply_launches = 0
 
 _SMEM_OPTIN = 232_448   # shared memory one block may opt into on sm_90
 _KS = (1, 2, 4, 8, 16)  # blocks per cluster; above 8 is non-portable
@@ -208,6 +220,53 @@ def instance_norm_act_backward_reference(x: torch.Tensor, mean: torch.Tensor,
     gm = g32.mean(dim=(1, 2), keepdim=True)
     gx = (g32 * xh).mean(dim=(1, 2), keepdim=True)
     return (rstd * (g32 - gm - xh * gx)).to(x.dtype)
+
+
+def _act_grad(g32: torch.Tensor, xh: torch.Tensor, act: str,
+              negative_slope: float) -> torch.Tensor:
+    """g * act'(xh) in fp32, as ``_fused_bwd`` folds it."""
+    if act == "relu":
+        return g32 * (xh > 0)
+    if act == "leaky_relu":
+        return torch.where(xh >= 0, g32, g32 * negative_slope)
+    if act == "tanh":
+        t = torch.tanh(xh)
+        return g32 * (1.0 - t * t)
+    return g32
+
+
+def instance_norm_bwd_stats_reference(x: torch.Tensor, mean: torch.Tensor,
+                                      rstd: torch.Tensor, g: torch.Tensor,
+                                      act: str = "relu",
+                                      negative_slope: float = 0.2
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s1, s2), (N, C) fp32: the sums over H and W of g' and of g' * xh,
+    with xh = (x - mean) * rstd for given (merged) statistics and
+    g' = g * act'(xh). The split backward's first half."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act: {act}")
+    xh = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
+    gp = _act_grad(g.float(), xh, act, negative_slope)
+    return gp.sum(dim=(1, 2)), (gp * xh).sum(dim=(1, 2))
+
+
+def instance_norm_bwd_apply_reference(x: torch.Tensor, mean: torch.Tensor,
+                                      rstd: torch.Tensor, g: torch.Tensor,
+                                      s1: torch.Tensor, s2: torch.Tensor,
+                                      count: float, act: str = "relu",
+                                      negative_slope: float = 0.2
+                                      ) -> torch.Tensor:
+    """dx = rstd * (g' - s1 / count - xh * s2 / count) in fp32, cast to
+    x's dtype: the split backward's second half, with (s1, s2) the sums
+    over every rank and ``count`` a channel's pixels over every rank."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act: {act}")
+    mean, rstd = mean[:, None, None, :], rstd[:, None, None, :]
+    xh = (x.float() - mean) * rstd
+    gp = _act_grad(g.float(), xh, act, negative_slope)
+    gm = (s1 / count)[:, None, None, :]
+    gx = (s2 / count)[:, None, None, :]
+    return (rstd * (gp - gm - xh * gx)).to(x.dtype)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -429,6 +488,43 @@ def stats_plan_for(x: torch.Tensor) -> StatsPlan:
     return _card_stats_plan(n, h * w, c, x.element_size(), x.device.index)
 
 
+@lru_cache(maxsize=None)
+def bwd_stats_resident(cg: int, smem_bytes: int, is_bf16: bool) -> int:
+    """How many blocks of the split backward's sums kernel of this group
+    and shared memory one SM holds at once."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().ir2rgb_instance_norm_bwd_stats_occupancy(
+        cg, smem_bytes, int(is_bf16), ctypes.byref(out)),
+        "instance_norm_bwd_stats occupancy")
+    return out.value
+
+
+def _bwd_stats_smem(p: StatsPlan) -> int:
+    """The sums kernel's shared memory (``bwd_stats_smem_need``): two
+    floats a warp and channel of the group, two a thread."""
+    return (8 * 2 * p.channels + 2 * _STATS_THREADS) * 4
+
+
+@lru_cache(maxsize=None)
+def _card_bwd_stats_plan(n: int, hw: int, c: int, itemsize: int,
+                         index: int) -> StatsPlan:
+    """The statistics plan (``_stats_plan``) with the sums kernel's shared
+    memory and its own occupancy: it reads x and g."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    one = _stats_plan(n, hw, c, itemsize, sms, 1)
+    p = _stats_plan(n, hw, c, itemsize, sms, bwd_stats_resident(
+        one.cg, _bwd_stats_smem(one), itemsize == 2))
+    return p._replace(smem_bytes=_bwd_stats_smem(p))
+
+
+def bwd_stats_plan_for(x: torch.Tensor) -> StatsPlan:
+    """The plan the split backward's sums launch with for a CUDA NHWC
+    ``x`` (queries the card)."""
+    n, h, w, c = x.shape
+    return _card_bwd_stats_plan(n, h * w, c, x.element_size(),
+                                x.device.index)
+
+
 # The statistics kernel's ticket counters: per device, an arena of
 # _TICKET_SLOTS slots of _TICKETS_PER_SLOT counters, zeroed once; one slot
 # a stream
@@ -555,9 +651,9 @@ def instance_norm_stats_cuda(x: torch.Tensor, plan: StatsPlan = None
     global stats_launches
     _check_nhwc(x, "instance_norm_stats_cuda")
     if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "instance_norm_stats_cuda records no graph: the split B1 serves "
-            "only (its backward is ROADMAP A16b)")
+        raise ValueError("instance_norm_stats_cuda records no graph; a "
+                         "partitioned train step runs it inside the split "
+                         "B1's autograd Function (nn/ops.py)")
     n, h, w, c = x.shape
     p = plan or stats_plan_for(x)
     _check_stats_aligned(x.data_ptr(), p, x.element_size())
@@ -589,9 +685,9 @@ def instance_norm_apply_cuda(x: torch.Tensor, mean: torch.Tensor,
     if act not in ACTS:
         raise ValueError(f"unknown act: {act}")
     if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "instance_norm_apply_cuda records no graph: the split B1 serves "
-            "only (its backward is ROADMAP A16b)")
+        raise ValueError("instance_norm_apply_cuda records no graph; a "
+                         "partitioned train step runs it inside the split "
+                         "B1's autograd Function (nn/ops.py)")
     n, h, w, c = x.shape
     for s in (mean, rstd):
         if (tuple(s.shape) != (n, c) or s.dtype != torch.float32
@@ -610,13 +706,101 @@ def instance_norm_apply_cuda(x: torch.Tensor, mean: torch.Tensor,
     return y
 
 
+def _readable(g: torch.Tensor, align: int) -> torch.Tensor:
+    """``g`` as a kernel reads it: a view (a slice of a concat's gradient)
+    or memory at an offset that breaks the kernel's ``align``-byte loads
+    is copied once to fresh contiguous memory."""
+    if not g.is_contiguous() or g.data_ptr() % align:
+        return g.clone(memory_format=torch.contiguous_format)
+    return g
+
+
+def _check_split_bwd(x, g, stats, what):
+    _check_nhwc(x, what)
+    _check_nhwc(g, what)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, _, _, c = x.shape
+    for s in stats:
+        if (tuple(s.shape) != (n, c) or s.dtype != torch.float32
+                or not s.is_contiguous() or s.device != x.device
+                or s.data_ptr() % 16):
+            raise ValueError(f"{what}: the (N, C) statistics and sums must "
+                             "be contiguous fp32 on x's device, 16-byte "
+                             "aligned")
+
+
+def instance_norm_bwd_stats_cuda(x: torch.Tensor, mean: torch.Tensor,
+                                 rstd: torch.Tensor, g: torch.Tensor,
+                                 act: str = "relu",
+                                 negative_slope: float = 0.2,
+                                 plan: StatsPlan = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the split backward's sums kernel; raise on anything it does
+    not take. ``plan`` replaces :func:`bwd_stats_plan_for`'s."""
+    global bwd_stats_launches
+    if act not in ACTS:
+        raise ValueError(f"unknown act: {act}")
+    g = _readable(g, 16)
+    _check_split_bwd(x, g, (mean, rstd), "instance_norm_bwd_stats_cuda")
+    n, h, w, c = x.shape
+    p = plan or bwd_stats_plan_for(x)
+    for t in (x, g):
+        _check_stats_aligned(t.data_ptr(), p, x.element_size())
+    s1 = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    s2 = torch.empty_like(s1)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = tickets = None  # one level: neither
+    if p.chunks > 1:
+        part = torch.empty(n * c * p.chunks * 2, device=x.device,
+                           dtype=torch.float32)
+        tickets = _stream_tickets(x.device, n * p.groups)
+    code = _build.lib().ir2rgb_instance_norm_bwd_stats(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        s1.data_ptr(), s2.data_ptr(),
+        part.data_ptr() if part is not None else 0,
+        tickets.data_ptr() if tickets is not None else 0, n, h * w, c,
+        p.cg, p.chunks, p.chunk, p.smem_bytes, ACTS[act],
+        float(negative_slope), int(x.dtype == torch.bfloat16), stream)
+    _build.check(code, "instance_norm_bwd_stats")
+    bwd_stats_launches += 1
+    return s1, s2
+
+
+def instance_norm_bwd_apply_cuda(x: torch.Tensor, mean: torch.Tensor,
+                                 rstd: torch.Tensor, g: torch.Tensor,
+                                 s1: torch.Tensor, s2: torch.Tensor,
+                                 count: float, act: str = "relu",
+                                 negative_slope: float = 0.2
+                                 ) -> torch.Tensor:
+    """Launch the split backward's apply kernel; raise on anything it
+    does not take."""
+    global bwd_apply_launches
+    if act not in ACTS:
+        raise ValueError(f"unknown act: {act}")
+    if not count > 0:
+        raise ValueError(f"count must be positive, got {count}")
+    g = _readable(g, 16)
+    _check_split_bwd(x, g, (mean, rstd, s1, s2),
+                     "instance_norm_bwd_apply_cuda")
+    n, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _build.lib().ir2rgb_instance_norm_bwd_apply(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n, h * w, c,
+        float(count), ACTS[act], float(negative_slope),
+        int(x.dtype == torch.bfloat16), stream)
+    _build.check(code, "instance_norm_bwd_apply")
+    bwd_apply_launches += 1
+    return dx
+
+
 def _backward_cuda(x, mean, rstd, g, act, negative_slope):
     """The backward op's CUDA implementation: a ``g`` the kernel cannot
-    read (a view: a slice of a concat's gradient, or contiguous memory at
-    an offset that breaks its word loads) is copied once to fresh
-    contiguous memory."""
-    if not g.is_contiguous() or g.data_ptr() % (_PER * g.element_size()):
-        g = g.clone(memory_format=torch.contiguous_format)
+    read is copied once (``_readable``, its word loads)."""
+    g = _readable(g, _PER * g.element_size())
     return instance_norm_act_bwd_cuda(x, mean, rstd, g, act, negative_slope)
 
 
@@ -651,6 +835,46 @@ _APPLY_OPS = _build.define_op(
     "float negative_slope) -> Tensor",
     instance_norm_apply_reference, instance_norm_apply_cuda,
     lambda x, mean, rstd, act, negative_slope: torch.empty_like(x))
+
+
+_BWD_STATS_OPS = _build.define_op(
+    "instance_norm_bwd_stats(Tensor x, Tensor mean, Tensor rstd, Tensor g, "
+    "str act, float negative_slope) -> (Tensor, Tensor)",
+    instance_norm_bwd_stats_reference, instance_norm_bwd_stats_cuda,
+    lambda x, mean, rstd, g, act, negative_slope: (torch.empty_like(mean),
+                                                   torch.empty_like(mean)))
+_BWD_APPLY_OPS = _build.define_op(
+    "instance_norm_bwd_apply(Tensor x, Tensor mean, Tensor rstd, Tensor g, "
+    "Tensor s1, Tensor s2, float count, str act, float negative_slope) "
+    "-> Tensor",
+    instance_norm_bwd_apply_reference, instance_norm_bwd_apply_cuda,
+    lambda x, mean, rstd, g, s1, s2, count, act, negative_slope:
+    torch.empty_like(x))
+
+
+def instance_norm_bwd_stats(x: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor, g: torch.Tensor,
+                            act: str = "relu", negative_slope: float = 0.2
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s1, s2): the split backward's per-(n, c) sums of g' and g' * xh
+    over NHWC ``x``'s H and W, fp32 (N, C). CPU tensors take the plain
+    version; CUDA tensors the kernel (``ir2rgb::instance_norm_bwd_stats``)."""
+    _build.check_device(x, "instance_norm_bwd_stats")
+    return _BWD_STATS_OPS(x, mean, rstd, g, act, float(negative_slope))
+
+
+def instance_norm_bwd_apply(x: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor, g: torch.Tensor,
+                            s1: torch.Tensor, s2: torch.Tensor,
+                            count: float, act: str = "relu",
+                            negative_slope: float = 0.2) -> torch.Tensor:
+    """dx of the split B1 from the sums over every rank (``s1``, ``s2``)
+    and a channel's pixels over every rank (``count``). CPU tensors take
+    the plain version; CUDA tensors the kernel
+    (``ir2rgb::instance_norm_bwd_apply``)."""
+    _build.check_device(x, "instance_norm_bwd_apply")
+    return _BWD_APPLY_OPS(x, mean, rstd, g, s1, s2, float(count), act,
+                          float(negative_slope))
 
 
 def instance_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor,

@@ -4,7 +4,10 @@
 LSGAN (MSE against 1/0 targets, the default), vanilla (BCE with logits),
 hinge and the WGAN critic values, each a mean over the patch-logit map,
 summed over the scales of the discriminator's output (a list over scales,
-each a list of taps with the logits last). All in fp32. WGAN-GP's
+each a list of taps with the logits last). All in fp32. On a partitioned
+frame (``parallel/spatial.py``) every mean is this rank's sum over the
+whole map's element count (:func:`frame_mean`), so the ranks' losses add
+up to the frame's. WGAN-GP's
 :func:`gradient_penalty` differentiates D's input gradient, so D's
 parameters get a second derivative through every layer, kernel B1's
 backward included.
@@ -19,28 +22,47 @@ import torch.nn.functional as F
 
 from ir2rgb_tpu_torch.nn.discriminators import DiscOut
 from ir2rgb_tpu_torch.parallel import mesh as pmesh
+from ir2rgb_tpu_torch.parallel import spatial
+
+
+def frame_mean(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t``, an elementwise function of ``like``; on a
+    partitioned frame this rank's sum over the element count of the whole
+    ``like`` (its global rows from its partition), whose sum over the
+    ranks is the frame's mean."""
+    part = spatial.active()
+    if part is None:
+        return t.mean()
+    n, _, *rest = like.shape
+    count = n * part.global_rows(like)
+    for d in rest:
+        count *= d
+    return t.sum() / float(count)
 
 
 def _per_scale(logits: torch.Tensor, target_is_real: bool, mode: str,
                for_discriminator: bool) -> torch.Tensor:
     x = logits.float()
+
+    def mean(t):
+        return frame_mean(t, logits)
     if mode == "lsgan":
         target = 1.0 if target_is_real else 0.0
-        return ((x - target) ** 2).mean()
+        return mean((x - target) ** 2)
     if mode == "vanilla":
         target = 1.0 if target_is_real else 0.0
         # BCE with logits, the numerically stable form
-        return (torch.clamp(x, min=0) - x * target
-                + torch.log1p(torch.exp(-x.abs()))).mean()
+        return mean(torch.clamp(x, min=0) - x * target
+                    + torch.log1p(torch.exp(-x.abs())))
     if mode == "hinge":
         if for_discriminator:
             if target_is_real:
-                return F.relu(1.0 - x).mean()
-            return F.relu(1.0 + x).mean()
-        return -x.mean()  # generator side: -E[D(fake)]
+                return mean(F.relu(1.0 - x))
+            return mean(F.relu(1.0 + x))
+        return -mean(x)  # generator side: -E[D(fake)]
     if mode == "wgangp":
         # the critic values; the gradient penalty is a separate term
-        return -x.mean() if target_is_real else x.mean()
+        return -mean(x) if target_is_real else mean(x)
     raise ValueError(f"unknown gan mode: {mode}")
 
 

@@ -8,7 +8,8 @@
 - ``vgg_loss``: sum_i w_i * L1(vgg(fake)_i, vgg(real)_i), with
   w = (1/32, 1/16, 1/8, 1/4, 1); the real pass records no graph.
 
-All reductions in fp32.
+All reductions in fp32; on a partitioned frame each mean is this rank's
+sum over the whole tensor's element count (``gan.frame_mean``).
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ import torch
 
 from ir2rgb_tpu_torch.nn.discriminators import DiscOut
 from ir2rgb_tpu_torch.nn.vgg import Vgg19
+from .gan import frame_mean
 
 VGG_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 
 
 def l1_loss(fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
-    return (fake.float() - real.float()).abs().mean()
+    return frame_mean((fake.float() - real.float()).abs(), fake)
 
 
 def feature_matching_loss(disc_out_fake: DiscOut, disc_out_real: DiscOut,
@@ -35,7 +37,8 @@ def feature_matching_loss(disc_out_fake: DiscOut, disc_out_real: DiscOut,
     for fake_scale, real_scale in zip(disc_out_fake, disc_out_real):
         # every tap except the final logits map
         for ff, fr in zip(fake_scale[:-1], real_scale[:-1]):
-            loss = loss + w * (ff.float() - fr.detach().float()).abs().mean()
+            loss = loss + w * frame_mean(
+                (ff.float() - fr.detach().float()).abs(), ff)
     return loss
 
 
@@ -48,5 +51,5 @@ def vgg_loss(vgg: Vgg19, fake: torch.Tensor, real: torch.Tensor,
         feats_real = vgg(real, dtype)
     loss = torch.zeros((), device=fake.device)
     for w, ff, fr in zip(VGG_WEIGHTS, feats_fake, feats_real):
-        loss = loss + w * (ff.float() - fr.float()).abs().mean()
+        loss = loss + w * frame_mean((ff.float() - fr.float()).abs(), ff)
     return loss

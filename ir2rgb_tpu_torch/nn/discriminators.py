@@ -23,6 +23,12 @@ Sequential, ``model`` and ``layer{i}``. Trap: the reference runs the
 full-resolution input through scale ``num_d - 1`` (its ``forward`` walks
 the scales in reverse), while the JAX package's ``scale0`` is the full
 resolution; ``checkpoint/from_jax.py`` reverses the scales.
+
+On a partitioned frame (``parallel/spatial.py``) the same forward runs on
+this rank's rows: each 4x4 conv splits its output rows over the ranks,
+so the layers' shards are uneven (a 4x4 stride-2 conv padded 2 gives
+H/2 + 1 rows) and a rank may own none of a late layer; the pyramid's
+pool and every tap keep their partition, which the losses read.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import List
 import torch
 import torch.nn as nn
 
+from ir2rgb_tpu_torch.parallel import spatial
 from . import ops
 from .generators import Slot, norm_layer, use_bias
 
@@ -111,7 +118,7 @@ def _apply_layers(layers, x: torch.Tensor, cfg: DiscConfig
         h = ops.conv(h, conv.weight, conv.bias, stride=conv.stride[0],
                      padding=cfg.d_pad)
         if j == last:
-            h = h.float()
+            h = spatial.same_rows(h.float(), h)
         elif len(seq) == 3:
             h = ops.norm_act(h, cfg.norm, "leaky_relu",
                              bn=seq[1] if cfg.norm == "batch" else None)
@@ -211,7 +218,8 @@ class PixelDiscriminator(nn.Module):
                          "leaky_relu",
                          bn=net[3] if cfg.norm == "batch" else None)
         feats.append(h)
-        feats.append(ops.conv(h, net[5].weight, net[5].bias).float())
+        y = ops.conv(h, net[5].weight, net[5].bias)
+        feats.append(spatial.same_rows(y.float(), y))
         return [feats if cfg.get_interm_feat else feats[-1:]]
 
 

@@ -48,12 +48,13 @@ checkpointed body and passed in, so the recompute applies the forward's
 mask: checkpoint restores the global RNGs, not an explicit generator.
 
 A frame whose rows lie on several ranks (``parallel/spatial.py``) runs
-the same forward: the ops of ``nn/ops.py`` exchange what they read across
-ranks, the divisibility check reads the global H, and the served tail
-runs B2 on this rank's rows extended by three halo rows each side
-(reflected at the global edge), keeping the rows between. The U-Net is
-not partitioned (its innermost levels have fewer rows than ranks,
-ROADMAP A16b).
+the same forward, served or trained: the ops of ``nn/ops.py`` exchange
+what they read across ranks (differentiably), the divisibility check
+reads the global H, and the served tail runs B2 on this rank's rows
+extended by three halo rows each side (reflected at the global edge),
+keeping the rows between; the training tail is the composed one, its
+reflect pad through the halo. The U-Net is not partitioned (its
+innermost levels have fewer rows than ranks, ROADMAP A16b).
 
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
 ``nn/s2d_space.py``) are exact rewrites of the same math and are not
@@ -149,11 +150,7 @@ def _tail(conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     same function as JAX's dequantized conv + bias + tanh; ``int8`` is an
     int8 product, another function than B2's, so it runs composed."""
     part = spatial.active()
-    if part is not None:
-        if train:
-            raise NotImplementedError(
-                "the training tail on a spatially partitioned frame "
-                f"({spatial.A16B})")
+    if part is not None and not train:
         # B2 on the rows and 3 halo rows each side; the kept rows read
         # real rows only, so they are this rank's rows of the frame's tail
         h = x.shape[1]
@@ -168,7 +165,7 @@ def _tail(conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
                 w = quant.dequantized(w.to(x.dtype), source=(w, "conv"))
             return kernels.tail_fused(x, w.permute(2, 3, 1, 0), conv.bias)
     y = ops.conv(ops.reflect_pad(x, 3), conv.weight, conv.bias)
-    return torch.tanh(y.float()).to(x.dtype)
+    return spatial.same_rows(torch.tanh(y.float()).to(x.dtype), y)
 
 
 class Deconv(nn.ConvTranspose2d):
@@ -336,6 +333,13 @@ def _check_divisible(x: torch.Tensor, downs: int, net: str) -> None:
             f"net_g={net}: input {h}x{w} must be divisible by {d} "
             f"(2^{downs} stride-2 stages); resize/crop the frames or "
             f"lower n_downsample_global/n_local_enhancers")
+    if part is not None and (h // d) % part.sp:
+        # every stage's rows split evenly, so the ranks' residual adds
+        # and concats line up
+        raise ValueError(
+            f"net_g={net}: global H {h} is not divisible by {d}·sp = "
+            f"{d * part.sp}: each of the {downs} stride-2 stages needs "
+            f"whole, even shards on the sp = {part.sp} ranks")
 
 
 class ResnetGenerator(nn.Module):

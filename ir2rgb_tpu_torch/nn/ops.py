@@ -23,17 +23,30 @@ data-parallel step (``parallel/mesh.py``: ``sharded``) a dropout mask is
 drawn at the global batch's shape and sliced to the rank's rows, and
 batch norm takes its statistics over the global batch.
 
-While a frame is served with its rows spread over several ranks
-(``parallel/spatial.py``: ``spatial.active()``), each op computes this
-rank's rows of the whole frame's result: a conv, a subpixel deconv, a
-pad, a pool or a bilinear up first takes the rows above and below that
-it reads (``Shards.halo``, mapped by its edge rule at the global image
-edge), and runs with its H padding 0; a pad returns the extended rows,
-which the next conv takes as they are. Instance norm runs B1 split: this
+While a frame is served or trained with its rows spread over several
+ranks (``parallel/spatial.py``: ``spatial.active()``), each op computes
+this rank's rows of the whole frame's result: a conv or a pool splits
+its output's global rows over the ranks (``spatial.conv_windows``: the
+discriminator's 4×4 convs give uneven shards, and a rank may own none),
+takes the window of input rows those read (``Shards.window``, mapped by
+its edge rule at the global image edge, whatever partition the input
+has) and runs with its H padding 0; a subpixel deconv, a pad or a
+bilinear up takes the rows above and below its own (``Shards.halo``),
+and a pad returns the extended rows, which the next conv takes as they
+are. Each output is tagged with its partition (``Shards.tag``). A rank
+with no output rows runs the op on k zero rows and keeps none, so that
+every rank records the same graph and makes the same exchanges. The
+halos are differentiable: their backward is the exchange's transpose.
+Instance norm runs B1 split (:class:`_SplitInstanceNormAct`): this
 rank's statistics (``kernels.instance_norm_stats``), the ranks' merged
-(``Shards.norm_stats``), then ``kernels.instance_norm_apply``; batch norm
-takes the moments over every rank. A stride-2 op raises ``ValueError``
-unless the global H divides by 2·sp. Serving only, in quant mode "none".
+with a count a rank (``Shards.norm_stats``), then
+``kernels.instance_norm_apply``; its backward the split backward's sums
+(``instance_norm_bwd_stats``), added over the ranks in rank order, then
+``instance_norm_bwd_apply``. Batch norm takes the moments over every
+rank; a dropout mask is this rank's rows of the global draw. A 2×2 max
+pool needs even local rows, a transposed conv an even split; quant mode
+"none" only. A second derivative through any of it raises (ROADMAP
+A16b).
 """
 
 from __future__ import annotations
@@ -47,16 +60,16 @@ import torch.nn.functional as F
 from ir2rgb_tpu_torch.kernels import d2s_fn, fused_instance_norm_act
 from ir2rgb_tpu_torch.kernels.instance_norm import (
     instance_norm_apply,
+    instance_norm_bwd_apply,
+    instance_norm_bwd_stats,
     instance_norm_stats,
 )
 from ir2rgb_tpu_torch.parallel import mesh as pmesh
 from ir2rgb_tpu_torch.parallel import spatial
 from . import quant
 # eps 1e-5 (torch InstanceNorm2d's) and the activations live with B1
-from ir2rgb_tpu_torch.kernels.instance_norm import (  # noqa: F401
-    INSTANCE_NORM_EPS,
-    apply_act,
-)
+from ir2rgb_tpu_torch.kernels.instance_norm import INSTANCE_NORM_EPS
+from ir2rgb_tpu_torch.kernels.instance_norm import apply_act as _apply_act
 
 INIT_STD = 0.02  # reference weights_init: N(0, 0.02)
 BATCH_NORM_EPS = 1e-5
@@ -121,6 +134,13 @@ def apply_init_type(module: torch.nn.Module, init_type: str,
             m.weight.copy_(w.reshape(shape))
 
 
+def apply_act(y: torch.Tensor, act: str,
+              negative_slope: float = 0.2) -> torch.Tensor:
+    """relu / leaky_relu / tanh / none of ``y`` (B1's activations), with
+    ``y``'s partition on a partitioned frame."""
+    return spatial.same_rows(_apply_act(y, act, negative_slope), y)
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -139,10 +159,12 @@ def conv(x: torch.Tensor, weight: torch.Tensor,
     part = spatial.active()
     if part is not None:
         _refuse_quant(m)
-        return _nhwc(F.conv2d(
-            _nchw(_conv_rows(part, x, weight.shape[2], stride, padding)),
-            weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
-            stride=stride, padding=(0, padding)))
+        k = weight.shape[2]
+        rows, out = _conv_rows(part, x, k, stride, padding)
+        return part.tag(_on_rows(rows, k, lambda t: _nhwc(F.conv2d(
+            _nchw(t), weight.to(x.dtype),
+            None if bias is None else bias.to(x.dtype), stride=stride,
+            padding=(0, padding)))), out)
     if m != "none":
         y = quant.conv(x, weight.to(x.dtype), m, stride, padding,
                        source=(weight, "conv"))
@@ -160,23 +182,34 @@ def _refuse_quant(m: str) -> None:
             f"({spatial.A16B})")
 
 
-def _conv_rows(part, x: torch.Tensor, k: int, stride: int,
-               padding: int) -> torch.Tensor:
-    """The rows a k x k conv (stride 1 or 2, zero padding ``padding``)
-    reads for this rank's output rows, the global edge's zero rows
-    included; the conv then pads W alone. Rows a pad extended
+def _conv_rows(part, x: torch.Tensor, k: int, stride: int, padding: int):
+    """(the rows a k x k conv with zero padding ``padding`` reads for this
+    rank's output rows, the global edge's zero rows included; the
+    output's partition). The conv then pads W alone. Rows a pad extended
     (``Shards.mark``) are taken as they are, by a stride-1 conv without
-    padding that they fit."""
+    padding that they fit: its output keeps the pad's input's
+    partition."""
     ext = part.extension(x)
     if ext is not None:
         if stride != 1 or padding or sum(ext) != k - 1:
             raise ValueError(f"conv k{k} s{stride} p{padding} on rows "
                              f"extended by {ext}: a pad feeds a stride-1 "
                              "conv that it fits")
-        return x
-    part.check_rows(x.shape[1], k, stride, padding,
-                    f"conv k{k} s{stride} p{padding} at {tuple(x.shape)}")
-    return part.halo(x, padding, k - stride - padding, "zero")
+        return x, part.bounds(x)
+    out, wins = spatial.conv_windows(part.bounds(x), k, stride, padding)
+    return part.window(x, wins, "zero"), out
+
+
+def _on_rows(rows: torch.Tensor, k: int, op) -> torch.Tensor:
+    """``op`` (a k-row window op with its H padding 0) of a window of
+    ``rows``; a rank that owns no output rows has an empty window and
+    runs ``op`` on k zero rows, keeping none of the result, so that its
+    graph (the window's exchange, the op's weights) is every rank's."""
+    if rows.shape[1] >= k:
+        return op(rows)
+    short = k - rows.shape[1]
+    y = op(F.pad(rows, (0, 0, 0, 0, 0, short)))
+    return y[:, :0]
 
 
 def _subpixel_plan(k: int, pad: int):
@@ -306,12 +339,13 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     else:
         # the rows from the halo; the trim is against the global size
         _refuse_quant(m)
-        g = part.global_rows(h)
+        src = part.bounds(x)
+        g = src[-1]
         if (g - 1) * 2 - 2 * padding + k + output_padding != 2 * g:
             raise ValueError(f"transposed conv k{k} p{padding} "
                              f"op{output_padding} at {tuple(x.shape)}: its "
                              "output trims global rows, which do not split "
-                             f"evenly over sp = {part.sp}")
+                             f"over sp = {part.sp}")
         xp = F.pad(part.halo(x, lo, hi, "zero"), (0, 0, lo, hi))
         out_h = 2 * h
     y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
@@ -319,7 +353,10 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     y = d2s_fn(y, co)
     if out_h != 2 * h or out_w != 2 * w:
         y = y[:, :out_h, :out_w, :]
-    return y if b is None else y + b
+    y = y if b is None else y + b
+    if part is not None:
+        part.tag(y, tuple(2 * r for r in src))
+    return y
 
 
 @_kept_index
@@ -344,8 +381,9 @@ def _pad(x: torch.Tensor, pad: int, mode: str, index) -> torch.Tensor:
     if part is None:
         x = x.index_select(1, index(h, pad, x.device))
         return x.index_select(2, index(w, pad, x.device))
+    src = part.bounds(x)
     x = part.halo(x, pad, pad, mode).index_select(2, index(w, pad, x.device))
-    return part.mark(x, pad, pad)
+    return part.mark(x, pad, pad, src)
 
 
 def avg_pool(x: torch.Tensor, window: int = 3, stride: int = 2, pad: int = 1,
@@ -364,28 +402,41 @@ def avg_pool(x: torch.Tensor, window: int = 3, stride: int = 2, pad: int = 1,
         y = F.avg_pool2d(_nchw(x.float()).contiguous(), window, stride, pad,
                          count_include_pad=count_include_pad)
         return _nhwc(y).to(x.dtype)
-    # this rank's output rows from the halo's; where the global edge's
+    # this rank's output rows from its window's; where the global edge's
     # pad rows (zeros here) fall in a window, count_include_pad=False
     # divides by the real rows alone: the interior divisor stays whole
-    h, g = x.shape[1], part.global_rows(x.shape[1])
-    part.check_rows(h, window, stride, pad,
-                    f"avg_pool {window}/{stride}/{pad} at {tuple(x.shape)}")
-    ext = part.halo(x.float(), pad, window - stride - pad, "zero")
-    y = F.avg_pool2d(_nchw(ext).contiguous(), window, stride, (0, pad),
-                     count_include_pad=count_include_pad)
-    if not count_include_pad:
-        first = part.rank * h - pad  # global row of ext's first row
+    src = part.bounds(x)
+    g = src[-1]
+    out, wins = spatial.conv_windows(src, window, stride, pad)
+    x32 = x.float()
+    ext = part.window(part.same_rows(x32, x), wins, "zero")
+    y = _on_rows(ext, window, lambda t: _nhwc(F.avg_pool2d(
+        _nchw(t).contiguous(), window, stride, (0, pad),
+        count_include_pad=count_include_pad)))
+    if not count_include_pad and y.shape[1]:
+        first = wins[part.rank][0]  # global row of the window's first row
         real = [sum(0 <= first + stride * i + j < g for j in range(window))
-                for i in range(y.shape[2])]
+                for i in range(y.shape[1])]
         if min(real) < window:
             y = y * torch.tensor([window / r for r in real],
-                                 device=y.device)[:, None]
-    return _nhwc(y).to(x.dtype)
+                                 device=y.device)[:, None, None]
+    return part.tag(y.to(x.dtype), out)
 
 
 def max_pool2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 stride-2 max pool over NHWC ``x`` (the VGG trunk's pools)."""
-    return _nhwc(F.max_pool2d(_nchw(x), 2, 2))
+    """2x2 stride-2 max pool over NHWC ``x`` (the VGG trunk's pools). On a
+    partitioned frame it is row-local: every rank's rows must start and
+    end on even global rows."""
+    part = spatial.active()
+    y = _nhwc(F.max_pool2d(_nchw(x), 2, 2))
+    if part is None:
+        return y
+    src = part.bounds(x)
+    if any(r % 2 for r in src):
+        raise ValueError(f"max_pool 2x2 at {tuple(x.shape)}: the rows "
+                         f"{src} of sp = {part.sp} ranks must start and end "
+                         "on even rows")
+    return part.tag(y, tuple(r // 2 for r in src))
 
 
 def replicate_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -404,9 +455,12 @@ def resize_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample of NHWC ``x`` by an integer factor (torch
     Upsample(mode="nearest")): each pixel repeated ``scale`` x ``scale``."""
     n, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c
-                                            ).reshape(n, h * scale,
-                                                      w * scale, c)
+    y = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c
+                                         ).reshape(n, h * scale, w * scale, c)
+    part = spatial.active()
+    if part is not None:
+        part.tag(y, tuple(scale * r for r in part.bounds(x)))
+    return y
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False
@@ -427,16 +481,18 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False
     # the halo-extended shard scaled by s, less s at each end, are this
     # rank's; any other scale's rows would not split over the ranks
     h = x.shape[1]
-    s = out_hw[0] // part.global_rows(h)
-    if align_corners or s < 1 or s * part.global_rows(h) != out_hw[0]:
+    src = part.bounds(x)
+    s = out_hw[0] // src[-1]
+    if align_corners or s < 1 or s * src[-1] != out_hw[0]:
         raise NotImplementedError(
-            f"resize_bilinear {part.global_rows(h)} -> {out_hw[0]} rows "
+            f"resize_bilinear {src[-1]} -> {out_hw[0]} rows "
             f"(align_corners={align_corners}) on a partitioned frame: "
             f"only integer up-scales are ({spatial.A16B})")
-    ext = part.halo(x.float(), 1, 1, "edge")
+    ext = part.halo(part.same_rows(x.float(), x), 1, 1, "edge")
     y = F.interpolate(_nchw(ext).contiguous(), size=(s * (h + 2), out_hw[1]),
                       mode="bilinear", align_corners=False, antialias=True)
-    return _nhwc(y[:, :, s:s * (h + 1)]).to(x.dtype)
+    return part.tag(_nhwc(y[:, :, s:s * (h + 1)]).to(x.dtype),
+                    tuple(s * r for r in src))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
@@ -452,10 +508,18 @@ def dropout_mask(shape, rate: float, generator: torch.Generator
                  ) -> torch.Tensor:
     """:func:`dropout`'s draw alone: the bool mask of kept elements, on
     ``generator``'s device (in a data-parallel step, this rank's rows of
-    the global batch's draw)."""
-    u = pmesh.draw(lambda n: torch.rand((n,) + tuple(shape[1:]),
+    the global batch's draw; on a partitioned frame, of an evenly split
+    activation, its image rows of the whole frame's draw too)."""
+    shape = tuple(shape)
+    part = spatial.active()
+    if part is not None:
+        h = shape[1]
+        shape = (shape[0], h * part.sp) + shape[2:]
+    u = pmesh.draw(lambda n: torch.rand((n,) + shape[1:],
                                         generator=generator,
                                         device=generator.device), shape[0])
+    if part is not None:
+        u = u[:, part.rank * h:(part.rank + 1) * h]
     return u < 1.0 - rate
 
 
@@ -485,7 +549,10 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if use_running_stats and running_mean is not None:
         mean, var = running_mean.float(), running_var.float()
     elif dp is not None:
-        mean, var = pmesh.batch_moments(x32, dp)
+        part = spatial.active()
+        count = None if part is None else float(
+            x.shape[0] * dp.dp * part.global_rows(x) * x.shape[2])
+        mean, var = pmesh.batch_moments(x32, dp, count)
     else:
         mean = x32.mean(dim=(0, 1, 2))
         var = (x32 - mean).square().mean(dim=(0, 1, 2))
@@ -493,20 +560,73 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def _split_forward(part, x: torch.Tensor, act: str, negative_slope: float):
+    """(y, mean, rstd, pixels a channel over every rank) of the split B1:
+    B1's statistics of this rank's rows (none on a rank without rows),
+    the ranks' merged in rank order with a count a rank, then B1's
+    apply."""
+    n, h, w, c = x.shape
+    counts = [r * w for r in part.counts(x)]
+    if h * w:
+        mean, m2 = instance_norm_stats(x)
+    else:
+        mean = m2 = x.new_zeros((n, c), dtype=torch.float32)
+    mean, rstd = part.norm_stats(mean, m2, counts, INSTANCE_NORM_EPS)
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    y = (instance_norm_apply(x, mean, rstd, act, negative_slope) if h * w
+         else torch.empty_like(x))
+    return y, mean, rstd, sum(counts)
+
+
+class _SplitInstanceNormAct(torch.autograd.Function):
+    """The split B1 under autograd. Forward: :func:`_split_forward`,
+    saving x and the merged (mean, rstd). Backward: this rank's sums of
+    g' and g' * xh (``instance_norm_bwd_stats``), the ranks' added in
+    rank order (``Shards.sum_stats``: every rank the same bits), then
+    ``instance_norm_bwd_apply`` with the frame's pixel count: together
+    the JAX package's ``_fused_bwd`` over the whole frame. No second
+    derivative (ROADMAP A16b)."""
+
+    @staticmethod
+    def forward(ctx, x, part, act, negative_slope):
+        y, mean, rstd, count = _split_forward(part, x, act, negative_slope)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.part, ctx.act, ctx.slope, ctx.count = (part, act,
+                                                   negative_slope, count)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a second derivative through the split B1 (WGAN-GP on a "
+                f"partitioned step) is not ported ({spatial.A16B})")
+        x, mean, rstd = ctx.saved_tensors
+        n, h, w, c = x.shape
+        if h * w:
+            s1, s2 = instance_norm_bwd_stats(x, mean, rstd, g, ctx.act,
+                                             ctx.slope)
+        else:
+            s1 = s2 = mean.new_zeros((n, c))
+        both = ctx.part.sum_stats(torch.stack([s1, s2]))
+        if not h * w:
+            return torch.zeros_like(x), None, None, None
+        dx = instance_norm_bwd_apply(x, mean, rstd, g, both[0].contiguous(),
+                                     both[1].contiguous(), ctx.count,
+                                     ctx.act, ctx.slope)
+        return dx, None, None, None
+
+
 def _split_instance_norm_act(part, x: torch.Tensor, act: str,
                              negative_slope: float) -> torch.Tensor:
     """Instance norm + act over the whole frame of which ``x`` holds this
-    rank's rows: B1's statistics of the rows, the ranks' merged in rank
-    order, then B1's apply."""
+    rank's rows (differentiable where a graph is recorded); the output
+    keeps ``x``'s partition."""
     if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "the split B1 under autograd: spatially partitioned training "
-            f"is not ported ({spatial.A16B})")
-    mean, m2 = instance_norm_stats(x)
-    mean, rstd = part.norm_stats(mean, m2, x.shape[1] * x.shape[2],
-                                 INSTANCE_NORM_EPS)
-    return instance_norm_apply(x, mean.contiguous(), rstd.contiguous(), act,
-                               negative_slope)
+        y = _SplitInstanceNormAct.apply(x, part, act, negative_slope)
+    else:
+        y = _split_forward(part, x, act, negative_slope)[0]
+    return part.same_rows(y, x)
 
 
 def norm_act(x: torch.Tensor, norm: str, act: str = "relu",
@@ -522,7 +642,7 @@ def norm_act(x: torch.Tensor, norm: str, act: str = "relu",
             return fused_instance_norm_act(x, act, negative_slope)
         return _split_instance_norm_act(part, x, act, negative_slope)
     if norm == "batch":
-        x = batch_norm(x, bn.weight, bn.bias, bn.eps)
+        x = spatial.same_rows(batch_norm(x, bn.weight, bn.bias, bn.eps), x)
     elif norm != "none":
         raise ValueError(f"unknown norm: {norm}")
     return apply_act(x, act, negative_slope)

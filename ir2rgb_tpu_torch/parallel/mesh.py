@@ -38,10 +38,15 @@ it):
 lays the group out as JAX's ``devices.reshape(dp, sp)``: rank ``r`` is
 ``(dp_rank, sp_rank) = divmod(r, sp)``, with a ``dp`` subgroup (the ranks
 of one spatial column) and an ``sp`` subgroup (the ranks of one data
-row). Such a mesh serves: a frame's rows spread over the ``sp`` ranks
-(``parallel/spatial.py``: the halo exchanges and the instance-norm merge
-that XLA's partitioner writes in JAX), slots over the ``dp`` ranks. The
-dp×sp train step is not ported (ROADMAP A16b).
+row). Such a mesh serves and trains: a frame's rows spread over the
+``sp`` ranks (``parallel/spatial.py``: the halo exchanges and the
+instance-norm merge that XLA's partitioner writes in JAX, and their
+transposes), batch rows and slots over the ``dp`` ranks. On it a step's
+draws are made at ``dp`` times the rows in hand and every ``sp`` rank of
+a data row takes the same rows (:func:`draw`); the ``sp`` ranks' losses
+and gradients are partial sums of their data row's, so the gradient and
+metric all-reduces sum over every rank and divide by ``dp``
+(:func:`all_reduce_grads`, :func:`all_reduce_metrics`).
 """
 
 from __future__ import annotations
@@ -306,12 +311,13 @@ def active() -> Optional[DataParallelMesh]:
 def draw(fn: Callable[[int], Any], n: int) -> Any:
     """``fn(n)`` where ``fn(m)`` draws ``m`` rows (a tensor, or a tuple of
     tensors, with the rows on dim 0). Inside a DP step: ``fn`` at the
-    global row count, then this rank's rows of it."""
+    global row count (``n`` times ``dp``), then this rank's rows of it:
+    its data row's, the same on each of the row's ``sp`` ranks."""
     if _ACTIVE is None:
         return fn(n)
     mesh, accum = _ACTIVE
-    rows = local_rows(n * mesh.world, mesh.world, mesh.rank, accum)
-    out = fn(n * mesh.world)
+    rows = local_rows(n * mesh.dp, mesh.dp, mesh.dp_rank, accum)
+    out = fn(n * mesh.dp)
 
     def take(x):
         return x.index_select(0, rows.to(x.device))
@@ -364,16 +370,20 @@ class _AllReduceSum(torch.autograd.Function):
         return _AllReduceSum.apply(g.contiguous(), ctx.group), None
 
 
-def batch_moments(x32: torch.Tensor, mesh: DataParallelMesh):
+def batch_moments(x32: torch.Tensor, mesh: DataParallelMesh,
+                  count: Optional[float] = None):
     """The (C,) mean and biased variance over (N, H, W) of NHWC fp32
     ``x32`` across every rank's rows (on a dp×sp mesh the group spans
     both axes: the batch's rows and the image's), in ``ops.batch_norm``'s
     two passes:
     the summed sum and count give the mean, then the summed squared
-    deviations about it the variance. Differentiable: the backward sums
-    the statistics' gradients over ranks."""
+    deviations about it the variance. ``count``: the pixels over every
+    rank (default: every rank's as many as this one's). Differentiable:
+    the backward sums the statistics' gradients over ranks."""
     dims = (0, 1, 2)
-    count = float(x32.shape[0] * x32.shape[1] * x32.shape[2] * mesh.world)
+    if count is None:
+        count = float(x32.shape[0] * x32.shape[1] * x32.shape[2]
+                      * mesh.world)
     mean = _AllReduceSum.apply(x32.sum(dim=dims), mesh.group) / count
     var = _AllReduceSum.apply((x32 - mean).square().sum(dim=dims),
                               mesh.group) / count
@@ -386,11 +396,12 @@ def batch_moments(x32: torch.Tensor, mesh: DataParallelMesh):
 
 def all_reduce_grads(nets: Iterable[torch.nn.Module],
                      mesh: DataParallelMesh) -> int:
-    """Average every ``.grad`` of each network over the ranks: one flat
-    buffer a network and dtype, one all-reduce (sum) each, divided by
-    the world size. Parameters without a gradient (the same on every
-    rank: every rank records the same graph) are left. Returns the bytes
-    reduced."""
+    """Average every ``.grad`` of each network over the data-parallel
+    replicas: one flat buffer a network and dtype, one all-reduce (sum)
+    over every rank each, divided by ``dp`` (on a dp×sp mesh the ``sp``
+    ranks of a data row hold partial sums of its gradient). Parameters
+    without a gradient (the same on every rank: every rank records the
+    same graph) are left. Returns the bytes reduced."""
     moved = 0
     for net in nets:
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
@@ -400,7 +411,7 @@ def all_reduce_grads(nets: Iterable[torch.nn.Module],
         for grads in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat, group=mesh.group)
-            flat.div_(mesh.world)
+            flat.div_(mesh.dp)
             moved += flat.numel() * flat.element_size()
             i = 0
             for g in grads:
@@ -416,12 +427,13 @@ SUMMED_METRICS = ("inst_collisions",)
 def all_reduce_metrics(metrics: Dict[str, torch.Tensor],
                        mesh: DataParallelMesh) -> Dict[str, torch.Tensor]:
     """The global batch's metrics from each rank's: one all-reduce of the
-    stacked 0-dim values, the means divided by the world size and the
+    stacked 0-dim values over every rank, the means divided by ``dp``
+    (the ``sp`` ranks' are partial sums of their data row's) and the
     counts (``SUMMED_METRICS``) left summed."""
     names = sorted(metrics)
     flat = torch.stack([metrics[k].float() for k in names])
     dist.all_reduce(flat, group=mesh.group)
-    return {k: v if k in SUMMED_METRICS else v / mesh.world
+    return {k: v if k in SUMMED_METRICS else v / mesh.dp
             for k, v in zip(names, flat)}
 
 

@@ -33,7 +33,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from .mesh import DataParallelMesh, _tree_map
+from .mesh import DataParallelMesh, _tree_map, image_rows
 
 # torchrun's environment (MASTER_ADDR / MASTER_PORT: the rendezvous)
 ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
@@ -103,17 +103,24 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_batch(local_batch: Any, mesh: DataParallelMesh,
-                 check: bool = True) -> Any:
+                 check: bool = True, whole_images: bool = False) -> Any:
     """This rank's rows of the global batch (tensors or numpy arrays, or
     dicts / lists / tuples of them; every leaf with the same rows) on the
     rank's device, pinned and copied without blocking from host memory
-    to a card. ``check``: all-reduce the row count (its max and its
-    negated min in one call) and raise ``ValueError`` on every rank if
-    the ranks feed different counts (the global batch would not be the
-    one asked for). The check waits for the device: a loader whose
-    batches all have one shape checks its first."""
+    to a card. ``local_batch`` is this rank's data row's rows (on a
+    dp×sp mesh every rank of a data row feeds the same); on a dp×sp mesh
+    its image leaves are then cut to this rank's image rows
+    (``mesh.image_rows``, JAX's layout: ``tests/test_parallel.py:192-213``)
+    unless ``whole_images`` (a caller that crops first and cuts after).
+    ``check``: all-reduce the row count (its max and its negated min in
+    one call) and raise ``ValueError`` on every rank if the ranks feed
+    different counts (the global batch would not be the one asked for).
+    The check waits for the device: a loader whose batches all have one
+    shape checks its first."""
     def put(x):
         t = torch.as_tensor(x)
+        if not whole_images:
+            t = image_rows(t, mesh).contiguous()
         if t.device.type == "cpu" and mesh.device.type == "cuda":
             return t.pin_memory().to(mesh.device, non_blocking=True)
         return t.to(mesh.device)

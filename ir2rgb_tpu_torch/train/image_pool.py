@@ -18,7 +18,10 @@ In a data-parallel step (``parallel/mesh.py``: ``sharded``) the pool
 works over the global batch, as JAX's replicated pool state does: every
 rank gathers the fakes of all ranks, queries its replica of the pool with
 them and the same draws (so the replicas stay equal), and keeps its own
-rows of the output.
+rows of the output. On a dp×sp mesh the fakes are blocks (batch rows over
+``dp``, image rows over ``sp``): every rank gathers the whole frames
+(``spatial.gather_block``), so each replica holds whole frames, equal to
+the one-process pool's, and keeps its block of the output.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ir2rgb_tpu_torch.parallel import mesh as pmesh
+from ir2rgb_tpu_torch.parallel import spatial
 
 
 class PoolState(NamedTuple):
@@ -74,6 +78,10 @@ def query_pool(pool: PoolState, fakes: torch.Tensor,
     them). In a data-parallel step ``fakes`` are this rank's rows: the
     query runs on the global batch and returns this rank's rows."""
     dp = pmesh.active()
+    if dp is not None and dp.sp > 1:
+        out, pool = _query(pool, spatial.gather_block(fakes, dp), generator,
+                           swap, idx)
+        return spatial.local_block(out, dp).contiguous(), pool
     if dp is not None:
         n = fakes.shape[0]
         out, pool = _query(pool, pmesh.gather(fakes, dp), generator, swap,

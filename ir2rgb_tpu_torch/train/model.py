@@ -70,6 +70,20 @@ trained or JAX-converted weights with ``load_state_dict``.
   ``DistributedDataParallel``: ``netD`` runs outside any wrapper's
   forward and the step is one backward of ``loss_g + loss_d``.
 
+- Spatially partitioned (a dp×sp mesh, ``parallel.dp_sp_mesh``): the
+  batch holds this rank's block (its data row's images, its rows of
+  them) and the passes run under ``parallel.spatial.serving``: the ops
+  exchange halo rows and B1's statistics, and their transposes in the
+  backward; every loss is this rank's partial sum over the frame's
+  element count, so the ``sp`` ranks' losses and gradients add up to
+  their data row's; the draws are the data row's on each of its ranks,
+  and the pool gathers whole frames. The one all-reduce of the
+  gradients and of the metrics then sums over every rank and divides by
+  ``dp``. Out of this slice, each raising before the first collective
+  (``spatial_train_refusal``, ROADMAP A16b): WGAN-GP (a second derivative
+  through the halos and the split B1), temporal windows, CycleGAN,
+  netE and instance edges, the U-Net, remat.
+
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
   reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
   ``ema_e``), for ``checkpoint/manager.py``.
@@ -109,6 +123,7 @@ from ir2rgb_tpu_torch.nn.encoders import (
 from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g, init_weights
 from ir2rgb_tpu_torch.nn.vgg import Vgg19, load_vgg19_npz
 from ir2rgb_tpu_torch.parallel import mesh as pmesh
+from ir2rgb_tpu_torch.parallel import spatial
 from ir2rgb_tpu_torch.parallel.mesh import DataParallelMesh
 from ir2rgb_tpu_torch.runtime import resolve_device, resolve_dtype
 from ir2rgb_tpu_torch.train.image_pool import PoolState, init_pool, query_pool
@@ -164,6 +179,9 @@ class GanModel:
     # generator name -> (its parameters, their versions, the bf16 copy)
     _serving: Dict[str, Tuple[tuple, tuple, nn.Module]] = dataclasses.field(
         default_factory=dict, repr=False)
+    # (mesh, its Shards): the partition a dp×sp step runs on, kept so that
+    # its halo indices are built once
+    _shards: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     @property
     def n_prev(self) -> int:
@@ -472,8 +490,15 @@ class GanModel:
         run inside ``parallel.mesh.sharded`` (draws, pool and batch norm
         over the global batch), and after the last backward one averaging
         all-reduce of every gradient and one of the metrics make them the
-        global batch's on every rank."""
+        global batch's on every rank. On a dp×sp mesh ``batch`` is this
+        rank's block and the passes run partitioned
+        (``parallel.spatial.serving``)."""
         accum = max(1, int(self.cfg.train.grad_accum))
+        part = self.mesh is not None and self.mesh.sp > 1
+        if part:
+            spatial_train_refusal(self.cfg)
+            if self._shards is None or self._shards[0] is not self.mesh:
+                self._shards = (self.mesh, spatial.Shards.of(self.mesh))
         n = next(iter(batch.values())).shape[0]
         if n % accum:
             raise ValueError(f"train.grad_accum={accum} must divide the "
@@ -481,7 +506,9 @@ class GanModel:
         for p in self._params():
             p.grad = None
         metrics = []
-        with pmesh.sharded(self.mesh):
+        ctx = (spatial.serving(self.mesh, self._shards[1]) if part
+               else pmesh.sharded(self.mesh))
+        with ctx:
             for i in range(accum):
                 micro = batch if accum == 1 else {
                     k: v[i * n // accum:(i + 1) * n // accum]
@@ -625,6 +652,25 @@ def _load_pool(pool, saved, device: torch.device):
         return None
     pool.buffer.copy_(saved["buffer"])
     return PoolState(pool.buffer, saved["count"].to(device))
+
+
+def spatial_train_refusal(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP A16b) for what a
+    spatially partitioned train step does not cover; nothing else."""
+    m, loss = cfg.model, cfg.loss
+    out = [what for what, on in (
+        ("WGAN-GP (its penalty differentiates through the halos and the "
+         "split B1 twice)", loss.gan_mode == "wgangp"),
+        ("temporal windows", m.model == "temporal"),
+        ("CycleGAN", m.model == "cycle_gan"),
+        ("netE features", m.use_instance_feat),
+        ("the instance-edge input", m.use_instance_edges),
+        (f"net_g={m.net_g} (the U-Net)", m.net_g.startswith("unet")),
+        ("remat", m.remat)) if on]
+    if out:
+        raise NotImplementedError(
+            "spatially partitioned training (train.spatial_devices > 1) "
+            f"with {', '.join(out)} is not ported ({spatial.A16B})")
 
 
 def _check_supported(cfg: Config) -> None:

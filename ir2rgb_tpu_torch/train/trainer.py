@@ -18,10 +18,17 @@ naming ``torchrun``), brings the group up for ``train.multihost``
 after every restore. Only rank 0 does the run's I/O (``config.json``, the
 fresh run's clear, checkpoints and the epoch index, loss lines, display
 images); the other ranks wait at a barrier where they read what rank 0
-wrote. Every rank restores the same files. Spatially partitioned
-training (``spatial_devices > 1``) is not ported (ROADMAP A16b; a dp×sp
-mesh serves, ``parallel/spatial.py``): the trainer raises for it before
-any step.
+wrote. Every rank restores the same files.
+
+Spatially partitioned training (``train.spatial_devices`` S > 1) runs on
+``dp_sp_mesh(train.num_devices, S)``, as JAX's trainer builds it: a group
+of dp·S processes, each S ranks of a data row reading the same images
+(the same crop and flip) and keeping their rows of them
+(``model.train_step`` runs partitioned, ``parallel/spatial.py``). I/O
+stays on rank 0; the display gathers the frame first
+(``spatial.gather_block``), on every rank. What such a step does not
+cover raises before any collective (``model.spatial_train_refusal``,
+ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -36,8 +43,14 @@ import torch.nn as nn
 
 from ir2rgb_tpu_torch.checkpoint import CheckpointManager
 from ir2rgb_tpu_torch.config import Config, save_config
-from ir2rgb_tpu_torch.parallel import data_parallel_mesh, multihost, replicate
-from ir2rgb_tpu_torch.train.model import GanModel
+from ir2rgb_tpu_torch.parallel import (
+    data_parallel_mesh,
+    dp_sp_mesh,
+    multihost,
+    replicate,
+    spatial,
+)
+from ir2rgb_tpu_torch.train.model import GanModel, spatial_train_refusal
 
 log = logging.getLogger(__name__)
 
@@ -78,14 +91,15 @@ class Trainer:
     def __init__(self, model: GanModel, cfg: Config, visualizer=None):
         tcfg = cfg.train
         if tcfg.spatial_devices > 1:
-            raise NotImplementedError(
-                "training with spatial_devices > 1 (spatial partitioning) "
-                "is not ported yet (ROADMAP A16b): the port trains "
-                "data-parallel only; a dp×sp mesh serves "
-                "(StreamingGenerator / MultiStreamServer mesh=)")
+            spatial_train_refusal(cfg)
         if tcfg.multihost:
             multihost.initialize(require=True)
-        self.mesh = data_parallel_mesh(tcfg.num_devices, device=model.device)
+        if tcfg.spatial_devices > 1:
+            self.mesh = dp_sp_mesh(tcfg.num_devices, tcfg.spatial_devices,
+                                   device=model.device)
+        else:
+            self.mesh = data_parallel_mesh(tcfg.num_devices,
+                                           device=model.device)
         self.writer = self.mesh.rank == 0
         self.model = model
         self.cfg = cfg
@@ -178,9 +192,8 @@ class Trainer:
                     self.visualizer.print_current_errors(epoch, step, avg, dt)
                 window.clear()
                 t0 = time.time()
-            if (self.visualizer is not None
-                    and step % tcfg.display_freq == 0):
-                self._display(batch, step)
+            if step % tcfg.display_freq == 0:
+                self.display(batch, step)
             if step % tcfg.save_latest_freq == 0:
                 self._save(step)
             if step % steps_per_epoch == 0:
@@ -208,12 +221,24 @@ class Trainer:
         self.ckpt.save(step, self.model.state_dict())
         self._last_saved = step
 
+    def display(self, batch: Dict[str, torch.Tensor], step: int) -> None:
+        """The display hook, called on every rank: on a dp×sp mesh the
+        frames of ``batch`` (this rank's block) are gathered whole first,
+        on every rank; then rank 0, where it has a visualizer, shows them
+        (:meth:`_display`)."""
+        if self.mesh.sp > 1:
+            batch = {k: spatial.gather_block(batch[k], self.mesh)
+                     for k in ("a", "b")}
+        if self.visualizer is not None:
+            self._display(batch, step)
+
     def _display(self, batch: Dict[str, torch.Tensor], step: int) -> None:
-        """The display hook: sample 0's input, generated and target frames
-        (the first frame of a window), generated by the serving forward
-        (``generate``) and conditioned as training is: the edge channel
-        and netE's style of the real target, where the batch has instance
-        maps (``trainer.py:120-135`` of the JAX package)."""
+        """Sample 0's input, generated and target frames (the first frame
+        of a window), generated by the serving forward (``generate``, one
+        process's forward of the whole frame) and conditioned as training
+        is: the edge channel and netE's style of the real target, where
+        the batch has instance maps (``trainer.py:120-135`` of the JAX
+        package)."""
         from ir2rgb_tpu_torch.infer.stream import label2im, tensor2im
         from ir2rgb_tpu_torch.nn.encoders import instance_edges
         model = self.model

@@ -749,10 +749,15 @@ def test_plain_versions_do_not_count_as_launches():
     fused_instance_norm_act(x, "relu")
     tail_fused(x, torch.zeros((7, 7, 32, 3)), torch.zeros(3))
     pin.instance_norm_apply(x, *pin.instance_norm_stats(x))
+    _, mean, rstd = pin.instance_norm_act_reference(x)
+    s1, s2 = pin.instance_norm_bwd_stats(x, mean, rstd, x)
+    pin.instance_norm_bwd_apply(x, mean, rstd, x, s1, s2, 64.0)
     assert launch_counts() == {"instance_norm_act": 0,
                                "instance_norm_act_bwd": 0,
                                "instance_norm_stats": 0,
-                               "instance_norm_apply": 0, "tail_fused": 0,
+                               "instance_norm_apply": 0,
+                               "instance_norm_bwd_stats": 0,
+                               "instance_norm_bwd_apply": 0, "tail_fused": 0,
                                "d2s": 0, "s2d": 0}
 
 

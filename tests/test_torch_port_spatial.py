@@ -95,6 +95,14 @@ class CutShards(spatial.Shards):
         return self.whole[:, list(plan.foreign[self.rank])]
 
 
+class _Alone(CutShards):
+    """:class:`CutShards` whose statistics travel nowhere: each rank's
+    alone in its slot (a graph to differentiate, not a frame's values)."""
+
+    def _reduce(self, buf):
+        return buf
+
+
 def _per_rank(fn, x, sp):
     h = x.shape[1] // sp
     outs = []
@@ -182,10 +190,18 @@ def test_b2_over_a_halo_equals_the_whole_tail(sp):
 
 
 def test_a_stride_2_op_on_odd_shards_names_the_layer_and_sp():
+    # a strided conv splits its output over the ranks, uneven or not
+    # (tests/test_torch_port_spatial_train.py); a 2x2 max pool is row-local
+    # and a generator's stages must split evenly: both name the layer, sp
     x = _seeded((1, 12, 8, 4), 10)
     with spatial.partitioned(CutShards(4, 1, x)), \
-            pytest.raises(ValueError, match=r"conv k3 s2 p1.*sp = 4"):
-        ops.conv(x[:, 3:6], W3, B, 2, 1)
+            pytest.raises(ValueError, match=r"max_pool 2x2.*sp = 4"):
+        ops.max_pool2x2(x[:, 3:6])
+    from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g
+    g = define_g(GenConfig(net_g="resnet_6blocks", ngf=4, input_nc=4))
+    with spatial.partitioned(CutShards(4, 1, x)), torch.no_grad(), \
+            pytest.raises(ValueError, match=r"resnet_6blocks.*sp = 4"):
+        g(x[:, 3:6])
 
 
 # ---------------------------------------------------------------------------
@@ -372,13 +388,18 @@ def test_out_of_slice_pieces_name_a16b(what, tmp_path):
                          train=TrainConfig(spatial_devices=2,
                                            checkpoints_dir=str(tmp_path)))
             Trainer(create_model(cfg, device="cpu"), cfg)
-        elif what in ("b1_backward", "halo_backward"):
-            with spatial.partitioned(CutShards(2, 0, x)):
+        elif what in ("b1_backward", "halo_backward", "train_tail"):
+            # the first derivative trains (tests/test_torch_port_spatial_
+            # train.py); the second (WGAN-GP's) is A16b
+            with spatial.partitioned(_Alone(2, 0, x)):
                 t = x[:, :4].clone().requires_grad_(True)
                 if what == "b1_backward":
-                    ops.norm_act(t, "instance")
+                    y = ops.norm_act(t, "instance")
+                elif what == "halo_backward":
+                    y = ops.reflect_pad(t, 1)
                 else:
-                    ops.reflect_pad(t, 1)
+                    y = _tail(torch.nn.Conv2d(8, 3, 7), t, train=True)
+                torch.autograd.grad(y.square().sum(), t, create_graph=True)
         elif what == "quant":
             with torch.no_grad(), quant.using("int8"), \
                     spatial.partitioned(CutShards(2, 0, x)):
@@ -396,11 +417,8 @@ def test_out_of_slice_pieces_name_a16b(what, tmp_path):
                                             mesh=FAKE_SP2)
         else:
             with torch.no_grad(), spatial.partitioned(CutShards(2, 0, x)):
-                if what == "unet":
-                    define_g(GenConfig(net_g="unet_128", ngf=4, input_nc=8))(
-                        x[:, :4])
-                else:
-                    _tail(torch.nn.Conv2d(8, 3, 7), x[:, :4], train=True)
+                define_g(GenConfig(net_g="unet_128", ngf=4, input_nc=8))(
+                    x[:, :4])
 
 
 # ---------------------------------------------------------------------------

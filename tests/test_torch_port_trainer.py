@@ -241,10 +241,11 @@ def test_completed_run_relaunch_is_noop(tmp_path):
 def test_unported_parallel_training_raises_before_any_step(tmp_path, field,
                                                            value,
                                                            monkeypatch):
-    # data parallelism and multihost are ported (the name predates them):
-    # spatial partitioning still raises, naming A16; two devices without
-    # a process group name the torchrun launch; multihost with no cluster
-    # raises from multihost.initialize(require=True). Nothing is written.
+    # data parallelism, multihost and spatial partitioning are ported
+    # (the name predates them): two devices without a process group name
+    # the torchrun launch; sp 2 without a group of dp·sp ranks raises
+    # JAX's dp_sp_mesh error; multihost with no cluster raises from
+    # multihost.initialize(require=True). Nothing is written.
     from ir2rgb_tpu_torch.parallel import multihost
     for k in multihost.ENV:
         monkeypatch.delenv(k, raising=False)
@@ -252,7 +253,7 @@ def test_unported_parallel_training_raises_before_any_step(tmp_path, field,
     model = create_model(cfg, device="cpu")
     want = {"num_devices": (ValueError, "torchrun --standalone "
                                         "--nproc_per_node 2"),
-            "spatial_devices": (NotImplementedError, "A16"),
+            "spatial_devices": (ValueError, "sp = 2 exceeds 1 visible"),
             "multihost": (RuntimeError, "require=True")}[field]
     with pytest.raises(want[0], match=want[1]):
         Trainer(model, cfg)
