@@ -181,12 +181,16 @@ Phases, each failing the run if it fails:
    sharing the one card (``chip_smoke.py --spatial-train-rank R WORLD
    PORT DIR``). B1's split backward (``ir2rgb::instance_norm_bwd_stats``
    and ``ir2rgb::instance_norm_bwd_apply``) at every shard shape of the
-   phase's steps (``B1_SPLIT_BWD_SHAPES``) against its plain versions,
+   phase's steps (``sweep_b1.BWD_SHAPES``) against its plain versions
+   (the sums also against their chunked reference in the plan's order),
    bf16 and fp32, one device kernel a call, the sums of two calls
-   bit-identical; bf16 timed beside the plain versions, the library's
-   (the formula in eager torch) and the bound, and summed over one
-   ``SPLIT_TRAIN_STEP`` rank's launches. Steps (``SPATIAL_TRAIN_CASES``):
-   pix2pixhd_512 at full width on sp 2, fp32 and bf16, 2 steps each;
+   bit-identical, each row's sums route printed and every route taken;
+   bf16 timed beside the plain versions, the library's
+   (the formula in eager torch) and the bound, on a cold L2 as well
+   where x and g reach SPLIT_COLD_BYTES, and summed over one
+   ``SPLIT_TRAIN_STEP`` rank's launches (``sweep_b1.BWD_STEP``).
+   Steps (``SPATIAL_TRAIN_CASES``): pix2pixhd_512 at full width on sp
+   2, fp32 and bf16, 2 steps each;
    on dp 2 x sp 2, fp32, against one process's batch-2 step;
    pix2pixhd_2048 bf16 on sp 4, 2 timed steps. Every rank's launches a step equal to
    ``SPATIAL_TRAIN`` (no fused B1; statistics, apply, sums and dx
@@ -750,9 +754,6 @@ def spatial_per_step(table: dict) -> dict:
 SPATIAL_TRAIN = {(p, dp, sp, q): spatial_train_table(p, sp, q)
                  for p, dp, sp, _, _ in SPATIAL_TRAIN_CASES
                  for q in range(sp)}
-# the split backward's shapes: every (shape, act) of those tables with rows
-B1_SPLIT_BWD_SHAPES = sorted({k for t in SPATIAL_TRAIN.values()
-                              for k in t["b1_bwd"] if k[0][1]})
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
 # (a reading of such a graph spans >= 0.5 ms; the plain and library
@@ -4816,18 +4817,25 @@ def spatial_phase(card: str, bw: float, gen: torch.Generator) -> dict:
 def b1_split_bwd_phase(bw: float, gen: torch.Generator):
     """The split backward (``ir2rgb::instance_norm_bwd_stats`` and
     ``ir2rgb::instance_norm_bwd_apply``) at every shard shape of the
-    spatial_train phase's steps (``B1_SPLIT_BWD_SHAPES``), bf16 and fp32,
+    spatial_train phase's steps (``sweep_b1.BWD_SHAPES``), bf16 and fp32,
     each held to its plain version on the card (the sums to 1e-4 of their
-    largest, dx at the fused backward's tolerances over max|dx|), one
-    device kernel a call, the sums of two calls bit-identical; bf16 timed
+    largest, and so to their chunked reference, which adds in the plan's
+    order; dx at the fused backward's tolerances over max|dx|), one
+    device kernel a call, the sums of two calls bit-identical, each row
+    with the route its sums plan takes, and each of the three routes
+    (one level, one cluster, clusters and tickets) taken; bf16 timed
     (CUDA-graph replay) beside the plain version, the library's (the
     same formula as eager torch in x's dtype) and the bound (bytes: x and
-    g read once, dx written once)."""
+    g read once, dx written once), and on a cold L2 (``cold_ms``, the
+    flush read) where x and g reach SPLIT_COLD_BYTES."""
     from ir2rgb_tpu_torch.kernels import instance_norm as b1
+    from ir2rgb_tpu_torch.sweep_b1 import BWD_SHAPES
     rows = []
     worst = {(op, d): 0.0 for op in ("sums", "apply")
              for d in ("bfloat16", "float32")}
-    for (shape, act) in B1_SPLIT_BWD_SHAPES:
+    routes = Counter()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for (shape, act) in BWD_SHAPES:
         n, h, w, c = shape
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
@@ -4839,8 +4847,9 @@ def b1_split_bwd_phase(bw: float, gen: torch.Generator):
                                + b1.INSTANCE_NORM_EPS).contiguous()
             # a shard's pixels and those of the rest of the frame
             count = float(h * w * 2)
-            s1, s2 = b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
+            sums = b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
             again = b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
+            s1, s2 = sums
             r1, r2 = b1.instance_norm_bwd_stats_reference(x, mean, rstd, g,
                                                           act)
             dx = b1.instance_norm_bwd_apply(x, mean, rstd, g, s1, s2, count,
@@ -4850,13 +4859,20 @@ def b1_split_bwd_phase(bw: float, gen: torch.Generator):
             torch.cuda.synchronize()
             sum_err = max(float((s1 - r1).abs().max() / r1.abs().max()),
                           float((s2 - r2).abs().max() / r2.abs().max()))
-            same = torch.equal(s1, again[0]) and torch.equal(s2, again[1])
+            same = torch.equal(sums, again)
             err = float((dx.float() - ref.float()).abs().max()
                         / ref.float().abs().max())
             for op, e in (("sums", sum_err), ("apply", err)):
                 key = (op, dtype_name(dtype))
                 worst[key] = max(worst[key], e)
-            plan = b1.bwd_stats_plan_for(x)
+            plan = b1.bwd_stats_plan_for(x, act)
+            routes[plan.route] += 1
+            # the sums in the plan's order (chunks, cluster ranks, then
+            # the clusters of a slab), plain fp32 within a chunk
+            chunked = b1.instance_norm_bwd_stats_chunked_reference(
+                x, mean, rstd, g, plan, act)
+            chunk_err = float(((sums - chunked).abs().amax(dim=(1, 2))
+                               / chunked.abs().amax(dim=(1, 2))).max())
 
             def sums():
                 return b1.instance_norm_bwd_stats(x, mean, rstd, g, act)
@@ -4866,11 +4882,12 @@ def b1_split_bwd_phase(bw: float, gen: torch.Generator):
                                                   count, act)
             kernels = (device_kernels(sums), device_kernels(apply))
             tag = (f"B1 split bwd {shape} {act} {dtype_name(dtype)} (sums: "
-                   f"{plan.channels} ch x {plan.chunks} chunks of "
-                   f"{plan.chunk} px)")
-            check(sum_err <= 1e-4 and err <= TOL[dtype] and same
-                  and kernels == (1, 1),
+                   f"route {plan.route}, {plan.channels} ch x {plan.chunks} "
+                   f"chunks of {plan.chunk} px in clusters of {plan.k})")
+            check(sum_err <= 1e-4 and chunk_err <= 1e-4 and err <= TOL[dtype]
+                  and same and kernels == (1, 1),
                   f"{tag}: sums {sum_err:.3g} of their largest (tol 1e-4), "
+                  f"{chunk_err:.3g} from the chunked order (tol 1e-4), "
                   f"two calls bit-identical {same}, dx {err:.3g} of max|dx| "
                   f"(tol {TOL[dtype]}), {kernels} device kernel(s) per call "
                   "(want 1 each)")
@@ -4897,11 +4914,14 @@ def b1_split_bwd_phase(bw: float, gen: torch.Generator):
                 return r4 * (gp - a4 - xh * b4)
             xb = x.numel() * x.element_size()
             stats_b = 4 * n * c * 4
+            cold = 2 * xb >= SPLIT_COLD_BYTES
             rows.append(dict(
                 name="sums", key=(shape, act), shape=list(shape), act=act,
                 dtype=dtype_name(dtype), max_abs_err=sum_err,
+                chunked_err=chunk_err,
                 device_kernels=kernels[0], plan=plan._asdict(),
                 ms=graph_ms(sums),
+                cold_ms=cold_ms(sums, flush, read=True) if cold else None,
                 plain_ms=graph_ms(lambda: b1.instance_norm_bwd_stats_reference(
                     x, mean, rstd, g, act)),
                 library_ms=graph_ms(lib_sums),
@@ -4911,11 +4931,15 @@ def b1_split_bwd_phase(bw: float, gen: torch.Generator):
                 dtype=dtype_name(dtype), max_abs_err=err,
                 device_kernels=kernels[1],
                 ms=graph_ms(apply),
+                cold_ms=cold_ms(apply, flush, read=True) if cold else None,
                 plain_ms=graph_ms(
                     lambda: b1.instance_norm_bwd_apply_reference(
                         x, mean, rstd, g, s1, s2, count, act)),
                 library_ms=graph_ms(lib_apply),
                 bound_ms=(3 * xb + stats_b) / bw * 1e3))
+    check(all(routes[r] for r in ("one", "cluster", "tickets")),
+          f"B1 split bwd: the sums plans take every route (one level, one "
+          f"cluster, clusters and tickets): {dict(routes)}")
     return rows, worst
 
 
@@ -5486,12 +5510,18 @@ def main() -> int:
             split_counts)}
     # the split backward over one rank's partitioned step of
     # SPLIT_TRAIN_STEP (preset, dp, sp, rank), bf16
-    bwd_counts = Counter({k: c for k, c in SPATIAL_TRAIN[SPLIT_TRAIN_STEP][
-        "b1_bwd"].items() if k[0][1]})
+    from ir2rgb_tpu_torch.sweep_b1 import BWD_STEP
+    bwd_counts = Counter(BWD_STEP)
     split_bwd = {name: per_path_totals(
         [r for r in spatial_train["b1_split_bwd_rows"] if r["name"] == name],
         bwd_counts, ("ms", "plain_ms", "library_ms", "bound_ms"))
         for name in ("sums", "apply")}
+
+    def bwd_cold(name):
+        return {f"{r['shape']} {r['act']}": dict(cold_ms=r["cold_ms"],
+                                                 bound_ms=r["bound_ms"])
+                for r in spatial_train["b1_split_bwd_rows"]
+                if r["name"] == name and r["cold_ms"] is not None}
     kernels = [
         kernel_entry(
             "instance_norm_act",
@@ -5601,10 +5631,12 @@ def main() -> int:
                  f"sp {SPLIT_TRAIN_STEP[2]} ({sum(bwd_counts.values())} "
                  "launches at its shard shapes), bf16; max_abs_err: of the "
                  "sums, relative to their largest; library: the formula "
-                 "in eager torch",
+                 "in eager torch; cold_ms_by_shape: a call on a cold L2 "
+                 "where x and g reach SPLIT_COLD_BYTES",
              device_kernels_per_call=max(
                  r["device_kernels"] for r in
                  spatial_train["b1_split_bwd_rows"] if r["name"] == "sums"),
+             cold_ms_by_shape=bwd_cold("sums"),
              launches_by_path=path_launches("instance_norm_bwd_stats")),
         dict(name="instance_norm_bwd_apply", route="cuda",
              source="ir2rgb_tpu_torch/kernels/csrc/instance_norm.cu",
@@ -5623,6 +5655,7 @@ def main() -> int:
              device_kernels_per_call=max(
                  r["device_kernels"] for r in
                  spatial_train["b1_split_bwd_rows"] if r["name"] == "apply"),
+             cold_ms_by_shape=bwd_cold("apply"),
              launches_by_path=path_launches("instance_norm_bwd_apply")),
         kernel_entry(
             "d2s", "ir2rgb_tpu_torch/kernels/csrc/d2s.cu",

@@ -55,12 +55,13 @@
 // The split backward, for the same frame under autograd:
 // ir2rgb_instance_norm_bwd_stats writes each (n, c)'s plain sums s1 =
 // sum g' and s2 = sum g' * xh over the rows in hand (xh from the merged
-// mean and rstd), on the statistics kernel's plan and tickets; the ranks
-// add those in rank order (plain PyTorch), and
-// ir2rgb_instance_norm_bwd_apply writes dx = rstd * (g' - s1 / count -
-// xh * s2 / count) with count the channel's pixels over every rank. Both
-// are bound by bytes: the sums read x and g once, the apply reads them
-// once and writes dx once. Together they are _fused_bwd.
+// mean and rstd) into one (2, n, c) buffer, on a plan of its own (one
+// level, one cluster a slab, or clusters merged by tickets; see
+// in_bwd_stats_kernel); the ranks add those in rank order (plain
+// PyTorch), and ir2rgb_instance_norm_bwd_apply writes dx = rstd * (g' -
+// s1 / count - xh * s2 / count) with count the channel's pixels over
+// every rank. Both are bound by bytes: the sums read x and g once, the
+// apply reads them once and writes dx once. Together they are _fused_bwd.
 //
 // The statistics kernel (in_stats_kernel) has a plan of its own
 // (kernels/instance_norm.py::_stats_plan), with two levels:
@@ -249,17 +250,32 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
 
 // g * act'(xh): the activation's derivative at the normalised input, as
 // _fused_bwd folds it (relu: xh > 0; leaky: xh >= 0 ? 1 : slope;
-// tanh: 1 - tanh(xh)^2).
+// tanh: 1 - tanh(xh)^2), for activation kAct (0 none, 1 relu, 2
+// leaky_relu, 3 tanh; ACTS in kernels/instance_norm.py): a template
+// argument where a kernel is instantiated for each, so that its inner
+// loop has no switch.
+template <int kAct>
+__device__ __forceinline__ float act_grad_t(float g, float xh, float slope) {
+  if constexpr (kAct == 1) {
+    return xh > 0.f ? g : 0.f;
+  } else if constexpr (kAct == 2) {
+    return xh >= 0.f ? g : g * slope;
+  } else if constexpr (kAct == 3) {
+    const float t = tanhf(xh);
+    return g * (1.f - t * t);
+  } else {
+    return g;
+  }
+}
+
+// The same for an activation known at run time.
 __device__ __forceinline__ float act_grad(float g, float xh, int act,
                                           float slope) {
   switch (act) {
-    case 1: return xh > 0.f ? g : 0.f;
-    case 2: return xh >= 0.f ? g : g * slope;
-    case 3: {
-      const float t = tanhf(xh);
-      return g * (1.f - t * t);
-    }
-    default: return g;
+    case 1: return act_grad_t<1>(g, xh, slope);
+    case 2: return act_grad_t<2>(g, xh, slope);
+    case 3: return act_grad_t<3>(g, xh, slope);
+    default: return act_grad_t<0>(g, xh, slope);
   }
 }
 
@@ -639,6 +655,9 @@ struct Lane<float, 4> {
   __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
     ir2rgb::Vec<float>::unpack(r, v);
   }
+  __device__ __forceinline__ static Raw pack(const float* v) {
+    return ir2rgb::Vec<float>::pack(v);
+  }
 };
 
 template <>
@@ -647,6 +666,9 @@ struct Lane<__nv_bfloat16, 8> {
   __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
     ir2rgb::Vec<__nv_bfloat16>::unpack(r, v);
   }
+  __device__ __forceinline__ static Raw pack(const float* v) {
+    return ir2rgb::Vec<__nv_bfloat16>::pack(v);
+  }
 };
 
 template <>
@@ -654,6 +676,9 @@ struct Lane<__nv_bfloat16, 4> {
   using Raw = uint2;
   __device__ __forceinline__ static void unpack(const Raw& r, float* v) {
     Word<__nv_bfloat16>::unpack(r, v);
+  }
+  __device__ __forceinline__ static Raw pack(const float* v) {
+    return Word<__nv_bfloat16>::pack(v);
   }
 };
 
@@ -941,25 +966,135 @@ in_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
 
 // The split backward's sums (in_bwd_stats_kernel): per (n, c), over the
 // rows in hand, s1 = sum g' and s2 = sum g' * xh, with xh = (x - mean) *
-// rstd from the merged statistics and g' = act'(xh) * g. The statistics
-// kernel's plan and tickets (StatsPlan): one block a chunk of a slab, each
-// thread kStatsBatch pixels' words of x and of g in flight, plain fp32
-// sums in pixel order, the block's in a fixed order (block_col_sum), and
-// with several chunks the last block of a slab to draw its ticket adds
-// the chunks' partials in chunk order (a run of consecutive chunks a
-// thread, the runs in order). So two launches give the same bits.
-template <typename T, int kCh>
+// rstd from the merged statistics and g' = act'(xh) * g, written to one
+// (2, n, c) buffer (s1, then s2). Its plan (kernels/instance_norm.py::
+// _bwd_stats_plan) cuts each slab (one image's pixels of a group of at
+// most 64 bytes a pixel) into chunks, one block of 256 threads a chunk,
+// and takes one of three routes by the chunks a slab:
+//   one level  one chunk: the block writes the slab's sums;
+//   cluster    a cluster of k <= 16 chunks: every block leaves its sums in
+//              the shared memory of the cluster's rank 0 (a store through
+//              distributed shared memory), and after the cluster barrier
+//              (arrive.release / wait.acquire) rank 0 adds them in rank
+//              order and writes the slab's sums: no scratch in device
+//              memory, no ticket, no atomic;
+//   tickets    m clusters a slab: each cluster's rank 0 writes the
+//              cluster's sums to a scratch buffer and draws a ticket (an
+//              acq_rel atomicInc on the slab's counter); the last of the m
+//              to draw adds the m partials in cluster order, a thread a
+//              value with its loads all in flight at once.
+// A thread issues its first kStatsBatch pixels' loads of x and of g before
+// it reads the statistics, so that the latencies overlap. The activation
+// is a template argument, so the inner loop has no switch. Sums in fp32:
+// each thread's in pixel order, the block's in a fixed order
+// (block_sums), then rank order and cluster order: two launches give the
+// same bits.
+//
+// Why (ir2rgb_tpu_torch/phases_b1.py --split, sweep_b1.py --bwd-stats on
+// an H100): the parent design (the statistics kernel's plan and tickets)
+// spent a launch's fixed cost on its block reduction (16 runtime loops of
+// dependent shuffles, ~1.6 us of a ~3 us block), on a second round of
+// loads where a chunk held a few pixels over 8 rows a thread (+2.7-3.2
+// us), and on a ticket and a serial L2 merge (~1.4 us) for every slab of
+// more than one chunk. Here the butterfly is unrolled, a slab of up to 16
+// chunks merges through distributed shared memory (~1 us: the push, the
+// barrier, the adds), and the tickets route (a ticket ~0.8 us) is left to
+// the shapes large enough to be bound by bytes, where one block an SM
+// keeps the launch even over the SMs and clusters of 16 keep a single
+// slab's partials to a few.
+struct BwdStatsPlan {
+  int n, hw, c;  // batch, pixels per image, channels
+  int cg;        // words (of 4 channels) of a slab at one pixel
+  int chunks;    // chunks (blocks) per slab: k * clusters a slab
+  int chunk;     // pixels per chunk
+  int k;         // blocks per cluster (1: no cluster)
+};
+
+constexpr int kMaxSlab = 32;     // channels of a slab: 64 bytes of bf16
+constexpr int kMaxCluster = 16;  // the card's largest (non-portable) cluster
+constexpr int kMergeLoads = 16;  // partials the last cluster loads at once
+
+// The split cluster barrier's arrive with release semantics: this block's
+// stores into another block's shared memory are visible to the cluster
+// after its wait (acquire).
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// A float of another block, from L2 (written before its ticket).
+__device__ __forceinline__ void load_partial(float& r, const float* p) {
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(r) : "l"(p));
+}
+
+// kCh floats at p (16-byte aligned), as float4 loads.
+template <int kCh>
+__device__ __forceinline__ void load_floats(float* v, const float* p) {
+#pragma unroll
+  for (int j = 0; j < kCh; j += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + j);
+    v[j] = f.x;
+    v[j + 1] = f.y;
+    v[j + 2] = f.z;
+    v[j + 3] = f.w;
+  }
+}
+
+// Loads i of a batch: the thread's pixels q0 + i * rows (those below cnt)
+// of x and of g, all issued before any is used.
+template <typename Raw>
+__device__ __forceinline__ void load_pairs(Raw* rx, Raw* rg, const Raw* xs,
+                                           const Raw* gs, int q0, int rows,
+                                           int cnt, size_t stride) {
+#pragma unroll
+  for (int i = 0; i < kStatsBatch; ++i)
+    if (q0 + i * rows < cnt) {
+      load_word(rx[i], xs + (size_t)(q0 + i * rows) * stride);
+      load_word(rg[i], gs + (size_t)(q0 + i * rows) * stride);
+    }
+}
+
+// The block's sums of v[0..K) over the threads of each column (threadIdx %
+// cv; cv a power of two): a butterfly in each warp, its levels unrolled so
+// that the K values' shuffles of a level are in flight together (a loop
+// over each value's levels puts 3K dependent shuffles in a row, ~1 us),
+// then value t < cv * K (column t / K, element t % K) of the block
+// added over the warps in order by thread t. The order of block_col_sum,
+// so the same bits. red holds kStatsWarps * cv * K floats.
+template <int K>
+__device__ __forceinline__ float block_sums(float* v, float* red, int cv) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    if (off >= cv)
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane < cv)
+#pragma unroll
+    for (int j = 0; j < K; ++j) red[(warp * cv + lane) * K + j] = v[j];
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < cv * K)
+#pragma unroll
+    for (int w = 0; w < kStatsWarps; ++w) s += red[w * cv * K + threadIdx.x];
+  return s;
+}
+
+template <typename T, int kCh, int kAct>
 __global__ void __launch_bounds__(kStatsThreads, 2)
 in_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ mean,
-                    const float* __restrict__ rstd, float* __restrict__ s1_out,
-                    float* __restrict__ s2_out, float2* __restrict__ part,
-                    unsigned* __restrict__ tickets, StatsPlan p, int act,
-                    float slope) {
+                    const float* __restrict__ rstd, float* __restrict__ sums,
+                    float* __restrict__ part, unsigned* __restrict__ tickets,
+                    BwdStatsPlan p, float slope) {
   using L = Lane<T, kCh>;
   using Raw = typename L::Raw;
-  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[kStatsWarps * 2 * kMaxSlab];  // block_sums'
+  __shared__ float slot[kMaxCluster * 2 * kMaxSlab];  // [rank][value]
   __shared__ bool last;
+  const bool clustered = p.k > 1;
+  if (clustered) cluster_arrive();  // this block runs: its slot may be used
   const int cs = p.cg * kPer;  // channels of the slab
   const int cv = cs / kCh;     // loads a pixel
   const int k = blockIdx.x % p.chunks;
@@ -968,28 +1103,22 @@ in_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int col = threadIdx.x % cv;
   const int row = threadIdx.x / cv;
   const int rows = kStatsThreads / cv;
-  const int cnt = chunk_count(p, k);
+  const int cnt = min(p.chunk, p.hw - k * p.chunk);
   const size_t stride = p.c / kCh;
-  const size_t first = (size_t)n * p.hw * stride + (size_t)grp * cv + col +
-                       (size_t)k * p.chunk * stride;
+  const size_t first = ((size_t)n * p.hw + (size_t)k * p.chunk) * stride +
+                       (size_t)grp * cv + col;
   const Raw* xs = reinterpret_cast<const Raw*>(x) + first;
   const Raw* gs = reinterpret_cast<const Raw*>(g) + first;
-  const size_t o = (size_t)n * p.c + (size_t)grp * cs;
+  Raw rx[kStatsBatch], rg[kStatsBatch];
+  int q0 = row;
+  load_pairs(rx, rg, xs, gs, q0, rows, cnt, stride);
+  const size_t o = (size_t)n * p.c + (size_t)grp * cs + col * kCh;
   float mu[kCh], rs[kCh], v[2 * kCh];  // v: s1 then s2 of each channel
+  load_floats<kCh>(mu, mean + o);
+  load_floats<kCh>(rs, rstd + o);
 #pragma unroll
-  for (int j = 0; j < kCh; ++j) {
-    mu[j] = mean[o + col * kCh + j];
-    rs[j] = rstd[o + col * kCh + j];
-    v[j] = v[kCh + j] = 0.f;
-  }
-  for (int q0 = row; q0 < cnt; q0 += kStatsBatch * rows) {
-    Raw rx[kStatsBatch], rg[kStatsBatch];
-#pragma unroll
-    for (int i = 0; i < kStatsBatch; ++i)
-      if (q0 + i * rows < cnt) {
-        load_word(rx[i], xs + (size_t)(q0 + i * rows) * stride);
-        load_word(rg[i], gs + (size_t)(q0 + i * rows) * stride);
-      }
+  for (int j = 0; j < 2 * kCh; ++j) v[j] = 0.f;
+  while (true) {
 #pragma unroll
     for (int i = 0; i < kStatsBatch; ++i)
       if (q0 + i * rows < cnt) {
@@ -999,115 +1128,152 @@ in_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
         for (int j = 0; j < kCh; ++j) {
           const float xh = (a[j] - mu[j]) * rs[j];
-          const float gp = act_grad(b[j], xh, act, slope);
+          const float gp = act_grad_t<kAct>(b[j], xh, slope);
           v[j] += gp;
           v[kCh + j] += gp * xh;
         }
       }
+    q0 += kStatsBatch * rows;
+    if (q0 >= cnt) break;
+    load_pairs(rx, rg, xs, gs, q0, rows, cnt, stride);
   }
-  float* red = reinterpret_cast<float*>(smem);  // [warp][cv][2 kCh]
-  float* acc = red + kStatsWarps * 2 * cs;      // [2][thread], the merge
-  block_col_sum<2 * kCh>(v, red, cv, false);
+  // thread t < 2 cs: value t of the block (column t / (2 kCh); s1 for
+  // t % (2 kCh) < kCh, else s2), written to `out` by the thread that ends
+  // with the slab's
+  const float blk = block_sums<2 * kCh>(v, red, cv);
+  const int t = threadIdx.x;
+  const bool mine = t < 2 * cs;
+  const int tj = t % (2 * kCh);
+  float* out = sums + (tj < kCh ? 0 : (size_t)p.n * p.c) + (size_t)n * p.c +
+               (size_t)grp * cs + (t / (2 * kCh)) * kCh + tj % kCh;
+  if (p.chunks == 1) {  // one level
+    if (mine) *out = blk;
+    return;
+  }
+  // the cluster's sums, added by its rank 0 from its shared memory
+  const int rank = k % p.k;
+  if (clustered) cluster_wait();  // every block of the cluster runs
+  if (mine) {
+    float* dst = clustered ? cg::this_cluster().map_shared_rank(slot, 0)
+                           : slot;
+    dst[rank * 2 * cs + t] = blk;
+  }
+  if (clustered) {
+    cluster_arrive_release();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  if (rank != 0) return;
+  float s = 0.f;
+  if (mine)
+    for (int r = 0; r < p.k; ++r) s += slot[r * 2 * cs + t];
+  const int m = p.chunks / p.k;  // clusters a slab
+  if (m == 1) {
+    if (mine) *out = s;
+    return;
+  }
   const int slab = n * (p.c / cs) + grp;
-  float2* sp = part + (size_t)slab * p.chunks * cs;
-  if (row == 0) {  // threads 0 .. cv - 1 of warp 0: column col
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) {
-      if (p.chunks == 1) {
-        s1_out[o + col * kCh + j] = v[j];
-        s2_out[o + col * kCh + j] = v[kCh + j];
-      } else {
-        sp[(size_t)k * cs + col * kCh + j] = make_float2(v[j], v[kCh + j]);
-      }
-    }
-  }
-  if (p.chunks == 1) return;
+  float* sp = part + (size_t)slab * m * 2 * cs;
+  if (mine) sp[(size_t)(k / p.k) * 2 * cs + t] = s;
+  // the ticket: a release of this cluster's partial (ordered before it by
+  // the barrier) and an acquire of every earlier cluster's
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (t == 0) {
     unsigned old;
     asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
                  : "=r"(old)
-                 : "l"(tickets + slab), "r"(p.chunks - 1)
+                 : "l"(tickets + slab), "r"(m - 1)
                  : "memory");
-    last = old == p.chunks - 1;
+    last = old == m - 1;
   }
   __syncthreads();
-  if (!last) return;
-  // the last block: thread (run, ch) adds chunks [run * len, ...) of
-  // channel ch in order; then the runs are added in order
-  const int ch = threadIdx.x % cs;
-  const int run = threadIdx.x / cs;
-  const int nruns = kStatsThreads / cs;
-  const int len = (p.chunks + nruns - 1) / nruns;
-  const int k0 = run * len;
-  const int end = min(p.chunks, k0 + len);
-  float a = 0.f, b = 0.f;
-  for (int kk = k0; kk < end; ++kk) {
-    float2 w;
-    load_partial(w, sp + (size_t)kk * cs + ch);
-    a += w.x;
-    b += w.y;
+  if (!last || !mine) return;
+  // the last cluster: the m partials of value t in cluster order,
+  // kMergeLoads loads in flight at a time
+  float tot = 0.f;
+  for (int c0 = 0; c0 < m; c0 += kMergeLoads) {
+    float pv[kMergeLoads];
+#pragma unroll
+    for (int i = 0; i < kMergeLoads; ++i)
+      if (c0 + i < m) load_partial(pv[i], sp + (size_t)(c0 + i) * 2 * cs + t);
+#pragma unroll
+    for (int i = 0; i < kMergeLoads; ++i)
+      if (c0 + i < m) tot += pv[i];
   }
-  acc[threadIdx.x] = a;
-  acc[kStatsThreads + threadIdx.x] = b;
-  __syncthreads();
-  if (run == 0) {
-    float sa = 0.f, sb = 0.f;
-    for (int r2 = 0; r2 < nruns; ++r2) {
-      sa += acc[r2 * cs + ch];
-      sb += acc[kStatsThreads + r2 * cs + ch];
-    }
-    s1_out[o + ch] = sa;
-    s2_out[o + ch] = sb;
-  }
+  *out = tot;
 }
 
-// Dynamic shared memory of the backward's sums: block_col_sum's scratch
-// (two floats a warp and channel of the slab) and two floats a thread.
-inline int bwd_stats_smem_need(const StatsPlan& p) {
-  return (kStatsWarps * 2 * p.cg * kPer + 2 * kStatsThreads) * 4;
-}
-
-// The split backward's apply: dx = rstd * (g' - s1 / count - xh * s2 /
-// count), with (N, C) fp32 statistics and sums and count the pixels of a
-// channel over every rank: one thread a word of 4 channels, grid-stride
-// over the tensor's words, in x's dtype.
-template <typename T>
-__global__ void __launch_bounds__(256)
+// The split backward's apply: dx = rstd * (g' - s1 * inv - xh * s2 *
+// inv), with (n, c) fp32 statistics and sums and inv the fp32 reciprocal
+// of a channel's pixels over every rank (1 / count: s1 * inv is within an
+// ulp of the plain version's s1 / count), in x's dtype. A thread keeps one lane of kCh channels (16 bytes: 8 bf16 or 4
+// fp32; 8 bytes for bf16 where C is not a multiple of 8) of one image and
+// walks its pixels, kStatsBatch loads of x and of g in flight; its lane's
+// mean, rstd, s1 * inv and s2 * inv are in registers before the loop, so
+// the loop has no division and no index division. (An IEEE division
+// sits behind a branch of its own: 16 a thread cost ~0.8 us a block at the
+// smallest shapes.)
+// A block is `rows` pixels side by side of lb lanes; the grid (blocks_x,
+// n * lane groups) is one wave of the blocks the card holds
+// (kernels/instance_norm.py::_bwd_apply_plan). Bound by bytes: x and g read
+// once, dx written once.
+template <typename T, int kCh, int kAct>
+__global__ void __launch_bounds__(256, 2)
 in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ mean,
                     const float* __restrict__ rstd,
                     const float* __restrict__ s1,
-                    const float* __restrict__ s2, T* __restrict__ dx,
-                    long long words, int cw, long long image_words,
-                    float count, int act, float slope) {
-  using W = Word<T>;
-  using Raw = typename W::Raw;
-  const Raw* xs = reinterpret_cast<const Raw*>(x);
-  const Raw* gs = reinterpret_cast<const Raw*>(g);
-  Raw* dst = reinterpret_cast<Raw*>(dx);
-  const float4* m4 = reinterpret_cast<const float4*>(mean);
-  const float4* r4 = reinterpret_cast<const float4*>(rstd);
-  const float4* a4 = reinterpret_cast<const float4*>(s1);
-  const float4* b4 = reinterpret_cast<const float4*>(s2);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < words; i += (long long)gridDim.x * blockDim.x) {
-    const long long s = i / image_words * cw + i % cw;  // (n, word of c)
-    const float4 m = m4[s], r = r4[s], a = a4[s], b = b4[s];
-    const float mv[kPer] = {m.x, m.y, m.z, m.w};
-    const float rv[kPer] = {r.x, r.y, r.z, r.w};
-    const float av[kPer] = {a.x, a.y, a.z, a.w};
-    const float bv[kPer] = {b.x, b.y, b.z, b.w};
-    float xv[kPer], gv[kPer];
-    W::unpack(xs[i], xv);
-    W::unpack(gs[i], gv);
+                    const float* __restrict__ s2, T* __restrict__ dx, int hw,
+                    int c, int lb, float inv, float slope) {
+  using L = Lane<T, kCh>;
+  using Raw = typename L::Raw;
+  const int cv = c / kCh;  // lanes a pixel
+  const int lgroups = (cv + lb - 1) / lb;
+  const int n = blockIdx.y / lgroups;
+  const int lane = (blockIdx.y % lgroups) * lb + threadIdx.x % lb;
+  const int row = threadIdx.x / lb;
+  const int rows = blockDim.x / lb;
+  if (row >= rows || lane >= cv) return;
+  const int step = gridDim.x * rows;  // pixels between a thread's pixels
+  const size_t base = (size_t)n * hw * cv + lane;
+  const Raw* xs = reinterpret_cast<const Raw*>(x) + base;
+  const Raw* gs = reinterpret_cast<const Raw*>(g) + base;
+  Raw* ds = reinterpret_cast<Raw*>(dx) + base;
+  int q0 = blockIdx.x * rows + row;
+  Raw rx[kStatsBatch], rg[kStatsBatch];
+  load_pairs(rx, rg, xs, gs, q0, step, hw, (size_t)cv);
+  const size_t o = (size_t)n * c + (size_t)lane * kCh;
+  float mu[kCh], rs[kCh], a[kCh], b[kCh];
+  load_floats<kCh>(mu, mean + o);
+  load_floats<kCh>(rs, rstd + o);
+  load_floats<kCh>(a, s1 + o);
+  load_floats<kCh>(b, s2 + o);
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const float xh = (xv[j] - mv[j]) * rv[j];
-      const float gp = act_grad(gv[j], xh, act, slope);
-      xv[j] = rv[j] * (gp - av[j] / count - xh * (bv[j] / count));
+  for (int j = 0; j < kCh; ++j) {
+    a[j] *= inv;
+    b[j] *= inv;
+  }
+  while (true) {
+#pragma unroll
+    for (int i = 0; i < kStatsBatch; ++i) {
+      const int q = q0 + i * step;
+      if (q < hw) {
+        float xv[kCh], gv[kCh];
+        L::unpack(rx[i], xv);
+        L::unpack(rg[i], gv);
+#pragma unroll
+        for (int j = 0; j < kCh; ++j) {
+          const float xh = (xv[j] - mu[j]) * rs[j];
+          const float gp = act_grad_t<kAct>(gv[j], xh, slope);
+          xv[j] = rs[j] * (gp - a[j] - xh * b[j]);
+        }
+        ds[(size_t)q * cv] = L::pack(xv);
+      }
     }
-    dst[i] = W::pack(xv);
+    q0 += kStatsBatch * step;
+    if (q0 >= hw) break;
+    load_pairs(rx, rg, xs, gs, q0, step, hw, (size_t)cv);
   }
 }
 
@@ -1115,7 +1281,7 @@ in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
 // shared memory, and clusters of up to 16 blocks.
 cudaError_t prepare(const void* fn) {
   static std::mutex mu;
-  static const void* done[16];
+  static const void* done[64];
   static int n_done = 0;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < n_done; ++i)
@@ -1133,7 +1299,7 @@ cudaError_t prepare(const void* fn) {
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess && n_done < 16) done[n_done++] = fn;
+  if (e == cudaSuccess && n_done < 64) done[n_done++] = fn;
   return e;
 }
 
@@ -1356,104 +1522,185 @@ extern "C" int ir2rgb_instance_norm_max_clusters(int k, int tile,
       }));
 }
 
-// x, g (n, hw, c) NHWC, aligned to their loads as the statistics kernel's
-// x; mean, rstd (n, c) fp32, read; s1, s2 (n, c) fp32, written. The
-// statistics kernel's launch shape (StatsPlan); part: n * c * chunks
-// float2 of scratch and tickets: n * groups zeroed counters (left zero),
-// both unused (may be null) when chunks is 1. Returns the launch's error
-// (0 on success).
-extern "C" int ir2rgb_instance_norm_bwd_stats(
-    const void* x, const void* g, const void* mean, const void* rstd,
-    void* s1, void* s2, void* part, void* tickets, int n, int hw, int c,
-    int cg, int chunks, int chunk, int smem_bytes, int act, float slope,
-    int is_bf16, void* stream) {
-  const StatsPlan p{n, hw, c, cg, chunks, chunk};
-  const int item = is_bf16 ? 2 : 4;
-  const int load = is_bf16 && cg == 1 ? 8 : 16;
-  const bool ok =
-      reinterpret_cast<uintptr_t>(x) % load == 0 &&
-      reinterpret_cast<uintptr_t>(g) % load == 0 && n > 0 && hw > 0 &&
-      c % kPer == 0 && cg >= 1 && (cg & (cg - 1)) == 0 &&
-      cg * kPer * item <= 64 && (c / kPer) % cg == 0 && chunks >= 1 &&
-      chunk >= 1 && (long long)(chunks - 1) * chunk < hw &&
-      (long long)chunks * chunk >= hw &&
-      smem_bytes >= bwd_stats_smem_need(p) &&
-      (chunks == 1 || (part != nullptr && tickets != nullptr));
-  if (!ok) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c / (kPer * cg)) * chunks, n);
-  const float* mo = static_cast<const float*>(mean);
-  const float* ro = static_cast<const float*>(rstd);
-  float* ao = static_cast<float*>(s1);
-  float* bo = static_cast<float*>(s2);
-  float2* po = static_cast<float2*>(part);
-  unsigned* to = static_cast<unsigned*>(tickets);
-  if (!is_bf16)
-    in_bwd_stats_kernel<float, 4><<<grid, kStatsThreads, smem_bytes, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), mo, ro,
-        ao, bo, po, to, p, act, slope);
-  else if (cg > 1)
-    in_bwd_stats_kernel<__nv_bfloat16, 8>
-        <<<grid, kStatsThreads, smem_bytes, s>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(g), mo, ro, ao, bo, po, to, p,
-            act, slope);
-  else
-    in_bwd_stats_kernel<__nv_bfloat16, 4>
-        <<<grid, kStatsThreads, smem_bytes, s>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(g), mo, ro, ao, bo, po, to, p,
-            act, slope);
-  return static_cast<int>(cudaGetLastError());
+// The split backward's kernels for each lane and activation: T, the
+// channels one load reads (kLane) and kAct as a value, so that one generic
+// lambda serves them all.
+template <typename T, int kCh, int kAct>
+struct BwdKind {
+  using Type = T;
+  static constexpr int kLane = kCh;
+  static constexpr int kActivation = kAct;
+};
+
+template <typename T, int kCh, typename F>
+cudaError_t act_dispatch(int act, F&& f) {
+  switch (act) {
+    case 1: return f(BwdKind<T, kCh, 1>{});
+    case 2: return f(BwdKind<T, kCh, 2>{});
+    case 3: return f(BwdKind<T, kCh, 3>{});
+    default: return f(BwdKind<T, kCh, 0>{});
+  }
 }
 
-// How many blocks of the backward's sums kernel one SM holds at once, as
-// ir2rgb_instance_norm_stats_occupancy. Written to *out; returns the
-// query's error (0 on success).
-extern "C" int ir2rgb_instance_norm_bwd_stats_occupancy(int cg,
-                                                        int smem_bytes,
+// A load reads 16 bytes (4 fp32 or 8 bf16 channels), or 8 bytes (4 bf16
+// channels) where `wide` is 0.
+template <typename F>
+cudaError_t lane_dispatch(int is_bf16, int wide, int act, F&& f) {
+  if (!is_bf16) return act_dispatch<float, 4>(act, f);
+  if (wide) return act_dispatch<__nv_bfloat16, 8>(act, f);
+  return act_dispatch<__nv_bfloat16, 4>(act, f);
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// x, g (n, hw, c) NHWC, aligned to their loads (16 bytes; 8 for bf16 with
+// cg 1); mean, rstd (n, c) fp32, 16-byte aligned, read; sums (2, n, c)
+// fp32, written (s1, then s2). The launch of BwdStatsPlan: (groups *
+// chunks, n) blocks of kStatsThreads, clusters of k blocks along x (k 1:
+// no cluster). part: n * c * 2 * (chunks / k) floats of scratch and
+// tickets: n * groups zeroed counters (left zero), both unused (may be
+// null) when chunks is k. Returns the launch's error (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_stats(
+    const void* x, const void* g, const void* mean, const void* rstd,
+    void* sums, void* part, void* tickets, int n, int hw, int c, int cg,
+    int chunks, int chunk, int k, int act, float slope, int is_bf16,
+    void* stream) {
+  const BwdStatsPlan p{n, hw, c, cg, chunks, chunk, k};
+  const int item = is_bf16 ? 2 : 4;
+  const int load = is_bf16 && cg == 1 ? 8 : 16;  // bytes of one load
+  const bool ok =
+      aligned(x, load) && aligned(g, load) && aligned(mean, 16) &&
+      aligned(rstd, 16) && n > 0 && hw > 0 && c % kPer == 0 && cg >= 1 &&
+      (cg & (cg - 1)) == 0 && cg * kPer * item <= 64 &&
+      (c / kPer) % cg == 0 && k >= 1 && k <= kMaxCluster && chunks >= 1 &&
+      chunks % k == 0 && chunk >= 1 && (long long)(chunks - 1) * chunk < hw &&
+      (long long)chunks * chunk >= hw && act >= 0 && act <= 3 &&
+      (chunks == k || (part != nullptr && tickets != nullptr));
+  if (!ok) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks_x = (c / (kPer * cg)) * chunks;
+  return static_cast<int>(
+      lane_dispatch(is_bf16, cg > 1, act, [&](auto kind) -> cudaError_t {
+        using K = decltype(kind);
+        using T = typename K::Type;
+        const auto fn = &in_bwd_stats_kernel<T, K::kLane, K::kActivation>;
+        const T* xt = static_cast<const T*>(x);
+        const T* gt = static_cast<const T*>(g);
+        const float* mo = static_cast<const float*>(mean);
+        const float* ro = static_cast<const float*>(rstd);
+        float* so = static_cast<float*>(sums);
+        float* po = static_cast<float*>(part);
+        unsigned* to = static_cast<unsigned*>(tickets);
+        if (k == 1) {
+          fn<<<dim3(blocks_x, n), kStatsThreads, 0, s>>>(xt, gt, mo, ro, so,
+                                                         po, to, p, slope);
+          return cudaGetLastError();
+        }
+        const cudaError_t e = prepare(reinterpret_cast<const void*>(fn));
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg =
+            cluster_config(k, blocks_x, n, kStatsThreads, 0, s, &attr);
+        return cudaLaunchKernelEx(&cfg, fn, xt, gt, mo, ro, so, po, to, p,
+                                  slope);
+      }));
+}
+
+// How many blocks of the split backward's sums kernel for this dtype,
+// group (4 * cg channels) and activation one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Written to *out;
+// returns the query's error (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_stats_occupancy(int cg, int act,
                                                         int is_bf16,
                                                         int* out) {
   *out = 0;
-  const void* fn =
-      !is_bf16 ? reinterpret_cast<const void*>(&in_bwd_stats_kernel<float, 4>)
-      : cg > 1 ? reinterpret_cast<const void*>(
-                     &in_bwd_stats_kernel<__nv_bfloat16, 8>)
-               : reinterpret_cast<const void*>(
-                     &in_bwd_stats_kernel<__nv_bfloat16, 4>);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, fn, kStatsThreads, smem_bytes));
+  return static_cast<int>(
+      lane_dispatch(is_bf16, cg > 1, act, [&](auto kind) -> cudaError_t {
+        using K = decltype(kind);
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out,
+            &in_bwd_stats_kernel<typename K::Type, K::kLane,
+                                 K::kActivation>,
+            kStatsThreads, 0);
+      }));
 }
 
-// x, g, dx (n, hw, c) NHWC; mean, rstd, s1, s2 (n, c) fp32, 16-byte
-// aligned; count: a channel's pixels over every rank. One launch of
-// 256-thread blocks, at most 16 a multiprocessor's worth. Returns the
-// launch's error (0 on success).
+// How many clusters of k blocks of the sums kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot run one). Written to
+// *out; returns the query's error (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_stats_max_clusters(int k, int cg,
+                                                           int act,
+                                                           int is_bf16,
+                                                           int* out) {
+  *out = 0;
+  if (k < 1 || k > kMaxCluster) return cudaErrorInvalidValue;
+  return static_cast<int>(
+      lane_dispatch(is_bf16, cg > 1, act, [&](auto kind) -> cudaError_t {
+        using K = decltype(kind);
+        const void* fn = reinterpret_cast<const void*>(
+            &in_bwd_stats_kernel<typename K::Type, K::kLane,
+                                 K::kActivation>);
+        const cudaError_t e = prepare(fn);
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg =
+            cluster_config(k, k, 1, kStatsThreads, 0, nullptr, &attr);
+        return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+      }));
+}
+
+// x, g, dx (n, hw, c) NHWC, aligned to their loads (16 bytes; 8 for bf16
+// where c is not a multiple of 8); mean, rstd, s1, s2 (n, c) fp32, 16-byte
+// aligned; inv: 1 / a channel's pixels over every rank. One launch of
+// (blocks, n * lane groups) blocks of 256 threads, `256 / lb` pixels side
+// by side of lb lanes a block. Returns the launch's error (0 on success).
 extern "C" int ir2rgb_instance_norm_bwd_apply(
     const void* x, const void* g, const void* mean, const void* rstd,
-    const void* s1, const void* s2, void* dx, int n, int hw, int c,
-    float count, int act, float slope, int is_bf16, void* stream) {
-  if (n <= 0 || hw <= 0 || c <= 0 || c % kPer || !(count > 0.f))
-    return cudaErrorInvalidValue;
+    const void* s1, const void* s2, void* dx, int n, int hw, int c, int lb,
+    int blocks, float inv, int act, float slope, int is_bf16,
+    void* stream) {
+  const int wide = !is_bf16 || c % 8 == 0;
+  const int ch = is_bf16 && wide ? 8 : 4;  // channels a lane
+  const int load = ch * (is_bf16 ? 2 : 4);
+  const int cv = c / ch;
+  const bool ok = n > 0 && hw > 0 && c > 0 && c % kPer == 0 &&
+                  inv > 0.f && act >= 0 && act <= 3 && lb >= 1 &&
+                  lb <= 256 && lb <= cv && blocks >= 1 && aligned(x, load) &&
+                  aligned(g, load) && aligned(dx, load) &&
+                  aligned(mean, 16) && aligned(rstd, 16) &&
+                  aligned(s1, 16) && aligned(s2, 16);
+  if (!ok) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cw = c / kPer;
-  const long long image_words = (long long)hw * cw;
-  const long long words = image_words * n;
-  const long long blocks = std::min<long long>((words + 255) / 256, 132 * 16);
-  const float* mo = static_cast<const float*>(mean);
-  const float* ro = static_cast<const float*>(rstd);
-  const float* ao = static_cast<const float*>(s1);
-  const float* bo = static_cast<const float*>(s2);
-  if (is_bf16)
-    in_bwd_apply_kernel<__nv_bfloat16><<<(int)blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(g), mo, ro, ao, bo,
-        static_cast<__nv_bfloat16*>(dx), words, cw, image_words, count, act,
-        slope);
-  else
-    in_bwd_apply_kernel<float><<<(int)blocks, 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), mo, ro,
-        ao, bo, static_cast<float*>(dx), words, cw, image_words, count, act,
-        slope);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(blocks, n * ((cv + lb - 1) / lb));
+  return static_cast<int>(
+      lane_dispatch(is_bf16, wide, act, [&](auto kind) -> cudaError_t {
+        using K = decltype(kind);
+        using T = typename K::Type;
+        in_bwd_apply_kernel<T, K::kLane, K::kActivation><<<grid, 256, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const T*>(g),
+            static_cast<const float*>(mean), static_cast<const float*>(rstd),
+            static_cast<const float*>(s1), static_cast<const float*>(s2),
+            static_cast<T*>(dx), hw, c, lb, inv, slope);
+        return cudaGetLastError();
+      }));
+}
+
+// How many blocks of the apply kernel for this dtype, channels and
+// activation one SM holds at once. Written to *out; returns the query's
+// error (0 on success).
+extern "C" int ir2rgb_instance_norm_bwd_apply_occupancy(int c, int act,
+                                                        int is_bf16,
+                                                        int* out) {
+  *out = 0;
+  return static_cast<int>(lane_dispatch(
+      is_bf16, !is_bf16 || c % 8 == 0, act, [&](auto kind) -> cudaError_t {
+        using K = decltype(kind);
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out,
+            &in_bwd_apply_kernel<typename K::Type, K::kLane,
+                                 K::kActivation>,
+            256, 0);
+      }));
 }

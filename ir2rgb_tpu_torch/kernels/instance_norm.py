@@ -46,19 +46,25 @@ and how the design answers that); this module holds
 - the split backward, its counterpart under autograd:
   :func:`instance_norm_bwd_stats` (``ir2rgb::instance_norm_bwd_stats``:
   each (n, c)'s sums of g' and g' * xh over the rows in hand, for the
-  merged statistics, on the statistics kernel's plan and tickets) and
-  :func:`instance_norm_bwd_apply` (``ir2rgb::instance_norm_bwd_apply``:
-  dx from the sums over every rank, one elementwise pass), with their
-  plain versions :func:`instance_norm_bwd_stats_reference` and
-  :func:`instance_norm_bwd_apply_reference`; the ranks add their sums
-  in rank order between the two, and together they are ``_fused_bwd``;
+  merged statistics, in one (2, N, C) buffer; its own plan,
+  :func:`_bwd_stats_plan`) and :func:`instance_norm_bwd_apply`
+  (``ir2rgb::instance_norm_bwd_apply``: dx from the sums over every rank,
+  one pass of a 16-byte lane a thread, :func:`_bwd_apply_plan`), with
+  their plain versions :func:`instance_norm_bwd_stats_reference` and
+  :func:`instance_norm_bwd_apply_reference`, and
+  :func:`instance_norm_bwd_stats_chunked_reference`, the sums kernel's
+  chunks and order in plain PyTorch (for the tests); the ranks add their
+  sums in rank order between the two, and together they are
+  ``_fused_bwd``;
 - ``launches`` / ``bwd_launches`` / ``stats_launches`` /
   ``apply_launches`` / ``bwd_stats_launches`` / ``bwd_apply_launches``:
   how many times the ops' CUDA implementations launched each kernel;
 - :func:`_plan` / :func:`plan_for`: the launch (channel group, cluster
   size, shared memory per block, route), sized by bytes and checked
   against the card; :func:`_stats_plan` / :func:`stats_plan_for`: the
-  statistics kernel's (channel group, chunks a slab, pixels a chunk).
+  statistics kernel's (channel group, chunks a slab, pixels a chunk);
+  :func:`_bwd_stats_plan` / :func:`bwd_stats_plan_for`: the split
+  backward's sums (route, chunks a slab, cluster size).
 
 All take and return NHWC tensors. The kernels read NHWC memory directly,
 so ``x`` and the gradient must be contiguous in that order (a
@@ -100,6 +106,13 @@ _STATS_THREADS = 256
 _STATS_BATCH = 8
 _STATS_MERGE = 16
 _STATS_ONE_LEVEL = 32768
+# the split backward's sums kernel (ir2rgb_tpu_torch/sweep_b1.py
+# --bwd-stats): the largest cluster (the card's non-portable 16), the
+# blocks a launch of the cluster route aims at, and the most partials a
+# slab the tickets route's last block adds without clusters
+_BWD_CLUSTER_MAX = 16
+_BWD_CLUSTER_BLOCKS = 64
+_BWD_MERGE_MAX = 64
 
 
 def apply_act(y: torch.Tensor, act: str,
@@ -235,19 +248,55 @@ def _act_grad(g32: torch.Tensor, xh: torch.Tensor, act: str,
     return g32
 
 
-def instance_norm_bwd_stats_reference(x: torch.Tensor, mean: torch.Tensor,
-                                      rstd: torch.Tensor, g: torch.Tensor,
-                                      act: str = "relu",
-                                      negative_slope: float = 0.2
-                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(s1, s2), (N, C) fp32: the sums over H and W of g' and of g' * xh,
-    with xh = (x - mean) * rstd for given (merged) statistics and
-    g' = g * act'(xh). The split backward's first half."""
+def _bwd_terms(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+               g: torch.Tensor, act: str, negative_slope: float
+               ) -> torch.Tensor:
+    """(2, N, H, W, C) fp32: g' and g' * xh, with xh = (x - mean) * rstd
+    and g' = g * act'(xh)."""
     if act not in ACTS:
         raise ValueError(f"unknown act: {act}")
     xh = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
     gp = _act_grad(g.float(), xh, act, negative_slope)
-    return gp.sum(dim=(1, 2)), (gp * xh).sum(dim=(1, 2))
+    return torch.stack([gp, gp * xh])
+
+
+def instance_norm_bwd_stats_reference(x: torch.Tensor, mean: torch.Tensor,
+                                      rstd: torch.Tensor, g: torch.Tensor,
+                                      act: str = "relu",
+                                      negative_slope: float = 0.2
+                                      ) -> torch.Tensor:
+    """(2, N, C) fp32: s1 and s2, the sums over H and W of g' and of
+    g' * xh, with xh = (x - mean) * rstd for given (merged) statistics and
+    g' = g * act'(xh). The split backward's first half."""
+    return _bwd_terms(x, mean, rstd, g, act, negative_slope).sum(dim=(2, 3))
+
+
+def instance_norm_bwd_stats_chunked_reference(x: torch.Tensor,
+                                              mean: torch.Tensor,
+                                              rstd: torch.Tensor,
+                                              g: torch.Tensor,
+                                              plan: "BwdStatsPlan",
+                                              act: str = "relu",
+                                              negative_slope: float = 0.2
+                                              ) -> torch.Tensor:
+    """(2, N, C): the sums as the sums kernel adds them under ``plan``, in
+    plain fp32 PyTorch: each chunk's sums (a plain sum here, where the
+    kernel adds its threads' and warps' in another order), the chunks of
+    a cluster added in rank order, then the clusters' partials of a slab
+    in cluster order (the tickets route's last cluster). The tests hold
+    the plan's chunks and this order to float64 and to JAX with it."""
+    n, h, w, c = x.shape
+    terms = _bwd_terms(x, mean, rstd, g, act, negative_slope).reshape(
+        2, n, h * w, c)
+    parts = [terms[:, :, k * plan.chunk:(k + 1) * plan.chunk].sum(dim=2)
+             for k in range(plan.chunks)]
+    total = torch.zeros_like(parts[0])
+    for cl in range(plan.chunks // plan.k):
+        acc = torch.zeros_like(total)
+        for part in parts[cl * plan.k:(cl + 1) * plan.k]:
+            acc = acc + part
+        total = total + acc
+    return total
 
 
 def instance_norm_bwd_apply_reference(x: torch.Tensor, mean: torch.Tensor,
@@ -258,7 +307,8 @@ def instance_norm_bwd_apply_reference(x: torch.Tensor, mean: torch.Tensor,
                                       ) -> torch.Tensor:
     """dx = rstd * (g' - s1 / count - xh * s2 / count) in fp32, cast to
     x's dtype: the split backward's second half, with (s1, s2) the sums
-    over every rank and ``count`` a channel's pixels over every rank."""
+    over every rank and ``count`` a channel's pixels over every rank, as
+    JAX's ``_fused_bwd`` writes it."""
     if act not in ACTS:
         raise ValueError(f"unknown act: {act}")
     mean, rstd = mean[:, None, None, :], rstd[:, None, None, :]
@@ -488,41 +538,173 @@ def stats_plan_for(x: torch.Tensor) -> StatsPlan:
     return _card_stats_plan(n, h * w, c, x.element_size(), x.device.index)
 
 
+class BwdStatsPlan(NamedTuple):
+    """One launch of the split backward's sums kernel
+    (``in_bwd_stats_kernel``), as ``csrc/instance_norm.cu`` reads it:
+    ``n * groups`` slabs, each one image's pixels of one group of
+    ``channels`` channels (``cg`` words a pixel), cut into ``chunks``
+    chunks of ``chunk`` pixels (the last may hold fewer), one block a
+    chunk; clusters of ``k`` consecutive chunks, ``chunks // k`` clusters
+    a slab. ``route``: "one" (one chunk a slab), "cluster" (one cluster a
+    slab) or "tickets" (several clusters a slab, their partials merged by
+    the last to draw a ticket)."""
+    cg: int           # words of a group at one pixel
+    channels: int     # channels per group
+    groups: int       # channel groups per image
+    chunks: int       # chunks (blocks) per slab
+    chunk: int        # pixels per chunk
+    k: int            # blocks per cluster (1: no cluster)
+    route: str        # "one", "cluster" or "tickets"
+
+
+def _make_bwd_stats_plan(hw: int, c: int, itemsize: int, cg: int,
+                         chunks: int, k: int) -> BwdStatsPlan:
+    """The sums launch with ``chunks`` chunks a slab in clusters of
+    ``k``; raises unless every chunk holds a pixel."""
+    chunk = _ceil_div(hw, chunks)
+    if chunks % k or (chunks - 1) * chunk >= hw:
+        raise ValueError(f"no sums launch of {chunks} chunks in clusters "
+                         f"of {k} over {hw} pixels")
+    route = "one" if chunks == 1 else "cluster" if chunks == k else "tickets"
+    return BwdStatsPlan(cg, cg * _PER, c // (cg * _PER), chunks, chunk, k,
+                        route)
+
+
+def _bwd_stats_plan(n: int, hw: int, c: int, itemsize: int, sms: int = 132,
+                    resident: int = 2,
+                    clusters: Callable[[int], int] = None) -> BwdStatsPlan:
+    """The sums launch for an (n, hw, c) tensor of ``itemsize`` bytes on
+    a card of ``sms`` SMs that each hold ``resident`` of its blocks, where
+    ``clusters(k)`` is how many clusters of k blocks the card holds at once
+    (without it, ``sms * resident // k``; 0: it cannot run one). The rules
+    are ``sweep_b1.py --bwd-stats``'s readings at the path's shapes.
+
+    The widest group of at most 64 bytes a pixel (``_choices``); ``per``,
+    the chunks a slab that give every thread one round of ``_STATS_BATCH``
+    loads of x and of g.
+    - One level where ``per`` is 1.
+    - One cluster a slab of k = max(per, ⌈``_BWD_CLUSTER_BLOCKS`` /
+      slabs⌉) chunks, where k is at most ``_BWD_CLUSTER_MAX``, the launch
+      at most ``2 * _BWD_CLUSTER_BLOCKS`` blocks and the card holds a
+      cluster a slab at once: more, shorter chunks end sooner, and the
+      cluster merge costs the same.
+    - Else tickets: one block an SM over the slabs (``sms // slabs``
+      chunks a slab, no cluster), which keeps the blocks of a bandwidth-
+      bound launch even over the SMs; where that is more than
+      ``_BWD_MERGE_MAX`` partials a slab for the last block to add,
+      clusters of ``_BWD_CLUSTER_MAX`` (or the largest the card holds a
+      slab of), as many a slab as the card holds at once."""
+    if clusters is None:
+        clusters = lambda k: sms * resident // k  # noqa: E731
+    cg = _choices(hw, c, itemsize)[0][0]
+    channels = cg * _PER
+    slabs = n * (c // channels)
+    per = _ceil_div(hw, _STATS_BATCH * _stats_rows(channels, itemsize))
+    if per == 1:
+        return _make_bwd_stats_plan(hw, c, itemsize, cg, 1, 1)
+    k = max(per, _ceil_div(_BWD_CLUSTER_BLOCKS, slabs))
+    if (k <= _BWD_CLUSTER_MAX and slabs * k <= 2 * _BWD_CLUSTER_BLOCKS
+            and clusters(k) >= slabs):
+        return _make_bwd_stats_plan(hw, c, itemsize, cg, k, k)
+    m = max(2, sms // slabs)
+    if m <= _BWD_MERGE_MAX:
+        k = 1
+    else:
+        k = next((k for k in (_BWD_CLUSTER_MAX, 8, 4, 2)
+                  if clusters(k) >= slabs), 1)
+        m = max(1, clusters(k) // slabs) if k > 1 else _BWD_MERGE_MAX
+    while m > 1 and (k * m - 1) * _ceil_div(hw, k * m) >= hw:
+        m -= 1
+    return _make_bwd_stats_plan(hw, c, itemsize, cg, k * m, k)
+
+
 @lru_cache(maxsize=None)
-def bwd_stats_resident(cg: int, smem_bytes: int, is_bf16: bool) -> int:
+def bwd_stats_resident(cg: int, act: str, is_bf16: bool) -> int:
     """How many blocks of the split backward's sums kernel of this group
-    and shared memory one SM holds at once."""
+    and activation one SM holds at once."""
     out = ctypes.c_int()
     _build.check(_build.lib().ir2rgb_instance_norm_bwd_stats_occupancy(
-        cg, smem_bytes, int(is_bf16), ctypes.byref(out)),
+        cg, ACTS[act], int(is_bf16), ctypes.byref(out)),
         "instance_norm_bwd_stats occupancy")
     return out.value
 
 
-def _bwd_stats_smem(p: StatsPlan) -> int:
-    """The sums kernel's shared memory (``bwd_stats_smem_need``): two
-    floats a warp and channel of the group, two a thread."""
-    return (8 * 2 * p.channels + 2 * _STATS_THREADS) * 4
+@lru_cache(maxsize=None)
+def bwd_stats_clusters(k: int, cg: int, act: str, is_bf16: bool) -> int:
+    """How many clusters of k blocks of the sums kernel the card holds at
+    once (0: it cannot run one), from ``cudaOccupancyMaxActiveClusters``."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().ir2rgb_instance_norm_bwd_stats_max_clusters(
+        k, cg, ACTS[act], int(is_bf16), ctypes.byref(out)),
+        "instance_norm_bwd_stats max clusters")
+    return out.value
 
 
 @lru_cache(maxsize=None)
-def _card_bwd_stats_plan(n: int, hw: int, c: int, itemsize: int,
-                         index: int) -> StatsPlan:
-    """The statistics plan (``_stats_plan``) with the sums kernel's shared
-    memory and its own occupancy: it reads x and g."""
+def _card_bwd_stats_plan(n: int, hw: int, c: int, itemsize: int, act: str,
+                         index: int) -> BwdStatsPlan:
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    one = _stats_plan(n, hw, c, itemsize, sms, 1)
-    p = _stats_plan(n, hw, c, itemsize, sms, bwd_stats_resident(
-        one.cg, _bwd_stats_smem(one), itemsize == 2))
-    return p._replace(smem_bytes=_bwd_stats_smem(p))
+    cg = _choices(hw, c, itemsize)[0][0]
+    bf16 = itemsize == 2
+    return _bwd_stats_plan(
+        n, hw, c, itemsize, sms, bwd_stats_resident(cg, act, bf16),
+        lambda k: bwd_stats_clusters(k, cg, act, bf16))
 
 
-def bwd_stats_plan_for(x: torch.Tensor) -> StatsPlan:
+def bwd_stats_plan_for(x: torch.Tensor, act: str = "relu") -> BwdStatsPlan:
     """The plan the split backward's sums launch with for a CUDA NHWC
     ``x`` (queries the card)."""
     n, h, w, c = x.shape
-    return _card_bwd_stats_plan(n, h * w, c, x.element_size(),
+    return _card_bwd_stats_plan(n, h * w, c, x.element_size(), act,
                                 x.device.index)
+
+
+class BwdApplyPlan(NamedTuple):
+    """One launch of the split backward's apply kernel
+    (``in_bwd_apply_kernel``): a thread a lane of ``lane`` channels of one
+    image, a block ``rows`` pixels side by side of ``lb`` lanes (256
+    threads), a grid of ``blocks`` blocks along the pixels for each image
+    and group of ``lb`` lanes."""
+    lane: int         # channels one load reads (8 bf16 or 4; 4 fp32)
+    lb: int           # lanes a block
+    rows: int         # pixels a block reads side by side
+    blocks: int       # blocks along the pixels
+
+
+def _bwd_apply_plan(n: int, hw: int, c: int, itemsize: int, sms: int = 132,
+                    resident: int = 2) -> BwdApplyPlan:
+    """The apply launch for an (n, hw, c) tensor: 16-byte lanes (8 bf16
+    channels where C allows, else 4; 4 fp32), a block of up to 256 lanes
+    and as many pixels side by side as fill 256 threads, and blocks along
+    the pixels up to one wave of the ``sms * resident`` the card holds
+    over the images and lane groups, never more than a pixel row a
+    thread."""
+    lane = 8 if itemsize == 2 and c % 8 == 0 else 4
+    cv = c // lane
+    lb = min(cv, 256)
+    rows = 256 // lb
+    lgroups = _ceil_div(cv, lb)
+    blocks = max(1, min(_ceil_div(hw, rows),
+                        sms * resident // (n * lgroups)))
+    return BwdApplyPlan(lane, lb, rows, blocks)
+
+
+@lru_cache(maxsize=None)
+def bwd_apply_resident(c: int, act: str, is_bf16: bool) -> int:
+    """How many blocks of the apply kernel one SM holds at once."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().ir2rgb_instance_norm_bwd_apply_occupancy(
+        c, ACTS[act], int(is_bf16), ctypes.byref(out)),
+        "instance_norm_bwd_apply occupancy")
+    return out.value
+
+
+@lru_cache(maxsize=None)
+def _card_bwd_apply_plan(n: int, hw: int, c: int, itemsize: int, act: str,
+                         index: int) -> BwdApplyPlan:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _bwd_apply_plan(n, hw, c, itemsize, sms,
+                           bwd_apply_resident(c, act, itemsize == 2))
 
 
 # The statistics kernel's ticket counters: per device, an arena of
@@ -735,37 +917,36 @@ def instance_norm_bwd_stats_cuda(x: torch.Tensor, mean: torch.Tensor,
                                  rstd: torch.Tensor, g: torch.Tensor,
                                  act: str = "relu",
                                  negative_slope: float = 0.2,
-                                 plan: StatsPlan = None
-                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                                 plan: BwdStatsPlan = None) -> torch.Tensor:
     """Launch the split backward's sums kernel; raise on anything it does
-    not take. ``plan`` replaces :func:`bwd_stats_plan_for`'s."""
+    not take. Returns one (2, N, C) buffer, s1 then s2. ``plan``
+    replaces :func:`bwd_stats_plan_for`'s (``sweep_b1 --bwd-stats``
+    times each)."""
     global bwd_stats_launches
     if act not in ACTS:
         raise ValueError(f"unknown act: {act}")
     g = _readable(g, 16)
     _check_split_bwd(x, g, (mean, rstd), "instance_norm_bwd_stats_cuda")
     n, h, w, c = x.shape
-    p = plan or bwd_stats_plan_for(x)
+    p = plan or bwd_stats_plan_for(x, act)
     for t in (x, g):
         _check_stats_aligned(t.data_ptr(), p, x.element_size())
-    s1 = torch.empty((n, c), device=x.device, dtype=torch.float32)
-    s2 = torch.empty_like(s1)
+    sums = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    part = tickets = None  # one level: neither
-    if p.chunks > 1:
-        part = torch.empty(n * c * p.chunks * 2, device=x.device,
+    part = tickets = None  # one cluster a slab: neither
+    if p.route == "tickets":
+        part = torch.empty(n * c * 2 * (p.chunks // p.k), device=x.device,
                            dtype=torch.float32)
         tickets = _stream_tickets(x.device, n * p.groups)
     code = _build.lib().ir2rgb_instance_norm_bwd_stats(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        s1.data_ptr(), s2.data_ptr(),
-        part.data_ptr() if part is not None else 0,
+        sums.data_ptr(), part.data_ptr() if part is not None else 0,
         tickets.data_ptr() if tickets is not None else 0, n, h * w, c,
-        p.cg, p.chunks, p.chunk, p.smem_bytes, ACTS[act],
-        float(negative_slope), int(x.dtype == torch.bfloat16), stream)
+        p.cg, p.chunks, p.chunk, p.k, ACTS[act], float(negative_slope),
+        int(x.dtype == torch.bfloat16), stream)
     _build.check(code, "instance_norm_bwd_stats")
     bwd_stats_launches += 1
-    return s1, s2
+    return sums
 
 
 def instance_norm_bwd_apply_cuda(x: torch.Tensor, mean: torch.Tensor,
@@ -781,16 +962,22 @@ def instance_norm_bwd_apply_cuda(x: torch.Tensor, mean: torch.Tensor,
         raise ValueError(f"unknown act: {act}")
     if not count > 0:
         raise ValueError(f"count must be positive, got {count}")
-    g = _readable(g, 16)
+    n, h, w, c = x.shape
+    p = _card_bwd_apply_plan(n, h * w, c, x.element_size(), act,
+                             x.device.index)
+    load = p.lane * x.element_size()
+    g = _readable(g, load)
     _check_split_bwd(x, g, (mean, rstd, s1, s2),
                      "instance_norm_bwd_apply_cuda")
-    n, h, w, c = x.shape
+    if x.data_ptr() % load:
+        raise ValueError(f"instance_norm_bwd_apply_cuda: x is read {load} "
+                         f"bytes a load; it must be {load}-byte aligned")
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _build.lib().ir2rgb_instance_norm_bwd_apply(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n, h * w, c,
-        float(count), ACTS[act], float(negative_slope),
+        s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n, h * w, c, p.lb,
+        p.blocks, 1.0 / count, ACTS[act], float(negative_slope),
         int(x.dtype == torch.bfloat16), stream)
     _build.check(code, "instance_norm_bwd_apply")
     bwd_apply_launches += 1
@@ -839,10 +1026,10 @@ _APPLY_OPS = _build.define_op(
 
 _BWD_STATS_OPS = _build.define_op(
     "instance_norm_bwd_stats(Tensor x, Tensor mean, Tensor rstd, Tensor g, "
-    "str act, float negative_slope) -> (Tensor, Tensor)",
+    "str act, float negative_slope) -> Tensor",
     instance_norm_bwd_stats_reference, instance_norm_bwd_stats_cuda,
-    lambda x, mean, rstd, g, act, negative_slope: (torch.empty_like(mean),
-                                                   torch.empty_like(mean)))
+    lambda x, mean, rstd, g, act, negative_slope: mean.new_empty(
+        (2,) + tuple(mean.shape)))
 _BWD_APPLY_OPS = _build.define_op(
     "instance_norm_bwd_apply(Tensor x, Tensor mean, Tensor rstd, Tensor g, "
     "Tensor s1, Tensor s2, float count, str act, float negative_slope) "
@@ -855,10 +1042,11 @@ _BWD_APPLY_OPS = _build.define_op(
 def instance_norm_bwd_stats(x: torch.Tensor, mean: torch.Tensor,
                             rstd: torch.Tensor, g: torch.Tensor,
                             act: str = "relu", negative_slope: float = 0.2
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(s1, s2): the split backward's per-(n, c) sums of g' and g' * xh
-    over NHWC ``x``'s H and W, fp32 (N, C). CPU tensors take the plain
-    version; CUDA tensors the kernel (``ir2rgb::instance_norm_bwd_stats``)."""
+                            ) -> torch.Tensor:
+    """The split backward's per-(n, c) sums of g' and g' * xh over NHWC
+    ``x``'s H and W, in one fp32 (2, N, C) buffer (s1, then s2). CPU
+    tensors take the plain version; CUDA tensors the kernel
+    (``ir2rgb::instance_norm_bwd_stats``)."""
     _build.check_device(x, "instance_norm_bwd_stats")
     return _BWD_STATS_OPS(x, mean, rstd, g, act, float(negative_slope))
 

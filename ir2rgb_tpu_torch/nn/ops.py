@@ -41,7 +41,8 @@ Instance norm runs B1 split (:class:`_SplitInstanceNormAct`): this
 rank's statistics (``kernels.instance_norm_stats``), the ranks' merged
 with a count a rank (``Shards.norm_stats``), then
 ``kernels.instance_norm_apply``; its backward the split backward's sums
-(``instance_norm_bwd_stats``), added over the ranks in rank order, then
+(``instance_norm_bwd_stats``, one (2, N, C) buffer), added over the ranks
+in rank order, then
 ``instance_norm_bwd_apply``. Batch norm takes the moments over every
 rank; a dropout mask is this rank's rows of the global draw. A 2×2 max
 pool needs even local rows, a transposed conv an even split; quant mode
@@ -603,17 +604,14 @@ class _SplitInstanceNormAct(torch.autograd.Function):
                 f"partitioned step) is not ported ({spatial.A16B})")
         x, mean, rstd = ctx.saved_tensors
         n, h, w, c = x.shape
-        if h * w:
-            s1, s2 = instance_norm_bwd_stats(x, mean, rstd, g, ctx.act,
-                                             ctx.slope)
-        else:
-            s1 = s2 = mean.new_zeros((n, c))
-        both = ctx.part.sum_stats(torch.stack([s1, s2]))
+        # this rank's (2, N, C) sums, s1 then s2, as the op writes them
+        sums = (instance_norm_bwd_stats(x, mean, rstd, g, ctx.act, ctx.slope)
+                if h * w else mean.new_zeros((2, n, c)))
+        both = ctx.part.sum_stats(sums)
         if not h * w:
             return torch.zeros_like(x), None, None, None
-        dx = instance_norm_bwd_apply(x, mean, rstd, g, both[0].contiguous(),
-                                     both[1].contiguous(), ctx.count,
-                                     ctx.act, ctx.slope)
+        dx = instance_norm_bwd_apply(x, mean, rstd, g, both[0], both[1],
+                                     ctx.count, ctx.act, ctx.slope)
         return dx, None, None, None
 
 

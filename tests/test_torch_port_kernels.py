@@ -412,13 +412,18 @@ def test_b1_backward_reduction_order_matches_plain_backward(shape):
 sweep_b1 = importlib.import_module("ir2rgb_tpu_torch.sweep_b1")
 
 
-def test_b1_stats_shapes_are_the_partitioned_frames_shard_shapes():
-    # sweep_b1 --stats and the plan tests below cover every shape
-    # chip_smoke.py's spatial phase gives the statistics kernel
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_b1_stats_shapes_are_the_partitioned_frames_shard_shapes():
+    # sweep_b1 --stats and the plan tests below cover every shape
+    # chip_smoke.py's spatial phase gives the statistics kernel
+    cs = _chip_smoke()
     assert sorted(sweep_b1.STATS_SHAPES) == sorted(
         {s for s, _ in cs.B1_SPLIT_SHAPES})
 
@@ -539,6 +544,239 @@ def test_b1_stats_chunked_reference_normalises_as_jax(shape, chunk, act):
                                             rstd, act)
     want = np.asarray(jax_in_reference(jnp.asarray(x), act))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# B1 split backward: the sums kernel's plan and its order, the apply's plan
+# ---------------------------------------------------------------------------
+
+def test_b1_bwd_shapes_are_the_partitioned_steps_shard_shapes():
+    # sweep_b1's shapes, which chip_smoke.py's split-backward check, the
+    # sweep and the plan tests below run, are every shape with rows that
+    # the spatial_train phase's launch tables give the split backward, and
+    # its step's launches are that step's table
+    cs = _chip_smoke()
+    assert sweep_b1.BWD_SHAPES == sorted({k for t in cs.SPATIAL_TRAIN.values()
+                                         for k in t["b1_bwd"] if k[0][1]})
+    step = cs.SPATIAL_TRAIN[cs.SPLIT_TRAIN_STEP]["b1_bwd"]
+    assert sweep_b1.BWD_STEP == {k: c for k, c in step.items() if k[0][1]}
+    assert sum(sweep_b1.BWD_STEP.values()) == 54
+
+
+def test_b1_bwd_runtime_act_variant_builds_from_this_source():
+    # sweep_b1 --act-switch's variant (the split backward's activation
+    # read at run time) edits this tree's instance_norm.cu: every edit
+    # applies once, no split-backward kernel keeps its activation
+    # template, and the inner loops call the runtime switch
+    src = (pin._build.CSRC / "instance_norm.cu").read_text()
+    out = sweep_b1.runtime_act_source(src)
+    assert "act_grad_t<kAct>" not in out and "K::kActivation" not in out
+    assert "act_grad(b[j], xh, p.act, slope)" in out
+    assert "act_grad(gv[j], xh, act, slope)" in out
+    with pytest.raises(ValueError, match="runtime_act_source"):
+        sweep_b1.runtime_act_source(out)
+
+
+def _h100_bwd_clusters(resident):
+    """Clusters of k sums blocks an H100 holds at once, modelled as
+    ``_h100_like_clusters``: a cluster lies in one GPC (132 SMs as six of
+    18, one of 16, one of 8), ``resident`` blocks an SM."""
+    return lambda k: sum(sms * resident // k for sms in [18] * 6 + [16, 8])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,act", sweep_b1.BWD_SHAPES)
+def test_b1_bwd_stats_plan_covers_every_pixel_once(shape, act, dtype):
+    # the plan on an H100 (132 SMs, two sums blocks on each, clusters as
+    # the card's GPCs hold them): chunk k owns pixels [k * chunk, ...),
+    # together every pixel once, each at least one; k of 1..16 divides
+    # the chunks; one wave of blocks, every cluster of the launch held at
+    # once; each route within its thresholds: one level exactly where one
+    # round of loads a thread covers a slab; one cluster a slab of at most
+    # 16 chunks, each covered by one round, at most 128 blocks; tickets
+    # over 2 to 64 partials a slab, without clusters one block an SM
+    n, h, w, c = shape
+    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
+    clusters = _h100_bwd_clusters(2)
+    p = pin._bwd_stats_plan(n, hw, c, item, sms=132, resident=2,
+                            clusters=clusters)
+    starts = [k * p.chunk for k in range(p.chunks)]
+    ends = [min((k + 1) * p.chunk, hw) for k in range(p.chunks)]
+    assert starts[0] == 0 and ends[-1] == hw and starts[1:] == ends[:-1]
+    assert all(s < e for s, e in zip(starts, ends))
+    assert p.groups * p.channels == c and p.channels == 4 * p.cg
+    assert p.channels * item <= 64
+    assert 1 <= p.k <= 16 and p.chunks % p.k == 0
+    slabs = n * p.groups
+    assert slabs * p.chunks <= 264
+    if p.k > 1:
+        assert slabs * (p.chunks // p.k) <= clusters(p.k)
+    one_round = pin._STATS_BATCH * pin._stats_rows(p.channels, item)
+    assert (p.route == "one") == (hw <= one_round)
+    if p.route == "cluster":
+        assert p.chunks == p.k and p.chunk <= one_round
+        assert slabs * p.k <= 128 and clusters(p.k) >= slabs
+    if p.route == "tickets":
+        assert 2 <= p.chunks // p.k <= 64
+        assert p.k > 1 or slabs * p.chunks > 132 - slabs
+
+
+def test_b1_bwd_stats_plan_takes_every_route():
+    # over the path's shapes, bf16 and fp32, each route is taken: one
+    # level, one cluster a slab, clusters merged by tickets
+    clusters = _h100_bwd_clusters(2)
+    routes = {pin._bwd_stats_plan(s[0], s[1] * s[2], s[3], item, 132, 2,
+                                  clusters).route
+              for s, _ in sweep_b1.BWD_SHAPES for item in (2, 4)}
+    assert routes == {"one", "cluster", "tickets"}
+
+
+def test_b1_bwd_stats_plan_refuses_empty_chunks():
+    # a launch whose last chunk would hold no pixel is never made
+    with pytest.raises(ValueError, match="no sums launch"):
+        pin._make_bwd_stats_plan(9, 32, 2, 8, 6, 1)
+    with pytest.raises(ValueError, match="no sums launch"):
+        pin._make_bwd_stats_plan(4096, 32, 2, 8, 12, 8)
+
+
+# (shape, chunks, cluster size, act): one level, one cluster of 16, one of
+# 3 over an odd H x W, clusters merged by tickets (m 2 and 3, n 2)
+BWD_CHUNK_CASES = [((1, 31, 31, 64), 1, 1, "tanh"),
+                   ((1, 32, 64, 16), 16, 16, "none"),
+                   ((1, 33, 65, 16), 6, 3, "relu"),
+                   ((2, 17, 19, 32), 8, 4, "leaky_relu"),
+                   ((1, 40, 40, 32), 12, 4, "relu")]
+
+
+def _bwd_case(shape, chunks, k, seed):
+    n, h, w, c = shape
+    x = torch.from_numpy(_x(shape, seed=seed))
+    g = torch.from_numpy(_x(shape, seed=seed + 1, scale=1.0, shift=0.0))
+    _, mean, rstd = pin.instance_norm_act_reference(x, "none")
+    cg = pin._choices(h * w, c, 4)[0][0]
+    return x, g, mean, rstd, pin._make_bwd_stats_plan(h * w, c, 4, cg,
+                                                      chunks, k)
+
+
+@pytest.mark.parametrize("shape,chunks,k,act", BWD_CHUNK_CASES)
+def test_b1_bwd_stats_chunked_reference_matches_float64(shape, chunks, k,
+                                                        act):
+    # the plan's chunks and the kernel's order (chunks, then the ranks of
+    # a cluster, then the clusters of a slab), in fp32, against the same
+    # terms summed in float64: 1e-6 of the terms' absolute sum (they read
+    # ~1e-8); the route is the one the case names
+    x, g, mean, rstd, p = _bwd_case(shape, chunks, k, seed=41)
+    assert p.route == ("one" if chunks == 1 else
+                       "cluster" if chunks == k else "tickets")
+    got = pin.instance_norm_bwd_stats_chunked_reference(x, mean, rstd, g, p,
+                                                        act)
+    terms = pin._bwd_terms(x, mean, rstd, g, act, 0.2).double()
+    want = terms.sum(dim=(2, 3))
+    scale = terms.abs().sum(dim=(2, 3))
+    assert got.shape == (2, shape[0], shape[3]) and got.dtype == torch.float32
+    assert float(((got.double() - want).abs() / scale).max()) < 1e-6
+    plain = pin.instance_norm_bwd_stats_reference(x, mean, rstd, g, act)
+    assert float(((plain.double() - want).abs() / scale).max()) < 1e-6
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape,chunks,k", [c[:3] for c in BWD_CHUNK_CASES])
+def test_b1_bwd_stats_chunked_reference_gives_jax_dx(shape, chunks, k, act):
+    # the chunked sums over the frame's count are _fused_bwd's gm and gx:
+    # dx from them (the apply's plain formula) against JAX's _fused_bwd on
+    # the same numpy input and statistics, fp32, 1e-5 relative to max|dx|
+    from ir2rgb_tpu.kernels.instance_norm import _fused_bwd
+    x, g, mean, rstd, p = _bwd_case(shape, chunks, k, seed=43)
+    sums = pin.instance_norm_bwd_stats_chunked_reference(x, mean, rstd, g,
+                                                         p, act)
+    count = shape[1] * shape[2]
+    got = pin.instance_norm_bwd_apply_reference(x, mean, rstd, g, sums[0],
+                                                sums[1], count, act)
+    (want,) = _fused_bwd(act, pin.INSTANCE_NORM_EPS, 0.2,
+                         (x.numpy(), mean.numpy(), rstd.numpy()), g.numpy())
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_b1_bwd_apply_reference_matches_float64(act):
+    # the apply's plain version against the same formula in float64,
+    # 1e-6 of max|dx|, at a count whose reciprocal is inexact in fp32
+    x, g, mean, rstd, p = _bwd_case((2, 9, 7, 16), 1, 1, seed=47)
+    sums = pin.instance_norm_bwd_stats_reference(x, mean, rstd, g, act)
+    count = 3 * 9 * 7
+    got = pin.instance_norm_bwd_apply_reference(x, mean, rstd, g, sums[0],
+                                                sums[1], count, act)
+    terms = pin._bwd_terms(x, mean, rstd, g, act, 0.2).double()
+    xh = (x.double() - mean.double()[:, None, None]) * rstd.double()[
+        :, None, None]
+    want = rstd.double()[:, None, None] * (
+        terms[0] - (sums[0].double() / count)[:, None, None]
+        - xh * (sums[1].double() / count)[:, None, None])
+    assert float((got.double() - want).abs().max()) <= \
+        1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,act", sweep_b1.BWD_SHAPES)
+def test_b1_bwd_apply_plan_covers_every_pixel_and_lane_once(shape, act,
+                                                            dtype):
+    # lanes of 16 bytes (8 bf16 channels where C allows, 4 fp32), a block
+    # of 256 threads as rows x lb lanes, lane groups covering C, and
+    # blocks along the pixels within one wave (two blocks an SM), never
+    # more than a pixel a thread; thread (block, row) takes pixels block *
+    # rows + row + j * blocks * rows: each pixel once
+    n, h, w, c = shape
+    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
+    p = pin._bwd_apply_plan(n, hw, c, item, sms=132, resident=2)
+    assert p.lane == (8 if item == 2 and c % 8 == 0 else 4)
+    cv = c // p.lane
+    assert p.lb == min(cv, 256) and p.rows * p.lb <= 256
+    groups = -(-cv // p.lb)
+    assert p.blocks >= 1 and (p.blocks == 1
+                              or n * groups * p.blocks <= 264)
+    assert (p.blocks - 1) * p.rows < hw
+    b = np.arange(p.blocks)[:, None, None]
+    r = np.arange(p.rows)[None, :, None]
+    j = np.arange(-(-hw // (p.blocks * p.rows)))[None, None, :]
+    q = (b * p.rows + r + j * p.blocks * p.rows).ravel()
+    assert np.array_equal(np.sort(q[q < hw]), np.arange(hw))
+
+
+def test_b1_bwd_stats_op_writes_one_buffer_of_both_sums():
+    # the op returns one (2, N, C) fp32 buffer, s1 then s2 (its fake too,
+    # as torch.export traces it), and the plain version's rows are the sums
+    x = torch.from_numpy(_x((2, 4, 6, 8), seed=45))
+    g = torch.from_numpy(_x((2, 4, 6, 8), seed=46, scale=1.0, shift=0.0))
+    _, mean, rstd = pin.instance_norm_act_reference(x, "relu")
+    sums = pin.instance_norm_bwd_stats(x, mean, rstd, g, "relu")
+    assert sums.shape == (2, 2, 8) and sums.dtype == torch.float32
+    terms = pin._bwd_terms(x, mean, rstd, g, "relu", 0.2)
+    torch.testing.assert_close(sums[0], terms[0].sum(dim=(1, 2)))
+    torch.testing.assert_close(sums[1], terms[1].sum(dim=(1, 2)))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode() as mode:
+        fake = pin._BWD_STATS_OPS.op(*(mode.from_tensor(t) for t in
+                                       (x, mean, rstd, g)), "relu", 0.2)
+    assert fake.shape == (2, 2, 8) and fake.dtype == torch.float32
+
+
+def test_b1_split_phase_probe_reads_every_phase_of_the_split_kernels():
+    # phases_b1 --split instruments the three split kernels by their
+    # lines: in each, one reading at the start, one before each anchor,
+    # and one at every exit (each return and the closing brace)
+    from ir2rgb_tpu_torch import phases_b1
+    src = phases_b1.instrumented_source()
+    for kernel, anchors in phases_b1.SPLIT_ANCHORS.items():
+        start, end = phases_b1._body(src, kernel)
+        body = src[start:end]
+        assert body.count("b1_clk_begin();") == 1
+        assert [body.count(f"b1_clk({i},") for i in
+                range(1, len(anchors) + 1)] == [1] * len(anchors)
+        assert body.count("return;") == body.count("b1_clk_end(); return;")
+        assert body.rstrip().endswith("b1_clk_end();")
+    assert len(phases_b1.SPLIT_ANCHORS["in_bwd_stats_kernel"]) < \
+        phases_b1.SPLIT_CLOCKS - 1
 
 
 def _tail_inputs(hs, c, seed=0):
