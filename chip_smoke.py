@@ -138,74 +138,88 @@ Phases, each failing the run if it fails:
 14. ``parallel`` (``parallel_phase``): data-parallel training
    (``ir2rgb_tpu_torch/parallel/``), pix2pixhd_512 at full width and its
    crop size. (a) ``torchrun --standalone --nproc_per_node 1 -m
-   ir2rgb_tpu_torch.cli.train`` (NCCL, world 1) for 3 bf16 steps on
-   train_cli's PNG folder, its checkpoint equal bit for bit to the same
-   run without torchrun, ms/step of both; (b) two ranks on the one card
-   over gloo (``chip_smoke.py --parallel-rank R PORT DIR``), a global
-   batch of 2: one fp32 step (TF32 off) held to the one-process batch-2
-   step (metrics, every gradient, the weights after it), then 3 bf16
-   steps with each rank's launches held to ``TRAIN`` at batch 1 and the
-   replicas bit-equal after each, with ms/step, the gradient
-   all-reduce's bytes and ms (gloo stages CUDA tensors through the
-   host);
+   ir2rgb_tpu_torch.cli.train`` (NCCL, world 1) for PARALLEL_STEPS bf16
+   steps on train_cli's PNG folder, its checkpoint equal bit for bit to
+   the same run without torchrun, ms/step of both; (b) two ranks on the
+   one card over gloo (ranks 0 and 1 of the ranks' world, below), a
+   global batch of 2: one fp32 step (TF32 off) held to the one-process
+   batch-2 step (metrics, every gradient, the weights after it), then
+   PARALLEL_STEPS bf16 steps with each rank's launches held to ``TRAIN``
+   at batch 1 and the replicas bit-equal after each, with ms/step, the
+   gradient all-reduce's bytes and ms (gloo stages CUDA tensors through
+   the host);
 15. ``spatial`` (``spatial_phase``): spatially partitioned serving
-   (``parallel/spatial.py``) on gloo ranks sharing the one card
-   (``chip_smoke.py --spatial-rank R WORLD PORT DIR``). B1 split
-   (``ir2rgb::instance_norm_stats`` and ``ir2rgb::instance_norm_apply``)
-   at every shard shape (``B1_SPLIT_SHAPES``) against its plain
-   versions, bf16 and fp32, one device kernel a call, the statistics of
-   two calls bit-identical and, for an fp32 input of mean 1e3 x std,
-   within SPLIT_LARGE_MEAN_REL of float64; timed beside the plain
-   versions, the library's and the bound, the statistics also beside the
-   fused forward at each shape and on a cold L2 from SPLIT_COLD_BYTES,
-   and summed over all of a ``SPLIT_FRAME`` rank's launches; a bf16
-   tensor off the statistics' 16-byte loads refused; B2 at the tails'
-   extended shapes and d2s at the shard
-   shapes are in the kernel phases above. Frames (``SPATIAL_CASES``):
-   pix2pixhd_2048 at full width on sp 2 and 4, fp32 and bf16, 2 frames;
-   pix2pixhd_512 on sp 2, bf16;
-   temporal_512 on sp 4, 3 frames, each rank's carry rows held to the
-   one-process carry's. Each gathered frame against the one-process
-   frame of the same weights (fp32 max-abs <= SLICE_FP32_TOL, bf16 >=
-   SPATIAL_BF16_PSNR dB; bf16 temporal frames at the one-process carry),
-   the merged B1 statistics bit-identical on every rank, every rank's
-   launches a frame equal to ``SPATIAL``. MultiStreamServer of
-   temporal_512, SPATIAL_SLOTS streams, SPATIAL_TICKS, on dp_sp_mesh(2,
-   1) and (1, 2) against the one-process server (fp32 within 1 LSB, its
-   carry blocks SLICE_FP32_TOL; bf16 SPATIAL_BF16_PSNR). The negative
-   control (one halo row a layer from the wrong shard) must fail the
-   fp32 bar. Per rank: ms/frame, the exchange's bytes and ms, peak
-   memory, labelled as gloo ranks sharing one card.
+   (``parallel/spatial.py``) on gloo ranks sharing the one card (the
+   ranks' world, below). B1 split (``ir2rgb::instance_norm_stats`` and
+   ``ir2rgb::instance_norm_apply``) at every shard shape of the frames
+   (``B1_SPLIT_SHAPES``) and of the spatial_train phase's steps
+   (``B1_SPLIT_TRAIN_SHAPES``: the discriminators', a temporal_1024 sp-4
+   rank's) against its plain versions, bf16 and fp32, one device kernel
+   a call, the statistics of two calls bit-identical and, for an fp32
+   input of mean 1e3 x std, within SPLIT_LARGE_MEAN_REL of float64; the
+   frames' shapes timed beside the plain versions, the library's and
+   the bound, the statistics also beside the fused forward at each shape
+   and on a cold L2 from SPLIT_COLD_BYTES, and summed over all of a
+   ``SPLIT_FRAME`` rank's launches; a bf16 tensor off the statistics'
+   16-byte loads refused; B2 at the tails' extended shapes and d2s at
+   the shard shapes are in the kernel phases above. Frames
+   (``SPATIAL_CASES``): pix2pixhd_2048 at full width on sp 2 and 4, fp32
+   and bf16, 2 frames; pix2pixhd_512 on sp 2, bf16; temporal_512 on sp
+   4, 3 frames, each rank's carry rows held to the one-process carry's.
+   Each gathered frame against the one-process frame of the same weights
+   (fp32 max-abs <= SLICE_FP32_TOL, bf16 >= SPATIAL_BF16_PSNR dB; bf16
+   temporal frames at the one-process carry), the merged B1 statistics
+   bit-identical on every rank, every rank's launches a frame equal to
+   ``SPATIAL``. MultiStreamServer of temporal_512, SPATIAL_SLOTS
+   streams, SPATIAL_TICKS, on dp_sp_mesh(2, 1) and (1, 2)'s layouts
+   against the one-process server (fp32 within 1 LSB, its carry blocks
+   SLICE_FP32_TOL; bf16 SPATIAL_BF16_PSNR). The negative control (one
+   halo row a layer from the wrong shard) must fail the fp32 bar. Per
+   rank: ms/frame, the exchange's bytes and ms, peak memory, labelled as
+   gloo ranks sharing one card.
 16. ``spatial_train`` (``spatial_train_phase``): spatially partitioned
    training (``parallel/spatial.py`` under autograd) on gloo ranks
-   sharing the one card (``chip_smoke.py --spatial-train-rank R WORLD
-   PORT DIR``). B1's split backward (``ir2rgb::instance_norm_bwd_stats``
-   and ``ir2rgb::instance_norm_bwd_apply``) at every shard shape of the
+   sharing the one card. B1's split backward
+   (``ir2rgb::instance_norm_bwd_stats`` and
+   ``ir2rgb::instance_norm_bwd_apply``) at every shard shape of the
    phase's steps (``sweep_b1.BWD_SHAPES``) against its plain versions
    (the sums also against their chunked reference in the plan's order),
    bf16 and fp32, one device kernel a call, the sums of two calls
    bit-identical, each row's sums route printed and every route taken;
-   bf16 timed beside the plain versions, the library's
-   (the formula in eager torch) and the bound, on a cold L2 as well
-   where x and g reach SPLIT_COLD_BYTES, and summed over one
-   ``SPLIT_TRAIN_STEP`` rank's launches (``sweep_b1.BWD_STEP``).
-   Steps (``SPATIAL_TRAIN_CASES``): pix2pixhd_512 at full width on sp
-   2, fp32 and bf16, 2 steps each;
-   on dp 2 x sp 2, fp32, against one process's batch-2 step;
-   pix2pixhd_2048 bf16 on sp 4, 2 timed steps. Every rank's launches a step equal to
-   ``SPATIAL_TRAIN`` (no fused B1; statistics, apply, sums and dx
-   apply for every norm), the merged statistics and summed sums
-   bit-identical on every rank of a data row, finite losses; each
-   pix2pixhd_512 step held to one process's step from the same train
-   state at SPATIAL_TRAIN_BARS, the fp32 one with one process pinned to
-   the partitioned forward point (``ShardPins``: rounding flips ReLU and
-   L1 kinks). The negative control (one halo row a layer from the wrong
-   shard) must fail the fp32 bars. Beside world 2, one ``torchrun`` of
-   ``cli.train --train.spatial_devices 2 --dist_backend gloo`` for two
-   steps of SPATIAL_TRAIN_CLI from a folder, rank 0's checkpoint read
-   back. Per rank and step: ms, the exchange's bytes and ms, the
-   gradient all-reduce's bytes, peak memory, labelled as gloo ranks
-   sharing one card.
+   bf16 timed beside the plain versions, the library's (the formula in
+   eager torch) and the bound, on a cold L2 as well where x and g reach
+   SPLIT_COLD_BYTES, and summed over one ``SPLIT_TRAIN_STEP`` rank's
+   launches (``sweep_b1.BWD_STEP``). Steps (``SPATIAL_TRAIN_CASES``):
+   temporal_512 at full width on sp 2, fp32 and bf16, a window of 4
+   frames, then the same with remat; pix2pixhd_512 on sp 2, fp32 and
+   bf16, a step each; pix2pixhd_512 on dp 2 x sp 2, fp32, against one
+   process's batch-2 step; pix2pixhd_2048 bf16 on sp 4, 2 timed steps;
+   temporal_1024 bf16 with remat on sp 4, 2 timed windows, its peak a
+   rank beside one process's. Every rank's launches a step equal to
+   ``SPATIAL_TRAIN`` (no fused B1; statistics, apply, sums and dx apply
+   for every norm, and with remat the blocks' statistics and apply again
+   in the backward), the merged statistics and summed sums bit-identical
+   on every rank of a data row, every rank's count of exchanges equal,
+   finite losses; each pix2pixhd_512 and temporal_512 step held to one
+   process's step (window) from the same train state at
+   SPATIAL_TRAIN_BARS, the fp32 one with one process pinned to the
+   partitioned forward point (``ShardPins``: rounding flips ReLU and L1
+   kinks); each remat step to the same step without remat (losses bit
+   for bit, gradients within REMAT_GRAD_ATOL). The negative control (one
+   halo row a layer from the wrong shard) must fail the fp32 bars.
+   Beside the ranks' world, one ``torchrun`` of ``cli.train
+   --train.spatial_devices 2 --dist_backend gloo`` for two steps of
+   SPATIAL_TRAIN_CLI from a folder, rank 0's checkpoint read back. Per
+   rank and step: ms, the exchange's bytes, calls and ms, the gradient
+   all-reduce's bytes, peak memory, labelled as gloo ranks sharing one
+   card.
+
+The gloo ranks of phases 14-16 are one world of RANKS_WORLD processes
+(``chip_smoke.py --ranks R PORT DIR``, ``ranks_main``), started once
+after the parent's parts of phases 15 and 16 (``start_ranks``) and run
+beside phase 14's part (a), then waited for (``ranks_phase``): a section
+a phase, the cases of two ranks on ranks 0 and 1 (``pair_mesh``), those
+of four on all of them.
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -650,7 +664,6 @@ SPATIAL_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3)]
 SPATIAL_SERVER_MESHES = [(2, 1), (1, 2)]
 SPATIAL_BROKEN = ("pix2pixhd_512", 2, "float32")
 SPATIAL_BF16_PSNR = 40.0
-SPATIAL_TIMEOUT_S = 300
 # the frame whose B1 split launches the kernel table's times sum over
 SPLIT_FRAME = ("pix2pixhd_2048", 4)
 # the split statistics of an fp32 input of mean 1e3 x std against
@@ -690,20 +703,36 @@ D2S_SHAPES += sorted({k for t in SPATIAL_TABLES.values() for k in t["d2s"]}
 # The spatial_train phase (``spatial_train_phase``): train steps with each
 # frame's rows spread over the sp gloo ranks of a dp×sp mesh on the one
 # card, the partitioned step held to one process's step of the same
-# weights and batch. Cases (preset, dp, sp, dtypes, steps): world 2
-# runs the first, world 4 the others; pix2pixhd_2048's steps are timed
-# alone (no reference). SPATIAL_TRAIN_BROKEN (preset, sp, dtype):
-# one step with one halo row a layer from the wrong shard, which must
-# fail the bars; SPATIAL_TRAIN_CLI: the preset of one torchrun of
-# cli.train on sp 2 for two steps from a folder.
-SPATIAL_TRAIN_CASES = [("pix2pixhd_512", 1, 2, ("float32", "bf16"), 2),
-                       ("pix2pixhd_512", 2, 2, ("float32",), 1),
-                       ("pix2pixhd_2048", 1, 4, ("bf16",), 2)]
+# weights and batch. Cases (preset, dp, sp, dtypes, steps, remat): ranks
+# 0 and 1 run those of two ranks, all four ranks the others; a temporal
+# preset's step is a window of its n_frames_total frames; a remat case
+# follows the same case without remat and is held to it as well. The
+# steps of SPATIAL_TRAIN_TIMED are timed alone (no reference).
+# SPATIAL_TRAIN_BROKEN (preset, sp, dtype): one step with one halo row a
+# layer from the wrong shard, which must fail the bars;
+# SPATIAL_TRAIN_CLI: the preset of one torchrun of cli.train on sp 2 for
+# two steps from a folder.
+SPATIAL_TRAIN_CASES = [
+    ("temporal_512", 1, 2, ("float32", "bf16"), 1, False),
+    ("temporal_512", 1, 2, ("float32", "bf16"), 1, True),
+    ("pix2pixhd_512", 1, 2, ("float32", "bf16"), 1, False),
+    ("pix2pixhd_512", 2, 2, ("float32",), 1, False),
+    ("pix2pixhd_2048", 1, 4, ("bf16",), 2, False),
+    ("temporal_1024", 1, 4, ("bf16",), 2, True)]
+SPATIAL_TRAIN_TIMED = ("pix2pixhd_2048", "temporal_1024")
 SPATIAL_TRAIN_BROKEN = ("pix2pixhd_512", 2, "float32")
 SPATIAL_TRAIN_CLI = "resnet9_256"
-SPATIAL_TRAIN_TIMEOUT_S = 420
+# the limits on the ranks' world (every collective and the group's run)
+# and on the torchrun of cli.train beside it
+RANKS_TIMEOUT_S, CLI_TIMEOUT_S = 900, 420
 # the step whose split backward launches the kernel table's times sum over
-SPLIT_TRAIN_STEP = ("pix2pixhd_512", 1, 2, 0)
+SPLIT_TRAIN_STEP = ("pix2pixhd_512", 1, 2, False, 0)
+# a remat step against the same step without remat: every gradient
+# element (JAX's remat bar, tests/test_variants.py:83)
+REMAT_GRAD_ATOL = 1e-6
+# the timed presets whose one-process peak (two steps, no remat) rank 0
+# also takes, beside the ranks' peaks
+ONE_PROCESS_PEAK = ("temporal_1024",)
 # the bars against one process (PERF.md §2): fp32 (TF32 off) the train
 # bars, losses rel and each gradient tensor's ||d|| <= rel·||g|| +
 # 1e-6·M; bf16 the bars PERF.md states for it: losses rel, and each
@@ -720,15 +749,40 @@ def shard_rows(h: int, sp: int, q: int) -> int:
     return (q + 1) * h // sp - q * h // sp
 
 
-def spatial_train_table(preset: str, sp: int, q: int, n: int = 1) -> dict:
-    """One unfrozen ``TRAIN`` step of ``preset`` on rank q of ``sp`` at
-    batch ``n`` a rank: every shape's rows split as the partition splits
-    them (the discriminator's 4x4 convs give uneven shards)."""
+# the enhancer levels of a local preset: (hw, ngf_n) each
+_ENHANCERS = {"pix2pixhd_1024": [(1024, 32)],
+              "pix2pixhd_2048": [(1024, 32), (2048, 16)],
+              "temporal_512": [(512, 32)], "temporal_1024": [(1024, 32)]}
+
+
+def remat_blocks(preset: str) -> Counter:
+    """The B1 forward a remat recompute runs again in one frame's
+    backward, of a local preset: every residual block's two norms (the
+    trunk's 9 at its 16th resolution, each enhancer's 3 at its half)."""
+    _, _, _, _, (hw, ngf) = _TRAIN_SPEC[preset]
+    blocks = Counter({((1, hw >> 4, hw >> 4, ngf << 4), a): 9
+                      for a in ("relu", "none")})
+    for level, ngf_n in _ENHANCERS[preset]:
+        blocks.update({((1, level // 2, level // 2, 2 * ngf_n), a): 3
+                       for a in ("relu", "none")})
+    return blocks
+
+
+def spatial_train_table(preset: str, sp: int, q: int, n: int = 1,
+                        remat: bool = False) -> dict:
+    """One unfrozen ``TRAIN`` step of ``preset`` (a temporal preset's
+    window) on rank q of ``sp`` at batch ``n`` a rank: every shape's rows
+    split as the partition splits them (the discriminator's 4x4 convs
+    give uneven shards); with ``remat`` each frame's recomputed blocks'
+    norms forward again."""
     t = TRAIN[preset]["unfrozen"]
+    b1 = t["b1"]
+    if remat:
+        b1 = b1 + _mul(remat_blocks(preset), _TRAIN_SPEC[preset][1])
 
     def at(shape):
         return (n, shard_rows(shape[1], sp, q)) + tuple(shape[2:])
-    return dict(b1=Counter({(at(s), a): c for (s, a), c in t["b1"].items()}),
+    return dict(b1=Counter({(at(s), a): c for (s, a), c in b1.items()}),
                 b1_bwd=Counter({(at(s), a): c
                                 for (s, a), c in t["b1_bwd"].items()}),
                 d2s=Counter({(at(s), c): m for (s, c), m in t["d2s"].items()}),
@@ -750,10 +804,21 @@ def spatial_per_step(table: dict) -> dict:
             "s2d": sum(table["s2d"].values())}
 
 
-# every (preset, dp, sp, rank) the phase trains on, and its table
-SPATIAL_TRAIN = {(p, dp, sp, q): spatial_train_table(p, sp, q)
-                 for p, dp, sp, _, _ in SPATIAL_TRAIN_CASES
+# every (preset, dp, sp, remat, rank) the phase trains on, and its table
+SPATIAL_TRAIN = {(p, dp, sp, remat, q): spatial_train_table(p, sp, q,
+                                                            remat=remat)
+                 for p, dp, sp, _, _, remat in SPATIAL_TRAIN_CASES
                  for q in range(sp)}
+# the split forward's shard shapes of those steps that the frames' do not
+# give it (the discriminators', a 1024 rank's), checked beside them; B3
+# at their ups' shard shapes
+B1_SPLIT_TRAIN_SHAPES = sorted(
+    {k for t in SPATIAL_TRAIN.values() for k in t["b1"] if k[0][1]}
+    - set(B1_SPLIT_SHAPES))
+D2S_SHAPES += sorted({k for t in SPATIAL_TRAIN.values() for k in t["d2s"]}
+                     - set(D2S_SHAPES))
+S2D_SHAPES += sorted({k for t in SPATIAL_TRAIN.values() for k in t["s2d"]}
+                     - set(S2D_SHAPES))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
 # (a reading of such a graph spans >= 0.5 ms; the plain and library
@@ -1626,9 +1691,17 @@ class KinkPins:
 class ShardPins(KinkPins):
     """:class:`KinkPins` recorded on a spatially partitioned step: every
     conv output and split-B1 input and output this rank records with a
-    graph (its rows), and the merged B1 statistics of every call.
-    :meth:`whole` joins the ranks' records of a data row along the rows,
-    in rank order, for one process's step to replay."""
+    graph (its rows), and the merged B1 statistics of every call, in the
+    forward: a remat recompute in the backward records nothing (it
+    replays the forward's values; one process's step without remat reads
+    the forward's pins alone). :meth:`whole` joins the ranks' records of a
+    data row along the rows, in rank order, for one process's step to
+    replay."""
+
+    @staticmethod
+    def _recomputing() -> bool:
+        # the autograd engine runs a graph task: a recompute's forward
+        return torch._C._current_graph_task_id() != -1
 
     @contextlib.contextmanager
     def recording(self):
@@ -1639,11 +1712,19 @@ class ShardPins(KinkPins):
 
         def stats(*a):
             y, mean, rstd, count = forward(*a)
+            if self._recomputing():
+                return y, mean, rstd, count
             return (y, *self._stats(mean, rstd), count)
-        ops.conv = lambda *a, **kw: self.pin(conv(*a, **kw))
-        ops._split_instance_norm_act = (
-            lambda part, x, act, slope: self.pin(split(part, self.pin(x),
-                                                       act, slope)))
+
+        def pinned_conv(*a, **kw):
+            y = conv(*a, **kw)
+            return y if self._recomputing() else self.pin(y)
+
+        def pinned_split(part, x, act, slope):
+            if self._recomputing():
+                return split(part, x, act, slope)
+            return self.pin(split(part, self.pin(x), act, slope))
+        ops.conv, ops._split_instance_norm_act = pinned_conv, pinned_split
         ops._split_forward = stats
         try:
             yield
@@ -1820,24 +1901,14 @@ def train_phase(preset: str, card: str):
 GP_EPS = (0.3, 0.7)  # the penalty's mixing weights, one a sample
 EMA_DECAY, EMA_STEPS = 0.999, 3
 REMAT_PRESETS = ("pix2pixhd_1024", "pix2pixhd_2048")
-# the enhancer levels of a local preset: (hw, ngf_n) each
-_ENHANCERS = {"pix2pixhd_1024": [(1024, 32)],
-              "pix2pixhd_2048": [(1024, 32), (2048, 16)]}
 
 
 def remat_table(preset: str) -> dict:
     """One unfrozen remat train step of a local preset: ``TRAIN``'s, plus
     the B1 forward of every residual block's two norms again, recomputed
-    in the backward (the trunk's 9 at its 16th resolution, each
-    enhancer's 3 at its half)."""
-    crop, _, _, _, (hw, ngf) = _TRAIN_SPEC[preset]
-    blocks = Counter({((1, hw >> 4, hw >> 4, ngf << 4), a): 9
-                      for a in ("relu", "none")})
-    for level, ngf_n in _ENHANCERS[preset]:
-        blocks.update({((1, level // 2, level // 2, 2 * ngf_n), a): 3
-                       for a in ("relu", "none")})
+    in the backward (``remat_blocks``)."""
     t = TRAIN[preset]["unfrozen"]
-    return dict(t, b1=t["b1"] + blocks)
+    return dict(t, b1=t["b1"] + remat_blocks(preset))
 
 
 REMAT = {p: remat_table(p) for p in REMAT_PRESETS}
@@ -4017,9 +4088,10 @@ def parallel_batch(cfg) -> dict:
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def parallel_rank(rank: int, port: int, out: str) -> int:
-    """One of the two ranks of the parallel phase's gloo check, on the one
-    card: ``initialize(backend="gloo")`` on ``port``, then
+def parallel_section(rank: int, mesh, out: Path) -> None:
+    """The parallel phase's gloo check on ranks 0 and 1 of the ranks'
+    world (``ranks_main``), on the one card, over ``mesh``: their
+    data-parallel mesh of world 2 (``pair_mesh``), then
 
     - one fp32 step (TF32 off, cuDNN deterministic) of PARALLEL_PRESET at
       full width on its row of the global batch of 2 (``parallel_batch``),
@@ -4035,26 +4107,14 @@ def parallel_rank(rank: int, port: int, out: str) -> int:
       two replicas' weights (and pool) held equal bit for bit (rank 0's
       broadcast and compared on rank 1).
 
-    Writes its results to ``out/rank<rank>.json``; exits 1 on a failed
-    check."""
+    Writes its results to ``out/rank<rank>.json``; a failed check is in
+    its ``failures``."""
     import torch.distributed as dist
-    from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from ir2rgb_tpu_torch.parallel import (
-        data_parallel_mesh,
-        multihost,
-        replicate,
-        shard_batch,
-    )
+    from ir2rgb_tpu_torch.parallel import replicate, shard_batch
     from ir2rgb_tpu_torch.parallel import mesh as pmesh
-    warnings.filterwarnings("ignore", message="VGG perceptual loss")
-    torch.cuda.set_device(0)
-    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
-                         num_processes=2, process_id=rank, backend="gloo",
-                         timeout_s=PARALLEL_TIMEOUT_S)
-    mesh = data_parallel_mesh(2, device="cuda:0")
-    set_parity_mode()
-    res = {"rank": rank, "backend": dist.get_backend(),
+    first_failure = len(failures)
+    res = {"rank": rank, "backend": dist.get_backend(mesh.group),
            "up_s": time.perf_counter() - T0}
     want = per_step(TRAIN[PARALLEL_PRESET]["unfrozen"])
 
@@ -4167,12 +4227,12 @@ def parallel_rank(rank: int, port: int, out: str) -> int:
         pmesh.all_reduce_grads = reduce_grads
     res["bf16_steps"] = steps
     res["bf16_done_s"] = time.perf_counter() - T0
-    res["failures"] = list(failures)
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+    res["failures"] = failures[first_failure:]
+    with open(out / f"rank{rank}.json", "w") as fh:
         json.dump(res, fh)
+    del dp16
+    torch.cuda.empty_cache()
     mesh.barrier()
-    dist.destroy_process_group()
-    return 1 if failures else 0
 
 
 def parallel_phase(card: str) -> dict:
@@ -4190,12 +4250,12 @@ def parallel_phase(card: str) -> dict:
         identity); ms/step of each from its metrics.jsonl (one record a
         step);
     (b) two ranks on the card over gloo (NCCL puts one rank on a card),
-        spawned as ``chip_smoke.py --parallel-rank R PORT DIR``
-        (``parallel_rank``), a global batch of 2.
+        ranks 0 and 1 of the ranks' world (``ranks_phase``,
+        ``parallel_section``), a global batch of 2; read by
+        ``parallel_report``.
 
-    Each subprocess has PARALLEL_TIMEOUT_S; one that fails, hangs or exits
-    non-zero fails the phase, and its process group is killed."""
-    import socket
+    The launched run has PARALLEL_TIMEOUT_S; one that fails, hangs or
+    exits non-zero fails the phase, and its process group is killed."""
     import shutil
     from ir2rgb_tpu_torch.data import write_synthetic_dataset
     root = Path("build") / "train_cli"
@@ -4262,25 +4322,14 @@ def parallel_phase(card: str) -> dict:
           f"{[round(x, 2) for x in a['one_process']]} (in process "
           f"{res[runs[1]]['seconds']:.1f} s)", flush=True)
 
-    # (b) two gloo ranks on the one card
-    out_dir = root / "parallel" / "ranks"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    t0 = time.perf_counter()
-    procs = [start_group([sys.executable, __file__, "--parallel-rank",
-                          str(r), str(port), str(out_dir)])
-             for r in range(2)]
-    outs = wait_group(procs, PARALLEL_TIMEOUT_S)
-    res["ranks_seconds"] = time.perf_counter() - t0
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"parallel (b) rank {r}: exit "
-              f"{p.returncode}" + ("" if p.returncode == 0 else
-                                   f"\n{o[-2000:]}\n{e[-3000:]}"))
-    if any(p.returncode for p in procs):
-        raise RuntimeError("parallel (b): a rank failed (above)")
-    ranks = [json.load(open(out_dir / f"rank{r}.json")) for r in range(2)]
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def parallel_report(res: dict, folder: Path, card: str) -> None:
+    """Part (b) of the parallel phase from its two ranks' results in
+    ``folder`` (``parallel_section``), into ``res``."""
+    ranks = [json.load(open(folder / f"rank{r}.json")) for r in range(2)]
     res["ranks"] = ranks
     for r in ranks:
         for f in r["failures"]:
@@ -4301,8 +4350,6 @@ def parallel_phase(card: str) -> dict:
               f"of the {PARALLEL_GRAD_REL} bar, bit-equal "
               f"{r['grads_bit_equal']}, weights max |d| "
               f"{r['weight_max_abs']:.3g}", flush=True)
-    shutil.rmtree(root, ignore_errors=True)
-    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4312,8 +4359,10 @@ def parallel_phase(card: str) -> dict:
 def b1_split_phase(bw: float, gen: torch.Generator):
     """B1 split (``ir2rgb::instance_norm_stats`` and
     ``ir2rgb::instance_norm_apply``) at every shard shape of the spatial
-    phase's frames (``B1_SPLIT_SHAPES``), bf16 and fp32, each held to its
-    plain version on the card (the statistics to 1e-4 relative, the
+    phase's frames (``B1_SPLIT_SHAPES``) and of the spatial_train phase's
+    steps (``B1_SPLIT_TRAIN_SHAPES``, checked, not timed), bf16 and fp32,
+    each held to its plain version on the card (the statistics to 1e-4
+    relative, the
     apply at the fused forward's tolerances) with one device kernel a
     call, the statistics of two calls bit-identical; the statistics of an
     fp32 input of mean 1e3 x its std held to float64 at every shard
@@ -4332,8 +4381,9 @@ def b1_split_phase(bw: float, gen: torch.Generator):
     worst = {(op, d): 0.0 for op in ("stats", "apply")
              for d in ("bfloat16", "float32")}
     worst[("stats", "large mean")] = 0.0
-    for (shape, act) in B1_SPLIT_SHAPES:
+    for (shape, act) in B1_SPLIT_SHAPES + B1_SPLIT_TRAIN_SHAPES:
         n, h, w, c = shape
+        timed = (shape, act) in B1_SPLIT_SHAPES
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3
                  + 1).to(dtype)
@@ -4384,7 +4434,7 @@ def b1_split_phase(bw: float, gen: torch.Generator):
                       f"B1 split stats {shape} float32 at mean 1e3 x std: "
                       f"M2 {rel:.3g} relative to float64 (tol "
                       f"{SPLIT_LARGE_MEAN_REL}), mean {mean_rel:.3g}")
-            if dtype != torch.bfloat16:
+            if dtype != torch.bfloat16 or not timed:
                 continue
             x_nchw = x.permute(0, 3, 1, 2)
             xb = x.numel() * x.element_size()
@@ -4531,11 +4581,13 @@ def spatial_refs(folder: Path) -> None:
         torch.cuda.empty_cache()
 
 
-def spatial_rank(rank: int, world: int, port: int, out: str) -> int:
-    """One of the ``world`` gloo ranks of the spatial phase on the one
-    card: every frame case of SPATIAL_CASES with ``sp == world`` on
-    ``dp_sp_mesh(1, sp)``, and with ``world == 2`` the server on each of
-    SPATIAL_SERVER_MESHES and the negative control. Per frame: the
+def spatial_section(rank: int, pair, folder: Path) -> None:
+    """The spatial phase's cases on the ranks' world (``ranks_main``), gloo
+    ranks sharing the one card, by group size: on ranks 0 and 1 (size 2,
+    ``pair``) every frame case of SPATIAL_CASES with sp 2 on a dp 1 x sp
+    2 mesh (``pair_mesh``), the server on each of SPATIAL_SERVER_MESHES
+    and the negative control; then on all four ranks (size 4) every case
+    with sp 4 on ``dp_sp_mesh(1, 4)``. Per frame: the
     launches held to ``SPATIAL``, ms (CUDA synchronized around it), the
     exchange's bytes and ms (every ``mesh.all_reduce_bytes``, the
     output's gather included, synchronized around it), the merged B1
@@ -4548,22 +4600,12 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> int:
     same carry: with random weights the feedback through the carry
     multiplies a difference ~5x a frame, and free-running bf16 streams
     part whatever the arithmetic (fp32 runs free). Writes
-    ``out/rank<world>_<rank>.json``; exits 1 on a failed check."""
+    ``folder/rank<size>_<rank>.json`` for each group it ran in; a failed
+    check is in its ``failures``."""
     import hashlib
-    import torch.distributed as dist
-    from ir2rgb_tpu_torch import set_parity_mode
-    from ir2rgb_tpu_torch.infer import MultiStreamServer, StreamingGenerator
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from ir2rgb_tpu_torch.parallel import dp_sp_mesh, multihost, spatial
+    from ir2rgb_tpu_torch.parallel import spatial
     from ir2rgb_tpu_torch.parallel import mesh as pmesh
-    folder = Path(out)
-    torch.cuda.set_device(0)
-    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
-                         num_processes=world, process_id=rank,
-                         backend="gloo", timeout_s=SPATIAL_TIMEOUT_S)
-    set_parity_mode()
-    res = {"rank": rank, "world": world, "up_s": time.perf_counter() - T0,
-           "frames": [], "ticks": []}
     xfer, merged = [0, 0.0], []
     reduce_bytes, merge = pmesh.all_reduce_bytes, spatial.merge_stats
 
@@ -4601,177 +4643,173 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> int:
               f"{got} (want {want}, SPATIAL)")
 
     try:
-        for preset, sp, dtypes, n in SPATIAL_CASES:
-            if sp != world:
-                continue
-            mesh = dp_sp_mesh(1, sp, device="cuda:0")
-            h = crop_of(preset) // sp
-            for dtype in dtypes:
-                model = spatial_model(preset, dtype)
-                ref = torch.load(folder / f"ref_{preset}_{dtype}.pt")
-                hw = (model.cfg.data.crop_size,) * 2
-                stream = StreamingGenerator(model, hw, mesh=mesh)
-                torch.cuda.reset_peak_memory_stats()
-                for i, a in enumerate(spatial_frames(preset, n)):
-                    rec = {"tag": f"{preset} sp {sp} {dtype} frame {i}"}
-                    if stream.carry is not None and dtype == "bf16" and i:
-                        stream._carry = ref["carries"][i - 1][
-                            :, rank * h:(rank + 1) * h].cuda()
-                    t0 = frame_start()
-                    y = stream.push_device(a)
-                    frame_end(t0, rec, SPATIAL[preset])
-                    if rank == 0:
-                        rec["frame"] = spatial_bar(y, ref["frames"][i], dtype)
-                        check(rec["frame"]["ok"] and y.shape == a.shape[:3]
-                              + (3,), f"spatial {rec['tag']}: the gathered "
-                              f"frame against one process {rec['frame']}")
-                    if stream.carry is not None:
-                        want = ref["carries"][i][:, rank * h:(rank + 1) * h]
-                        rec["carry"] = spatial_bar(stream.carry, want, dtype)
-                        check(rec["carry"]["ok"], f"spatial {rec['tag']} "
-                              f"rank {rank}: its carry rows against one "
-                              f"process's {rec['carry']}")
-                    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-                    res["frames"].append(rec)
-                del model, stream, ref
-                torch.cuda.empty_cache()
-        if world == 2:
-            ticks = spatial_ticks(SPATIAL_SERVER)
-            meshes = [dp_sp_mesh(dp, sp, device="cuda:0")
-                      for dp, sp in SPATIAL_SERVER_MESHES]
-            for dtype in ("float32", "bf16"):
-                model = spatial_model(SPATIAL_SERVER, dtype)
-                ref = torch.load(folder / f"server_{dtype}.pt",
-                                 weights_only=False)
-                hw = (model.cfg.data.crop_size,) * 2
-                for mesh in meshes:
-                    dp, sp = mesh.dp, mesh.sp
-                    want = (SPATIAL if sp > 1 else
-                            {p: per_frame(p) for p in SERVE})[SPATIAL_SERVER]
-                    srv = MultiStreamServer(model, hw, n_slots=SPATIAL_SLOTS,
-                                            mesh=mesh)
-                    recs = []
-                    b = SPATIAL_SLOTS // dp
-                    h = crop_of(SPATIAL_SERVER) // sp
+        for world in (2, 4):
+            if rank < world:
+                _spatial_group(rank, world, pair, folder, frame_start,
+                               frame_end)
+    finally:
+        pmesh.all_reduce_bytes, spatial.merge_stats = reduce_bytes, merge
 
-                    def block(t):
-                        return t[mesh.dp_rank * b:(mesh.dp_rank + 1) * b,
-                                 mesh.sp_rank * h:(mesh.sp_rank + 1) * h]
 
-                    def start(i):
-                        if dtype == "bf16" and i:
-                            srv._carry = block(ref["carries"][i - 1]).cuda()
-                        return frame_start()
-
-                    def end(i, t0):
-                        recs.append({"tag": f"server dp {dp} sp {sp} "
-                                            f"{dtype} tick {i}"})
-                        frame_end(t0, recs[-1], want)
-                    outs, carries = serve_ticks(srv, ticks, start, end)
-                    for i, rec in enumerate(recs):
-                        gaps = [u8_gap(outs[i][s], ref["outs"][i][s])
-                                for s in ref["outs"][i]]
-                        rec["frames"] = gaps
-                        ok = (sorted(outs[i]) == sorted(ref["outs"][i]) and (
-                            max(g["max_lsb"] for g in gaps) <= 1
-                            if dtype == "float32" else min(
-                                g["psnr_db"] for g in gaps)
-                            >= SPATIAL_BF16_PSNR))
-                        rec["carry"] = spatial_bar(
-                            carries[i], block(ref["carries"][i]), dtype)
-                        check(ok and rec["carry"]["ok"],
-                              f"spatial {rec['tag']} rank {rank}: frames "
-                              f"{gaps} (fp32 <= 1 LSB, bf16 >= "
-                              f"{SPATIAL_BF16_PSNR} dB), carry block "
-                              f"{rec['carry']}")
-                    res["ticks"] += recs
-                    del srv
-                del model
-                torch.cuda.empty_cache()
-
-            # the negative control: the row above rank 1's first row, at
-            # every layer, taken from the last shard's rows instead
-            preset, sp, dtype = SPATIAL_BROKEN
-            source = spatial._source
-
-            def wrong(p, n, mode):
-                return source(n - 1 if p == n // 2 - 1 else p, n, mode)
+def _spatial_group(rank, world, pair, folder, frame_start, frame_end):
+    """``spatial_section``'s cases on the group of size ``world``."""
+    from ir2rgb_tpu_torch.infer import MultiStreamServer, StreamingGenerator
+    from ir2rgb_tpu_torch.parallel import spatial
+    first_failure = len(failures)
+    res = {"rank": rank, "world": world, "up_s": time.perf_counter() - T0,
+           "frames": [], "ticks": []}
+    for preset, sp, dtypes, n in SPATIAL_CASES:
+        if sp != world:
+            continue
+        mesh = mesh_of(1, sp, rank, pair)
+        h = crop_of(preset) // sp
+        for dtype in dtypes:
             model = spatial_model(preset, dtype)
             ref = torch.load(folder / f"ref_{preset}_{dtype}.pt")
             hw = (model.cfg.data.crop_size,) * 2
-            spatial._source = wrong
+            stream = StreamingGenerator(model, hw, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            for i, a in enumerate(spatial_frames(preset, n)):
+                rec = {"tag": f"{preset} sp {sp} {dtype} frame {i}"}
+                if stream.carry is not None and dtype == "bf16" and i:
+                    stream._carry = ref["carries"][i - 1][
+                        :, rank * h:(rank + 1) * h].cuda()
+                t0 = frame_start()
+                y = stream.push_device(a)
+                frame_end(t0, rec, SPATIAL[preset])
+                if rank == 0:
+                    rec["frame"] = spatial_bar(y, ref["frames"][i], dtype)
+                    check(rec["frame"]["ok"] and y.shape == a.shape[:3]
+                          + (3,), f"spatial {rec['tag']}: the gathered "
+                          f"frame against one process {rec['frame']}")
+                if stream.carry is not None:
+                    want = ref["carries"][i][:, rank * h:(rank + 1) * h]
+                    rec["carry"] = spatial_bar(stream.carry, want, dtype)
+                    check(rec["carry"]["ok"], f"spatial {rec['tag']} "
+                          f"rank {rank}: its carry rows against one "
+                          f"process's {rec['carry']}")
+                rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                res["frames"].append(rec)
+            del model, stream, ref
+            torch.cuda.empty_cache()
+    if world == 2:
+        ticks = spatial_ticks(SPATIAL_SERVER)
+        meshes = [mesh_of(dp, sp, rank, pair)
+                  for dp, sp in SPATIAL_SERVER_MESHES]
+        for dtype in ("float32", "bf16"):
+            model = spatial_model(SPATIAL_SERVER, dtype)
+            ref = torch.load(folder / f"server_{dtype}.pt",
+                             weights_only=False)
+            hw = (model.cfg.data.crop_size,) * 2
+            for mesh in meshes:
+                dp, sp = mesh.dp, mesh.sp
+                want = (SPATIAL if sp > 1 else
+                        {p: per_frame(p) for p in SERVE})[SPATIAL_SERVER]
+                srv = MultiStreamServer(model, hw, n_slots=SPATIAL_SLOTS,
+                                        mesh=mesh)
+                recs = []
+                b = SPATIAL_SLOTS // dp
+                h = crop_of(SPATIAL_SERVER) // sp
+
+                def block(t):
+                    return t[mesh.dp_rank * b:(mesh.dp_rank + 1) * b,
+                             mesh.sp_rank * h:(mesh.sp_rank + 1) * h]
+
+                def start(i):
+                    if dtype == "bf16" and i:
+                        srv._carry = block(ref["carries"][i - 1]).cuda()
+                    return frame_start()
+
+                def end(i, t0):
+                    recs.append({"tag": f"server dp {dp} sp {sp} "
+                                        f"{dtype} tick {i}"})
+                    frame_end(t0, recs[-1], want)
+                outs, carries = serve_ticks(srv, ticks, start, end)
+                for i, rec in enumerate(recs):
+                    gaps = [u8_gap(outs[i][s], ref["outs"][i][s])
+                            for s in ref["outs"][i]]
+                    rec["frames"] = gaps
+                    ok = (sorted(outs[i]) == sorted(ref["outs"][i]) and (
+                        max(g["max_lsb"] for g in gaps) <= 1
+                        if dtype == "float32" else min(
+                            g["psnr_db"] for g in gaps)
+                        >= SPATIAL_BF16_PSNR))
+                    rec["carry"] = spatial_bar(
+                        carries[i], block(ref["carries"][i]), dtype)
+                    check(ok and rec["carry"]["ok"],
+                          f"spatial {rec['tag']} rank {rank}: frames "
+                          f"{gaps} (fp32 <= 1 LSB, bf16 >= "
+                          f"{SPATIAL_BF16_PSNR} dB), carry block "
+                          f"{rec['carry']}")
+                res["ticks"] += recs
+                del srv
+            del model
+            torch.cuda.empty_cache()
+
+        # the negative control: the row above rank 1's first row, at
+        # every layer, taken from the last shard's rows instead
+        preset, sp, dtype = SPATIAL_BROKEN
+        source = spatial._source
+
+        def wrong(p, n, mode):
+            return source(n - 1 if p == n // 2 - 1 else p, n, mode)
+        model = spatial_model(preset, dtype)
+        ref = torch.load(folder / f"ref_{preset}_{dtype}.pt")
+        hw = (model.cfg.data.crop_size,) * 2
+        spatial._source = wrong
+        spatial.halo_plan.cache_clear()
+        try:
+            stream = StreamingGenerator(model, hw,
+                                        mesh=mesh_of(1, sp, rank, pair))
+            y = stream.push_device(spatial_frames(preset, 1)[0])
+        finally:
+            spatial._source = source
             spatial.halo_plan.cache_clear()
-            try:
-                stream = StreamingGenerator(model, hw,
-                                            mesh=dp_sp_mesh(1, sp,
-                                                            device="cuda:0"))
-                y = stream.push_device(spatial_frames(preset, 1)[0])
-            finally:
-                spatial._source = source
-                spatial.halo_plan.cache_clear()
-            res["broken"] = spatial_bar(y, ref["frames"][0], dtype)
-            check(not res["broken"]["ok"], f"spatial negative control "
-                  f"({preset} sp {sp} {dtype}, one halo row a layer from the "
-                  f"wrong shard) fails the bar: {res['broken']}")
-    finally:
-        pmesh.all_reduce_bytes, spatial.merge_stats = reduce_bytes, merge
-    res["failures"] = list(failures)
+        res["broken"] = spatial_bar(y, ref["frames"][0], dtype)
+        check(not res["broken"]["ok"], f"spatial negative control "
+              f"({preset} sp {sp} {dtype}, one halo row a layer from the "
+              f"wrong shard) fails the bar: {res['broken']}")
+        del model, stream
+        torch.cuda.empty_cache()
+    res["failures"] = failures[first_failure:]
     res["done_s"] = time.perf_counter() - T0
     with open(folder / f"rank{world}_{rank}.json", "w") as fh:
         json.dump(res, fh)
-    dist.barrier()
-    dist.destroy_process_group()
-    return 1 if failures else 0
 
 
 
 
-def spatial_phase(card: str, bw: float, gen: torch.Generator) -> dict:
+def spatial_phase(card: str, bw: float, gen: torch.Generator,
+                  folder: Path) -> dict:
     """Spatially partitioned serving (``parallel/spatial.py``) on the one
     card: B1 split at every shard shape (``b1_split_phase``; B2 at the
     extended tail shapes and d2s at the shard shapes are in the kernel
-    phases), the one-process references (``spatial_refs``), then the
-    ranks of world 2 and of world 4 (``chip_smoke.py --spatial-rank R
-    WORLD PORT DIR``, ``spatial_rank``), one group after the other, each
-    with SPATIAL_TIMEOUT_S. The ranks are gloo processes sharing one
-    card: their exchanges stage through the host, so their times are
-    not a multi-card speedup."""
-    import shutil
-    import socket
+    phases), then the one-process references (``spatial_refs``) written
+    under ``folder`` for the ranks' world (``ranks_phase``,
+    ``spatial_section``), whose results ``spatial_report`` reads. The
+    ranks are gloo processes sharing one card: their exchanges stage
+    through the host, so their times are not a multi-card speedup."""
     t0 = time.perf_counter()
     split_rows, split_worst = b1_split_phase(bw, gen)
     res = {"b1_split_s": time.perf_counter() - t0,
            "b1_split_worst": {f"{op} {d}": v
-                              for (op, d), v in split_worst.items()}}
-    folder = Path("build") / "spatial"
-    shutil.rmtree(folder, ignore_errors=True)
-    folder.mkdir(parents=True)
+                              for (op, d), v in split_worst.items()},
+           "b1_split_rows": split_rows}
+    folder.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     spatial_refs(folder)
     res["refs_s"] = time.perf_counter() - t0
-    ranks = []
-    for world in (2, 4):
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        t0 = time.perf_counter()
-        procs = [start_group([sys.executable, __file__, "--spatial-rank",
-                              str(r), str(world), str(port), str(folder)])
-                 for r in range(world)]
-        outs = wait_group(procs, SPATIAL_TIMEOUT_S)
-        res[f"world{world}_s"] = time.perf_counter() - t0
-        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-            check(p.returncode == 0, f"spatial world {world} rank {r}: exit "
-                  f"{p.returncode}" + ("" if p.returncode == 0 else
-                                       f"\n{o[-3000:]}\n{e[-3000:]}"))
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"spatial world {world}: a rank failed "
-                               "(above)")
-        ranks += [json.load(open(folder / f"rank{world}_{r}.json"))
-                  for r in range(world)]
+    return res
+
+
+def spatial_report(res: dict, folder: Path, card: str) -> None:
+    """The spatial phase's checks and lines from its ranks' results in
+    ``folder`` (``spatial_section``), into ``res``."""
+    ranks = [json.load(open(folder / f"rank{world}_{r}.json"))
+             for world in (2, 4) for r in range(world)]
     for r in ranks:
         for f in r["failures"]:
-            check(False, f"spatial world {r['world']} rank {r['rank']}: {f}")
+            check(False, f"spatial group {r['world']} rank {r['rank']}: {f}")
     # the merged statistics: the same bits on every rank of a case
     for world in (2, 4):
         mine = [r for r in ranks if r["world"] == world]
@@ -4784,7 +4822,6 @@ def spatial_phase(card: str, bw: float, gen: torch.Generator) -> dict:
                                 for f in r["frames"] + r["ticks"]),
                                Counter()))
     res["ranks"] = ranks
-    res["b1_split_rows"] = split_rows
     label = f"gloo ranks sharing one card: host staging, not a " \
             f"multi-card speedup ({card})"
     for world in (2, 4):
@@ -4810,8 +4847,6 @@ def spatial_phase(card: str, bw: float, gen: torch.Generator) -> dict:
     broken = next(r for r in ranks if r["world"] == 2 and r["rank"] == 0)
     res["broken"] = broken["broken"]
     print(f"spatial negative control: {broken['broken']}", flush=True)
-    shutil.rmtree(folder, ignore_errors=True)
-    return res
 
 
 def b1_split_bwd_phase(bw: float, gen: torch.Generator):
@@ -4952,49 +4987,43 @@ def spatial_train_batch(cfg, n: int) -> dict:
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
-    """One of the ``world`` gloo ranks of the spatial_train phase on the
-    one card: every case of SPATIAL_TRAIN_CASES with ``dp * sp ==
-    world`` on ``dp_sp_mesh(dp, sp)``, from seeded weights replicated
-    from rank 0 (cuDNN deterministic, TF32 off). Each step: the launches
-    held to ``SPATIAL_TRAIN`` (``spatial_per_step``), ms (CUDA
-    synchronized around it), the exchange's bytes and ms (halos,
-    statistics and sums), the gradient all-reduce's bytes, the digests of
-    the merged B1 statistics and of the summed backward sums (SHA-256 in
-    order; the parent holds them equal on every rank of a data row),
-    peak memory, finite losses. Rank 0 of a case with a reference runs
-    one process's step of the global batch from the same train state
+def spatial_train_section(rank: int, pair, folder: Path) -> None:
+    """The spatial_train phase's cases on the ranks' world
+    (``ranks_main``), gloo ranks sharing the one card, by group size:
+    every case of SPATIAL_TRAIN_CASES with ``dp * sp == 2`` on ranks 0 and
+    1 (``pair_mesh``) and the negative control, then every case with
+    ``dp * sp == 4`` on all four (``dp_sp_mesh``), from seeded weights
+    replicated from rank 0 (cuDNN deterministic, TF32 off). Each step:
+    the launches held to ``SPATIAL_TRAIN`` (``spatial_per_step``; with
+    remat the blocks' norms run forward again in the backward), ms (CUDA
+    synchronized around it), the exchange's bytes, calls and ms (halos,
+    statistics and sums, a remat recompute's replayed ones included), the
+    gradient all-reduce's bytes, the digests of the merged B1 statistics
+    and of the summed backward sums (SHA-256 in order; the parent holds
+    them equal on every rank of a data row), peak memory, finite losses.
+    Rank 0 of a case with a reference runs one process's step of the
+    global batch (a temporal preset's window) from the same train state
     after each step (an fp32 one pinned to the partitioned forward point,
-    ``ShardPins``; a bf16 one beside one process's fp32 step, the bf16
-    bar's yardstick) and holds the partitioned step to it at
-    SPATIAL_TRAIN_BARS. With ``world == 2`` the negative
-    control follows: one fp32 step with one halo row a layer from the
-    wrong shard, which must fail the bars. Writes
-    ``out/train<world>_<rank>.json``; exits 1 on a failed check."""
+    ``ShardPins``, frame by frame; a bf16 one beside one process's fp32
+    step, the bf16 bar's yardstick) and holds the partitioned step to it
+    at SPATIAL_TRAIN_BARS; a remat case's reference is one process's step
+    without remat (the recompute records no pins). A remat case's step is
+    also held to the same case's step without remat, run before it from
+    the same state: losses bit for bit, every gradient within
+    REMAT_GRAD_ATOL. On the group of 2 the negative control follows: one
+    fp32 step with one halo row a layer from the wrong shard, which must
+    fail the bars. Writes ``folder/train<size>_<rank>.json`` for each
+    group it ran in; a failed check is in its ``failures``."""
     import hashlib
-    import torch.distributed as dist
-    from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from ir2rgb_tpu_torch.parallel import (
-        dp_sp_mesh,
-        multihost,
-        replicate,
-        shard_batch,
-        spatial,
-    )
+    from ir2rgb_tpu_torch.parallel import replicate, shard_batch, spatial
     from ir2rgb_tpu_torch.parallel import mesh as pmesh
-    warnings.filterwarnings("ignore", message="VGG perceptual loss")
-    folder = Path(out)
-    torch.cuda.set_device(0)
-    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
-                         num_processes=world, process_id=rank,
-                         backend="gloo", timeout_s=SPATIAL_TRAIN_TIMEOUT_S)
-    set_parity_mode()
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    res = {"rank": rank, "world": world, "up_s": time.perf_counter() - T0,
-           "steps": []}
-    xfer, grads_xfer, merged = [0, 0.0], [0], []
+    # bytes, seconds and calls of the exchange
+    xfer, grads_xfer, merged = [0, 0.0, 0], [0], []
     reduce_bytes = pmesh.all_reduce_bytes
     merge, sum_stats = spatial.merge_stats, spatial.Shards.sum_stats
     reduce_grads = pmesh.all_reduce_grads
@@ -5006,6 +5035,7 @@ def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
         torch.cuda.synchronize()
         xfer[0] += t.numel() * t.element_size()
         xfer[1] += time.perf_counter() - t0
+        xfer[2] += 1
         return y
 
     def kept_merge(*args):
@@ -5028,7 +5058,7 @@ def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
     def step(model, batch, tag, want):
         torch.cuda.synchronize()
         reset_launch_counts()
-        xfer[:] = [0, 0.0]
+        xfer[:] = [0, 0.0, 0]
         merged.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5037,6 +5067,7 @@ def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
         rec = {"tag": tag, "ms": (time.perf_counter() - t0) * 1e3,
                "launches": launch_counts(), "metrics": m,
                "exchange_bytes": xfer[0], "exchange_ms": xfer[1] * 1e3,
+               "exchanges": xfer[2],
                "allreduce_bytes": grads_xfer[0], "merges": len(merged),
                "digest": hashlib.sha256(b"".join(
                    t.cpu().numpy().tobytes() for t in merged)).hexdigest(),
@@ -5092,7 +5123,7 @@ def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
         if rank:
             torch.save((pins.saved, pins.stats),
                        folder / f"pins{world}_{rank}.pt")
-        dist.barrier()
+        mesh.barrier()
         if rank:
             return None
         recs = [(pins.saved, pins.stats)] + [
@@ -5112,11 +5143,14 @@ def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
     # step's state before each reference step
     weights_of, kept = {}, {}
 
-    def seeded(preset, dtype):
+    def seeded(preset, dtype, remat=False):
+        sections = dict(model=dict(remat=remat))
         if preset not in weights_of:
-            model, weights_of[preset] = seeded_model(preset, dtype)
+            model, weights_of[preset] = seeded_model(preset, dtype,
+                                                     **sections)
             return model
-        return train_model(preset, dtype, "cuda", weights_of[preset])
+        return train_model(preset, dtype, "cuda", weights_of[preset],
+                           **sections)
 
     def one_process(preset, dtype, variant, **kw):
         key = (preset, dtype, variant)
@@ -5126,107 +5160,177 @@ def spatial_train_rank(rank: int, world: int, port: int, out: str) -> int:
         return kept[key]
 
     try:
-        for preset, dp, sp, dtypes, steps in SPATIAL_TRAIN_CASES:
-            if dp * sp != world:
+        for world in (2, 4):
+            if rank >= world:
                 continue
-            mesh = dp_sp_mesh(dp, sp, device="cuda:0")
-            want = spatial_per_step(SPATIAL_TRAIN[(preset, dp, sp,
-                                                   mesh.sp_rank)])
-            for dtype in dtypes:
+            first_failure = len(failures)
+            res = {"rank": rank, "world": world,
+                   "up_s": time.perf_counter() - T0, "steps": [],
+                   "one_process_peak_gib": {}}
+            # the gradients and metrics of each plain case that a remat
+            # case follows, by (preset, dp, sp, dtype, step)
+            plain = {}
+            remat_cases = {c[:3] for c in SPATIAL_TRAIN_CASES if c[5]}
+            for preset, dp, sp, dtypes, steps, remat in SPATIAL_TRAIN_CASES:
+                if dp * sp != world:
+                    continue
+                # one preset's one-process models at a time
+                for key in [k for k in kept if k[0] != preset]:
+                    del kept[key]
+                torch.cuda.empty_cache()
+                mesh = mesh_of(dp, sp, rank, pair)
+                want = spatial_per_step(SPATIAL_TRAIN[(
+                    preset, dp, sp, remat, mesh.sp_rank)])
+                for dtype in dtypes:
+                    model = seeded(preset, dtype, remat)
+                    replicate(model, mesh)
+                    glob = spatial_train_batch(model.cfg, dp)
+                    local = shard_batch(glob, mesh)
+                    timed = preset in SPATIAL_TRAIN_TIMED
+                    refs = [] if rank or timed else [("one", {})]
+                    ones = {t: one_process(preset, dtype, t, **kw)
+                            for t, kw in refs}
+                    one32 = (one_process(preset, "float32", "one")
+                             if ones and dtype == "bf16" else None)
+                    for i in range(steps):
+                        # the references start from the step's train state
+                        for one in (*ones.values(), one32):
+                            if one is not None:
+                                one.load_state_dict(model.state_dict())
+                        tag = (f"{preset} dp {dp} sp {sp} {dtype}"
+                               f"{' remat' if remat else ''} step {i}")
+                        # bf16 is held to one process's bf16-vs-fp32
+                        # spread, which dwarfs the kinks: its references
+                        # run unpinned
+                        pins = (ShardPins() if not timed
+                                and dtype == "float32" else None)
+                        with (pins.recording() if pins is not None
+                              else contextlib.nullcontext()):
+                            res["steps"].append(step(model, local, tag,
+                                                     want))
+                        rec = res["steps"][-1]
+                        rec.update(case=(preset, dp, sp, dtype, remat), i=i)
+                        key = (preset, dp, sp, dtype, i)
+                        if not remat and (preset, dp, sp) in remat_cases:
+                            plain[key] = (rec["metrics"], flat_grads(model))
+                        elif key in plain:
+                            rec["remat_vs_plain"] = remat_versus(
+                                rec["metrics"], flat_grads(model),
+                                *plain.pop(key))
+                            check(rec["remat_vs_plain"]["ok"],
+                                  f"spatial_train {tag} rank {rank} against "
+                                  f"the step without remat: "
+                                  f"{rec['remat_vs_plain']}")
+                        replay = shared_pins(pins, mesh) if pins else None
+                        ref_m = {}
+                        for t, one in ones.items():
+                            with (replay.replaying() if replay
+                                  else contextlib.nullcontext()):
+                                ref_m[t] = {k: float(v) for k, v in
+                                            one.train_step(glob).items()}
+                            check(replay is None or replay.all_replayed(),
+                                  f"spatial_train {tag} vs {t}: every pin "
+                                  "replayed")
+                        if one32 is not None:
+                            one32.train_step(glob)
+                        for t, one in ones.items():
+                            v = versus(model, ref_m[t], one,
+                                       f"{tag} vs {t}", dtype, one32)
+                            rec["vs_" + t] = v
+                            check(v["ok"], f"spatial_train {v['tag']}: "
+                                  f"metrics rel {v['metric_rel']}, worst "
+                                  f"gradient tensor {v['worst_grad']}, each "
+                                  f"network's {v['net_grad_rel']} (bars "
+                                  f"{SPATIAL_TRAIN_BARS[dtype]})")
+                        del pins, replay
+                    del model
+                    torch.cuda.empty_cache()
+                    if timed and preset in ONE_PROCESS_PEAK:
+                        if rank == 0:
+                            res["one_process_peak_gib"][preset] = \
+                                one_process_peak(preset, dtype,
+                                                 weights_of[preset], glob)
+                        mesh.barrier()
+            if world == 2:
+                # the negative control: the row above rank 1's first row,
+                # at every layer, taken from the last shard's rows instead
+                preset, sp, dtype = SPATIAL_TRAIN_BROKEN
+                mesh = mesh_of(1, sp, rank, pair)
                 model = seeded(preset, dtype)
                 replicate(model, mesh)
-                glob = spatial_train_batch(model.cfg, dp)
+                glob = spatial_train_batch(model.cfg, 1)
                 local = shard_batch(glob, mesh)
-                timed = preset == "pix2pixhd_2048"
-                refs = [] if rank or timed else [("one", {})]
-                ones = {t: one_process(preset, dtype, t, **kw)
-                        for t, kw in refs}
-                one32 = (one_process(preset, "float32", "one")
-                         if ones and dtype == "bf16" else None)
-                for i in range(steps):
-                    # the references start from the step's train state
-                    for one in (*ones.values(), one32):
-                        if one is not None:
-                            one.load_state_dict(model.state_dict())
-                    tag = f"{preset} dp {dp} sp {sp} {dtype} step {i}"
-                    # bf16 is held to one process's bf16-vs-fp32 spread,
-                    # which dwarfs the kinks: its references run unpinned
-                    pins = (ShardPins() if not timed and dtype == "float32"
-                            else None)
-                    with (pins.recording() if pins is not None
-                          else contextlib.nullcontext()):
-                        res["steps"].append(step(model, local, tag, want))
-                    res["steps"][-1].update(case=(preset, dp, sp, dtype), i=i)
-                    replay = shared_pins(pins, mesh) if pins else None
-                    ref_m = {}
-                    for t, one in ones.items():
-                        with (replay.replaying() if replay
-                              else contextlib.nullcontext()):
-                            ref_m[t] = {k: float(v) for k, v in
-                                        one.train_step(glob).items()}
-                        check(replay is None or replay.all_replayed(),
-                              f"spatial_train {tag} vs {t}: every pin "
-                              "replayed")
-                    if one32 is not None:
-                        one32.train_step(glob)
-                    for t, one in ones.items():
-                        v = versus(model, ref_m[t], one, f"{tag} vs {t}",
-                                   dtype, one32)
-                        res["steps"][-1]["vs_" + t] = v
-                        check(v["ok"], f"spatial_train {v['tag']}: metrics "
-                              f"rel {v['metric_rel']}, worst gradient "
-                              f"tensor {v['worst_grad']}, each network's "
-                              f"{v['net_grad_rel']} (bars "
-                              f"{SPATIAL_TRAIN_BARS[dtype]})")
-                del model
-                torch.cuda.empty_cache()
-        if world == 2:
-            # the negative control: the row above rank 1's first row, at
-            # every layer, taken from the last shard's rows instead
-            preset, sp, dtype = SPATIAL_TRAIN_BROKEN
-            mesh = dp_sp_mesh(1, sp, device="cuda:0")
-            model = seeded(preset, dtype)
-            replicate(model, mesh)
-            glob = spatial_train_batch(model.cfg, 1)
-            local = shard_batch(glob, mesh)
-            source = spatial._source
+                source = spatial._source
 
-            def wrong(p, n, mode):
-                return source(n - 1 if p == n // 2 - 1 else p, n, mode)
-            one = None
-            if rank == 0:
-                one = one_process(preset, dtype, "one")
-                one.load_state_dict(model.state_dict())
-            spatial._source = wrong
-            spatial.halo_plan.cache_clear()
-            try:
-                res["steps"].append(step(model, local, "negative control",
-                                         spatial_per_step(SPATIAL_TRAIN[(
-                                             preset, 1, sp, mesh.sp_rank)])))
-            finally:
-                spatial._source = source
+                def wrong(p, n, mode):
+                    return source(n - 1 if p == n // 2 - 1 else p, n, mode)
+                one = None
+                if rank == 0:
+                    for key in [k for k in kept if k[0] != preset]:
+                        del kept[key]
+                    one = one_process(preset, dtype, "one")
+                    one.load_state_dict(model.state_dict())
+                spatial._source = wrong
                 spatial.halo_plan.cache_clear()
-            if rank == 0:
-                ref_m = {k: float(v) for k, v in one.train_step(glob).items()}
-                res["broken"] = versus(model, ref_m, one, "negative control",
-                                       dtype)
-                check(not res["broken"]["ok"], "spatial_train negative "
-                      f"control ({preset} sp {sp} {dtype}, one halo row a "
-                      f"layer from the wrong shard) fails the bars: "
-                      f"{res['broken']}")
-            del model, one
-        kept.clear()
+                try:
+                    res["steps"].append(step(
+                        model, local, "negative control",
+                        spatial_per_step(SPATIAL_TRAIN[(
+                            preset, 1, sp, False, mesh.sp_rank)])))
+                finally:
+                    spatial._source = source
+                    spatial.halo_plan.cache_clear()
+                if rank == 0:
+                    ref_m = {k: float(v) for k, v in
+                             one.train_step(glob).items()}
+                    res["broken"] = versus(model, ref_m, one,
+                                           "negative control", dtype)
+                    check(not res["broken"]["ok"], "spatial_train negative "
+                          f"control ({preset} sp {sp} {dtype}, one halo row "
+                          "a layer from the wrong shard) fails the bars: "
+                          f"{res['broken']}")
+                del model, one
+            kept.clear()
+            torch.cuda.empty_cache()
+            res["failures"] = failures[first_failure:]
+            res["done_s"] = time.perf_counter() - T0
+            with open(folder / f"train{world}_{rank}.json", "w") as fh:
+                json.dump(res, fh)
     finally:
         pmesh.all_reduce_bytes, spatial.merge_stats = reduce_bytes, merge
         spatial.Shards.sum_stats = sum_stats
         pmesh.all_reduce_grads = reduce_grads
-    res["failures"] = list(failures)
-    res["done_s"] = time.perf_counter() - T0
-    with open(folder / f"train{world}_{rank}.json", "w") as fh:
-        json.dump(res, fh)
-    dist.barrier()
-    dist.destroy_process_group()
-    return 1 if failures else 0
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def one_process_peak(preset: str, dtype: str, weights, batch) -> float:
+    """Peak memory (GiB) of two steps of ``preset`` in one process on the
+    card, without remat, from ``weights`` on the global ``batch``."""
+    model = train_model(preset, dtype, "cuda", weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        model.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    torch.cuda.empty_cache()
+    return peak
+
+
+def remat_versus(metrics: dict, grads: dict, plain_metrics: dict,
+                 plain_grads: dict) -> dict:
+    """A remat step against the same step without remat (flat gradients a
+    network): its losses bit for bit, every gradient element within
+    REMAT_GRAD_ATOL (JAX's bar for remat, ``tests/test_variants.py:83``),
+    and whether they are bit for bit."""
+    gap = {n: float((grads[n] - g).abs().max()) for n, g in
+           plain_grads.items()}
+    same = all(torch.equal(grads[n], g) for n, g in plain_grads.items())
+    losses = metrics == plain_metrics
+    return dict(losses_equal=losses, grad_max_abs=gap, grads_bit_equal=same,
+                ok=losses and max(gap.values()) <= REMAT_GRAD_ATOL)
 
 
 def start_train_cli(folder: Path):
@@ -5247,14 +5351,14 @@ def start_train_cli(folder: Path):
         "--train.name", "sp_cli", "--train.checkpoints_dir",
         str(folder / "runs"), "--train.niter", "1", "--train.niter_decay",
         "0", "--train.print_freq", "1", "--dist_timeout",
-        str(SPATIAL_TRAIN_TIMEOUT_S)])
+        str(CLI_TIMEOUT_S)])
     return proc, folder / "runs" / "sp_cli"
 
 
 def finish_train_cli(proc, run: Path) -> dict:
     """Wait for :func:`start_train_cli`'s run and read rank 0's checkpoint
     of step 2 back."""
-    (o, e), = wait_group([proc], SPATIAL_TRAIN_TIMEOUT_S)
+    (o, e), = wait_group([proc], CLI_TIMEOUT_S)
     res = {"exit": proc.returncode}
     ckpt = run / "ckpt" / "2.pt"
     res["checkpoint"] = ckpt.exists()
@@ -5275,59 +5379,27 @@ def finish_train_cli(proc, run: Path) -> dict:
 def spatial_train_phase(card: str, bw: float, gen: torch.Generator) -> dict:
     """Spatially partitioned training (``parallel/spatial.py`` under
     autograd) on the one card: the split backward's kernels at every
-    shard shape (``b1_split_bwd_phase``), then the ranks of world 2 and
-    of world 4 (``chip_smoke.py --spatial-train-rank R WORLD PORT DIR``,
-    ``spatial_train_rank``), one group after the other, each with
-    SPATIAL_TRAIN_TIMEOUT_S, and beside world 2 one torchrun of
-    cli.train on sp 2 (``start_train_cli``; world 2's step times are
-    then not a lone group's). The ranks are gloo processes sharing one
-    card: their exchanges stage through the host, so their times are
-    not a multi-card speedup."""
-    import shutil
-    import socket
+    shard shape (``b1_split_bwd_phase``); its steps run on the ranks'
+    world (``ranks_phase``, ``spatial_train_section``), whose results
+    ``spatial_train_report`` reads."""
     t0 = time.perf_counter()
     rows, worst = b1_split_bwd_phase(bw, gen)
-    res = {"b1_split_bwd_s": time.perf_counter() - t0,
-           "b1_split_bwd_worst": {f"{op} {d}": v
-                                  for (op, d), v in worst.items()},
-           "b1_split_bwd_rows": rows}
-    folder = Path("build") / "spatial_train"
-    shutil.rmtree(folder, ignore_errors=True)
-    folder.mkdir(parents=True)
-    ranks = []
-    # the torchrun of cli.train shares the card with world 2's ranks (their
-    # step times are not the phase's reported ones; world 4's are, alone)
-    t_cli = time.perf_counter()
-    cli = start_train_cli(folder)
-    for world in (2, 4):
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        t0 = time.perf_counter()
-        procs = [start_group([sys.executable, __file__,
-                              "--spatial-train-rank", str(r), str(world),
-                              str(port), str(folder)])
-                 for r in range(world)]
-        outs = wait_group(procs, SPATIAL_TRAIN_TIMEOUT_S)
-        if world == 2:
-            res["cli"] = finish_train_cli(*cli)
-            res["cli_s"] = time.perf_counter() - t_cli
-        res[f"world{world}_s"] = time.perf_counter() - t0
-        lost = False
-        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-            path = folder / f"train{world}_{r}.json"
-            # a rank whose checks failed still writes its results
-            if path.exists():
-                ranks.append(json.load(open(path)))
-                for f in ranks[-1]["failures"]:
-                    check(False, f"spatial_train world {world} rank {r}: {f}")
-            lost |= not path.exists()
-            check(p.returncode == 0, f"spatial_train world {world} rank {r}: "
-                  f"exit {p.returncode}" + ("" if path.exists() else
-                                            f"\n{o[-3000:]}\n{e[-3000:]}"))
-        if lost:
-            raise RuntimeError(f"spatial_train world {world}: a rank failed "
-                               "(above)")
+    return {"b1_split_bwd_s": time.perf_counter() - t0,
+            "b1_split_bwd_worst": {f"{op} {d}": v
+                                   for (op, d), v in worst.items()},
+            "b1_split_bwd_rows": rows}
+
+
+def spatial_train_report(res: dict, folder: Path, card: str) -> None:
+    """The spatial_train phase's checks and lines from its ranks' results
+    in ``folder`` (``spatial_train_section``), into ``res`` (the cli
+    run's, ``res["cli"]``, read by ``ranks_phase``)."""
+    ranks = [json.load(open(folder / f"train{world}_{r}.json"))
+             for world in (2, 4) for r in range(world)]
+    for r in ranks:
+        for f in r["failures"]:
+            check(False, f"spatial_train group {r['world']} rank "
+                  f"{r['rank']}: {f}")
     # the merged statistics and backward sums: the same bits on every
     # rank of a data row (all of a world's ranks when dp is 1)
     for world in (2, 4):
@@ -5341,6 +5413,9 @@ def spatial_train_phase(card: str, bw: float, gen: torch.Generator) -> dict:
                       f"spatial_train {rec['tag']}: the {rec['merges']} "
                       f"merged statistics and sums bit-identical on data "
                       f"row {d}'s ranks")
+            calls = [r["steps"][i]["exchanges"] for r in mine]
+            check(len(set(calls)) == 1, f"spatial_train {rec['tag']}: "
+                  f"every rank makes the same exchanges {calls}")
     res["launches"] = dict(sum((Counter(s["launches"]) for r in ranks
                                 for s in r["steps"]
                                 if s["tag"] != "negative control"),
@@ -5356,25 +5431,153 @@ def spatial_train_phase(card: str, bw: float, gen: torch.Generator) -> dict:
                       {n: w[0] for n, w in v["worst_grad"].items()},
                       v["net_grad_rel"])
                   for k, v in rec.items() if k.startswith("vs_")}
+            one = mine[0]["one_process_peak_gib"].get(
+                rec.get("case", [""])[0])
             print(f"spatial_train {rec['tag']}: ms/step per rank "
                   f"{[round(s['ms'], 1) for s in per]}, exchange "
-                  f"{rec['exchange_bytes']} B in "
+                  f"{rec['exchange_bytes']} B in {rec['exchanges']} calls, "
                   f"{[round(s['exchange_ms'], 1) for s in per]} ms, gradient "
-                  f"all-reduce {rec['allreduce_bytes']} B, peak "
-                  f"{max(s['peak_gib'] for s in per):.2f} GiB a rank; "
-                  f"against one process (worst loss rel, worst gradient "
+                  f"all-reduce {rec['allreduce_bytes']} B, peak a rank "
+                  f"{[round(s['peak_gib'], 2) for s in per]} GiB"
+                  + ("" if one is None else
+                     f" (one process, no remat: {one:.2f} GiB)")
+                  + f"; against one process (worst loss rel, worst gradient "
                   f"tensor's share of the bar, each network's ||d||/||g||):"
-                  f" {vs}; {label}", flush=True)
+                  f" {vs}" + ("" if "remat_vs_plain" not in rec else
+                              f"; against the step without remat "
+                              f"{rec['remat_vs_plain']}") + f"; {label}",
+                  flush=True)
     broken = next(r for r in ranks if r["world"] == 2 and r["rank"] == 0)
     res["broken"] = broken["broken"]
     print(f"spatial_train negative control: {broken['broken']}", flush=True)
-    print(f"spatial_train cli: {res['cli']}", flush=True)
-    for r in rows:
+    for r in res["b1_split_bwd_rows"]:
         print(f"  B1 split bwd {r['name']} {r['shape']} {r['act']:10s} ms "
               f"{r['ms']:.4f} plain {r['plain_ms']:.4f} lib "
               f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f}")
-    shutil.rmtree(folder, ignore_errors=True)
-    return res
+
+
+# ---------------------------------------------------------------------------
+# The ranks' world: the parallel, spatial and spatial_train phases' gloo
+# ranks, one group of processes for all three
+# ---------------------------------------------------------------------------
+
+RANKS_WORLD = 4
+
+
+def pair_mesh(pair, rank: int, dp: int, sp: int):
+    """``dp_sp_mesh(dp, sp)``'s layout (``dp * sp == 2``) over ranks 0 and
+    1 of the ranks' world, whose group is ``pair``: a data-parallel mesh
+    of two for sp 1, a dp 1 x sp 2 mesh (``pair`` its sp group) else."""
+    from ir2rgb_tpu_torch.parallel import DataParallelMesh
+    if dp * sp != 2:
+        raise ValueError(f"a pair of ranks holds no dp {dp} x sp {sp} mesh")
+    return DataParallelMesh(2, rank, 0, torch.device("cuda:0"), pair, sp=sp,
+                            sp_group=pair if sp == 2 else None)
+
+
+def mesh_of(dp: int, sp: int, rank: int, pair):
+    """The dp×sp mesh of a case: over ranks 0 and 1 (``pair_mesh``) for
+    two ranks, ``dp_sp_mesh`` over the whole world for four (every rank
+    must then call it, in the same order)."""
+    from ir2rgb_tpu_torch.parallel import dp_sp_mesh
+    if dp * sp == 2:
+        return pair_mesh(pair, rank, dp, sp)
+    return dp_sp_mesh(dp, sp, device="cuda:0")
+
+
+def ranks_main(rank: int, port: int, out: str) -> int:
+    """One of the RANKS_WORLD gloo ranks on the one card (``chip_smoke.py
+    --ranks R PORT DIR``): up once, then the parallel phase's two ranks
+    (``parallel_section``, ranks 0 and 1), the spatial phase's cases
+    (``spatial_section``) and the spatial_train phase's
+    (``spatial_train_section``), the world's barrier after each; each
+    section's seconds on this rank in ``DIR/ranks<rank>.json``. Exits 1
+    on a failed check."""
+    import torch.distributed as dist
+    from ir2rgb_tpu_torch import set_parity_mode
+    from ir2rgb_tpu_torch.parallel import multihost
+    warnings.filterwarnings("ignore", message="VGG perceptual loss")
+    folder = Path(out)
+    torch.cuda.set_device(0)
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=RANKS_WORLD, process_id=rank,
+                         backend="gloo", timeout_s=RANKS_TIMEOUT_S)
+    set_parity_mode()
+    # every rank makes the pair's group, ranks 0 and 1 use it
+    pair = dist.new_group([0, 1])
+    res = {"rank": rank, "up_s": time.perf_counter() - T0, "seconds": {}}
+    for name, section in (("parallel", parallel_section),
+                          ("spatial", spatial_section),
+                          ("spatial_train", spatial_train_section)):
+        t0 = time.perf_counter()
+        if name != "parallel":
+            section(rank, pair, folder / name)
+        elif rank < 2:
+            section(rank, pair_mesh(pair, rank, 2, 1), folder / name)
+        torch.cuda.empty_cache()
+        dist.barrier()
+        res["seconds"][name] = time.perf_counter() - t0
+    res["failures"] = list(failures)
+    with open(folder / f"ranks{rank}.json", "w") as fh:
+        json.dump(res, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 1 if failures else 0
+
+
+def start_ranks(folder: Path) -> tuple:
+    """Start the ranks' world (``ranks_main``, RANKS_WORLD processes
+    sharing the one card over gloo) on ``folder``, which holds the spatial
+    phase's references, and beside it one torchrun of cli.train on sp 2
+    (``start_train_cli``): (the cli run, the ranks, the start)."""
+    import socket
+    (folder / "parallel").mkdir(parents=True, exist_ok=True)
+    (folder / "spatial_train").mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    cli = start_train_cli(folder / "cli")
+    procs = [start_group([sys.executable, __file__, "--ranks", str(r),
+                          str(port), str(folder)])
+             for r in range(RANKS_WORLD)]
+    return cli, procs, t0
+
+
+def ranks_phase(card: str, parallel: dict, spatial: dict,
+                spatial_train: dict, folder: Path, started: tuple) -> None:
+    """Wait for the ranks' world (``start_ranks``, RANKS_TIMEOUT_S) and the
+    torchrun of cli.train beside it (the sections' times are then not a
+    lone group's, nor are the parallel section's beside the parallel
+    phase's torchrun); then each phase's report into its result:
+    ``parallel`` (b), ``spatial``, ``spatial_train`` (with ``cli``), and
+    each section's seconds (rank 0's) as ``ranks_s``."""
+    cli, procs, t0 = started
+    try:
+        outs = wait_group(procs, RANKS_TIMEOUT_S)
+    finally:
+        spatial_train["cli"] = finish_train_cli(*cli)
+        spatial_train["cli_s"] = time.perf_counter() - t0
+    lost = False
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        path = folder / f"ranks{r}.json"
+        lost |= not path.exists()
+        # a rank whose checks failed still writes its results
+        check(p.returncode == 0, f"ranks' world rank {r}: exit "
+              f"{p.returncode}" + ("" if path.exists() else
+                                   f"\n{o[-3000:]}\n{e[-3000:]}"))
+    if lost:
+        raise RuntimeError("the ranks' world: a rank failed (above)")
+    seconds = json.load(open(folder / "ranks0.json"))["seconds"]
+    for res, report, name in ((parallel, parallel_report, "parallel"),
+                              (spatial, spatial_report, "spatial"),
+                              (spatial_train, spatial_train_report,
+                               "spatial_train")):
+        res["ranks_s"] = seconds[name]
+        report(res, folder / name, card)
+    print(f"spatial_train cli: {spatial_train['cli']}", flush=True)
+    print(f"ranks' world ({RANKS_WORLD} gloo ranks, one card): seconds a "
+          f"section on rank 0 {seconds}", flush=True)
 
 
 def kernel_entry(name, source, replaces, launches, rows_total, worst,
@@ -5391,14 +5594,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--parallel-rank"]:
-        return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    if sys.argv[1:2] == ["--spatial-rank"]:
-        return spatial_rank(int(sys.argv[2]), int(sys.argv[3]),
-                            int(sys.argv[4]), sys.argv[5])
-    if sys.argv[1:2] == ["--spatial-train-rank"]:
-        return spatial_train_rank(int(sys.argv[2]), int(sys.argv[3]),
-                                  int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--ranks"]:
+        return ranks_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import _build
 
@@ -5450,10 +5647,25 @@ def main() -> int:
     quant = phase("quant", quant_phase, card)
     nete = phase("netE", nete_phase, card)
     export = phase("export", export_phase, card)
-    parallel = phase("parallel", parallel_phase, card)
-    spatial = phase("spatial", spatial_phase, card, bw, gen)
+    # the parent's parts of the last three phases, then their gloo ranks,
+    # one world for all three (ranks_phase)
+    import shutil
+    ranks_dir = Path("build") / "ranks"
+    shutil.rmtree(ranks_dir, ignore_errors=True)
+    spatial = phase("spatial", spatial_phase, card, bw, gen,
+                    ranks_dir / "spatial")
     spatial_train = phase("spatial_train", spatial_train_phase, card, bw,
                           gen)
+    # the ranks' start and their parallel section beside parallel (a)
+    started = start_ranks(ranks_dir)
+    parallel = phase("parallel", parallel_phase, card)
+    phase("ranks", ranks_phase, card, parallel, spatial, spatial_train,
+          ranks_dir, started)
+    shutil.rmtree(ranks_dir, ignore_errors=True)
+    # each of the three phases: its parent's part and its ranks' section
+    by_phase = {name: seconds[name] + res["ranks_s"] for name, res in (
+        ("parallel", parallel), ("spatial", spatial),
+        ("spatial_train", spatial_train))}
 
     # launches summed over every path's counted runs: 8 served frames a
     # preset, and each preset's bf16 steps and timed bf16 and fp32 steps
@@ -5773,11 +5985,13 @@ def main() -> int:
             f"{t['plain_ms']:.4f}, lib {t['library_ms']:.4f})"
             for k, t in parts))
     print("phase seconds " + json.dumps(seconds))
+    print("phase seconds with their ranks' sections " + json.dumps(by_phase))
     # everything above in one file, for runs whose output is cut short
     out = Path("build")
     out.mkdir(exist_ok=True)
     with open(out / "chip_smoke.json", "w") as fh:
-        json.dump({"card": card, "seconds": seconds, "failures": failures,
+        json.dump({"card": card, "seconds": seconds,
+                   "seconds_with_ranks": by_phase, "failures": failures,
                    "slices": slices, "trains": trains,
                    "train_options": options, "train_cli": cli,
                    "serve": serve, "quant": quant, "netE": nete,

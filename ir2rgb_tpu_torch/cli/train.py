@@ -38,7 +38,13 @@ Spatially partitioned, each frame's rows over S ranks of a dp×S mesh
         --preset pix2pixhd_2048 --train.spatial_devices 4 ...
 
 The S ranks of a data row decode the same images (the loader is sharded
-over dp), crop and flip them alike, then each keeps its image rows.
+over dp), crop and flip them alike, then each keeps its image rows (of
+every frame, for a temporal folder's windows). Temporal windows and
+``--model.remat true`` train partitioned; WGAN-GP, CycleGAN, netE and
+instance edges, and the U-Net raise before any collective (ROADMAP A16b):
+
+    torchrun --standalone --nproc_per_node 2 -m ir2rgb_tpu_torch.cli.train \
+        --preset temporal_512 --train.spatial_devices 2 ...
 """
 
 from __future__ import annotations

@@ -46,6 +46,12 @@ under ``torch.utils.checkpoint``: its activations are recomputed in the
 backward instead of kept. A block's dropout mask is drawn before the
 checkpointed body and passed in, so the recompute applies the forward's
 mask: checkpoint restores the global RNGs, not an explicit generator.
+On a partitioned frame the body gets its input's partition too and tags
+the input with it again (the recompute may be handed a new tensor), so
+the recompute reads the rows the forward read; it runs in the backward
+inside the step's ``spatial.serving`` context (a module global, which the
+autograd engine's threads read) and replays the block's halo exchanges
+and statistics merges there, the same ones on every rank.
 
 A frame whose rows lie on several ranks (``parallel/spatial.py``) runs
 the same forward, served or trained: the ops of ``nn/ops.py`` exchange
@@ -249,12 +255,20 @@ class ResnetBlock(nn.Module):
         drop = self.use_dropout and generator is not None
         if not (self.remat and train and torch.is_grad_enabled()):
             return self._body(x, generator if drop else None, None)
-        mask = ops.dropout_mask(x.shape, 0.5, generator) if drop else None
-        return checkpoint(self._body, x, None, mask, use_reentrant=False,
-                          preserve_rng_state=False)
+        part = spatial.active()
+        rows = None if part is None else part.bounds(x)
+        mask = ops.dropout_mask(x.shape, 0.5, generator, rows) if drop \
+            else None
+        return checkpoint(self._body, x, None, mask, rows,
+                          use_reentrant=False, preserve_rng_state=False)
 
     def _body(self, x: torch.Tensor, generator: Optional[torch.Generator],
-              mask: Optional[torch.Tensor]) -> torch.Tensor:
+              mask: Optional[torch.Tensor],
+              rows: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+        """The block; ``rows``: the partition of ``x`` on a partitioned
+        frame, given again to a recompute's input."""
+        if rows is not None:
+            spatial.active().tag(x, rows)
         cb, (c0, c1) = self.conv_block, self.convs
         h = _conv_norm_act(cb, c0, ops.reflect_pad(x, 1), self.norm, "relu")
         if generator is not None:
@@ -262,7 +276,7 @@ class ResnetBlock(nn.Module):
         elif mask is not None:
             h = ops.apply_dropout(h, mask, 0.5)
         h = _conv_norm_act(cb, c1, ops.reflect_pad(h, 1), self.norm, "none")
-        return x + h
+        return spatial.same_rows(x + h, x)
 
 
 class ResnetStack(nn.Sequential):

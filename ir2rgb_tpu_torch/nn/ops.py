@@ -502,33 +502,41 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
     (a uniform draw from ``generator``, on its device) and scaled by
     1 / (1 - rate), the rest 0. Its bits are the port's own; the JAX
     package draws from its key."""
-    return apply_dropout(x, dropout_mask(x.shape, rate, generator), rate)
+    part = spatial.active()
+    rows = None if part is None else part.bounds(x)
+    return apply_dropout(x, dropout_mask(x.shape, rate, generator, rows),
+                         rate)
 
 
-def dropout_mask(shape, rate: float, generator: torch.Generator
-                 ) -> torch.Tensor:
+def dropout_mask(shape, rate: float, generator: torch.Generator,
+                 rows: Optional[tuple] = None) -> torch.Tensor:
     """:func:`dropout`'s draw alone: the bool mask of kept elements, on
     ``generator``'s device (in a data-parallel step, this rank's rows of
-    the global batch's draw; on a partitioned frame, of an evenly split
-    activation, its image rows of the whole frame's draw too)."""
+    the global batch's draw; on a partitioned frame, its image rows of
+    the whole frame's draw too: ``rows`` the activation's partition,
+    ``Shards.bounds``, by default an even split)."""
     shape = tuple(shape)
     part = spatial.active()
     if part is not None:
-        h = shape[1]
-        shape = (shape[0], h * part.sp) + shape[2:]
+        if rows is None:
+            rows = tuple(q * shape[1] for q in range(part.sp + 1))
+        lo, hi = rows[part.rank], rows[part.rank + 1]
+        shape = (shape[0], rows[-1]) + shape[2:]
     u = pmesh.draw(lambda n: torch.rand((n,) + shape[1:],
                                         generator=generator,
                                         device=generator.device), shape[0])
     if part is not None:
-        u = u[:, part.rank * h:(part.rank + 1) * h]
+        u = u[:, lo:hi]
     return u < 1.0 - rate
 
 
 def apply_dropout(x: torch.Tensor, mask: torch.Tensor, rate: float
                   ) -> torch.Tensor:
-    """:func:`dropout` with its mask given."""
+    """:func:`dropout` with its mask given; the result keeps ``x``'s
+    partition on a partitioned frame."""
     keep = 1.0 - rate
-    return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
+    return spatial.same_rows(
+        torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype), x)
 
 
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

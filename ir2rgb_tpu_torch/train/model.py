@@ -79,10 +79,15 @@ trained or JAX-converted weights with ``load_state_dict``.
   their data row's; the draws are the data row's on each of its ranks,
   and the pool gathers whole frames. The one all-reduce of the
   gradients and of the metrics then sums over every rank and divides by
-  ``dp``. Out of this slice, each raising before the first collective
-  (``spatial_train_refusal``, ROADMAP A16b): WGAN-GP (a second derivative
-  through the halos and the split B1), temporal windows, CycleGAN,
-  netE and instance edges, the U-Net, remat.
+  ``dp``. A temporal window runs frame by frame as in one process, each
+  rank carrying its rows of the previous fakes (the carry keeps the
+  fakes' partition); each frame's dropout masks and pool query are the
+  data row's, drawn in one process's order. With ``remat`` a residual
+  block's recompute replays its halo exchanges and statistics merges in
+  the backward, on every rank alike. Out of this slice, each raising
+  before the first collective (``spatial_train_refusal``, ROADMAP A16b):
+  WGAN-GP (a second derivative through the halos and the split B1),
+  CycleGAN, netE and instance edges, the U-Net.
 
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
   reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
@@ -404,7 +409,10 @@ class GanModel:
         as JAX's scan does (no stop-gradient): frame t's loss reaches G
         through every earlier frame. Each frame draws its own dropout and
         pool decisions. Metrics are the means over the frames;
-        ``_frame_loss_g`` holds each frame's G loss."""
+        ``_frame_loss_g`` holds each frame's G loss. On a partitioned step
+        the window holds this rank's rows of every frame: the zero carry
+        is its rows, and the carry keeps the fakes' partition (a channel
+        concat records none)."""
         a_seq = batch["a"].to(self.device)
         b_seq = batch["b"].to(self.device)
         out_nc = self.cfg.model.output_nc
@@ -419,7 +427,7 @@ class GanModel:
             frames.append(self._frame_losses(a_t, b_t, self._for_d(fake),
                                              fake))
             if n_prev > 0:
-                prev = torch.cat([fake, prev], dim=-1)[..., :out_nc * n_prev]
+                prev = next_carry(fake, prev, out_nc * n_prev)
         metrics = {k: torch.stack([f[k] for f in frames]).mean()
                    for k in frames[0]}
         metrics["_frame_loss_g"] = torch.stack([f["_loss_g"]
@@ -636,6 +644,15 @@ class GanModel:
                     v.copy_(src[k])
 
 
+def next_carry(fake: torch.Tensor, prev: torch.Tensor,
+               width: int) -> torch.Tensor:
+    """A window's carry after frame ``fake``: the newest ``width``
+    channels of cat(fake, prev), G's graph kept. On a partitioned step it
+    keeps ``fake``'s partition, which a channel concat does not record."""
+    return spatial.same_rows(torch.cat([fake, prev], dim=-1)[..., :width],
+                             fake)
+
+
 def _pool_state(pool):
     """A pool (or a dict of pools, or None) as checkpoint data."""
     if isinstance(pool, dict):
@@ -661,12 +678,10 @@ def spatial_train_refusal(cfg: Config) -> None:
     out = [what for what, on in (
         ("WGAN-GP (its penalty differentiates through the halos and the "
          "split B1 twice)", loss.gan_mode == "wgangp"),
-        ("temporal windows", m.model == "temporal"),
         ("CycleGAN", m.model == "cycle_gan"),
         ("netE features", m.use_instance_feat),
         ("the instance-edge input", m.use_instance_edges),
-        (f"net_g={m.net_g} (the U-Net)", m.net_g.startswith("unet")),
-        ("remat", m.remat)) if on]
+        (f"net_g={m.net_g} (the U-Net)", m.net_g.startswith("unet"))) if on]
     if out:
         raise NotImplementedError(
             "spatially partitioned training (train.spatial_devices > 1) "

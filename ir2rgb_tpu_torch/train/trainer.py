@@ -24,10 +24,12 @@ Spatially partitioned training (``train.spatial_devices`` S > 1) runs on
 ``dp_sp_mesh(train.num_devices, S)``, as JAX's trainer builds it: a group
 of dp·S processes, each S ranks of a data row reading the same images
 (the same crop and flip) and keeping their rows of them
-(``model.train_step`` runs partitioned, ``parallel/spatial.py``). I/O
+(``model.train_step`` runs partitioned, ``parallel/spatial.py``),
+temporal windows (their rows over dim 2) and ``remat`` included. I/O
 stays on rank 0; the display gathers the frame first
-(``spatial.gather_block``), on every rank. What such a step does not
-cover raises before any collective (``model.spatial_train_refusal``,
+(``spatial.gather_block``; a window's first frame), on every rank. What
+such a step does not cover (WGAN-GP, CycleGAN, netE and instance edges,
+the U-Net) raises before any collective (``model.spatial_train_refusal``,
 ROADMAP A16b).
 """
 

@@ -428,8 +428,22 @@ def test_b1_stats_shapes_are_the_partitioned_frames_shard_shapes():
         {s for s, _ in cs.B1_SPLIT_SHAPES})
 
 
+def test_b1_stats_train_shapes_are_the_partitioned_steps_other_shapes():
+    # the plan tests below cover every other shape with rows that
+    # chip_smoke.py's partitioned steps give the statistics kernel (its
+    # SPATIAL_TRAIN tables: the discriminators', temporal_1024's on sp 4)
+    cs = _chip_smoke()
+    assert sweep_b1.STATS_TRAIN_SHAPES == sorted(
+        {s for s, _ in cs.B1_SPLIT_TRAIN_SHAPES})
+    steps = {k for t in cs.SPATIAL_TRAIN.values() for k in t["b1"]
+             if k[0][1]}
+    assert sorted(steps - set(cs.B1_SPLIT_SHAPES)) == \
+        cs.B1_SPLIT_TRAIN_SHAPES
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", sweep_b1.STATS_SHAPES)
+@pytest.mark.parametrize("shape", sweep_b1.STATS_SHAPES
+                         + sweep_b1.STATS_TRAIN_SHAPES)
 def test_b1_stats_plan_covers_every_pixel_once(shape, dtype):
     # the plan on an H100: 132 SMs, two blocks of the kernel on each
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the card); the

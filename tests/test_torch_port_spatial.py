@@ -383,8 +383,9 @@ def test_out_of_slice_pieces_name_a16b(what, tmp_path):
     x = _seeded((1, 8, 8, 8), 12)
     with pytest.raises(NotImplementedError, match="A16b"):
         if what == "train_step":
+            # temporal windows train partitioned; WGAN-GP does not
             cfg = Config(model=ModelConfig(**TEMPORAL),
-                         loss=LossConfig(no_vgg_loss=True),
+                         loss=LossConfig(no_vgg_loss=True, gan_mode="wgangp"),
                          train=TrainConfig(spatial_devices=2,
                                            checkpoints_dir=str(tmp_path)))
             Trainer(create_model(cfg, device="cpu"), cfg)

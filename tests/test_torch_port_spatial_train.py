@@ -28,10 +28,23 @@ one-device step.
   1e-5·‖g‖, the parameters after one Adam step within JAX's atol 5e-4);
   and a 2-step ``Trainer`` run on dp 1 × sp 2 from a synthetic folder
   (the 2 ranks).
+- Temporal windows on the same spawns (``resnet_6blocks``, ngf / ndf 8,
+  crop 32, batch 2, T = 3 with dropout and a 2-frame pool): on dp 1 × sp
+  4 (``n_frames_g`` 3), dp 2 × sp 2 and dp 1 × sp 2 (``n_frames_g`` 2),
+  each window held to JAX's one-device jitted temporal ``train_step``
+  (losses rtol 2e-3) with JAX's dropout masks and pool decisions handed
+  to the ranks, and, drawing its own, to the port's one-process window
+  (losses rel ≤ 1e-5, each network's gradient ‖Δ‖ ≤ 1e-5·‖g‖, the pool
+  after the window the one-process pool's); remat on dp 1 × sp 4 against
+  the same window without it (atol 1e-6, every rank's count of exchanges
+  equal); a 2-step temporal ``Trainer`` run on sp 2 from a folder of
+  videos. In process: the carry keeps the fakes' uneven partition, and a
+  remat block's input is tagged again for its recompute.
 - Errors: each piece out of the slice raises before any collective,
   naming ROADMAP A16b.
 """
 
+import contextlib
 import os
 import pathlib
 import signal
@@ -66,7 +79,7 @@ from ir2rgb_tpu_torch.losses import (  # noqa: E402
 )
 from ir2rgb_tpu_torch.nn import ops  # noqa: E402
 from ir2rgb_tpu_torch.nn.discriminators import DiscConfig, define_d  # noqa: E402
-from ir2rgb_tpu_torch.nn.generators import _tail  # noqa: E402
+from ir2rgb_tpu_torch.nn.generators import ResnetBlock, _tail  # noqa: E402
 from ir2rgb_tpu_torch.nn.vgg import Vgg19  # noqa: E402
 from ir2rgb_tpu_torch.parallel import (  # noqa: E402
     dp_sp_mesh,
@@ -75,7 +88,8 @@ from ir2rgb_tpu_torch.parallel import (  # noqa: E402
     shard_batch,
     spatial,
 )
-from ir2rgb_tpu_torch.train import create_model  # noqa: E402
+from ir2rgb_tpu_torch.train import create_model, image_pool  # noqa: E402
+from ir2rgb_tpu_torch.train.model import next_carry  # noqa: E402
 
 TIMEOUT_S = 60
 CROP, BATCH = 32, 8
@@ -85,6 +99,12 @@ BASE = dict(model="pix2pix", net_g="resnet_6blocks", net_d="n_layers",
 LAYOUTS = [(2, 2), (1, 4)]  # (dp, sp) of the four ranks
 # grad-accum 2 and the EMA on dp 1 x sp 4: (dp, sp, train overrides)
 ACCUM_EMA = (1, 4, dict(grad_accum=2, ema_decay=0.5))
+# temporal windows: (dp, sp, n_frames_g) on the four ranks and on the two;
+# batch, frames; the layout that runs remat too
+T_LAYOUTS = [(1, 4, 3), (2, 2, 2)]
+T_PAIR = (1, 2, 2)
+T_BATCH, T_FRAMES = 2, 3
+T_REMAT = (1, 4, 3)
 
 
 def _seeded(shape, seed, dtype=np.float32):
@@ -403,18 +423,79 @@ def test_global_batch_hands_each_rank_its_block():
         assert torch.equal(drawn, torch.arange(8)[rows])
 
 
+@pytest.mark.parametrize("sp", [2, 4])
+def test_temporal_carry_keeps_the_fakes_uneven_partition(sp):
+    # a fake of 9 rows split unevenly: the carry after it keeps its
+    # partition, so a conv of the carry reads the rows the whole carry's
+    # conv reads (an untagged carry would be taken as an even split)
+    fake, prev = _seeded((2, 9, 10, 3), 30), _seeded((2, 9, 10, 6), 31)
+    w = _seeded((6, 6, 3, 3), 32) * 0.15
+    b = spatial.bounds(9, sp)
+    want = ops.conv(next_carry(fake, prev, 6), w, None, 1, 1)
+
+    def rank(r, part):
+        f = part.tag(_rows(fake, b, r).clone(), b)
+        carry = next_carry(f, _rows(prev, b, r), 6)
+        return part.bounds(carry), ops.conv(carry, w, None, 1, 1)
+    outs = on_ranks(sp, rank)
+    assert all(o[0] == b for o in outs)
+    assert _gap(torch.cat([o[1] for o in outs], dim=1), want) <= 1e-6
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_remat_block_on_uneven_shards_equals_the_whole_block(sp):
+    # a remat residual block with dropout over 9 rows split unevenly: its
+    # output and gradients (input and weights) are the whole block's
+    # without remat, the mask this rank's rows of the whole frame's draw;
+    # its body, given the input's partition, tags a new tensor (what a
+    # recompute may be handed) again and computes the same rows
+    plain = ResnetBlock(6, use_dropout=True)
+    block = ResnetBlock(6, use_dropout=True, remat=True)
+    with torch.no_grad():
+        for i, (a, q) in enumerate(zip(plain.parameters(),
+                                       block.parameters())):
+            a.copy_(_seeded(tuple(a.shape), 40 + i) * 0.15)
+            q.copy_(a)
+    x, cot = _seeded((2, 9, 10, 6), 33), _seeded((2, 9, 10, 6), 34)
+    b = spatial.bounds(9, sp)
+    xw = x.clone().requires_grad_(True)
+    want = plain(xw, torch.Generator().manual_seed(7), train=True)
+    want_g = torch.autograd.grad((want * cot).sum(),
+                                 [xw, *plain.parameters()])
+    params = list(block.parameters())
+
+    def rank(r, part):
+        xr = part.tag(_rows(x, b, r).clone().requires_grad_(True), b)
+        y = block(xr, torch.Generator().manual_seed(7), train=True)
+        grads = torch.autograd.grad((y * _rows(cot, b, r)).sum(),
+                                    [xr, *params])
+        mask = ops.dropout_mask(xr.shape, 0.5,
+                                torch.Generator().manual_seed(7), b)
+        with torch.no_grad():
+            again = block._body(xr.detach().clone(), None, mask, b)
+        return y.detach(), part.bounds(y), grads, again
+    outs = on_ranks(sp, rank)
+    assert all(o[1] == b for o in outs)
+    assert all(torch.equal(o[0], o[3]) for o in outs)
+    assert _gap(torch.cat([o[0] for o in outs], dim=1), want.detach()) \
+        <= 1e-6
+    scale = max(float(t.abs().max()) for t in want_g)
+    assert _gap(torch.cat([o[2][0] for o in outs], dim=1), want_g[0],
+                scale) <= 1e-6
+    for i, ref in enumerate(want_g[1:]):
+        assert _gap(sum(o[2][1 + i] for o in outs), ref, scale) <= 1e-6, i
+
+
 # ---------------------------------------------------------------------------
 # Errors: what a partitioned step does not cover
 # ---------------------------------------------------------------------------
 
 OUT_OF_SLICE = {
     "wgangp": ({}, {"gan_mode": "wgangp"}),
-    "temporal": ({"model": "temporal"}, {}),
     "cycle_gan": ({"model": "cycle_gan"}, {}),
     "netE": ({"use_instance_feat": True}, {}),
     "edges": ({"use_instance_edges": True}, {}),
     "unet": ({"net_g": "unet_256"}, {}),
-    "remat": ({"remat": True}, {}),
 }
 
 
@@ -520,6 +601,173 @@ def fit_case(out):
             "weights": _weights(trainer.model)}
 
 
+# JAX's temporal config of the windows (its create_model's: the pool 2)
+T_BASE = dict(model="temporal", net_g="resnet_6blocks", net_d="n_layers",
+              ngf=8, ndf=8, use_dropout=True)
+
+
+def _tcfg(g, remat=False):
+    return Config(model=ModelConfig(**T_BASE, n_frames_g=g, remat=remat),
+                  data=DataConfig(crop_size=CROP, batch_size=T_BATCH,
+                                  n_frames_total=T_FRAMES),
+                  loss=LossConfig(no_vgg_loss=True, pool_size=2),
+                  train=TrainConfig())
+
+
+def _windows():
+    r = np.random.default_rng(3)
+    return {k: torch.from_numpy(r.uniform(
+        -1, 1, (T_BATCH, T_FRAMES, CROP, CROP, 3)).astype(np.float32))
+        for k in ("a", "b")}
+
+
+@contextlib.contextmanager
+def _jax_draws(draws, mesh):
+    """The window's dropout masks and pool decisions are JAX's (``draws``:
+    the whole batch's, in the port's call order), this rank's block of
+    each mask."""
+    masks, pool = list(draws["masks"]), list(draws["pool"])
+    saved = ops.dropout_mask, image_pool.draw_decisions
+
+    def mask(shape, rate, generator, rows=None):
+        return spatial.local_block(masks.pop(0), mesh)
+
+    def decisions(n, size, generator):
+        swap, idx = pool.pop(0)
+        return torch.tensor(swap), torch.tensor(idx)
+    ops.dropout_mask, image_pool.draw_decisions = mask, decisions
+    try:
+        yield
+    finally:
+        ops.dropout_mask, image_pool.draw_decisions = saved
+    assert not masks and not pool
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _pins_of(records, dp, sp):
+    """One process's pins (``chip_smoke.KinkPins``) from every rank's
+    ``ShardPins`` records (in rank order) of a dp×sp window: each data
+    row's rows joined, the data rows joined along the batch."""
+    cs = _chip_smoke()
+    rows = [cs.ShardPins.whole(records[d * sp:(d + 1) * sp])
+            for d in range(dp)]
+    out = rows[0]
+    for more in rows[1:]:
+        out.saved += more.saved
+        out.stats += more.stats
+    out.merge = dp
+    return out
+
+
+def window_case(case, mesh=None, remat=False, draws=None, pins=None):
+    """One temporal train step (a window) of ``case`` (``_jax_temporal``:
+    its weights and n_frames_g) on this rank's block (the whole batch
+    without ``mesh``), its own draws or JAX's (``draws``); with the pool
+    after it and this rank's count of exchanges. ``pins``: with ``mesh``
+    a ``chip_smoke.ShardPins`` that records the window's forward point,
+    else pins that one process's window replays (``_pins_of``): the
+    partitioned forward is a rounding away from one process's, which
+    flips ReLU and L1 kinks and moved G's gradient by 0.4% unpinned."""
+    model = create_model(_tcfg(case["g"], remat), device="cpu",
+                         steps_per_epoch=10,
+                         seed=0 if mesh is None else 5 * mesh.rank)
+    model.netG.load_state_dict(case["weights"]["netG"])
+    model.netD.load_state_dict(case["weights"]["netD"])
+    batch = _windows()
+    if mesh is not None:
+        replicate(model, mesh)
+        batch = shard_batch(batch, mesh)
+    calls, reduce = [0], spatial.Shards._reduce
+
+    def counted(self, buf):
+        calls[0] += 1
+        return reduce(self, buf)
+    spatial.Shards._reduce = counted
+    try:
+        # the ranks and one process run the same CPU convolutions (a test
+        # module that a worker imports, tests/torch_refs.py, turns oneDNN
+        # off): their real taps then differ by the partition's rounding
+        # alone, which the pins cover
+        with torch.backends.mkldnn.flags(enabled=True), (
+                _jax_draws(draws, mesh) if draws is not None
+                else contextlib.nullcontext()), (
+                contextlib.nullcontext() if pins is None else
+                pins.recording() if mesh is not None else pins.replaying()):
+            metrics = model.train_step(batch)
+    finally:
+        spatial.Shards._reduce = reduce
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _grads(model), "weights": _weights(model),
+            "pool": (model.pool.buffer.clone(), int(model.pool.count)),
+            "exchanges": calls[0]}
+
+
+def window_runs(case, mesh, remat=False):
+    """A window of ``case`` on ``mesh`` drawing its own (with its
+    ``ShardPins`` records), one with JAX's draws and, with ``remat``, the
+    first again with remat."""
+    pins = _chip_smoke().ShardPins()
+    out = {"own": window_case(case, mesh, pins=pins),
+           "jax": window_case(case, mesh, draws=case["draws"])}
+    out["pins"] = (pins.saved, pins.stats)
+    if remat:
+        out["remat"] = window_case(case, mesh, remat=True)
+    return out
+
+
+def fit_temporal_case(out):
+    """A 2-step temporal Trainer run from a synthetic folder of videos on
+    this rank's block: the loader's windows of the data row, each frame
+    cut to this rank's rows; the display gathers the first frame."""
+    from ir2rgb_tpu_torch.data import DataLoader, preprocess_sequence_batch
+    from ir2rgb_tpu_torch.parallel.mesh import image_rows, sharded
+    from ir2rgb_tpu_torch.train import Trainer
+    cfg = Config(model=ModelConfig(**{**T_BASE, "ngf": 4, "ndf": 4},
+                                   n_frames_g=2),
+                 data=DataConfig(dataroot=os.path.join(out, "videos"),
+                                 dataset_mode="temporal",
+                                 n_frames_total=T_FRAMES, load_size=40,
+                                 crop_size=CROP, batch_size=1),
+                 loss=LossConfig(no_vgg_loss=True, pool_size=2),
+                 train=TrainConfig(name="sp_fit_temporal",
+                                   checkpoints_dir=os.path.join(out, "runs"),
+                                   spatial_devices=2, niter=1, niter_decay=0,
+                                   print_freq=1, display_freq=1))
+    trainer = Trainer(create_model(cfg, device="cpu", steps_per_epoch=2),
+                      cfg)
+    trainer.init_or_restore()
+    loader = DataLoader(cfg, shard=(trainer.mesh.dp, trainer.mesh.dp_rank))
+    gen = torch.Generator().manual_seed(1)
+    shapes = []
+
+    def data():
+        for host in loader:
+            x = multihost.global_batch({k: np.ascontiguousarray(host[k])
+                                        for k in "ab"}, trainer.mesh,
+                                       whole_images=True)
+            with sharded(trainer.mesh):
+                batch = preprocess_sequence_batch(x["a"], x["b"], gen, CROP,
+                                                  train=True)
+            batch = {k: image_rows(v, trainer.mesh).contiguous()
+                     for k, v in batch.items()}
+            shapes.append(tuple(batch["a"].shape))
+            yield batch
+    trainer.fit(data(), total_steps=2)
+    return {"step": trainer.model.step, "shapes": shapes,
+            "pool": (tuple(trainer.model.pool.buffer.shape),
+                     int(trainer.model.pool.count)),
+            "saved": trainer.ckpt.all_steps(),
+            "weights": _weights(trainer.model)}
+
+
 def worker(port, rank, out):
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore")
@@ -534,6 +782,11 @@ def worker(port, rank, out):
     dp, sp, train = ACCUM_EMA
     res["accum_ema"] = step_case(weights, dp_sp_mesh(dp, sp, device="cpu"),
                                  **train)
+    cases = torch.load(os.path.join(out, "temporal.pt"))
+    for dp, sp, g in T_LAYOUTS:
+        mesh = dp_sp_mesh(dp, sp, device="cpu")
+        res[("temporal", dp, sp)] = window_runs(
+            cases[g], mesh, remat=(dp, sp, g) == T_REMAT)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     mesh.barrier()
     torch.distributed.destroy_process_group()
@@ -547,6 +800,12 @@ def fit_worker(port, rank, out):
                          timeout_s=TIMEOUT_S)
     res = fit_case(out)
     torch.save(res, os.path.join(out, f"fit{rank}.pt"))
+    dp, sp, g = T_PAIR
+    cases = torch.load(os.path.join(out, "temporal.pt"))
+    pair = {("temporal", dp, sp): window_runs(
+        cases[g], dp_sp_mesh(dp, sp, device="cpu")),
+        "fit": fit_temporal_case(out)}
+    torch.save(pair, os.path.join(out, f"pair{rank}.pt"))
     torch.distributed.destroy_process_group()
 
 
@@ -582,6 +841,71 @@ def _wait(procs):
     assert not bad, "\n".join(bad)
 
 
+def _drawn(init, seed):
+    """JAX parameters of ``init``'s structure drawn as the reference's
+    ``weights_init`` from a numpy seed: kernels N(0, 0.02), the rest 0."""
+    import jax
+    import jax.numpy as jnp
+    r = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda t: jnp.asarray((r.normal(0, 0.02, t.shape)
+                               if len(t.shape) > 1 else
+                               np.zeros(t.shape)).astype(t.dtype)),
+        jax.eval_shape(init, jax.random.PRNGKey(0)))
+
+
+def _jax_temporal(g):
+    """JAX's temporal model of the windows' config with n_frames_g ``g``,
+    an initial state built as ``_jax_state`` builds it, and for the
+    ranks: its weights as the port's and the draws JAX's ``train_step``
+    makes from the state's key (``model.py:440``, ``:330``, ``:424-425``),
+    in the port's call order: each frame's six blocks' dropout masks
+    (``resnet_generator_apply`` splits the frame's key a block), then its
+    pool decisions (``query_pool``: a key an item, split into the coin and
+    the slot)."""
+    import jax
+    import jax.numpy as jnp
+    from ir2rgb_tpu.config import Config as JConfig
+    from ir2rgb_tpu.config import DataConfig as JDataConfig
+    from ir2rgb_tpu.config import LossConfig as JLossConfig
+    from ir2rgb_tpu.config import ModelConfig as JModelConfig
+    from ir2rgb_tpu.train import create_model as jax_create_model
+    from ir2rgb_tpu.train.image_pool import init_pool
+    from ir2rgb_tpu.train.model import TrainState
+    from ir2rgb_tpu_torch.checkpoint import (
+        discriminator_state_dict_from_jax,
+        generator_state_dict_from_jax,
+    )
+    jm = jax_create_model(JConfig(
+        model=JModelConfig(**T_BASE, n_frames_g=g),
+        data=JDataConfig(crop_size=CROP, batch_size=T_BATCH,
+                         n_frames_total=T_FRAMES),
+        loss=JLossConfig(no_vgg_loss=True, pool_size=2)), steps_per_epoch=10)
+    gp, dp = _drawn(jm.g_init, 0), _drawn(jm.d_init, 1)
+    state = TrainState(g_params=gp, d_params=dp, g_opt=jm.g_tx.init(gp),
+                       d_opt=jm.d_tx.init(dp), step=jnp.zeros((), jnp.int32),
+                       rng=jax.random.PRNGKey(2),
+                       pool=init_pool(2, (CROP, CROP, 3)))
+    k_drop, k_pool = jax.random.split(jax.random.split(state.rng)[1])
+    masks, pool = [], []
+    block = (T_BATCH, CROP // 4, CROP // 4, 4 * T_BASE["ngf"])
+    for kd in jax.random.split(k_drop, T_FRAMES):
+        masks += [torch.from_numpy(np.asarray(jax.random.bernoulli(
+            k, 0.5, block))) for k in jax.random.split(kd, 6)]
+    for kp in jax.random.split(k_pool, T_FRAMES):
+        draws = [jax.random.split(k) for k in jax.random.split(kp, T_BATCH)]
+        pool.append(([bool(jax.random.bernoulli(ks)) for ks, _ in draws],
+                     [int(jax.random.randint(ki, (), 0, 2))
+                      for _, ki in draws]))
+    pm = create_model(_tcfg(g), device="cpu")
+    weights = {"netG": generator_state_dict_from_jax(
+        jax.tree.map(np.asarray, gp), pm.gen_cfg),
+        "netD": discriminator_state_dict_from_jax(
+            jax.tree.map(np.asarray, dp), pm.disc_cfg)}
+    return jm, state, {"g": g, "weights": weights,
+                       "draws": {"masks": masks, "pool": pool}}
+
+
 def _jax_state():
     """JAX's ``tests/test_parallel.py:127`` model and an initial state
     built as ``init_state`` builds it, with the reference's
@@ -606,15 +930,7 @@ def _jax_state():
         data=JDataConfig(crop_size=CROP, batch_size=BATCH),
         loss=JLossConfig(no_vgg_loss=True, pool_size=0)), steps_per_epoch=10)
     batch = {k: v.numpy() for k, v in _batch().items()}
-
-    def drawn(init, seed):
-        r = np.random.default_rng(seed)
-        return jax.tree.map(
-            lambda t: jnp.asarray((r.normal(0, 0.02, t.shape)
-                                   if len(t.shape) > 1 else
-                                   np.zeros(t.shape)).astype(t.dtype)),
-            jax.eval_shape(init, jax.random.PRNGKey(0)))
-    g, d = drawn(jm.g_init, 0), drawn(jm.d_init, 1)
+    g, d = _drawn(jm.g_init, 0), _drawn(jm.d_init, 1)
     state = TrainState(g_params=g, d_params=d, g_opt=jm.g_tx.init(g),
                        d_opt=jm.d_tx.init(d), step=jnp.zeros((), jnp.int32),
                        rng=jax.random.PRNGKey(2),
@@ -637,18 +953,39 @@ def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("spatial_train")
     jm, state, batch, weights = _jax_state()
     torch.save(weights, out / "weights.pt")
+    temporal = {g: _jax_temporal(g) for g in (2, 3)}
+    torch.save({g: t[2] for g, t in temporal.items()}, out / "temporal.pt")
     write_synthetic_dataset(str(out / "data"), n=4, size=40)
+    write_synthetic_dataset(str(out / "videos"), size=40, n_videos=2,
+                            frames_per_video=4)
     procs = _spawn(out, 4, "steps") + _spawn(out, 2, "fit")
     try:
         _, m1 = jax.jit(jm.train_step)(state, batch)
         jax_metrics = {k: float(v) for k, v in m1.items()}
         one = step_case(weights)
         one_accum_ema = step_case(weights, **ACCUM_EMA[2])
+        jax_windows = {}
+        for g, (tjm, tstate, _) in temporal.items():
+            _, m = jax.jit(tjm.train_step)(tstate, {
+                k: v.numpy() for k, v in _windows().items()})
+            jax_windows[g] = {k: float(v) for k, v in m.items()}
     finally:
         _wait(procs)
-    return dict(ranks=[torch.load(out / f"rank{r}.pt") for r in range(4)],
-                fit=[torch.load(out / f"fit{r}.pt") for r in range(2)],
-                one=one, one_accum_ema=one_accum_ema, jax=jax_metrics)
+    res = dict(ranks=[torch.load(out / f"rank{r}.pt") for r in range(4)],
+               fit=[torch.load(out / f"fit{r}.pt") for r in range(2)],
+               pairs=[torch.load(out / f"pair{r}.pt") for r in range(2)],
+               one=one, one_accum_ema=one_accum_ema, jax=jax_metrics)
+    # one process's window at each layout's partitioned forward point
+    res["windows"] = {}
+    for dp, sp, g in T_LAYOUTS + [T_PAIR]:
+        group = res["ranks"] if (dp, sp, g) != T_PAIR else res["pairs"]
+        pins = _pins_of([r[("temporal", dp, sp)].pop("pins") for r in group],
+                        dp, sp)
+        res["windows"][(dp, sp, g)] = {
+            "jax": jax_windows[g],
+            "one": window_case(temporal[g][2], pins=pins),
+            "replayed": pins.all_replayed()}
+    return res
 
 
 def _rel_norm(got, want):
@@ -710,6 +1047,79 @@ def test_trainer_fit_on_sp2(ranks):
     assert f0["step"] == f1["step"] == 2
     # the pool holds whole frames, the same on both ranks
     assert f0["shape"] == (2, CROP, CROP, 3)
+    assert all(torch.equal(f0["weights"][k], f1["weights"][k])
+               for k in f0["weights"])
+
+
+@pytest.mark.parametrize("layout", T_LAYOUTS + [T_PAIR],
+                         ids=lambda t: f"dp{t[0]}xsp{t[1]}-g{t[2]}")
+def test_temporal_window_on_dp_sp_equals_jax_and_one_process(ranks, layout):
+    dp, sp, g = layout
+    group = ranks["ranks"] if layout != T_PAIR else ranks["pairs"]
+    rs = [r[("temporal", dp, sp)] for r in group]
+    want = ranks["windows"][layout]
+    assert want["replayed"]
+    for run in ("own", "jax"):
+        # every rank holds one replica, the pool of whole frames included
+        for r in rs[1:]:
+            assert r[run]["metrics"] == rs[0][run]["metrics"], run
+            for key in ("grads", "weights"):
+                assert all(torch.equal(r[run][key][k], rs[0][run][key][k])
+                           for k in rs[0][run][key]), (run, key)
+            assert torch.equal(r[run]["pool"][0], rs[0][run]["pool"][0])
+    # JAX's draws: JAX's one-device jitted window, at its bar
+    got = rs[0]["jax"]["metrics"]
+    assert got.keys() == want["jax"].keys()
+    for k, v in want["jax"].items():
+        np.testing.assert_allclose(got[k], v, rtol=2e-3, err_msg=k)
+    # its own draws: the port's one-process window at the partitioned
+    # forward point
+    got, one = rs[0]["own"], want["one"]
+    assert got["metrics"].keys() == one["metrics"].keys()
+    for k, v in one["metrics"].items():
+        assert abs(got["metrics"][k] - v) <= 1e-5 * abs(v), k
+    assert got["grads"].keys() == one["grads"].keys()
+    for net in ("netG", "netD"):
+        keys = [k for k in one["grads"] if k.startswith(net + ".")]
+        a = torch.cat([got["grads"][k].reshape(-1) for k in keys])
+        b = torch.cat([one["grads"][k].reshape(-1) for k in keys])
+        assert _rel_norm(a, b) <= 1e-5, net
+    # the pool after the window: the same frames, filled as far (its
+    # fakes are the partitioned forward's, a rounding from one process's)
+    assert got["pool"][1] == one["pool"][1] == 2
+    np.testing.assert_allclose(got["pool"][0].numpy(), one["pool"][0].numpy(),
+                               atol=1e-5)
+    for k, v in one["weights"].items():
+        np.testing.assert_allclose(got["weights"][k].numpy(), v.numpy(),
+                                   atol=5e-4, err_msg=k)
+
+
+def test_temporal_remat_on_dp1_sp4_equals_the_window_without_it(ranks):
+    # the recompute replays the blocks' exchanges in the backward, the
+    # same ones on every rank, and changes nothing (JAX's remat bar,
+    # tests/test_variants.py:83)
+    dp, sp, _ = T_REMAT
+    rs = [r[("temporal", dp, sp)] for r in ranks["ranks"]]
+    calls = {r["remat"]["exchanges"] for r in rs}
+    assert len(calls) == 1 and calls.pop() > rs[0]["own"]["exchanges"]
+    assert len({r["own"]["exchanges"] for r in rs}) == 1
+    for r in rs:
+        got, want = r["remat"], r["own"]
+        for k, v in want["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= 1e-6, k
+        for k, v in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][k].numpy(), v.numpy(),
+                                       atol=1e-6, err_msg=k)
+
+
+def test_temporal_trainer_fit_on_sp2(ranks):
+    f0, f1 = (p["fit"] for p in ranks["pairs"])
+    assert f0["step"] == f1["step"] == 2 and f0["saved"] == [2]
+    # each step a window of this rank's rows of every frame
+    assert set(f0["shapes"]) == set(f1["shapes"]) == {
+        (1, T_FRAMES, CROP // 2, CROP, 3)}
+    # the pool holds whole frames, filled by the two windows' six
+    assert f0["pool"] == f1["pool"] == ((2, CROP, CROP, 3), 2)
     assert all(torch.equal(f0["weights"][k], f1["weights"][k])
                for k in f0["weights"])
 
