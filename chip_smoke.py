@@ -191,22 +191,28 @@ Phases, each failing the run if it fails:
    SPLIT_COLD_BYTES, and summed over one ``SPLIT_TRAIN_STEP`` rank's
    launches (``sweep_b1.BWD_STEP``). Steps (``SPATIAL_TRAIN_CASES``):
    temporal_512 at full width on sp 2, fp32 and bf16, a window of 4
-   frames, then the same with remat; pix2pixhd_512 on sp 2, fp32 and
-   bf16, a step each; pix2pixhd_512 on dp 2 x sp 2, fp32, against one
-   process's batch-2 step; pix2pixhd_2048 bf16 on sp 4, 2 timed steps;
-   temporal_1024 bf16 with remat on sp 4, 2 timed windows, its peak a
-   rank beside one process's. Every rank's launches a step equal to
-   ``SPATIAL_TRAIN`` (no fused B1; statistics, apply, sums and dx apply
-   for every norm, and with remat the blocks' statistics and apply again
-   in the backward), the merged statistics and summed sums bit-identical
-   on every rank of a data row, every rank's count of exchanges equal,
-   finite losses; each pix2pixhd_512 and temporal_512 step held to one
-   process's step (window) from the same train state at
-   SPATIAL_TRAIN_BARS, the fp32 one with one process pinned to the
-   partitioned forward point (``ShardPins``: rounding flips ReLU and L1
-   kinks); each remat step to the same step without remat (losses bit
-   for bit, gradients within REMAT_GRAD_ATOL). The negative control (one
-   halo row a layer from the wrong shard) must fail the fp32 bars.
+   frames, then fp32 with remat; pix2pixhd_512 on sp 2, fp32 and bf16, a
+   step each; beside them, on the other pair of ranks, pix2pixhd_512 with
+   WGAN-GP and cyclegan_256 on sp 2, fp32 and bf16, a step each;
+   pix2pixhd_512 on dp 2 x sp 2, fp32, against one process's batch-2
+   step; pix2pixhd_2048 bf16 on sp 4, 2 timed steps; temporal_1024 bf16
+   with remat on sp 4, one timed window, its peak a rank beside one
+   process's. Every rank's launches a step equal to ``SPATIAL_TRAIN``
+   (no fused B1; statistics, apply, sums and dx apply for every norm,
+   with remat the blocks' statistics and apply again in the backward,
+   with WGAN-GP the penalty's D pass and both its split backwards), the
+   merged statistics and summed sums bit-identical on every rank of a
+   data row, every rank's count of exchanges equal (a second
+   derivative's included), finite losses; each pix2pixhd_512,
+   cyclegan_256 and temporal_512 step held to one process's step
+   (window) from the same train state at SPATIAL_TRAIN_BARS, the fp32
+   one with one process pinned to the partitioned forward point
+   (``ShardPins``: rounding flips ReLU and L1 kinks); a WGAN-GP step's
+   D_GP > 0 and, fp32, D's gradient from D_GP alone against one
+   process's at that point; a CycleGAN's two pools against one
+   process's; each remat step to the same step without remat (losses
+   bit for bit, gradients within REMAT_GRAD_ATOL). The negative control
+   (one halo row a layer from the wrong shard) must fail the fp32 bars.
    Beside the ranks' world, one ``torchrun`` of ``cli.train
    --train.spatial_devices 2 --dist_backend gloo`` for two steps of
    SPATIAL_TRAIN_CLI from a folder, rank 0's checkpoint read back. Per
@@ -218,8 +224,9 @@ The gloo ranks of phases 14-16 are one world of RANKS_WORLD processes
 (``chip_smoke.py --ranks R PORT DIR``, ``ranks_main``), started once
 after the parent's parts of phases 15 and 16 (``start_ranks``) and run
 beside phase 14's part (a), then waited for (``ranks_phase``): a section
-a phase, the cases of two ranks on ranks 0 and 1 (``pair_mesh``), those
-of four on all of them.
+a phase, the cases of two ranks on ranks 0 and 1 (``pair_mesh``; phase
+16's WGAN-GP and CycleGAN cases on ranks 2 and 3 beside them), those of
+four on all of them.
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -703,22 +710,26 @@ D2S_SHAPES += sorted({k for t in SPATIAL_TABLES.values() for k in t["d2s"]}
 # The spatial_train phase (``spatial_train_phase``): train steps with each
 # frame's rows spread over the sp gloo ranks of a dp×sp mesh on the one
 # card, the partitioned step held to one process's step of the same
-# weights and batch. Cases (preset, dp, sp, dtypes, steps, remat): ranks
-# 0 and 1 run those of two ranks, all four ranks the others; a temporal
-# preset's step is a window of its n_frames_total frames; a remat case
-# follows the same case without remat and is held to it as well. The
-# steps of SPATIAL_TRAIN_TIMED are timed alone (no reference).
+# weights and batch. Cases (preset, dp, sp, dtypes, steps, remat, gp):
+# the cases of two ranks run on a pair of ranks, those with WGAN-GP
+# (``gp``) or a CycleGAN on ranks 2 and 3 beside the others on ranks 0
+# and 1 (``pair_of``); all four ranks run the rest. A temporal preset's
+# step is a window of its n_frames_total frames; a remat case follows the
+# same case without remat and is held to it as well. The steps of
+# SPATIAL_TRAIN_TIMED are timed alone (no reference).
 # SPATIAL_TRAIN_BROKEN (preset, sp, dtype): one step with one halo row a
 # layer from the wrong shard, which must fail the bars;
 # SPATIAL_TRAIN_CLI: the preset of one torchrun of cli.train on sp 2 for
 # two steps from a folder.
 SPATIAL_TRAIN_CASES = [
-    ("temporal_512", 1, 2, ("float32", "bf16"), 1, False),
-    ("temporal_512", 1, 2, ("float32", "bf16"), 1, True),
-    ("pix2pixhd_512", 1, 2, ("float32", "bf16"), 1, False),
-    ("pix2pixhd_512", 2, 2, ("float32",), 1, False),
-    ("pix2pixhd_2048", 1, 4, ("bf16",), 2, False),
-    ("temporal_1024", 1, 4, ("bf16",), 2, True)]
+    ("temporal_512", 1, 2, ("float32", "bf16"), 1, False, False),
+    ("temporal_512", 1, 2, ("float32",), 1, True, False),
+    ("pix2pixhd_512", 1, 2, ("float32", "bf16"), 1, False, False),
+    ("pix2pixhd_512", 1, 2, ("float32", "bf16"), 1, False, True),
+    ("cyclegan_256", 1, 2, ("float32", "bf16"), 1, False, False),
+    ("pix2pixhd_512", 2, 2, ("float32",), 1, False, False),
+    ("pix2pixhd_2048", 1, 4, ("bf16",), 2, False, False),
+    ("temporal_1024", 1, 4, ("bf16",), 1, True, False)]
 SPATIAL_TRAIN_TIMED = ("pix2pixhd_2048", "temporal_1024")
 SPATIAL_TRAIN_BROKEN = ("pix2pixhd_512", 2, "float32")
 SPATIAL_TRAIN_CLI = "resnet9_256"
@@ -726,7 +737,8 @@ SPATIAL_TRAIN_CLI = "resnet9_256"
 # and on the torchrun of cli.train beside it
 RANKS_TIMEOUT_S, CLI_TIMEOUT_S = 900, 420
 # the step whose split backward launches the kernel table's times sum over
-SPLIT_TRAIN_STEP = ("pix2pixhd_512", 1, 2, False, 0)
+# (preset, dp, sp, remat, gp, rank)
+SPLIT_TRAIN_STEP = ("pix2pixhd_512", 1, 2, False, False, 0)
 # a remat step against the same step without remat: every gradient
 # element (JAX's remat bar, tests/test_variants.py:83)
 REMAT_GRAD_ATOL = 1e-6
@@ -768,14 +780,27 @@ def remat_blocks(preset: str) -> Counter:
     return blocks
 
 
+def pair_of(case) -> int:
+    """The pair of ranks a two-rank case of SPATIAL_TRAIN_CASES runs on:
+    1 (ranks 2 and 3) for WGAN-GP and CycleGAN, 0 (ranks 0 and 1) for the
+    others."""
+    preset, _, _, _, _, _, gp = case
+    return int(gp or preset in _CYCLE)
+
+
 def spatial_train_table(preset: str, sp: int, q: int, n: int = 1,
-                        remat: bool = False) -> dict:
+                        remat: bool = False, gp: bool = False) -> dict:
     """One unfrozen ``TRAIN`` step of ``preset`` (a temporal preset's
-    window) on rank q of ``sp`` at batch ``n`` a rank: every shape's rows
-    split as the partition splits them (the discriminator's 4x4 convs
-    give uneven shards); with ``remat`` each frame's recomputed blocks'
-    norms forward again."""
-    t = TRAIN[preset]["unfrozen"]
+    window; with ``gp`` WGAN-GP's, ``train_table``'s) on rank q of ``sp``
+    at batch ``n`` a rank: every shape's rows split as the partition
+    splits them (the discriminator's 4x4 convs give uneven shards); with
+    ``remat`` each frame's recomputed blocks' norms forward again. A
+    WGAN-GP step's split backward runs twice on every norm of the
+    penalty's D pass (the inner derivative's, and the outer backward's
+    through the split backward's own, plain, derivative), as the fused
+    B1 does."""
+    t = train_table(preset, gp=True)["unfrozen"] if gp else \
+        TRAIN[preset]["unfrozen"]
     b1 = t["b1"]
     if remat:
         b1 = b1 + _mul(remat_blocks(preset), _TRAIN_SPEC[preset][1])
@@ -804,11 +829,11 @@ def spatial_per_step(table: dict) -> dict:
             "s2d": sum(table["s2d"].values())}
 
 
-# every (preset, dp, sp, remat, rank) the phase trains on, and its table
-SPATIAL_TRAIN = {(p, dp, sp, remat, q): spatial_train_table(p, sp, q,
-                                                            remat=remat)
-                 for p, dp, sp, _, _, remat in SPATIAL_TRAIN_CASES
-                 for q in range(sp)}
+# every (preset, dp, sp, remat, gp, rank) the phase trains on, and its
+# table
+SPATIAL_TRAIN = {(p, dp, sp, remat, gp, q): spatial_train_table(
+    p, sp, q, remat=remat, gp=gp)
+    for p, dp, sp, _, _, remat, gp in SPATIAL_TRAIN_CASES for q in range(sp)}
 # the split forward's shard shapes of those steps that the frames' do not
 # give it (the discriminators', a 1024 rank's), checked beside them; B3
 # at their ups' shard shapes
@@ -4990,10 +5015,11 @@ def spatial_train_batch(cfg, n: int) -> dict:
 def spatial_train_section(rank: int, pair, folder: Path) -> None:
     """The spatial_train phase's cases on the ranks' world
     (``ranks_main``), gloo ranks sharing the one card, by group size:
-    every case of SPATIAL_TRAIN_CASES with ``dp * sp == 2`` on ranks 0 and
-    1 (``pair_mesh``) and the negative control, then every case with
-    ``dp * sp == 4`` on all four (``dp_sp_mesh``), from seeded weights
-    replicated from rank 0 (cuDNN deterministic, TF32 off). Each step:
+    every case of SPATIAL_TRAIN_CASES with ``dp * sp == 2`` on its pair of
+    ranks (``pair_of``: ranks 0 and 1, with the negative control, beside
+    ranks 2 and 3; ``pair_mesh``), then every case with ``dp * sp == 4``
+    on all four (``dp_sp_mesh``), from seeded weights replicated from the
+    mesh's rank 0 (cuDNN deterministic, TF32 off). Each step:
     the launches held to ``SPATIAL_TRAIN`` (``spatial_per_step``; with
     remat the blocks' norms run forward again in the backward), ms (CUDA
     synchronized around it), the exchange's bytes, calls and ms (halos,
@@ -5001,19 +5027,24 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
     gradient all-reduce's bytes, the digests of the merged B1 statistics
     and of the summed backward sums (SHA-256 in order; the parent holds
     them equal on every rank of a data row), peak memory, finite losses.
-    Rank 0 of a case with a reference runs one process's step of the
-    global batch (a temporal preset's window) from the same train state
-    after each step (an fp32 one pinned to the partitioned forward point,
-    ``ShardPins``, frame by frame; a bf16 one beside one process's fp32
-    step, the bf16 bar's yardstick) and holds the partitioned step to it
-    at SPATIAL_TRAIN_BARS; a remat case's reference is one process's step
-    without remat (the recompute records no pins). A remat case's step is
+    The mesh's rank 0 of a case with a reference runs one process's step
+    of the global batch (a temporal preset's window) from the same train
+    state after each step (an fp32 one pinned to the partitioned forward
+    point, ``ShardPins``, frame by frame; a bf16 one beside one process's
+    fp32 step, the bf16 bar's yardstick) and holds the partitioned step to
+    it at SPATIAL_TRAIN_BARS; a remat case's reference is one process's
+    step without remat (the recompute records no pins). A WGAN-GP step
+    also holds D_GP > 0 and finite and, in fp32, D's gradient from D_GP
+    alone (``gp_alone``: summed over the ranks) to one process's at the
+    pinned point; a CycleGAN's step its two pools to one process's (fp32
+    within SLICE_FP32_TOL, bf16 >= BF16_MIN_PSNR dB). A remat case's step is
     also held to the same case's step without remat, run before it from
     the same state: losses bit for bit, every gradient within
     REMAT_GRAD_ATOL. On the group of 2 the negative control follows: one
     fp32 step with one halo row a layer from the wrong shard, which must
     fail the bars. Writes ``folder/train<size>_<rank>.json`` for each
-    group it ran in; a failed check is in its ``failures``."""
+    group size it ran in (its ranks in ``group``); a failed check is in
+    its ``failures``."""
     import hashlib
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
     from ir2rgb_tpu_torch.parallel import replicate, shard_batch, spatial
@@ -5055,7 +5086,9 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
     spatial.Shards.sum_stats = kept_sums
     pmesh.all_reduce_grads = counted_grads
 
-    def step(model, batch, tag, want):
+    def step(model, batch, tag, want, hook=None):
+        """One train step; ``hook``: a :func:`gp_alone` list, whose
+        launches are not the step's."""
         torch.cuda.synchronize()
         reset_launch_counts()
         xfer[:] = [0, 0.0, 0]
@@ -5064,8 +5097,10 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
         t0 = time.perf_counter()
         m = {k: float(v) for k, v in model.train_step(batch).items()}
         torch.cuda.synchronize()
+        launches = Counter(launch_counts())
+        launches.subtract(sum((h[1] for h in hook or ()), Counter()))
         rec = {"tag": tag, "ms": (time.perf_counter() - t0) * 1e3,
-               "launches": launch_counts(), "metrics": m,
+               "launches": dict(launches), "metrics": m,
                "exchange_bytes": xfer[0], "exchange_ms": xfer[1] * 1e3,
                "exchanges": xfer[2],
                "allreduce_bytes": grads_xfer[0], "merges": len(merged),
@@ -5120,14 +5155,14 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
         features) flip across their kinks and move a gradient by ~1%
         (ROADMAP §C, traps for comparisons), so one process replays the
         partitioned forward point (:class:`KinkPins`)."""
-        if rank:
+        if mesh.rank:
             torch.save((pins.saved, pins.stats),
                        folder / f"pins{world}_{rank}.pt")
         mesh.barrier()
-        if rank:
+        if mesh.rank:
             return None
         recs = [(pins.saved, pins.stats)] + [
-            torch.load(folder / f"pins{world}_{r}.pt")
+            torch.load(folder / f"pins{world}_{rank + r}.pt")
             for r in range(1, world)]
         rows = [ShardPins.whole(recs[d * mesh.sp:(d + 1) * mesh.sp])
                 for d in range(mesh.dp)]
@@ -5143,8 +5178,14 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
     # step's state before each reference step
     weights_of, kept = {}, {}
 
-    def seeded(preset, dtype, remat=False):
-        sections = dict(model=dict(remat=remat))
+    def sections_of(remat=False, gp=False):
+        out = dict(model=dict(remat=remat))
+        if gp:
+            out["loss"] = dict(gan_mode="wgangp")
+        return out
+
+    def seeded(preset, dtype, remat=False, gp=False):
+        sections = sections_of(remat, gp)
         if preset not in weights_of:
             model, weights_of[preset] = seeded_model(preset, dtype,
                                                      **sections)
@@ -5152,64 +5193,132 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
         return train_model(preset, dtype, "cuda", weights_of[preset],
                            **sections)
 
-    def one_process(preset, dtype, variant, **kw):
-        key = (preset, dtype, variant)
+    def one_process(preset, dtype, variant, gp=False):
+        key = (preset, dtype, variant, gp)
         if key not in kept:
             kept[key] = train_model(preset, dtype, "cuda",
-                                    weights_of[preset], **kw)
+                                    weights_of[preset],
+                                    **sections_of(gp=gp))
         return kept[key]
 
+    def gp_alone(model):
+        """Wrap ``model``'s ``loss_and_metrics`` to take D's gradient from
+        the D_GP term alone in each pass, before the step's backward: a
+        list of (the gradients, the kernel launches they took)."""
+        out, inner = [], model.loss_and_metrics
+
+        def wrapped(batch, freeze_trunk=False):
+            loss_g, loss_d, m = inner(batch, freeze_trunk)
+            before = Counter(launch_counts())
+            names, params = zip(*model.netD.named_parameters())
+            got = torch.autograd.grad(m["D_GP"], params, retain_graph=True,
+                                      allow_unused=True)
+            launches = Counter(launch_counts())
+            launches.subtract(before)
+            out.append(({k: torch.zeros_like(p) if g is None else g.detach()
+                         for k, p, g in zip(names, params, got)}, launches))
+            return loss_g, loss_d, m
+        model.loss_and_metrics = wrapped
+        return out
+
+    def summed(grads, mesh):
+        """A partitioned step's per-rank gradients summed over the ranks
+        and divided by ``dp``, as ``all_reduce_grads`` does."""
+        import torch.distributed as dist
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        dist.all_reduce(flat, group=mesh.group)
+        flat /= mesh.dp
+        out, i = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[i:i + g.numel()].view_as(g)
+            i += g.numel()
+        return out
+
+    def pools_versus(model, one, dtype):
+        """A CycleGAN's pools (whole frames on every rank) against one
+        process's after the same step."""
+        out = {}
+        for k, p in model.pool.items():
+            q = one.pool[k]
+            n = int(q.count)
+            a, b = p.buffer[:n].float(), q.buffer[:n].float()
+            out[k] = dict(count=(int(p.count), n),
+                          max_abs=float((a - b).abs().max()),
+                          psnr=psnr(a, b))
+        ok = all(v["count"][0] == v["count"][1] > 0 and (
+            v["max_abs"] <= SLICE_FP32_TOL if dtype == "float32"
+            else v["psnr"] >= BF16_MIN_PSNR) for v in out.values())
+        return dict(out, ok=ok)
+
+    import torch.distributed as dist
+    # ranks 2 and 3's pair (every rank of the world makes the group)
+    pairs = (pair, dist.new_group([2, 3]))
     try:
         for world in (2, 4):
-            if rank >= world:
-                continue
             first_failure = len(failures)
+            mine = rank // 2 if world == 2 else 0
+            base = 2 * mine if world == 2 else 0
             res = {"rank": rank, "world": world,
+                   "group": list(range(base, base + world)),
                    "up_s": time.perf_counter() - T0, "steps": [],
                    "one_process_peak_gib": {}}
             # the gradients and metrics of each plain case that a remat
             # case follows, by (preset, dp, sp, dtype, step)
             plain = {}
             remat_cases = {c[:3] for c in SPATIAL_TRAIN_CASES if c[5]}
-            for preset, dp, sp, dtypes, steps, remat in SPATIAL_TRAIN_CASES:
-                if dp * sp != world:
+            for case in SPATIAL_TRAIN_CASES:
+                preset, dp, sp, dtypes, steps, remat, gp = case
+                if dp * sp != world or (world == 2
+                                        and pair_of(case) != mine):
                     continue
                 # one preset's one-process models at a time
                 for key in [k for k in kept if k[0] != preset]:
                     del kept[key]
                 torch.cuda.empty_cache()
-                mesh = mesh_of(dp, sp, rank, pair)
+                mesh = mesh_of(dp, sp, rank - base, pairs[mine])
                 want = spatial_per_step(SPATIAL_TRAIN[(
-                    preset, dp, sp, remat, mesh.sp_rank)])
+                    preset, dp, sp, remat, gp, mesh.sp_rank)])
                 for dtype in dtypes:
-                    model = seeded(preset, dtype, remat)
+                    model = seeded(preset, dtype, remat, gp)
                     replicate(model, mesh)
                     glob = spatial_train_batch(model.cfg, dp)
                     local = shard_batch(glob, mesh)
                     timed = preset in SPATIAL_TRAIN_TIMED
-                    refs = [] if rank or timed else [("one", {})]
-                    ones = {t: one_process(preset, dtype, t, **kw)
-                            for t, kw in refs}
-                    one32 = (one_process(preset, "float32", "one")
+                    refs = [] if mesh.rank or timed else ["one"]
+                    ones = {t: one_process(preset, dtype, t, gp)
+                            for t in refs}
+                    one32 = (one_process(preset, "float32", "one", gp)
                              if ones and dtype == "bf16" else None)
                     for i in range(steps):
                         # the references start from the step's train state
                         for one in (*ones.values(), one32):
                             if one is not None:
                                 one.load_state_dict(model.state_dict())
-                        tag = (f"{preset} dp {dp} sp {sp} {dtype}"
+                        tag = (f"{preset}{' wgangp' if gp else ''} dp "
+                               f"{dp} sp {sp} {dtype}"
                                f"{' remat' if remat else ''} step {i}")
                         # bf16 is held to one process's bf16-vs-fp32
                         # spread, which dwarfs the kinks: its references
                         # run unpinned
                         pins = (ShardPins() if not timed
                                 and dtype == "float32" else None)
+                        # D's gradient from D_GP alone, fp32 (pinned)
+                        hook = (gp_alone(model) if gp and pins is not None
+                                else None)
                         with (pins.recording() if pins is not None
                               else contextlib.nullcontext()):
                             res["steps"].append(step(model, local, tag,
-                                                     want))
+                                                     want, hook))
                         rec = res["steps"][-1]
-                        rec.update(case=(preset, dp, sp, dtype, remat), i=i)
+                        rec.update(case=(preset, dp, sp, dtype, remat, gp),
+                                   i=i)
+                        if gp:
+                            check(rec["metrics"]["D_GP"] > 0,
+                                  f"spatial_train {tag} rank {rank}: D_GP "
+                                  f"{rec['metrics']['D_GP']} > 0")
+                        if hook is not None:
+                            del model.loss_and_metrics
+                            gp_got = summed(hook[0][0], mesh)
                         key = (preset, dp, sp, dtype, i)
                         if not remat and (preset, dp, sp) in remat_cases:
                             plain[key] = (rec["metrics"], flat_grads(model))
@@ -5224,6 +5333,8 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                         replay = shared_pins(pins, mesh) if pins else None
                         ref_m = {}
                         for t, one in ones.items():
+                            one_hook = (gp_alone(one) if hook is not None
+                                        else None)
                             with (replay.replaying() if replay
                                   else contextlib.nullcontext()):
                                 ref_m[t] = {k: float(v) for k, v in
@@ -5231,18 +5342,33 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                             check(replay is None or replay.all_replayed(),
                                   f"spatial_train {tag} vs {t}: every pin "
                                   "replayed")
+                            if one_hook is not None:
+                                del one.loss_and_metrics
+                                worst = grad_bar(
+                                    gp_got, {k: v.cpu() for k, v in
+                                             one_hook[0][0].items()},
+                                    SPATIAL_TRAIN_BARS[dtype][1])
+                                rec["d_from_gp_" + t] = worst
+                                check(worst[0] <= 1.0, f"spatial_train "
+                                      f"{tag} vs {t}: D's gradient from "
+                                      f"D_GP alone, worst {worst[1]} at "
+                                      f"{worst[0]:.3g} of the bar")
                         if one32 is not None:
                             one32.train_step(glob)
                         for t, one in ones.items():
                             v = versus(model, ref_m[t], one,
                                        f"{tag} vs {t}", dtype, one32)
+                            if isinstance(model.pool, dict):
+                                v["pools"] = pools_versus(model, one, dtype)
+                                v["ok"] = v["ok"] and v["pools"]["ok"]
                             rec["vs_" + t] = v
                             check(v["ok"], f"spatial_train {v['tag']}: "
                                   f"metrics rel {v['metric_rel']}, worst "
                                   f"gradient tensor {v['worst_grad']}, each "
-                                  f"network's {v['net_grad_rel']} (bars "
-                                  f"{SPATIAL_TRAIN_BARS[dtype]})")
-                        del pins, replay
+                                  f"network's {v['net_grad_rel']}"
+                                  f"{', pools ' + str(v['pools']) if 'pools' in v else ''}"
+                                  f" (bars {SPATIAL_TRAIN_BARS[dtype]})")
+                        del pins, replay, hook
                     del model
                     torch.cuda.empty_cache()
                     if timed and preset in ONE_PROCESS_PEAK:
@@ -5251,7 +5377,7 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                                 one_process_peak(preset, dtype,
                                                  weights_of[preset], glob)
                         mesh.barrier()
-            if world == 2:
+            if world == 2 and mine == 0:
                 # the negative control: the row above rank 1's first row,
                 # at every layer, taken from the last shard's rows instead
                 preset, sp, dtype = SPATIAL_TRAIN_BROKEN
@@ -5276,7 +5402,7 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                     res["steps"].append(step(
                         model, local, "negative control",
                         spatial_per_step(SPATIAL_TRAIN[(
-                            preset, 1, sp, False, mesh.sp_rank)])))
+                            preset, 1, sp, False, False, mesh.sp_rank)])))
                 finally:
                     spatial._source = source
                     spatial.halo_plan.cache_clear()
@@ -5395,19 +5521,23 @@ def spatial_train_report(res: dict, folder: Path, card: str) -> None:
     in ``folder`` (``spatial_train_section``), into ``res`` (the cli
     run's, ``res["cli"]``, read by ``ranks_phase``)."""
     ranks = [json.load(open(folder / f"train{world}_{r}.json"))
-             for world in (2, 4) for r in range(world)]
+             for world in (2, 4) for r in range(RANKS_WORLD)]
     for r in ranks:
         for f in r["failures"]:
-            check(False, f"spatial_train group {r['world']} rank "
+            check(False, f"spatial_train group {r['group']} rank "
                   f"{r['rank']}: {f}")
+    # each group of ranks that ran the same cases, in rank order
+    groups = [[r for r in ranks if r["world"] == world
+               and r["group"][0] == base]
+              for world, base in ((2, 0), (2, 2), (4, 0))]
     # the merged statistics and backward sums: the same bits on every
-    # rank of a data row (all of a world's ranks when dp is 1)
-    for world in (2, 4):
-        mine = [r for r in ranks if r["world"] == world]
+    # rank of a data row (all of a group's ranks when dp is 1)
+    for mine in groups:
+        world = len(mine)
         for i, rec in enumerate(mine[0]["steps"]):
             dp = rec.get("case", (None, 1))[1]
             for d in range(dp):
-                row = [r for r in mine if r["rank"] // (world // dp) == d]
+                row = mine[d * (world // dp):(d + 1) * (world // dp)]
                 digests = {r["steps"][i]["digest"] for r in row}
                 check(len(digests) == 1 and rec["merges"] > 0,
                       f"spatial_train {rec['tag']}: the {rec['merges']} "
@@ -5423,14 +5553,15 @@ def spatial_train_report(res: dict, folder: Path, card: str) -> None:
     res["ranks"] = ranks
     label = f"gloo ranks sharing one card: host staging, not a " \
             f"multi-card speedup ({card})"
-    for world in (2, 4):
-        mine = [r for r in ranks if r["world"] == world]
+    for mine in groups:
         for i, rec in enumerate(mine[0]["steps"]):
             per = [r["steps"][i] for r in mine]
             vs = {k: (max(v["metric_rel"].values()),
                       {n: w[0] for n, w in v["worst_grad"].items()},
-                      v["net_grad_rel"])
+                      v["net_grad_rel"], v.get("pools"))
                   for k, v in rec.items() if k.startswith("vs_")}
+            vs.update({k: v for k, v in rec.items()
+                       if k.startswith("d_from_gp_")})
             one = mine[0]["one_process_peak_gib"].get(
                 rec.get("case", [""])[0])
             print(f"spatial_train {rec['tag']}: ms/step per rank "
@@ -5442,7 +5573,8 @@ def spatial_train_report(res: dict, folder: Path, card: str) -> None:
                   + ("" if one is None else
                      f" (one process, no remat: {one:.2f} GiB)")
                   + f"; against one process (worst loss rel, worst gradient "
-                  f"tensor's share of the bar, each network's ||d||/||g||):"
+                  f"tensor's share of the bar, each network's ||d||/||g||, "
+                  f"the pools; D's gradient from D_GP alone):"
                   f" {vs}" + ("" if "remat_vs_plain" not in rec else
                               f"; against the step without remat "
                               f"{rec['remat_vs_plain']}") + f"; {label}",
@@ -5721,7 +5853,7 @@ def main() -> int:
             [r for r in spatial["b1_split_rows"] if r["name"] == "apply"],
             split_counts)}
     # the split backward over one rank's partitioned step of
-    # SPLIT_TRAIN_STEP (preset, dp, sp, rank), bf16
+    # SPLIT_TRAIN_STEP (preset, dp, sp, remat, gp, rank), bf16
     from ir2rgb_tpu_torch.sweep_b1 import BWD_STEP
     bwd_counts = Counter(BWD_STEP)
     split_bwd = {name: per_path_totals(
@@ -5839,7 +5971,7 @@ def main() -> int:
              bound_ms=split_bwd["sums"]["bound_ms"], bound_by="bytes",
              library_ms=split_bwd["sums"]["library_ms"],
              per=f"times: one partitioned step of {SPLIT_TRAIN_STEP[0]} on "
-                 f"rank {SPLIT_TRAIN_STEP[3]} of dp {SPLIT_TRAIN_STEP[1]} x "
+                 f"rank {SPLIT_TRAIN_STEP[5]} of dp {SPLIT_TRAIN_STEP[1]} x "
                  f"sp {SPLIT_TRAIN_STEP[2]} ({sum(bwd_counts.values())} "
                  "launches at its shard shapes), bf16; max_abs_err: of the "
                  "sums, relative to their largest; library: the formula "

@@ -10,7 +10,8 @@ whole map's element count (:func:`frame_mean`), so the ranks' losses add
 up to the frame's. WGAN-GP's
 :func:`gradient_penalty` differentiates D's input gradient, so D's
 parameters get a second derivative through every layer, kernel B1's
-backward included.
+backward included (on a partitioned frame the halos' and the split B1's
+too, each sample's norm summed over the ranks).
 """
 
 from __future__ import annotations
@@ -104,13 +105,29 @@ def gradient_penalty(d_fn: Callable[[torch.Tensor], DiscOut],
     ``d_fn``: x -> D's multiscale output with D's parameters live. The
     inner gradient of the summed fp32 logits of every scale is taken with
     ``create_graph``, so the penalty's own gradient reaches D's
-    parameters as a second derivative."""
+    parameters as a second derivative.
+
+    On a partitioned frame the pairs are this rank's rows (their
+    partition, else an even split) and x̂ keeps it; the inner gradient
+    gives this rank's rows of ∇x̂ (the halos' transposes bring every
+    rank's logits to them); each sample's squared norm is this rank's sum
+    plus a differentiable sum over the ranks
+    (``Shards.sum_over_ranks``), and each rank returns the penalty over
+    ``sp``, so that the ranks' values and D gradients add up to the
+    frame's, as :func:`frame_mean`'s do."""
     if eps is None:
         eps = draw_eps(pair_real.shape[0], generator)
     eps = eps.to(pair_real.device, torch.float32)
-    xhat = (eps * pair_real.detach().float()
-            + (1.0 - eps) * pair_fake.detach().float()).requires_grad_(True)
+    xhat = spatial.same_rows(
+        (eps * pair_real.detach().float()
+         + (1.0 - eps) * pair_fake.detach().float()).requires_grad_(True),
+        pair_real)
     critic = sum(s[-1].float().sum() for s in d_fn(xhat))
     (g,) = torch.autograd.grad(critic, xhat, create_graph=True)
-    gnorm = torch.sqrt(g.reshape(g.shape[0], -1).square().sum(dim=1) + 1e-16)
-    return lambda_gp * (gnorm - 1.0).square().mean()
+    sq = g.reshape(g.shape[0], -1).square().sum(dim=1)
+    part = spatial.active()
+    if part is not None:
+        sq = part.sum_over_ranks(sq)
+    gnorm = torch.sqrt(sq + 1e-16)
+    penalty = lambda_gp * (gnorm - 1.0).square().mean()
+    return penalty if part is None else penalty / part.sp

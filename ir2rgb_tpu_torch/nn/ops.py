@@ -43,11 +43,11 @@ with a count a rank (``Shards.norm_stats``), then
 ``kernels.instance_norm_apply``; its backward the split backward's sums
 (``instance_norm_bwd_stats``, one (2, N, C) buffer), added over the ranks
 in rank order, then
-``instance_norm_bwd_apply``. Batch norm takes the moments over every
-rank; a dropout mask is this rank's rows of the global draw. A 2×2 max
-pool needs even local rows, a transposed conv an even split; quant mode
-"none" only. A second derivative through any of it raises (ROADMAP
-A16b).
+``instance_norm_bwd_apply``, itself differentiable for WGAN-GP's
+second derivative (:class:`_SplitInstanceNormActBackward`, as the halo's
+transpose is). Batch norm takes the moments over every rank; a dropout
+mask is this rank's rows of the global draw. A 2×2 max pool needs even
+local rows, a transposed conv an even split; quant mode "none" only.
 """
 
 from __future__ import annotations
@@ -62,7 +62,9 @@ from ir2rgb_tpu_torch.kernels import d2s_fn, fused_instance_norm_act
 from ir2rgb_tpu_torch.kernels.instance_norm import (
     instance_norm_apply,
     instance_norm_bwd_apply,
+    instance_norm_bwd_apply_reference,
     instance_norm_bwd_stats,
+    instance_norm_bwd_stats_reference,
     instance_norm_stats,
 )
 from ir2rgb_tpu_torch.parallel import mesh as pmesh
@@ -589,12 +591,8 @@ def _split_forward(part, x: torch.Tensor, act: str, negative_slope: float):
 
 class _SplitInstanceNormAct(torch.autograd.Function):
     """The split B1 under autograd. Forward: :func:`_split_forward`,
-    saving x and the merged (mean, rstd). Backward: this rank's sums of
-    g' and g' * xh (``instance_norm_bwd_stats``), the ranks' added in
-    rank order (``Shards.sum_stats``: every rank the same bits), then
-    ``instance_norm_bwd_apply`` with the frame's pixel count: together
-    the JAX package's ``_fused_bwd`` over the whole frame. No second
-    derivative (ROADMAP A16b)."""
+    saving x and the merged (mean, rstd). Backward: the split backward
+    (:class:`_SplitInstanceNormActBackward`), differentiable once more."""
 
     @staticmethod
     def forward(ctx, x, part, act, negative_slope):
@@ -606,21 +604,72 @@ class _SplitInstanceNormAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a second derivative through the split B1 (WGAN-GP on a "
-                f"partitioned step) is not ported ({spatial.A16B})")
         x, mean, rstd = ctx.saved_tensors
+        dx = _SplitInstanceNormActBackward.apply(
+            x, g, mean, rstd, ctx.part, ctx.act, ctx.slope, ctx.count)
+        return dx, None, None, None
+
+
+class _SplitInstanceNormActBackward(torch.autograd.Function):
+    """dx of the split B1 as a differentiable function of this rank's x
+    and g (what WGAN-GP's second derivative runs through).
+
+    Forward: this rank's sums of g' and g' * xh
+    (``instance_norm_bwd_stats``; zeros on a rank without rows), the
+    ranks' added in rank order (``Shards.sum_stats``: every rank the same
+    bits), then ``instance_norm_bwd_apply`` with the frame's pixel count:
+    together the JAX package's ``_fused_bwd`` over the whole frame.
+
+    Backward: autograd of the plain split backward on copies of x and g,
+    as ``kernels.instance_norm.InstanceNormActBackward`` does for the
+    fused B1. Mean and rstd are recomputed from x over the whole frame
+    (this rank's sums, then a differentiable sum over the ranks,
+    ``Shards.sum_over_ranks``), and so are the sums s1 and s2; each takes
+    the forward's value (``saved + (t - t.detach())``), so every
+    activation kink decides as the kernels did, and its derivative. A
+    rank without rows adds zeros and makes every exchange. This is
+    PyTorch arithmetic: the JAX package computes the second derivative
+    with XLA outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x, g, mean, rstd, part, act, negative_slope, count):
         n, h, w, c = x.shape
         # this rank's (2, N, C) sums, s1 then s2, as the op writes them
-        sums = (instance_norm_bwd_stats(x, mean, rstd, g, ctx.act, ctx.slope)
+        sums = (instance_norm_bwd_stats(x, mean, rstd, g, act,
+                                        negative_slope)
                 if h * w else mean.new_zeros((2, n, c)))
-        both = ctx.part.sum_stats(sums)
+        both = part.sum_stats(sums)
+        ctx.save_for_backward(x, g, mean, rstd, both)
+        ctx.part, ctx.act, ctx.slope, ctx.count = (part, act,
+                                                   negative_slope, count)
         if not h * w:
-            return torch.zeros_like(x), None, None, None
-        dx = instance_norm_bwd_apply(x, mean, rstd, g, both[0], both[1],
-                                     ctx.count, ctx.act, ctx.slope)
-        return dx, None, None, None
+            return torch.zeros_like(x)
+        return instance_norm_bwd_apply(x, mean, rstd, g, both[0], both[1],
+                                       count, act, negative_slope)
+
+    @staticmethod
+    def backward(ctx, gg):
+        x, g, mean, rstd, both = ctx.saved_tensors
+        part, count = ctx.part, ctx.count
+
+        def pinned(saved, t):
+            return saved + (t - t.detach())
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(True)
+            gd = g.detach().requires_grad_(True)
+            x32 = xd.float()
+            m = part.sum_over_ranks(x32.sum(dim=(1, 2))) / count
+            var = part.sum_over_ranks((x32 - m[:, None, None, :]).square()
+                                      .sum(dim=(1, 2))) / count
+            m = pinned(mean, m)
+            r = pinned(rstd, torch.rsqrt(var + INSTANCE_NORM_EPS))
+            s = pinned(both, part.sum_over_ranks(
+                instance_norm_bwd_stats_reference(xd, m, r, gd, ctx.act,
+                                                  ctx.slope)))
+            dx = instance_norm_bwd_apply_reference(
+                xd, m, r, gd, s[0], s[1], count, ctx.act, ctx.slope)
+            d_x, d_g = torch.autograd.grad(dx, (xd, gd), gg)
+        return d_x, d_g, None, None, None, None, None, None
 
 
 def _split_instance_norm_act(part, x: torch.Tensor, act: str,

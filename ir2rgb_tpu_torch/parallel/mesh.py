@@ -464,7 +464,8 @@ def broadcast_state(state: Any, mesh: DataParallelMesh) -> Any:
     """Rank 0's ``state`` (a nested dict / list of tensors and numbers,
     the same structure on every rank) on every rank: one broadcast of
     every tensor's bytes and one of the numbers. Rank 0 gets its own
-    ``state`` back."""
+    ``state`` back. Rank 0 is the mesh's: the first rank of its group,
+    whatever its rank in the world."""
     leaves: list = []
     _leaves(state, leaves)
     tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
@@ -473,7 +474,7 @@ def broadcast_state(state: Any, mesh: DataParallelMesh) -> Any:
     shape = torch.tensor([len(tensors), sum(sizes), len(numbers)],
                          dtype=torch.int64, device=mesh.device)
     ref = shape.clone()
-    dist.broadcast(ref, 0, group=mesh.group)
+    dist.broadcast(ref, group=mesh.group, group_src=0)
     if not torch.equal(ref, shape):
         raise RuntimeError(
             f"replicate: rank {mesh.rank}'s train state has (tensors, "
@@ -483,8 +484,8 @@ def broadcast_state(state: Any, mesh: DataParallelMesh) -> Any:
         if tensors else torch.zeros(0, dtype=torch.uint8, device=mesh.device)
     nums = torch.tensor([float(x) for x in numbers], dtype=torch.float64,
                         device=mesh.device)
-    dist.broadcast(buf, 0, group=mesh.group)
-    dist.broadcast(nums, 0, group=mesh.group)
+    dist.broadcast(buf, group=mesh.group, group_src=0)
+    dist.broadcast(nums, group=mesh.group, group_src=0)
     if mesh.rank == 0:
         return state
     out, i = [], 0

@@ -34,18 +34,20 @@ themselves while a frame or a train step runs under :func:`serving`
   ``torch.autograd.Function`` whose backward is the exchange's exact
   transpose: each rank writes the gradients of the rows it received at
   its offset of a zero buffer, one all-reduce, and each rank adds the
-  entries of the rows it owns into its gradient;
+  entries of the rows it owns into its gradient. That transpose is a
+  ``Function`` too, whose backward is the halo again, so a second
+  derivative (WGAN-GP's penalty) runs through it;
 - instance norm over the whole frame: each rank's (mean, M2) of its rows
   (kernel B1's statistics), exchanged the same way and merged in rank
   order with Chan's formula and a count a rank (:func:`merge_stats`),
   so that every rank holds the same bits; the backward's per-rank sums
-  added in rank order (:meth:`Shards.sum_stats`);
+  added in rank order (:meth:`Shards.sum_stats`), differentiably where
+  a second derivative needs it (:meth:`Shards.sum_over_ranks`);
 - :func:`local_block` / :func:`gather_block`: a whole frame's block of
   this rank (batch rows over ``dp``, image rows over ``sp``) and the
   whole frame back from every rank's block.
 
-It imports torch only. A second derivative through a halo or the split
-B1 (WGAN-GP on a partitioned step) raises (ROADMAP A16b).
+It imports torch only.
 """
 
 from __future__ import annotations
@@ -172,8 +174,7 @@ class _Indices(NamedTuple):
 
 class _Halo(torch.autograd.Function):
     """This rank's window of rows (:meth:`Shards.window`); its backward is
-    the exchange's exact transpose (:meth:`Shards.exchange_back`). A
-    second derivative through it raises (``A16B``)."""
+    the exchange's exact transpose (:class:`_HaloTranspose`)."""
 
     @staticmethod
     def forward(ctx, x, shards, plan):
@@ -188,11 +189,22 @@ class _Halo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a second derivative through a halo exchange (WGAN-GP on a "
-                f"partitioned step) is not ported ({A16B})")
-        shards, plan = ctx.shards, ctx.plan
+        return _HaloTranspose.apply(g, ctx.shards, ctx.plan, ctx.h), \
+            None, None
+
+
+class _HaloTranspose(torch.autograd.Function):
+    """The halo's transpose: the gradient of a window ``g`` -> the
+    gradient of this rank's ``h`` rows. The window's own rows go back in
+    place, its side rows are added into the rows this rank owns or, for
+    the rows it received, sent back to their owners
+    (:meth:`Shards.exchange_back`). Both maps are linear, so its backward
+    is the halo of the cotangent with the same plan: every rank records
+    the same node and makes the same exchanges in a second derivative,
+    a rank of no rows included."""
+
+    @staticmethod
+    def forward(ctx, g, shards, plan, h):
         ix = shards._indices(plan, g.device)
         mid = ix.m1 - ix.m0
         n_own, n_recv = ix.own.numel(), len(plan.foreign[shards.rank])
@@ -200,13 +212,34 @@ class _Halo(torch.autograd.Function):
         pool = g.new_zeros((g.shape[0], n_own + n_recv + 1)
                            + tuple(g.shape[2:]))
         pool.index_add_(1, ix.pick, side)
-        gx = g.new_zeros((g.shape[0], ctx.h) + tuple(g.shape[2:]))
+        gx = g.new_zeros((g.shape[0], h) + tuple(g.shape[2:]))
         gx[:, ix.m0:ix.m1] = g[:, ix.ntop:ix.ntop + mid]
         gx.index_add_(1, ix.own, pool[:, :n_own])
         if plan.total:
             gx += shards.exchange_back(pool[:, n_own:n_own + n_recv], plan,
-                                       ctx.h)
-        return gx, None, None
+                                       h)
+        ctx.shards, ctx.plan = shards, plan
+        return gx
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Halo.apply(gg, ctx.shards, ctx.plan), None, None, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over the ``sp`` ranks of ``t`` (:meth:`Shards.sum_stats`:
+    added in rank order, the same bits on every rank). The sum is its own
+    transpose: its backward sums the cotangents over the ranks the same
+    way, differentiable again."""
+
+    @staticmethod
+    def forward(ctx, t, shards):
+        ctx.shards = shards
+        return shards.sum_stats(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOverRanks.apply(g.contiguous(), ctx.shards), None
 
 
 class Shards:
@@ -407,6 +440,13 @@ class Shards:
         for r in range(1, self.sp):
             total = total + every[r]
         return total
+
+    def sum_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`sum_stats` as a differentiable function of every rank's
+        ``t`` (a second derivative's statistics, WGAN-GP's per-sample
+        norm): its backward sums the cotangents over the ranks. Every rank
+        must call it, in the same order."""
+        return _SumOverRanks.apply(t, self)
 
 
 def merge_stats(means: torch.Tensor, m2s: torch.Tensor, count,

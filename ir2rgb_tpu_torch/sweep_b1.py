@@ -84,16 +84,18 @@ STATS_SHAPES = [
     (4, 64, 128, 128), (4, 128, 256, 64), (4, 256, 512, 32)]
 # the statistics kernel's shapes that chip_smoke.py's partitioned steps
 # give it beside those (B1_SPLIT_TRAIN_SHAPES): the discriminators', a
-# 1024 rank's
+# 1024 rank's, a cyclegan_256 sp-2 rank's
 STATS_TRAIN_SHAPES = [
     (1, 8, 33, 256), (1, 8, 34, 512), (1, 9, 33, 256), (1, 9, 34, 512),
-    (1, 16, 33, 256), (1, 16, 65, 128), (1, 16, 65, 256), (1, 16, 66, 512),
-    (1, 17, 33, 256), (1, 17, 34, 512), (1, 17, 65, 128), (1, 17, 65, 256),
-    (1, 17, 66, 512), (1, 32, 65, 128), (1, 32, 65, 256), (1, 32, 129, 128),
-    (1, 32, 129, 256), (1, 32, 130, 512), (1, 33, 65, 128), (1, 33, 65, 256),
-    (1, 33, 66, 512), (1, 33, 129, 128), (1, 33, 129, 256), (1, 33, 130, 512),
-    (1, 64, 129, 128), (1, 64, 257, 128), (1, 64, 257, 256), (1, 64, 258, 512),
-    (1, 65, 129, 128), (1, 65, 257, 128), (1, 65, 257, 256), (1, 65, 258, 512),
+    (1, 15, 31, 512), (1, 16, 31, 512), (1, 16, 32, 256), (1, 16, 33, 256),
+    (1, 16, 65, 128), (1, 16, 65, 256), (1, 16, 66, 512), (1, 17, 33, 256),
+    (1, 17, 34, 512), (1, 17, 65, 128), (1, 17, 65, 256), (1, 17, 66, 512),
+    (1, 32, 64, 128), (1, 32, 64, 256), (1, 32, 65, 128), (1, 32, 65, 256),
+    (1, 32, 129, 128), (1, 32, 129, 256), (1, 32, 130, 512), (1, 33, 65, 128),
+    (1, 33, 65, 256), (1, 33, 66, 512), (1, 33, 129, 128), (1, 33, 129, 256),
+    (1, 33, 130, 512), (1, 64, 129, 128), (1, 64, 257, 128),
+    (1, 64, 257, 256), (1, 64, 258, 512), (1, 65, 129, 128),
+    (1, 65, 257, 128), (1, 65, 257, 256), (1, 65, 258, 512),
     (1, 128, 513, 128), (1, 129, 513, 128)]
 # the split backward's shapes: every (shape, act) with rows that
 # chip_smoke.py's partitioned steps give it (its SPATIAL_TRAIN launch
@@ -105,28 +107,31 @@ BWD_SHAPES = [
     ((1, 8, 32, 1024), "none"), ((1, 8, 32, 1024), "relu"),
     ((1, 8, 33, 256), "leaky_relu"), ((1, 8, 34, 512), "leaky_relu"),
     ((1, 9, 33, 256), "leaky_relu"), ((1, 9, 34, 512), "leaky_relu"),
-    ((1, 16, 32, 512), "relu"), ((1, 16, 33, 256), "leaky_relu"),
-    ((1, 16, 64, 512), "relu"), ((1, 16, 65, 128), "leaky_relu"),
-    ((1, 16, 65, 256), "leaky_relu"), ((1, 16, 66, 512), "leaky_relu"),
-    ((1, 17, 33, 256), "leaky_relu"), ((1, 17, 34, 512), "leaky_relu"),
-    ((1, 17, 65, 128), "leaky_relu"), ((1, 17, 65, 256), "leaky_relu"),
-    ((1, 17, 66, 512), "leaky_relu"), ((1, 32, 64, 256), "relu"),
-    ((1, 32, 65, 128), "leaky_relu"), ((1, 32, 65, 256), "leaky_relu"),
-    ((1, 32, 128, 256), "relu"), ((1, 32, 129, 128), "leaky_relu"),
-    ((1, 32, 129, 256), "leaky_relu"), ((1, 32, 130, 512), "leaky_relu"),
-    ((1, 33, 65, 128), "leaky_relu"), ((1, 33, 65, 256), "leaky_relu"),
-    ((1, 33, 66, 512), "leaky_relu"), ((1, 33, 129, 128), "leaky_relu"),
-    ((1, 33, 129, 256), "leaky_relu"), ((1, 33, 130, 512), "leaky_relu"),
-    ((1, 64, 128, 128), "relu"), ((1, 64, 129, 128), "leaky_relu"),
-    ((1, 64, 256, 128), "relu"), ((1, 64, 257, 128), "leaky_relu"),
-    ((1, 64, 257, 256), "leaky_relu"), ((1, 64, 258, 512), "leaky_relu"),
-    ((1, 65, 129, 128), "leaky_relu"), ((1, 65, 257, 128), "leaky_relu"),
-    ((1, 65, 257, 256), "leaky_relu"), ((1, 65, 258, 512), "leaky_relu"),
-    ((1, 128, 256, 64), "none"), ((1, 128, 256, 64), "relu"),
-    ((1, 128, 512, 64), "none"), ((1, 128, 512, 64), "relu"),
-    ((1, 128, 513, 128), "leaky_relu"), ((1, 129, 513, 128), "leaky_relu"),
-    ((1, 256, 512, 32), "relu"), ((1, 256, 1024, 32), "none"),
-    ((1, 256, 1024, 32), "relu"), ((1, 512, 2048, 16), "relu")]
+    ((1, 15, 31, 512), "leaky_relu"), ((1, 16, 31, 512), "leaky_relu"),
+    ((1, 16, 32, 256), "leaky_relu"), ((1, 16, 32, 512), "relu"),
+    ((1, 16, 33, 256), "leaky_relu"), ((1, 16, 64, 512), "relu"),
+    ((1, 16, 65, 128), "leaky_relu"), ((1, 16, 65, 256), "leaky_relu"),
+    ((1, 16, 66, 512), "leaky_relu"), ((1, 17, 33, 256), "leaky_relu"),
+    ((1, 17, 34, 512), "leaky_relu"), ((1, 17, 65, 128), "leaky_relu"),
+    ((1, 17, 65, 256), "leaky_relu"), ((1, 17, 66, 512), "leaky_relu"),
+    ((1, 32, 64, 128), "leaky_relu"), ((1, 32, 64, 256), "none"),
+    ((1, 32, 64, 256), "relu"), ((1, 32, 65, 128), "leaky_relu"),
+    ((1, 32, 65, 256), "leaky_relu"), ((1, 32, 128, 256), "relu"),
+    ((1, 32, 129, 128), "leaky_relu"), ((1, 32, 129, 256), "leaky_relu"),
+    ((1, 32, 130, 512), "leaky_relu"), ((1, 33, 65, 128), "leaky_relu"),
+    ((1, 33, 65, 256), "leaky_relu"), ((1, 33, 66, 512), "leaky_relu"),
+    ((1, 33, 129, 128), "leaky_relu"), ((1, 33, 129, 256), "leaky_relu"),
+    ((1, 33, 130, 512), "leaky_relu"), ((1, 64, 128, 128), "relu"),
+    ((1, 64, 129, 128), "leaky_relu"), ((1, 64, 256, 128), "relu"),
+    ((1, 64, 257, 128), "leaky_relu"), ((1, 64, 257, 256), "leaky_relu"),
+    ((1, 64, 258, 512), "leaky_relu"), ((1, 65, 129, 128), "leaky_relu"),
+    ((1, 65, 257, 128), "leaky_relu"), ((1, 65, 257, 256), "leaky_relu"),
+    ((1, 65, 258, 512), "leaky_relu"), ((1, 128, 256, 64), "none"),
+    ((1, 128, 256, 64), "relu"), ((1, 128, 512, 64), "none"),
+    ((1, 128, 512, 64), "relu"), ((1, 128, 513, 128), "leaky_relu"),
+    ((1, 129, 513, 128), "leaky_relu"), ((1, 256, 512, 32), "relu"),
+    ((1, 256, 1024, 32), "none"), ((1, 256, 1024, 32), "relu"),
+    ((1, 512, 2048, 16), "relu")]
 BWD_STEP = {
     ((1, 8, 16, 1024), "none"): 9, ((1, 8, 16, 1024), "relu"): 10,
     ((1, 16, 32, 512), "relu"): 2, ((1, 16, 33, 256), "leaky_relu"): 3,

@@ -18,8 +18,11 @@ discriminators. The loss (``cycle.py:127-197``), in JAX's call order:
 
 Metrics ``G_A G_B Cyc_A Cyc_B [Idt_A Idt_B] D_A D_B``. The model is a
 :class:`GanModel`, whose ``train_step`` it keeps: grad-accum, EMA (of
-both generators), the bf16 Adam and data parallelism compose with it
-(each pool queries the gathered global fakes, ``train/image_pool.py``).
+both generators), the bf16 Adam, data parallelism and a dp×sp mesh
+compose with it (each pool queries the gathered global fakes, whole
+frames on every rank, ``train/image_pool.py``; on a dp×sp mesh the four
+networks run on this rank's rows of ``a`` and ``b`` and the cycle and
+identity L1s are frame means, ``losses.frame_mean``).
 """
 
 from __future__ import annotations

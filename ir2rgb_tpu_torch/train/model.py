@@ -84,10 +84,14 @@ trained or JAX-converted weights with ``load_state_dict``.
   fakes' partition); each frame's dropout masks and pool query are the
   data row's, drawn in one process's order. With ``remat`` a residual
   block's recompute replays its halo exchanges and statistics merges in
-  the backward, on every rank alike. Out of this slice, each raising
-  before the first collective (``spatial_train_refusal``, ROADMAP A16b):
-  WGAN-GP (a second derivative through the halos and the split B1),
-  CycleGAN, netE and instance edges, the U-Net.
+  the backward, on every rank alike. WGAN-GP's penalty runs on this
+  rank's rows of x̂, its second derivative through the halos and the
+  split B1 (each twice differentiable) and each sample's norm summed
+  over the ranks (``losses.gradient_penalty``); a CycleGAN
+  (``train/cycle.py``) runs its four networks and two pools the same
+  way. Out of this slice, each raising before the first collective
+  (``spatial_train_refusal``, ROADMAP A16b): netE and instance edges,
+  the U-Net.
 
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
   reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
@@ -516,7 +520,18 @@ class GanModel:
         metrics = []
         ctx = (spatial.serving(self.mesh, self._shards[1]) if part
                else pmesh.sharded(self.mesh))
-        with ctx:
+        # a partitioned step's backward exchanges rows and sums in the
+        # order the autograd engine runs its nodes, which must be every
+        # rank's. With a second derivative (WGAN-GP) that takes the calling
+        # thread alone: on a card the device's worker thread makes the
+        # nodes of the penalty's inner gradient, and the engine orders
+        # them against the forward's by two threads' counters, which
+        # differ between ranks that did different work before (a rank-0
+        # reference step): the ranks' exchanges then cross
+        one_thread = (torch.autograd.set_multithreading_enabled(False)
+                      if part and self.cfg.loss.gan_mode == "wgangp"
+                      else contextlib.nullcontext())
+        with ctx, one_thread:
             for i in range(accum):
                 micro = batch if accum == 1 else {
                     k: v[i * n // accum:(i + 1) * n // accum]
@@ -676,9 +691,6 @@ def spatial_train_refusal(cfg: Config) -> None:
     spatially partitioned train step does not cover; nothing else."""
     m, loss = cfg.model, cfg.loss
     out = [what for what, on in (
-        ("WGAN-GP (its penalty differentiates through the halos and the "
-         "split B1 twice)", loss.gan_mode == "wgangp"),
-        ("CycleGAN", m.model == "cycle_gan"),
         ("netE features", m.use_instance_feat),
         ("the instance-edge input", m.use_instance_edges),
         (f"net_g={m.net_g} (the U-Net)", m.net_g.startswith("unet"))) if on]

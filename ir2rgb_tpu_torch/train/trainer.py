@@ -25,12 +25,13 @@ Spatially partitioned training (``train.spatial_devices`` S > 1) runs on
 of dp·S processes, each S ranks of a data row reading the same images
 (the same crop and flip) and keeping their rows of them
 (``model.train_step`` runs partitioned, ``parallel/spatial.py``),
-temporal windows (their rows over dim 2) and ``remat`` included. I/O
-stays on rank 0; the display gathers the frame first
+temporal windows (their rows over dim 2), ``remat``, WGAN-GP and
+CycleGAN (its ``a`` and ``b`` domains' blocks, its two pools whole on
+every rank) included. I/O stays on rank 0, whose checkpoint holds every
+network and pool whole; the display gathers the frame first
 (``spatial.gather_block``; a window's first frame), on every rank. What
-such a step does not cover (WGAN-GP, CycleGAN, netE and instance edges,
-the U-Net) raises before any collective (``model.spatial_train_refusal``,
-ROADMAP A16b).
+such a step does not cover (netE and instance edges, the U-Net) raises
+before any collective (``model.spatial_train_refusal``, ROADMAP A16b).
 """
 
 from __future__ import annotations

@@ -95,14 +95,6 @@ class CutShards(spatial.Shards):
         return self.whole[:, list(plan.foreign[self.rank])]
 
 
-class _Alone(CutShards):
-    """:class:`CutShards` whose statistics travel nowhere: each rank's
-    alone in its slot (a graph to differentiate, not a frame's values)."""
-
-    def _reduce(self, buf):
-        return buf
-
-
 def _per_rank(fn, x, sp):
     h = x.shape[1] // sp
     outs = []
@@ -372,35 +364,23 @@ def test_pooled_serving_with_a_mesh_raises():
                           mesh=object())
 
 
-@pytest.mark.parametrize("what", ["train_step", "b1_backward", "halo_backward",
-                                  "quant", "netE_features", "edges",
-                                  "artifact", "multistream_artifact",
-                                  "unet", "train_tail"])
+@pytest.mark.parametrize("what", ["train_step", "quant", "netE_features",
+                                  "edges", "artifact",
+                                  "multistream_artifact", "unet"])
 def test_out_of_slice_pieces_name_a16b(what, tmp_path):
     from ir2rgb_tpu_torch.infer.export import load_serving_artifact
-    from ir2rgb_tpu_torch.nn.generators import GenConfig, _tail, define_g
+    from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g
     from ir2rgb_tpu_torch.train.trainer import Trainer
     x = _seeded((1, 8, 8, 8), 12)
     with pytest.raises(NotImplementedError, match="A16b"):
         if what == "train_step":
-            # temporal windows train partitioned; WGAN-GP does not
-            cfg = Config(model=ModelConfig(**TEMPORAL),
-                         loss=LossConfig(no_vgg_loss=True, gan_mode="wgangp"),
+            # temporal windows, WGAN-GP and CycleGAN train partitioned;
+            # the instance-edge input does not
+            cfg = Config(model=ModelConfig(**LOCAL, use_instance_edges=True),
+                         loss=LossConfig(no_vgg_loss=True),
                          train=TrainConfig(spatial_devices=2,
                                            checkpoints_dir=str(tmp_path)))
             Trainer(create_model(cfg, device="cpu"), cfg)
-        elif what in ("b1_backward", "halo_backward", "train_tail"):
-            # the first derivative trains (tests/test_torch_port_spatial_
-            # train.py); the second (WGAN-GP's) is A16b
-            with spatial.partitioned(_Alone(2, 0, x)):
-                t = x[:, :4].clone().requires_grad_(True)
-                if what == "b1_backward":
-                    y = ops.norm_act(t, "instance")
-                elif what == "halo_backward":
-                    y = ops.reflect_pad(t, 1)
-                else:
-                    y = _tail(torch.nn.Conv2d(8, 3, 7), t, train=True)
-                torch.autograd.grad(y.square().sum(), t, create_graph=True)
         elif what == "quant":
             with torch.no_grad(), quant.using("int8"), \
                     spatial.partitioned(CutShards(2, 0, x)):

@@ -41,7 +41,7 @@ one-device step.
   videos. In process: the carry keeps the fakes' uneven partition, and a
   remat block's input is tagged again for its recompute.
 - Errors: each piece out of the slice raises before any collective,
-  naming ROADMAP A16b.
+  naming ROADMAP A16b; WGAN-GP and CycleGAN pass to the mesh.
 """
 
 import contextlib
@@ -491,11 +491,15 @@ def test_remat_block_on_uneven_shards_equals_the_whole_block(sp):
 # ---------------------------------------------------------------------------
 
 OUT_OF_SLICE = {
-    "wgangp": ({}, {"gan_mode": "wgangp"}),
-    "cycle_gan": ({"model": "cycle_gan"}, {}),
     "netE": ({"use_instance_feat": True}, {}),
     "edges": ({"use_instance_edges": True}, {}),
     "unet": ({"net_g": "unet_256"}, {}),
+}
+# what the partitioned step has covered since: WGAN-GP and CycleGAN
+# (tests/test_torch_port_spatial_gp.py)
+IN_SLICE = {
+    "wgangp": ({}, {"gan_mode": "wgangp"}),
+    "cycle_gan": ({"model": "cycle_gan"}, {}),
 }
 
 
@@ -513,6 +517,26 @@ def test_out_of_slice_options_raise_before_any_collective(what, tmp_path):
     # the trainer refuses before it builds a mesh (no process group here)
     with pytest.raises(NotImplementedError, match="A16b"):
         Trainer(None, cfg)
+
+
+@pytest.mark.parametrize("what", sorted(IN_SLICE))
+def test_wgangp_and_cyclegan_pass_the_refusal_to_the_mesh(what, tmp_path):
+    # no refusal: the model builds and the trainer goes on to build its
+    # dp×sp mesh, which needs a process group of 2 ranks (none here)
+    from ir2rgb_tpu_torch.train import CycleGanModel, Trainer
+    from ir2rgb_tpu_torch.train.model import spatial_train_refusal
+    model, loss = IN_SLICE[what]
+    cfg = Config(model=ModelConfig(**{**BASE, **model}),
+                 data=DataConfig(crop_size=CROP, batch_size=2),
+                 loss=LossConfig(no_vgg_loss=True, **loss),
+                 train=TrainConfig(spatial_devices=2,
+                                   checkpoints_dir=str(tmp_path)))
+    assert spatial_train_refusal(cfg) is None
+    built = create_model(cfg, device="cpu")
+    assert isinstance(built, CycleGanModel) == (what == "cycle_gan")
+    assert built.cfg.loss.gan_mode == cfg.loss.gan_mode
+    with pytest.raises(ValueError, match="exceeds"):
+        Trainer(built, cfg)
 
 
 # ---------------------------------------------------------------------------
