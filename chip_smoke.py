@@ -95,7 +95,9 @@ Phases, each failing the run if it fails:
    ``StreamingGenerator.stream`` with the launches held to ``SERVE`` (B2
    none under int8, ``quant_per_frame``), ms/frame, peak memory and the
    PSNR against "none"; fp32 (TF32 off) card frames held to the port's
-   fp32 CPU frames of the same mode at 256x256 (max-abs <=
+   fp32 CPU frames of the same mode at 256x256 (computed by a process of
+   its own while the card serves the bf16 frames, ``quant_cpu_refs``;
+   max-abs <=
    SLICE_FP32_TOL; int8 and int8_mixed also >= QUANT_MIN_PSNR dB, at the
    CPU's quantized inputs, ``QuantPins``, with each int8 conv's own card
    input flipping at most QUANT_MAX_FLIP_SHARE of its int8 activations
@@ -174,9 +176,21 @@ Phases, each failing the run if it fails:
    streams, SPATIAL_TICKS, on dp_sp_mesh(2, 1) and (1, 2)'s layouts
    against the one-process server (fp32 within 1 LSB, its carry blocks
    SLICE_FP32_TOL; bf16 SPATIAL_BF16_PSNR). The negative control (one
-   halo row a layer from the wrong shard) must fail the fp32 bar. Per
-   rank: ms/frame, the exchange's bytes and ms, peak memory, labelled as
-   gloo ranks sharing one card.
+   halo row a layer from the wrong shard) must fail the fp32 bar.
+   Quantized serving and netE's inputs on a mesh (ranks 2 and 3,
+   ``spatial_pair_section``, against one process's frames they make):
+   pix2pixhd_512 on sp 2 in int8 and int8_w, fp32 and bf16 (fp32 int8 at
+   one process's quantized inputs, ``ShardQuantPins``, each conv's flips
+   at most QUANT_MAX_FLIP_SHARE of a rank's activations); a temporal_512
+   MultiStreamServer in int8 bf16 on dp 2 (slots of different ranges)
+   tick by tick, then one tick with each rank's own activation scale,
+   the parent's arithmetic, which must differ; pix2pixhd_512 fp32 on sp
+   2 with a netE feature map and instance edges pushed whole; and on
+   all four ranks pix2pixhd_2048 in int8_mixed bf16 on sp 4 (the JAX
+   bench's int8_mixed row). Every quantized conv's merged activation
+   scale bit-identical on the ranks, the first one process's where its
+   input is (int8). Per rank: ms/frame, the exchange's bytes and ms,
+   peak memory, labelled as gloo ranks sharing one card.
 16. ``spatial_train`` (``spatial_train_phase``): spatially partitioned
    training (``parallel/spatial.py`` under autograd) on gloo ranks
    sharing the one card. B1's split backward
@@ -190,17 +204,19 @@ Phases, each failing the run if it fails:
    eager torch) and the bound, on a cold L2 as well where x and g reach
    SPLIT_COLD_BYTES, and summed over one ``SPLIT_TRAIN_STEP`` rank's
    launches (``sweep_b1.BWD_STEP``). Steps (``SPATIAL_TRAIN_CASES``):
-   temporal_512 at full width on sp 2, fp32 and bf16, a window of 4
-   frames, then fp32 with remat; pix2pixhd_512 on sp 2, fp32 and bf16, a
-   step each; beside them, on the other pair of ranks, pix2pixhd_512 with
-   WGAN-GP and cyclegan_256 on sp 2, fp32 and bf16, a step each;
-   pix2pixhd_512 on dp 2 x sp 2, fp32, against one process's batch-2
-   step; pix2pixhd_2048 bf16 on sp 4, 2 timed steps; temporal_1024 bf16
-   with remat on sp 4, one timed window, its peak a rank beside one
-   process's. Every rank's launches a step equal to ``SPATIAL_TRAIN``
-   (no fused B1; statistics, apply, sums and dx apply for every norm,
-   with remat the blocks' statistics and apply again in the backward,
-   with WGAN-GP the penalty's D pass and both its split backwards), the
+   temporal_512 at full width on sp 2, fp32 and bf16, a window of
+   SPATIAL_TRAIN_FRAMES frames, then fp32 with remat; pix2pixhd_512 on
+   sp 2, fp32 and bf16, a step each; beside them, on the other pair of
+   ranks, pix2pixhd_512 with WGAN-GP, cyclegan_256 and the netE phase's
+   model (netE and the edge channel, its Voronoi maps whole on every
+   rank) on sp 2, fp32 and bf16, a step each; pix2pixhd_512 on dp 2 x
+   sp 2, fp32, against one process's batch-2 step; pix2pixhd_2048 bf16
+   on sp 4, 2 timed steps; temporal_1024 bf16 with remat on sp 4, one
+   timed window, its peak a rank beside one process's. Every rank's
+   launches a step equal to ``SPATIAL_TRAIN`` (no fused B1; statistics,
+   apply, sums and dx apply for every norm, with remat the blocks'
+   statistics and apply again in the backward, with WGAN-GP the
+   penalty's D pass and both its split backwards), the
    merged statistics and summed sums bit-identical on every rank of a
    data row, every rank's count of exchanges equal (a second
    derivative's included), finite losses; each pix2pixhd_512,
@@ -210,7 +226,10 @@ Phases, each failing the run if it fails:
    (``ShardPins``: rounding flips ReLU and L1 kinks); a WGAN-GP step's
    D_GP > 0 and, fp32, D's gradient from D_GP alone against one
    process's at that point; a CycleGAN's two pools against one
-   process's; each remat step to the same step without remat (losses
+   process's; the netE step's inst_collisions one process's and, fp32,
+   its pooled features on every rank one process's rows (within
+   NETE_FEATURE_TOL) and netE's tail bias gradient through float64 sums
+   (``TailGrad``); each remat step to the same step without remat (losses
    bit for bit, gradients within REMAT_GRAD_ATOL). The negative control
    (one halo row a layer from the wrong shard) must fail the fp32 bars.
    Beside the ranks' world, one ``torchrun`` of ``cli.train
@@ -222,11 +241,17 @@ Phases, each failing the run if it fails:
 
 The gloo ranks of phases 14-16 are one world of RANKS_WORLD processes
 (``chip_smoke.py --ranks R PORT DIR``, ``ranks_main``), started once
-after the parent's parts of phases 15 and 16 (``start_ranks``) and run
-beside phase 14's part (a), then waited for (``ranks_phase``): a section
+after the parent's parts of phases 15 and 16 (``start_ranks``; these
+run after phase 11) and run beside phases 12, 13 and 14's part (a),
+whose times are then not a lone process's, then waited for
+(``ranks_phase``): a section
 a phase, the cases of two ranks on ranks 0 and 1 (``pair_mesh``; phase
-16's WGAN-GP and CycleGAN cases on ranks 2 and 3 beside them), those of
-four on all of them.
+15's quantized and netE cases on ranks 2 and 3 beside phase 14's, phase
+16's WGAN-GP, CycleGAN and netE cases beside phase 16's others), those
+of four on all of them.
+
+The quant phase's fp32 CPU references run in a process of their own
+(``chip_smoke.py --quant-refs DIR``) beside the kernel phases 2-5.
 
 It prints each phase's seconds, the card (``nvidia-smi`` name and power
 limit), one JSON line of kernel results, and last
@@ -500,8 +525,8 @@ def nete_table(size: int) -> dict:
                     (n, h, w, _), c), m in d2s.items()}))
 
 
-NETE = {"netE " + NETE_PRESET: nete_table(512),
-        "netE " + NETE_PRESET + " 256": nete_table(256)}
+NETE_KEY = "netE " + NETE_PRESET
+NETE = {NETE_KEY: nete_table(512), NETE_KEY + " 256": nete_table(256)}
 
 
 def at_batch(table: dict, n: int) -> dict:
@@ -576,6 +601,15 @@ def spatial_per_frame(preset: str) -> dict:
     norms = want["instance_norm_act"]
     return {**want, "instance_norm_act": 0, "instance_norm_stats": norms,
             "instance_norm_apply": norms}
+
+
+def spatial_quant_per_frame(preset: str, mode: str) -> dict:
+    """``spatial_per_frame`` in a quantized serving mode: under int8 the
+    tail is an int8 conv in PyTorch ops, not B2 over the halo."""
+    want = spatial_per_frame(preset)
+    if mode == "int8":
+        want["tail_fused"] = 0
+    return want
 
 
 def quant_per_frame(preset: str, mode: str) -> dict:
@@ -671,6 +705,25 @@ SPATIAL_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3)]
 SPATIAL_SERVER_MESHES = [(2, 1), (1, 2)]
 SPATIAL_BROKEN = ("pix2pixhd_512", 2, "float32")
 SPATIAL_BF16_PSNR = 40.0
+# Quantized serving and netE's inputs on a mesh (ROADMAP A16b items 1-2),
+# on ranks 2 and 3 (``spatial_pair_section``) beside ranks 0 and 1's
+# parallel section, each held to one process's frames of the same
+# weights: (preset, sp, mode, dtypes) on a dp 1 x sp 2 mesh, fp32 int8
+# at one process's quantized inputs (``ShardQuantPins``); a
+# MultiStreamServer of SPATIAL_SLOTS streams of (preset, mode, dtype) on
+# dp 2 over SPATIAL_TICKS, its slots' frames of ranges QUANT_RANGES (a
+# rank's own amax would not be the tick's), then one tick with each
+# rank's own scale, which must differ; the netE feature map and instance
+# edges of (preset, sp, dtype) on dp 1 x sp 2. On all four ranks
+# SPATIAL_MIXED (preset, sp, mode, dtype, frames): the JAX bench's
+# int8_mixed row (bench.py:16-19) served past one card.
+SPATIAL_QUANT_CASES = [("pix2pixhd_512", 2, "int8", ("float32", "bf16")),
+                       ("pix2pixhd_512", 2, "int8_w", ("float32", "bf16"))]
+SPATIAL_QUANT_SERVER = ("temporal_512", "int8", "bf16")
+QUANT_RANGES = (1.0, 1.0, 0.1, 0.1)
+SPATIAL_STYLED = ("pix2pixhd_512", 2, "float32")
+STYLED = dict(use_instance_feat=True, use_instance_edges=True)
+SPATIAL_MIXED = ("pix2pixhd_2048", 4, "int8_mixed", "bf16", 2)
 # the frame whose B1 split launches the kernel table's times sum over
 SPLIT_FRAME = ("pix2pixhd_2048", 4)
 # the split statistics of an fp32 input of mean 1e3 x std against
@@ -727,9 +780,20 @@ SPATIAL_TRAIN_CASES = [
     ("pix2pixhd_512", 1, 2, ("float32", "bf16"), 1, False, False),
     ("pix2pixhd_512", 1, 2, ("float32", "bf16"), 1, False, True),
     ("cyclegan_256", 1, 2, ("float32", "bf16"), 1, False, False),
+    (NETE_KEY, 1, 2, ("float32", "bf16"), 1, False, False),
     ("pix2pixhd_512", 2, 2, ("float32",), 1, False, False),
     ("pix2pixhd_2048", 1, 4, ("bf16",), 2, False, False),
     ("temporal_1024", 1, 4, ("bf16",), 1, True, False)]
+# the frames of a temporal case's window (its preset's n_frames_total is
+# 4): the carry crosses a frame, at half the window's time
+SPATIAL_TRAIN_FRAMES = 2
+# the netE case (NETE_KEY, the netE phase's model and Voronoi maps):
+# instance ids hashed into this many segments, so that distinct ids
+# collide and inst_collisions counts (the maps have NETE_CELLS ids)
+SPATIAL_NETE_SEGMENTS = 16
+# its fp32 pooled features on the ranks against one process's, at the
+# pinned forward point (the segment sums add in another order)
+NETE_FEATURE_TOL = 1e-5
 SPATIAL_TRAIN_TIMED = ("pix2pixhd_2048", "temporal_1024")
 SPATIAL_TRAIN_BROKEN = ("pix2pixhd_512", 2, "float32")
 SPATIAL_TRAIN_CLI = "resnet9_256"
@@ -782,28 +846,49 @@ def remat_blocks(preset: str) -> Counter:
 
 def pair_of(case) -> int:
     """The pair of ranks a two-rank case of SPATIAL_TRAIN_CASES runs on:
-    1 (ranks 2 and 3) for WGAN-GP and CycleGAN, 0 (ranks 0 and 1) for the
-    others."""
+    1 (ranks 2 and 3) for WGAN-GP, CycleGAN and netE, 0 (ranks 0 and 1)
+    for the others."""
     preset, _, _, _, _, _, gp = case
-    return int(gp or preset in _CYCLE)
+    return int(gp or preset in _CYCLE or preset in NETE)
+
+
+def window_frames(preset: str) -> int:
+    """The frames of one spatial_train step of ``preset``: a temporal
+    preset's window of SPATIAL_TRAIN_FRAMES, else 1."""
+    spec = _TRAIN_SPEC.get(preset)
+    return SPATIAL_TRAIN_FRAMES if spec and spec[1] > 1 else 1
+
+
+def _per_window(table: dict, preset: str) -> dict:
+    """A ``TRAIN``-style step table of ``preset`` (its n_frames_total
+    frames) for a window of ``window_frames``."""
+    spec = _TRAIN_SPEC.get(preset)
+    frames = spec[1] if spec else 1
+    f = window_frames(preset)
+    return {k: Counter({key: c * f // frames for key, c in v.items()})
+            for k, v in table.items()}
 
 
 def spatial_train_table(preset: str, sp: int, q: int, n: int = 1,
                         remat: bool = False, gp: bool = False) -> dict:
     """One unfrozen ``TRAIN`` step of ``preset`` (a temporal preset's
-    window; with ``gp`` WGAN-GP's, ``train_table``'s) on rank q of ``sp``
-    at batch ``n`` a rank: every shape's rows split as the partition
-    splits them (the discriminator's 4x4 convs give uneven shards); with
-    ``remat`` each frame's recomputed blocks' norms forward again. A
-    WGAN-GP step's split backward runs twice on every norm of the
-    penalty's D pass (the inner derivative's, and the outer backward's
-    through the split backward's own, plain, derivative), as the fused
-    B1 does."""
-    t = train_table(preset, gp=True)["unfrozen"] if gp else \
-        TRAIN[preset]["unfrozen"]
+    window of ``window_frames``; with ``gp`` WGAN-GP's,
+    ``train_table``'s; the netE phase's, ``NETE``, for NETE_KEY) on rank
+    q of ``sp`` at batch ``n`` a rank: every shape's rows split as the
+    partition splits them (the discriminator's 4x4 convs give uneven
+    shards); with ``remat`` each frame's recomputed blocks' norms forward
+    again. A WGAN-GP step's split backward runs twice on every norm of
+    the penalty's D pass (the inner derivative's, and the outer
+    backward's through the split backward's own, plain, derivative), as
+    the fused B1 does."""
+    if preset in NETE:
+        t = NETE[preset]
+    else:
+        t = _per_window(train_table(preset, gp=True)["unfrozen"] if gp
+                        else TRAIN[preset]["unfrozen"], preset)
     b1 = t["b1"]
     if remat:
-        b1 = b1 + _mul(remat_blocks(preset), _TRAIN_SPEC[preset][1])
+        b1 = b1 + _mul(remat_blocks(preset), window_frames(preset))
 
     def at(shape):
         return (n, shard_rows(shape[1], sp, q)) + tuple(shape[2:])
@@ -876,6 +961,9 @@ QUANT_MODES = ("int8", "int8_mixed", "int8_w")
 QUANT_FRAMES, QUANT_MIN_PSNR, QUANT_TICK_SLOTS = 4, 40.0, 4
 QUANT_MAX_FLIP_SHARE, QUANT_FLIP_ALLOWANCE = 0.01, 8
 QUANT_UNPINNED_MIN_PSNR = 30.0
+# the CPU references' process: its intra-op threads (the card's host work
+# keeps the rest), and the limit on waiting for it
+QUANT_REF_THREADS, QUANT_REF_TIMEOUT_S = 4, 600
 # the wrong layer those bars must catch: seeded noise of this share of
 # its std added to the output of a frame's middle B1 call on the card
 QUANT_PROBE_NOISE = 1e-2
@@ -885,7 +973,7 @@ NETE_CELLS, NETE_STEPS, NETE_FEATURE_FRAMES = 24, 3, 4
 # the export phase: frames each artifact is held to the live path over
 # (both streams reset before frame EXPORT_RESET_AT), frames timed, the
 # bf16 / int8_mixed PSNR bar, the sealed multi-stream batch and its ticks
-EXPORT_FRAMES, EXPORT_RESET_AT, EXPORT_TIMED = 8, 5, 5
+EXPORT_FRAMES, EXPORT_RESET_AT, EXPORT_TIMED = 6, 4, 5
 EXPORT_MIN_PSNR = 40.0
 EXPORT_SLOTS = 4
 EXPORT_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3), (1, 3)]
@@ -2965,43 +3053,7 @@ def serve_phase(card: str):
                             frames_per_video=3)
     pth = root / "G.pth"
     torch.save(sd, pth)
-    argv = ["--preset", preset, "--data.dataroot", str(root / "data"),
-            "--data.load_size", "512", "--data.crop_size", "512",
-            "--train.name", "serve_cli", "--train.checkpoints_dir",
-            str(root / "ckpt"), "--infer.results_dir", str(root / "res"),
-            "--torch_g", str(pth)]
-    out = io.StringIO()
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    with contextlib.redirect_stdout(out):
-        rc = cli_infer.main(argv)
-    torch.cuda.synchronize()
-    counts = {k: v for k, v in launch_counts().items() if v}
-    res["launches"][f"cli.infer {preset}"] = counts
-    line = out.getvalue().strip().splitlines()[-1]
-    frames = int(line.split()[1])
-    infer_psnr = float(line.split("PSNR:")[1].split()[0])
-    check(rc == 0 and frames == 6 and counts == {
-        k: v * frames for k, v in want.items() if v},
-        f"serve cli.infer {preset}: rc {rc}, {frames} frames, launches "
-        f"{counts} (want 6 x {want})")
-    gallery = root / "res" / "serve_cli" / "test_latest" / "images"
-    for sub, suffix in (("gen", "_generated.png"), ("tgt", "_target.png")):
-        (root / sub).mkdir()
-        for f in sorted(gallery.glob("*" + suffix)):
-            shutil.copy(f, root / sub / f.name)
-    with contextlib.redirect_stdout(io.StringIO()):
-        rc = cli_evaluate.main(["--generated", str(root / "gen"), "--target",
-                                str(root / "tgt"), "--json_out",
-                                str(root / "eval.json")])
-    ev = json.loads((root / "eval.json").read_text())
-    res["cli"] = dict(infer_line=line, evaluate=ev)
-    check(rc == 0 and ev["frames"] == 6
-          and abs(ev["psnr_mean"] - infer_psnr) <= 0.1,
-          f"serve cli.evaluate: rc {rc}, {ev['frames']} frames, mean PSNR "
-          f"{ev['psnr_mean']:.3f} dB vs cli.infer's {infer_psnr:.2f} (tol "
-          "0.1)")
-
+    # cli.serve starts up (a process, its model) while cli.infer runs
     repo = Path(__file__).resolve().parent
     proc = subprocess.Popen(
         [sys.executable, "-m", "ir2rgb_tpu_torch.cli.serve", "--preset",
@@ -3011,6 +3063,42 @@ def serve_phase(card: str):
         stdout=subprocess.PIPE, text=True, cwd=repo,
         env=dict(os.environ, PYTHONPATH=str(repo)))
     try:
+        argv = ["--preset", preset, "--data.dataroot", str(root / "data"),
+                "--data.load_size", "512", "--data.crop_size", "512",
+                "--train.name", "serve_cli", "--train.checkpoints_dir",
+                str(root / "ckpt"), "--infer.results_dir", str(root / "res"),
+                "--torch_g", str(pth)]
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli_infer.main(argv)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        res["launches"][f"cli.infer {preset}"] = counts
+        line = out.getvalue().strip().splitlines()[-1]
+        frames = int(line.split()[1])
+        infer_psnr = float(line.split("PSNR:")[1].split()[0])
+        check(rc == 0 and frames == 6 and counts == {
+            k: v * frames for k, v in want.items() if v},
+            f"serve cli.infer {preset}: rc {rc}, {frames} frames, launches "
+            f"{counts} (want 6 x {want})")
+        gallery = root / "res" / "serve_cli" / "test_latest" / "images"
+        for sub, suffix in (("gen", "_generated.png"), ("tgt", "_target.png")):
+            (root / sub).mkdir()
+            for f in sorted(gallery.glob("*" + suffix)):
+                shutil.copy(f, root / sub / f.name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_evaluate.main(["--generated", str(root / "gen"),
+                                    "--target", str(root / "tgt"),
+                                    "--json_out", str(root / "eval.json")])
+        ev = json.loads((root / "eval.json").read_text())
+        res["cli"] = dict(infer_line=line, evaluate=ev)
+        check(rc == 0 and ev["frames"] == 6
+              and abs(ev["psnr_mean"] - infer_psnr) <= 0.1,
+              f"serve cli.evaluate: rc {rc}, {ev['frames']} frames, mean PSNR "
+              f"{ev['psnr_mean']:.3f} dB vs cli.infer's {infer_psnr:.2f} (tol "
+              "0.1)")
         banner = _banner(proc, 300)
         res["cli"]["serve_banner"] = banner.strip()
         port = int(banner.split(" at ")[1].split()[0].rsplit(":", 1)[1])
@@ -3216,6 +3304,79 @@ class QuantPins:
         return pins
 
 
+class ShardQuantPins(QuantPins):
+    """:class:`QuantPins` across a mesh: the input of every int8 conv
+    (``ops.conv`` / ``ops.deconv`` where the serving mode quantizes it)
+    and its activation scale, recorded on one process's frame (or tick),
+    and replayed in the same order on a mesh's ranks, each taking its
+    block of one process's input (its rows on a partitioned frame, a
+    pad's extended rows with them; its batch rows on a data-parallel
+    one), so that every rank quantizes one process's activations, and
+    the merged scale is one process's. ``flips`` / ``sizes``: per call,
+    the int8 activations of this rank's own block that its own input
+    would quantize differently (at one process's scale), out of its
+    activations."""
+
+    @staticmethod
+    def _int8(name, x, w) -> bool:
+        from ir2rgb_tpu_torch.nn import quant
+        cin, cout = (w.shape[1], w.shape[0]) if name == "conv" else (
+            w.shape[0], 4 * w.shape[1])  # the subpixel conv's widths
+        return (torch.is_floating_point(x)
+                and quant.mode_for(cin, cout) == "int8")
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        from ir2rgb_tpu_torch.nn import ops, quant
+        real = {"conv": ops.conv, "deconv": ops.deconv}
+
+        def pinned(name):
+            def run(x, w, *a, **kw):
+                if self._int8(name, x, w) and not replay:
+                    self.saved.append((x.detach().cpu(),
+                                       float(quant._act_scale(x))))
+                elif self._int8(name, x, w):
+                    x = self._take(x, quant)
+                return real[name](x, w, *a, **kw)
+            return run
+        ops.conv, ops.deconv = pinned("conv"), pinned("deconv")
+        try:
+            yield
+        finally:
+            ops.conv, ops.deconv = real["conv"], real["deconv"]
+
+    def _take(self, x, quant):
+        from ir2rgb_tpu_torch.parallel import mesh as pmesh
+        from ir2rgb_tpu_torch.parallel import spatial
+        pin, sx = self.saved[self.replayed]
+        self.replayed += 1
+        part = spatial.active()
+        if part is None:  # a data-parallel mesh: this rank's batch rows
+            mesh = pmesh.active()
+            rows = pmesh.local_rows(pin.shape[0], mesh.dp, mesh.dp_rank)
+            mine = pin.index_select(0, rows).to(x.device, x.dtype)
+            self._count(x, mine, sx, quant)
+            return mine
+        b, (top, bottom) = part.bounds(x), part.extension(x) or (0, 0)
+        if pin.shape[1] != b[-1] + top + bottom:
+            raise ValueError(f"pin {tuple(pin.shape)} against rows {b} "
+                             f"extended by {(top, bottom)}")
+        lo, hi = b[part.rank], b[part.rank + 1] + top + bottom
+        mine = pin[:, lo:hi].to(x.device, x.dtype).contiguous()
+        self._count(part.own_rows(x), mine[:, top:mine.shape[1] - bottom],
+                    sx, quant)
+        if top or bottom:
+            return part.mark(mine, top, bottom, b)
+        return part.tag(mine, b)
+
+    def _count(self, own, kept, sx, quant):
+        sx = torch.tensor(sx, device=own.device)
+        self.flips.append(int((quant._q8(own.float(), sx)
+                               != quant._q8(kept.float(), sx)).sum()))
+        self.sizes.append(kept.numel())
+
+
+
 @contextlib.contextmanager
 def broken_norm(k: int):
     """Inside the block the card's ``k``-th B1 output (``ops``' instance
@@ -3241,10 +3402,63 @@ def broken_norm(k: int):
         ops.fused_instance_norm_act = real
 
 
-def quant_preset(preset: str, card: str) -> dict:
+def quant_inputs(preset: str, in_nc: int, hw: tuple) -> tuple:
+    """``preset``'s seeded quant-phase inputs: QUANT_FRAMES uint8 frames
+    of ``hw`` and the normalized 256x256 frame the card is held to the
+    CPU on."""
+    from ir2rgb_tpu_torch.infer.stream import _dev_normalize
+    rng = np.random.default_rng(SEED + 8)
+    frames = [rng.integers(0, 256, hw + (in_nc,), dtype=np.uint8)
+              for _ in range(QUANT_FRAMES)]
+    return frames, _dev_normalize(torch.from_numpy(rng.integers(
+        0, 256, (1, 256, 256, in_nc), dtype=np.uint8)))
+
+
+def quant_cpu_refs(folder: Path) -> int:
+    """The quant phase's CPU side (``chip_smoke.py --quant-refs DIR``, a
+    process of its own beside the phase's card work): every served
+    preset's fp32 CPU frame at 256x256 in each quant mode from the
+    phase's seeded weights, with its int8 convs' inputs (``QuantPins``),
+    written to ``DIR/<preset>_<mode>.pt`` as each is done."""
+    torch.set_num_threads(QUANT_REF_THREADS)
+    for preset in SERVE:
+        sd = seeded_state_dict(generator_skeleton(preset), SEED)
+        cpu = serve_model(preset, "float32", "cpu", sd)
+        hw = (cpu.cfg.data.crop_size,) * 2
+        _, a = quant_inputs(preset, cpu.cfg.model.input_nc, hw)
+        for mode in QUANT_MODES:
+            pins = QuantPins()
+            t0 = time.perf_counter()
+            with pins.recording():
+                y = with_quant(cpu, mode).generate(a)
+            part = folder / f"{preset}_{mode}.part"
+            torch.save({"y": y, "pins": pins.saved,
+                        "cpu_s": time.perf_counter() - t0}, part)
+            part.rename(folder / f"{preset}_{mode}.pt")
+        del cpu
+    return 0
+
+
+def quant_ref(folder: Path, preset: str, mode: str, proc) -> dict:
+    """``quant_cpu_refs``' result for (``preset``, ``mode``), waited for
+    while its process ``proc`` runs."""
+    path = folder / f"{preset}_{mode}.pt"
+    t0 = time.perf_counter()
+    while not path.exists():
+        if proc.poll() is not None and not path.exists():
+            raise RuntimeError(f"quant CPU references: exit {proc.returncode}"
+                               f" before {path.name}")
+        if time.perf_counter() - t0 > QUANT_REF_TIMEOUT_S:
+            raise RuntimeError(f"quant CPU references: no {path.name} in "
+                               f"{QUANT_REF_TIMEOUT_S} s")
+        time.sleep(0.05)
+    return torch.load(path)
+
+
+def quant_preset(preset: str, card: str) -> tuple:
     """``preset`` at full width in each quant mode beside "none": bf16
     frames through the stream (launches, ms/frame, peak, PSNR against
-    "none"), then fp32 card frames against the CPU's at 256x256."""
+    "none"). Returns (the results, netG's seeded weights)."""
     from ir2rgb_tpu_torch.infer import StreamingGenerator
     from ir2rgb_tpu_torch.infer.stream import _dev_normalize
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -3253,10 +3467,7 @@ def quant_preset(preset: str, card: str) -> dict:
     bf16.netG.load_state_dict(sd)
     temporal = bf16.cfg.model.model == "temporal"
     hw = (bf16.cfg.data.crop_size,) * 2
-    in_nc = bf16.cfg.model.input_nc
-    rng = np.random.default_rng(SEED + 8)
-    frames = [rng.integers(0, 256, hw + (in_nc,), dtype=np.uint8)
-              for _ in range(QUANT_FRAMES)]
+    frames, _ = quant_inputs(preset, bf16.cfg.model.input_nc, hw)
     x0 = _dev_normalize(torch.from_numpy(frames[0][None])).cuda()
     res, first, launches = {"preset": preset}, {}, Counter()
     for mode in ("none",) + QUANT_MODES:
@@ -3294,23 +3505,35 @@ def quant_preset(preset: str, card: str) -> dict:
         if mode != "none":
             res[mode]["bf16_psnr_vs_none_db"] = psnr(first[mode],
                                                      first["none"])
+    res["launches"] = dict(launches)
     del bf16, stream, first
     torch.cuda.empty_cache()
+    print(f"quant {preset} ({card}), bf16 at {hw[0]}: " + "; ".join(
+        f"{m} {res[m]['ms_per_frame']:.3f} ms/frame, launches B1/B2/d2s "
+        + "/".join(str(res[m]["launches_per_frame"][k]) for k in (
+            "instance_norm_act", "tail_fused", "d2s"))
+        + f", {res[m]['peak_gib']:.2f} GiB"
+        + (f", {res[m]['bf16_psnr_vs_none_db']:.2f} dB vs none"
+           if m != "none" else "")
+        for m in ("none",) + QUANT_MODES), flush=True)
+    return res, sd
 
-    # fp32 (TF32 off) card frames against the CPU's at 256x256; int8 and
-    # int8_mixed at the CPU's quantized inputs (QuantPins) and unpinned,
-    # then with one wrong layer (broken_norm), which must fail
+
+def quant_fp32(res: dict, sd, folder: Path, proc) -> None:
+    """fp32 (TF32 off) card frames of ``res``' preset held to the CPU's
+    at 256x256 (``quant_cpu_refs``, its process ``proc``); int8 and
+    int8_mixed at the CPU's quantized inputs (QuantPins) and unpinned,
+    then with one wrong layer (broken_norm), which must fail. Into
+    ``res``."""
+    preset = res["preset"]
     fp32 = serve_model(preset, "float32", "cuda", sd)
-    cpu = serve_model(preset, "float32", "cpu", sd)
-    a = _dev_normalize(torch.from_numpy(rng.integers(
-        0, 256, (1, 256, 256, in_nc), dtype=np.uint8)))
+    hw = (fp32.cfg.data.crop_size,) * 2
+    _, a = quant_inputs(preset, fp32.cfg.model.input_nc, hw)
     none32 = fp32.generate(a.cuda()).cpu()
     for mode in QUANT_MODES:
-        pins = QuantPins()
-        t0 = time.perf_counter()
-        with pins.recording():
-            y_cpu = with_quant(cpu, mode).generate(a)
-        cpu_s = time.perf_counter() - t0
+        ref = quant_ref(folder, preset, mode, proc)
+        y_cpu, pins = ref["y"], QuantPins()
+        pins.saved = ref["pins"]
         y_free = with_quant(fp32, mode).generate(a.cuda()).cpu()
         with pins.replaying():
             y_card = fp32.generate(a.cuda()).cpu()
@@ -3323,7 +3546,7 @@ def quant_preset(preset: str, card: str) -> dict:
                          activations=pins.sizes,
                          worst_flip_share=pins.worst_share(),
                          fp32_psnr_vs_none_db=psnr(y_free, none32),
-                         cpu_s=cpu_s)
+                         cpu_s=ref["cpu_s"])
         check(pins.replayed == len(pins.saved)
               and (mode == "int8_w") == (not pins.saved),
               f"quant {preset} {mode}: {pins.replayed} of "
@@ -3364,18 +3587,9 @@ def quant_preset(preset: str, card: str) -> dict:
                   "pinned, "
                   f"{res[mode]['broken_layer']['unpinned_psnr_db']:.2f} "
                   "unpinned")
-    res["launches"] = dict(launches)
-    del fp32, cpu
+        del ref, pins
+    del fp32
     torch.cuda.empty_cache()
-    print(f"quant {preset} ({card}), bf16 at {hw[0]}: " + "; ".join(
-        f"{m} {res[m]['ms_per_frame']:.3f} ms/frame, launches B1/B2/d2s "
-        + "/".join(str(res[m]["launches_per_frame"][k]) for k in (
-            "instance_norm_act", "tail_fused", "d2s"))
-        + f", {res[m]['peak_gib']:.2f} GiB"
-        + (f", {res[m]['bf16_psnr_vs_none_db']:.2f} dB vs none"
-           if m != "none" else "")
-        for m in ("none",) + QUANT_MODES), flush=True)
-    return res
 
 
 def quant_tick(card: str) -> dict:
@@ -3414,13 +3628,41 @@ def quant_tick(card: str) -> dict:
                 launches=counts, wall_ms=wall)
 
 
-def quant_phase(card: str) -> dict:
-    """Every served preset in every quant mode (``quant_preset``), the
-    int8_mixed tick, then ``torch._int_mm`` at every product shape those
-    runs gave it."""
-    with product_shapes() as shapes:
-        presets = [quant_preset(p, card) for p in SERVE]
-        tick = quant_tick(card)
+def start_quant_refs() -> tuple:
+    """Start the quant phase's CPU references (``quant_cpu_refs``) in a
+    process of its own: (their folder, the process). Started beside the
+    kernel phases, whose times are the card's (CUDA-graph replays), so
+    that the quant phase finds them written."""
+    import shutil
+    folder = Path("build") / "quant_refs"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    repo = Path(__file__).resolve().parent
+    return folder, subprocess.Popen(
+        [sys.executable, __file__, "--quant-refs", str(folder)], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=str(repo)))
+
+
+def quant_phase(card: str, refs: tuple) -> dict:
+    """Every served preset in every quant mode, bf16 (``quant_preset``),
+    and the int8_mixed tick, then each preset's fp32 card frames against
+    the CPU references (``quant_fp32``; ``refs``: ``start_quant_refs``'
+    folder and process), then ``torch._int_mm`` at every product shape
+    those runs gave it."""
+    import shutil
+    folder, proc = refs
+    try:
+        with product_shapes() as shapes:
+            done = [quant_preset(p, card) for p in SERVE]
+            tick = quant_tick(card)
+            for res, sd in done:
+                quant_fp32(res, sd, folder, proc)
+        proc.wait(timeout=QUANT_REF_TIMEOUT_S)
+        check(proc.returncode == 0, f"quant CPU references: exit "
+              f"{proc.returncode}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    presets = [res for res, _ in done]
     rows = int_mm_check(shapes, torch.Generator(device="cuda").manual_seed(
         SEED + 12))
     print(f"quant: torch._int_mm bit for bit at {len(rows)} product "
@@ -4084,12 +4326,18 @@ PARALLEL_METRIC_RTOL, PARALLEL_GRAD_REL, PARALLEL_WEIGHT_ATOL = \
     1e-5, 1e-4, 5e-4
 
 
-def start_group(cmd: list) -> subprocess.Popen:
+def start_group(cmd: list, log: Path = None) -> subprocess.Popen:
     """``cmd`` started in a process group of its own (a torchrun and its
-    workers are one group), its output piped."""
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+    workers are one group), its output piped, or with ``log`` written to
+    that file (a process that runs long beside other work, whose pipe
+    would fill)."""
+    if log is None:
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+    with open(log, "w") as fh:
+        return subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
 
 
 def wait_group(procs: list, timeout: float) -> list:
@@ -4512,15 +4760,16 @@ def crop_of(preset: str) -> int:
     return PRESETS[preset].data.crop_size
 
 
-def spatial_model(preset: str, dtype: str):
+def spatial_model(preset: str, dtype: str, **model):
     """``preset`` at full width on the card, built to serve (no VGG), its
     G drawn by ``create_model`` from SEED: the same fp32 weights in every
-    process and either dtype."""
+    process and either dtype; ``model``: model config fields to change
+    (netE's feature input, the edge channel)."""
     from ir2rgb_tpu_torch.config import PRESETS
     from ir2rgb_tpu_torch.train import create_model
     cfg = PRESETS[preset]
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                compute_dtype=dtype),
+                                                compute_dtype=dtype, **model),
                       loss=dataclasses.replace(cfg.loss, no_vgg_loss=True))
     return create_model(cfg, device="cuda", seed=SEED)
 
@@ -4606,33 +4855,25 @@ def spatial_refs(folder: Path) -> None:
         torch.cuda.empty_cache()
 
 
-def spatial_section(rank: int, pair, folder: Path) -> None:
-    """The spatial phase's cases on the ranks' world (``ranks_main``), gloo
-    ranks sharing the one card, by group size: on ranks 0 and 1 (size 2,
-    ``pair``) every frame case of SPATIAL_CASES with sp 2 on a dp 1 x sp
-    2 mesh (``pair_mesh``), the server on each of SPATIAL_SERVER_MESHES
-    and the negative control; then on all four ranks (size 4) every case
-    with sp 4 on ``dp_sp_mesh(1, 4)``. Per frame: the
-    launches held to ``SPATIAL``, ms (CUDA synchronized around it), the
+@contextlib.contextmanager
+def spatial_watch(rank: int):
+    """Around a rank's served frames: ``(frame_start, frame_end)``, whose
+    ``frame_end(t0, rec, want)`` writes into ``rec`` the frame's ms (CUDA
+    synchronized around it), launches (checked against ``want``), the
     exchange's bytes and ms (every ``mesh.all_reduce_bytes``, the
-    output's gather included, synchronized around it), the merged B1
-    statistics' digest (the first frame of a case, SHA-256 of every
-    merged mean and rstd in order), the frame against the one-process
-    frame (rank 0: every rank returns the same gathered frame), the
-    carry's rows against the one-process carry's (every rank). A
-    temporal bf16 frame (or tick) starts from the one-process carry's
-    rows before it, as the serve and export phases hold a frame at the
-    same carry: with random weights the feedback through the carry
-    multiplies a difference ~5x a frame, and free-running bf16 streams
-    part whatever the arithmetic (fp32 runs free). Writes
-    ``folder/rank<size>_<rank>.json`` for each group it ran in; a failed
-    check is in its ``failures``."""
+    output's gather included, synchronized around it) and calls, the
+    merged B1 statistics' digest (SHA-256 of every merged mean and rstd
+    in order)
+    and the quantized convs' activation scales (``quant.act_scale``: their
+    count, digest and the first one)."""
     import hashlib
     from ir2rgb_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from ir2rgb_tpu_torch.nn import quant
     from ir2rgb_tpu_torch.parallel import spatial
     from ir2rgb_tpu_torch.parallel import mesh as pmesh
-    xfer, merged = [0, 0.0], []
+    xfer, merged, scales = [0, 0.0, 0], [], []
     reduce_bytes, merge = pmesh.all_reduce_bytes, spatial.merge_stats
+    act_scale = quant.act_scale
 
     def timed_reduce(t, group, device):
         torch.cuda.synchronize()
@@ -4641,39 +4882,78 @@ def spatial_section(rank: int, pair, folder: Path) -> None:
         torch.cuda.synchronize()
         xfer[0] += t.numel() * t.element_size()
         xfer[1] += time.perf_counter() - t0
+        xfer[2] += 1
         return y
 
     def kept_merge(*args):
         mean, rstd = merge(*args)
         merged.append(torch.stack([mean, rstd]).clone())
         return mean, rstd
-    pmesh.all_reduce_bytes, spatial.merge_stats = timed_reduce, kept_merge
+
+    def kept_scale(x):
+        sx = act_scale(x)
+        scales.append(sx.clone())
+        return sx
 
     def frame_start():
         torch.cuda.synchronize()
         reset_launch_counts()
-        xfer[:] = [0, 0.0]
+        xfer[:] = [0, 0.0, 0]
         merged.clear()
+        scales.clear()
         return time.perf_counter()
+
+    def digest(ts):
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                       for t in ts)).hexdigest()
 
     def frame_end(t0, rec, want):
         torch.cuda.synchronize()
         got = launch_counts()
-        digest = hashlib.sha256(b"".join(
-            t.cpu().numpy().tobytes() for t in merged)).hexdigest()
         rec.update(ms=(time.perf_counter() - t0) * 1e3, launches=got,
                    exchange_bytes=xfer[0], exchange_ms=xfer[1] * 1e3,
-                   merges=len(merged), stats_digest=digest)
+                   exchanges=xfer[2], merges=len(merged),
+                   stats_digest=digest(merged),
+                   scales=len(scales), scale_digest=digest(scales),
+                   first_scale=float(scales[0]) if scales else None)
         check(got == want, f"spatial {rec['tag']} rank {rank}: launches "
               f"{got} (want {want}, SPATIAL)")
 
+    pmesh.all_reduce_bytes, spatial.merge_stats = timed_reduce, kept_merge
+    quant.act_scale = kept_scale
     try:
-        for world in (2, 4):
-            if rank < world:
-                _spatial_group(rank, world, pair, folder, frame_start,
-                               frame_end)
+        yield frame_start, frame_end
     finally:
         pmesh.all_reduce_bytes, spatial.merge_stats = reduce_bytes, merge
+        quant.act_scale = act_scale
+
+
+def spatial_section(rank: int, pairs, folder: Path) -> None:
+    """The spatial phase's cases on the ranks' world (``ranks_main``), gloo
+    ranks sharing the one card, by group size: on ranks 0 and 1 (size 2,
+    ``pairs[0]``) every frame case of SPATIAL_CASES with sp 2 on a dp 1 x
+    sp 2 mesh (``pair_mesh``), the server on each of
+    SPATIAL_SERVER_MESHES and the negative control; then on all four
+    ranks (size 4) every case with sp 4 on ``dp_sp_mesh(1, 4)`` and
+    SPATIAL_MIXED (its one-process frames from ranks 2 and 3,
+    ``spatial_pair_section``). Per frame (``spatial_watch``): the
+    launches held to ``SPATIAL`` (``spatial_quant_per_frame`` in a quant
+    mode), ms, the exchange's bytes and ms, the merged B1 statistics'
+    and the activation scales' digests (the first frame of a case), the
+    frame against the one-process frame (rank 0: every rank returns the
+    same gathered frame), the carry's rows against the one-process
+    carry's (every rank). A temporal bf16 frame (or tick) starts from
+    the one-process carry's rows before it, as the serve and export
+    phases hold a frame at the same carry: with random weights the
+    feedback through the carry multiplies a difference ~5x a frame, and
+    free-running bf16 streams part whatever the arithmetic (fp32 runs
+    free). Writes ``folder/rank<size>_<rank>.json`` for each group it ran
+    in; a failed check is in its ``failures``."""
+    with spatial_watch(rank) as (frame_start, frame_end):
+        for world in (2, 4):
+            if rank < world:
+                _spatial_group(rank, world, pairs[0], folder, frame_start,
+                               frame_end)
 
 
 def _spatial_group(rank, world, pair, folder, frame_start, frame_end):
@@ -4717,6 +4997,39 @@ def _spatial_group(rank, world, pair, folder, frame_start, frame_end):
                 res["frames"].append(rec)
             del model, stream, ref
             torch.cuda.empty_cache()
+    if world == 4:
+        # SPATIAL_MIXED: the JAX bench's int8_mixed row served past one
+        # card, against one process's frames (ranks 2 and 3 made them)
+        preset, sp, mode, dtype, n = SPATIAL_MIXED
+        ref = torch.load(folder / "mixed.pt", mmap=True)
+        model = with_quant(spatial_model(preset, dtype), mode)
+        hw = (model.cfg.data.crop_size,) * 2
+        stream = StreamingGenerator(model, hw, mesh=mesh_of(1, sp, rank,
+                                                            pair))
+        pins = ShardQuantPins()
+        pins.saved = ref["pins"]
+        torch.cuda.reset_peak_memory_stats()
+        for i, a in enumerate(spatial_frames(preset, n)):
+            rec = {"tag": f"{preset} sp {sp} {mode} {dtype} frame {i}"}
+            calls = len(pins.flips)
+            t0 = frame_start()
+            with pins.replaying():
+                y = stream.push_device(a)
+            frame_end(t0, rec, spatial_quant_per_frame(preset, mode))
+            rec["frame"] = spatial_bar(y, ref["frames"][i], dtype)
+            rec["first_scale_one"] = ref["first_scales"][i]
+            check(rec["frame"]["ok"] and rec["scales"] > 0,
+                  f"spatial {rec['tag']} rank {rank}: the gathered frame at "
+                  f"one process's int8 inputs against one process "
+                  f"{rec['frame']}, {rec['scales']} merged scales")
+            quant_pins_check(rec, pins, calls, rank)
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["frames"].append(rec)
+        check(pins.replayed == len(pins.saved) > 0, f"spatial {preset} sp "
+              f"{sp} {mode} rank {rank}: {pins.replayed} of "
+              f"{len(pins.saved)} int8 inputs replayed")
+        del model, stream, ref, pins
+        torch.cuda.empty_cache()
     if world == 2:
         ticks = spatial_ticks(SPATIAL_SERVER)
         meshes = [mesh_of(dp, sp, rank, pair)
@@ -4804,6 +5117,253 @@ def _spatial_group(rank, world, pair, folder, frame_start, frame_end):
 
 
 
+def quant_pins_check(rec: dict, pins, first: int, rank: int,
+                     calls: int = None) -> None:
+    """Into ``rec`` (a frame or tick replayed at one process's int8
+    inputs, ``ShardQuantPins``) its calls' flips from call ``first`` on
+    (``calls`` of them, default all), checked: each conv's flips at most
+    QUANT_MAX_FLIP_SHARE of this rank's activations + the allowance."""
+    end = None if calls is None else first + calls
+    mine = ShardQuantPins()
+    mine.flips, mine.sizes = pins.flips[first:end], pins.sizes[first:end]
+    rec.update(pinned_convs=len(mine.flips), flips=mine.flips,
+               activations=mine.sizes, worst_flip_share=mine.worst_share())
+    check(mine.flips == [] or not mine.over_bar(),
+          f"spatial {rec['tag']} rank {rank}: each int8 conv's own input "
+          f"against one process's: {sum(mine.flips)} int8 activations "
+          f"flipped over {sum(f > 0 for f in mine.flips)} of "
+          f"{len(mine.flips)} convs, worst share {mine.worst_share():.3g} "
+          f"(bar {QUANT_MAX_FLIP_SHARE} + {QUANT_FLIP_ALLOWANCE})")
+
+
+def quant_ticks(preset: str) -> list:
+    """``spatial_ticks`` with slot s's frames scaled to QUANT_RANGES[s] of
+    the uint8 range about its middle."""
+    return [{k: (128 + (f.astype(np.float32) - 128) * QUANT_RANGES[k])
+             .round().astype(np.uint8) for k, f in t.items()}
+            for t in spatial_ticks(preset)]
+
+
+def _pair_refs(q: int, folder: Path) -> None:
+    """The one-process frames ``spatial_pair_section`` and SPATIAL_MIXED
+    are held to, on the card, written under ``folder``: rank 2 (``q``
+    0) the pair's cases', rank 3 SPATIAL_MIXED's; each with the first
+    quantized conv's scale of each frame."""
+    from ir2rgb_tpu_torch.infer import MultiStreamServer, StreamingGenerator
+    from ir2rgb_tpu_torch.nn import quant
+    from ir2rgb_tpu_torch.nn.encoders import instance_edges
+    scales, act_scale = [], quant.act_scale
+
+    def kept_scale(x):
+        sx = act_scale(x)
+        scales.append(float(sx))
+        return sx
+
+    def first_scale(fn):
+        scales.clear()
+        out = fn()
+        return out, scales[0] if scales else None
+    quant.act_scale = kept_scale
+    try:
+        if q == 1:
+            preset, _, mode, dtype, n = SPATIAL_MIXED
+            model = with_quant(spatial_model(preset, dtype), mode)
+            stream = StreamingGenerator(model, (crop_of(preset),) * 2)
+            pins = ShardQuantPins()
+            with pins.recording():
+                got = [first_scale(partial(stream.push_device, a))
+                       for a in spatial_frames(preset, n)]
+            torch.save({"frames": [y.cpu() for y, _ in got],
+                        "first_scales": [sx for _, sx in got],
+                        "pins": pins.saved}, folder / "mixed.pt")
+            return
+        for preset, _, mode, dtypes in SPATIAL_QUANT_CASES:
+            for dtype in dtypes:
+                model = with_quant(spatial_model(preset, dtype), mode)
+                stream = StreamingGenerator(model, (crop_of(preset),) * 2)
+                pins = ShardQuantPins()
+                with pins.recording():
+                    y, sx = first_scale(partial(
+                        stream.push_device, spatial_frames(preset, 1)[0]))
+                torch.save({"frame": y.cpu(), "first_scale": sx,
+                            "pins": pins.saved},
+                           folder / f"quant_{mode}_{dtype}.pt")
+                del model, stream, pins
+        preset, mode, dtype = SPATIAL_QUANT_SERVER
+        model = with_quant(spatial_model(preset, dtype), mode)
+        srv = MultiStreamServer(model, (crop_of(preset),) * 2,
+                                n_slots=SPATIAL_SLOTS)
+        pins = ShardQuantPins()
+        with pins.recording():
+            (outs, carries), sx = first_scale(partial(
+                serve_ticks, srv, quant_ticks(preset)))
+        torch.save({"outs": outs, "carries": carries, "first_scale": sx,
+                    "pins": pins.saved}, folder / "quant_server.pt")
+        preset, _, dtype = SPATIAL_STYLED
+        model = spatial_model(preset, dtype, **STYLED)
+        batch = nete_batch(crop_of(preset), "cuda", SEED + 15)
+        feat = model.encode_features(batch["b"], batch["inst"])
+        edges = instance_edges(batch["inst"])
+        y = model.generate(batch["a"], feat=feat, edges=edges)
+        torch.save({"a": batch["a"].cpu(), "feat": feat.cpu(),
+                    "edges": edges.cpu(), "frame": y.cpu()},
+                   folder / "styled.pt")
+    finally:
+        quant.act_scale = act_scale
+        torch.cuda.empty_cache()
+
+
+def spatial_pair_section(rank: int, pair, folder: Path) -> None:
+    """Quantized serving and netE's inputs on a mesh, on ranks 2 and 3
+    (``pair``) while ranks 0 and 1 run the parallel section: the
+    one-process references first (``_pair_refs``, both ranks at once),
+    then SPATIAL_QUANT_CASES on a dp 1 x sp 2 mesh (fp32 int8 replaying
+    one process's int8 conv inputs, ``ShardQuantPins``: each conv's flips
+    at most QUANT_MAX_FLIP_SHARE of a rank's activations + the
+    allowance; int8's first merged scale one process's bit for bit),
+    SPATIAL_QUANT_SERVER on dp 2 over ``quant_ticks`` (bf16 ticks at the
+    one-process carry; the first scale one process's), one tick of it
+    with each rank's own activation scale (the parent's arithmetic:
+    another first scale and other frames), and SPATIAL_STYLED's frame
+    from the whole feature and edge maps. Per frame and tick
+    (``spatial_watch``) the launches (``spatial_quant_per_frame`` /
+    ``quant_per_frame``), ms, the exchange and the scales' digest;
+    writes ``folder/pair_<rank>.json``."""
+    from ir2rgb_tpu_torch.infer import MultiStreamServer, StreamingGenerator
+    from ir2rgb_tpu_torch.parallel import mesh as pmesh
+    q = rank - 2
+    first_failure = len(failures)
+    res = {"rank": rank, "world": 2, "group": [2, 3],
+           "up_s": time.perf_counter() - T0, "frames": [], "ticks": []}
+    _pair_refs(q, folder)
+    res["refs_s"] = time.perf_counter() - T0 - res["up_s"]
+    sp2 = pair_mesh(pair, q, 1, 2)
+    sp2.barrier()
+    with spatial_watch(rank) as (frame_start, frame_end):
+        for preset, sp, mode, dtypes in SPATIAL_QUANT_CASES:
+            for dtype in dtypes:
+                ref = torch.load(folder / f"quant_{mode}_{dtype}.pt",
+                                 mmap=True)
+                model = with_quant(spatial_model(preset, dtype), mode)
+                stream = StreamingGenerator(model, (crop_of(preset),) * 2,
+                                            mesh=sp2)
+                pins = ShardQuantPins()
+                pins.saved = ref["pins"]
+                rec = {"tag": f"{preset} sp {sp} {mode} {dtype} frame 0"}
+                a = spatial_frames(preset, 1)[0]
+                t0 = frame_start()
+                with pins.replaying():
+                    y = stream.push_device(a)
+                frame_end(t0, rec, spatial_quant_per_frame(preset, mode))
+                rec["frame"] = spatial_bar(y, ref["frame"], dtype)
+                rec["first_scale_one"] = ref["first_scale"]
+                check(rec["frame"]["ok"], f"spatial {rec['tag']} rank "
+                      f"{rank}: the gathered frame (int8: at one process's "
+                      f"int8 inputs) against one process {rec['frame']}")
+                quant_pins_check(rec, pins, 0, rank)
+                check(pins.replayed == len(pins.saved)
+                      and (mode == "int8") == bool(pins.saved),
+                      f"spatial {rec['tag']} rank {rank}: {pins.replayed} of "
+                      f"{len(pins.saved)} int8 inputs replayed")
+                if mode == "int8":
+                    check(rec["first_scale"] == ref["first_scale"],
+                          f"spatial {rec['tag']} rank {rank}: the first "
+                          f"merged scale {rec['first_scale']!r} is one "
+                          f"process's {ref['first_scale']!r}")
+                res["frames"].append(rec)
+                del model, stream, ref, pins
+                torch.cuda.empty_cache()
+
+        preset, mode, dtype = SPATIAL_QUANT_SERVER
+        ref = torch.load(folder / "quant_server.pt", weights_only=False)
+        model = with_quant(spatial_model(preset, dtype), mode)
+        hw = (crop_of(preset),) * 2
+        dp2 = pair_mesh(pair, q, 2, 1)
+        b = SPATIAL_SLOTS // 2
+
+        def block(t):
+            return t[q * b:(q + 1) * b]
+
+        def served(srv, ticks, name, recs):
+            def start(i):
+                if i:
+                    srv._carry = block(ref["carries"][i - 1]).cuda()
+                return frame_start()
+
+            def end(i, t0):
+                recs.append({"tag": f"server {name} tick {i}"})
+                frame_end(t0, recs[-1], quant_per_frame(preset, mode))
+            return serve_ticks(srv, ticks, start, end)[0]
+        recs, pins = [], ShardQuantPins()
+        pins.saved = ref["pins"]
+        with pins.replaying():
+            outs = served(MultiStreamServer(model, hw, n_slots=SPATIAL_SLOTS,
+                                            mesh=dp2), quant_ticks(preset),
+                          f"{preset} {mode} dp 2 sp 1 {dtype}", recs)
+        calls = len(pins.flips) // len(recs)
+        for i, rec in enumerate(recs):
+            quant_pins_check(rec, pins, i * calls, rank, calls)
+            rec["frames"] = [u8_gap(outs[i][k], ref["outs"][i][k])
+                             for k in ref["outs"][i]]
+            low = min(g["psnr_db"] for g in rec["frames"])
+            check(sorted(outs[i]) == sorted(ref["outs"][i])
+                  and low >= SPATIAL_BF16_PSNR,
+                  f"spatial {rec['tag']} rank {rank}: frames against one "
+                  f"process's tick {rec['frames']} (bar "
+                  f"{SPATIAL_BF16_PSNR} dB)")
+        check(recs[0]["first_scale"] == ref["first_scale"],
+              f"spatial {recs[0]['tag']} rank {rank}: the first merged "
+              f"scale {recs[0]['first_scale']!r} is one process's "
+              f"{ref['first_scale']!r}")
+        check(pins.replayed == len(pins.saved) > 0, f"spatial server "
+              f"{preset} {mode} rank {rank}: {pins.replayed} of "
+              f"{len(pins.saved)} int8 inputs replayed")
+        res["ticks"] += recs
+        del pins
+        # the parent's arithmetic, each rank's scale over its own rows
+        # (no mesh for quant.act_scale to merge over), must be caught
+        own, active = [], pmesh.active
+        pmesh.active = lambda: None
+        try:
+            outs = served(MultiStreamServer(model, hw,
+                                            n_slots=SPATIAL_SLOTS, mesh=dp2),
+                          quant_ticks(preset)[:1], "own scale", own)
+        finally:
+            pmesh.active = active
+        gaps = [u8_gap(outs[0][k], ref["outs"][0][k])
+                for k in ref["outs"][0]]
+        res["own_scale"] = dict(frames=gaps, first_scale=own[0]["first_scale"])
+        caught = (own[0]["first_scale"] != ref["first_scale"]) == bool(q) \
+            and (max(g["max_lsb"] for g in gaps) > 0
+                 or min(g["psnr_db"] for g in gaps) < SPATIAL_BF16_PSNR)
+        check(caught, f"spatial server own-scale control rank {rank}: the "
+              f"first scale {own[0]['first_scale']!r} against one process's "
+              f"{ref['first_scale']!r} (rank 3's slots are a tenth of the "
+              f"range: it must differ there), frames {gaps}")
+        del model
+        torch.cuda.empty_cache()
+
+        preset, sp, dtype = SPATIAL_STYLED
+        ref = torch.load(folder / "styled.pt")
+        model = spatial_model(preset, dtype, **STYLED)
+        stream = StreamingGenerator(model, (crop_of(preset),) * 2, mesh=sp2)
+        rec = {"tag": f"{preset} sp {sp} {dtype} netE features and edges"}
+        t0 = frame_start()
+        y = stream.push_device(ref["a"].cuda(), feat=ref["feat"].cuda(),
+                               edges=ref["edges"].cuda())
+        frame_end(t0, rec, SPATIAL[preset])
+        rec["frame"] = spatial_bar(y, ref["frame"], dtype)
+        check(rec["frame"]["ok"], f"spatial {rec['tag']} rank {rank}: the "
+              f"gathered frame against one process {rec['frame']}")
+        res["frames"].append(rec)
+        del model, stream, ref
+        torch.cuda.empty_cache()
+    res["failures"] = failures[first_failure:]
+    res["done_s"] = time.perf_counter() - T0
+    with open(folder / f"pair_{rank}.json", "w") as fh:
+        json.dump(res, fh)
+
+
 def spatial_phase(card: str, bw: float, gen: torch.Generator,
                   folder: Path) -> dict:
     """Spatially partitioned serving (``parallel/spatial.py``) on the one
@@ -4832,43 +5392,67 @@ def spatial_report(res: dict, folder: Path, card: str) -> None:
     ``folder`` (``spatial_section``), into ``res``."""
     ranks = [json.load(open(folder / f"rank{world}_{r}.json"))
              for world in (2, 4) for r in range(world)]
-    for r in ranks:
+    pair = [json.load(open(folder / f"pair_{r}.json")) for r in (2, 3)]
+    for r in ranks + pair:
         for f in r["failures"]:
             check(False, f"spatial group {r['world']} rank {r['rank']}: {f}")
-    # the merged statistics: the same bits on every rank of a case
-    for world in (2, 4):
-        mine = [r for r in ranks if r["world"] == world]
+    # each group of ranks that ran the same frames and ticks, in rank order
+    groups = [[r for r in ranks if r["world"] == 2], pair,
+              [r for r in ranks if r["world"] == 4]]
+    # the merged statistics and the quantized convs' merged scales: the
+    # same bits on every rank of a case (a data row's: every rank of a dp
+    # tick holds the tick's scales)
+    for mine in groups:
         for i, rec in enumerate(mine[0]["frames"]):
             digests = {r["frames"][i]["stats_digest"] for r in mine}
             check(len(digests) == 1 and rec["merges"] > 0,
                   f"spatial {rec['tag']}: the {rec['merges']} merged B1 "
-                  f"statistics bit-identical on the {world} ranks")
-    res["launches"] = dict(sum((Counter(f["launches"]) for r in ranks
+                  f"statistics bit-identical on the {len(mine)} ranks")
+        for key in ("frames", "ticks"):
+            for i, rec in enumerate(mine[0][key]):
+                digests = {r[key][i]["scale_digest"] for r in mine}
+                check(not rec["scales"] or len(digests) == 1,
+                      f"spatial {rec['tag']}: the {rec['scales']} merged "
+                      f"activation scales bit-identical on the {len(mine)} "
+                      "ranks")
+                calls = [r[key][i]["exchanges"] for r in mine]
+                check(len(set(calls)) == 1, f"spatial {rec['tag']}: every "
+                      f"rank makes the same exchanges {calls}")
+    res["launches"] = dict(sum((Counter(f["launches"]) for r in ranks + pair
                                 for f in r["frames"] + r["ticks"]),
                                Counter()))
-    res["ranks"] = ranks
+    res["ranks"], res["pair"] = ranks, pair
     label = f"gloo ranks sharing one card: host staging, not a " \
             f"multi-card speedup ({card})"
-    for world in (2, 4):
-        mine = [r for r in ranks if r["world"] == world]
+    for mine in groups:
         for i, rec in enumerate(mine[0]["frames"]):
             per = [r["frames"][i] for r in mine]
             frame = rec.get("frame", {})
+            more = "" if not rec["scales"] else (
+                f", {rec['scales']} merged scales, the first "
+                f"{rec['first_scale']!r} (one process "
+                f"{rec.get('first_scale_one')!r})" + (
+                    "" if "worst_flip_share" not in rec else
+                    f", worst int8 flip share "
+                    f"{max(f['worst_flip_share'] for f in per):.3g}"))
             print(f"spatial {rec['tag']}: ms/frame per rank "
                   f"{[round(f['ms'], 1) for f in per]}, exchange "
                   f"{rec['exchange_bytes']} B in "
                   f"{[round(f['exchange_ms'], 1) for f in per]} ms, peak "
-                  f"{max(f['peak_gib'] for f in per):.2f} GiB a rank, "
-                  f"max-abs {frame.get('max_abs', float('nan')):.3g}, "
-                  f"{frame.get('psnr_db', float('nan')):.2f} dB; {label}",
-                  flush=True)
-    for rec in next(r for r in ranks if r["world"] == 2 and
-                    r["rank"] == 0)["ticks"]:
+                  f"{max(f.get('peak_gib', 0.0) for f in per):.2f} GiB a "
+                  f"rank, max-abs {frame.get('max_abs', float('nan')):.3g}, "
+                  f"{frame.get('psnr_db', float('nan')):.2f} dB{more}; "
+                  f"{label}", flush=True)
+    for rec in groups[0][0]["ticks"] + pair[0]["ticks"]:
         print(f"spatial {rec['tag']}: {rec['ms']:.1f} ms, exchange "
               f"{rec['exchange_bytes']} B in {rec['exchange_ms']:.1f} ms, "
               f"worst frame {max(g['max_lsb'] for g in rec['frames'])} LSB / "
               f"{min(g['psnr_db'] for g in rec['frames']):.2f} dB; {label}",
               flush=True)
+    res["own_scale"] = [r["own_scale"] for r in pair]
+    print(f"spatial server, each rank's own activation scale (the parent's "
+          f"arithmetic), against one process's tick: {res['own_scale']}",
+          flush=True)
     broken = next(r for r in ranks if r["world"] == 2 and r["rank"] == 0)
     res["broken"] = broken["broken"]
     print(f"spatial negative control: {broken['broken']}", flush=True)
@@ -5006,18 +5590,24 @@ def b1_split_bwd_phase(bw: float, gen: torch.Generator):
 def spatial_train_batch(cfg, n: int) -> dict:
     """The global batch of ``n`` frames of the spatial_train phase: ``n``
     batch-1 batches of ``train_batch`` (seeds SEED + 3 ...) stacked, on
-    the card."""
+    the card; with netE, of ``nete_batch`` (a Voronoi instance map
+    each)."""
     from ir2rgb_tpu_torch.profile_train import train_batch
-    parts = [train_batch(cfg, SEED + 3 + i, "cuda") for i in range(n)]
+    if cfg.model.use_instance_feat:
+        parts = [nete_batch(cfg.data.crop_size, "cuda", SEED + 3 + i)
+                 for i in range(n)]
+    else:
+        parts = [train_batch(cfg, SEED + 3 + i, "cuda") for i in range(n)]
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def spatial_train_section(rank: int, pair, folder: Path) -> None:
+def spatial_train_section(rank: int, pairs, folder: Path) -> None:
     """The spatial_train phase's cases on the ranks' world
     (``ranks_main``), gloo ranks sharing the one card, by group size:
     every case of SPATIAL_TRAIN_CASES with ``dp * sp == 2`` on its pair of
     ranks (``pair_of``: ranks 0 and 1, with the negative control, beside
-    ranks 2 and 3; ``pair_mesh``), then every case with ``dp * sp == 4``
+    ranks 2 and 3; ``pair_mesh`` over ``pairs``), then every case with
+    ``dp * sp == 4``
     on all four (``dp_sp_mesh``), from seeded weights replicated from the
     mesh's rank 0 (cuDNN deterministic, TF32 off). Each step:
     the launches held to ``SPATIAL_TRAIN`` (``spatial_per_step``; with
@@ -5037,7 +5627,10 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
     also holds D_GP > 0 and finite and, in fp32, D's gradient from D_GP
     alone (``gp_alone``: summed over the ranks) to one process's at the
     pinned point; a CycleGAN's step its two pools to one process's (fp32
-    within SLICE_FP32_TOL, bf16 >= BF16_MIN_PSNR dB). A remat case's step is
+    within SLICE_FP32_TOL, bf16 >= BF16_MIN_PSNR dB); the netE case
+    (NETE_KEY, ``nete_versus``) its inst_collisions to one process's and,
+    in fp32, its pooled features (every rank's rows) and netE's tail bias
+    gradient through float64 sums (``TailGrad``). A remat case's step is
     also held to the same case's step without remat, run before it from
     the same state: losses bit for bit, every gradient within
     REMAT_GRAD_ATOL. On the group of 2 the negative control follows: one
@@ -5118,10 +5711,12 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                               for v in g.values()])
                 for n, g in grads_of(m).items()}
 
-    def versus(model, ref_m, ref, tag, dtype, ref32=None):
+    def versus(model, ref_m, ref, tag, dtype, ref32=None, exact=None):
         """The partitioned step (metrics of ``model``'s last step) against
         one process's (``ref_m``, ``ref``'s gradients; ``ref32``: one
-        process's fp32 step of the same state, the bf16 bar's yardstick)."""
+        process's fp32 step of the same state, the bf16 bar's yardstick;
+        ``exact``: network -> parameter -> (its gradient, one process's)
+        held in their place: netE's tail bias through float64 sums)."""
         loss_rel, grad_rel = SPATIAL_TRAIN_BARS[dtype]
         got = res["steps"][-1]["metrics"]
         rel = {k: abs(got[k] - v) / max(abs(v), 1e-12)
@@ -5129,6 +5724,10 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
         want_g = {n: {k: v.cpu() for k, v in g.items()}
                   for n, g in grads_of(ref).items()}
         mine = grads_of(model)
+        for n, pairs in (exact or {}).items():
+            mine[n] = dict(mine[n], **{k: g for k, (g, _) in pairs.items()})
+            want_g[n] = dict(want_g[n],
+                             **{k: w for k, (_, w) in pairs.items()})
         worst = {n: grad_bar(mine[n], want_g[n], grad_rel) for n in want_g}
         a, b = flat_grads(model), flat_grads(ref)
         whole = {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in b}
@@ -5178,28 +5777,50 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
     # step's state before each reference step
     weights_of, kept = {}, {}
 
-    def sections_of(remat=False, gp=False):
+    def sections_of(preset, remat=False, gp=False):
+        """The config changes of a case: remat, WGAN-GP, netE's model
+        (NETE_KEY) and a temporal window's frames."""
         out = dict(model=dict(remat=remat))
         if gp:
             out["loss"] = dict(gan_mode="wgangp")
+        if preset in NETE:
+            out["model"].update(use_instance_feat=True,
+                                use_instance_edges=True,
+                                num_instances=SPATIAL_NETE_SEGMENTS)
+        if window_frames(preset) > 1:
+            out["data"] = dict(n_frames_total=window_frames(preset))
         return out
 
+    def preset_of(case_preset):
+        return NETE_PRESET if case_preset in NETE else case_preset
+
     def seeded(preset, dtype, remat=False, gp=False):
-        sections = sections_of(remat, gp)
+        sections = sections_of(preset, remat, gp)
         if preset not in weights_of:
-            model, weights_of[preset] = seeded_model(preset, dtype,
-                                                     **sections)
+            model, weights_of[preset] = seeded_model(preset_of(preset),
+                                                     dtype, **sections)
             return model
-        return train_model(preset, dtype, "cuda", weights_of[preset],
-                           **sections)
+        return train_model(preset_of(preset), dtype, "cuda",
+                           weights_of[preset], **sections)
 
     def one_process(preset, dtype, variant, gp=False):
         key = (preset, dtype, variant, gp)
         if key not in kept:
-            kept[key] = train_model(preset, dtype, "cuda",
+            kept[key] = train_model(preset_of(preset), dtype, "cuda",
                                     weights_of[preset],
-                                    **sections_of(gp=gp))
+                                    **sections_of(preset, gp=gp))
+            if preset in NETE:
+                kept[key].nete_view = nete_view(kept[key])
         return kept[key]
+
+    def nete_view(model):
+        """netE's pooled features of ``model``'s steps (a forward hook:
+        this rank's rows, or one process's whole frame) and its tail
+        bias gradient through float64 sums (``TailGrad``)."""
+        feats = []
+        model.netE.register_forward_hook(
+            lambda mod, args, out: feats.append(out.detach().cpu()))
+        return feats, TailGrad(model.netE)
 
     def gp_alone(model):
         """Wrap ``model``'s ``loss_and_metrics`` to take D's gradient from
@@ -5220,6 +5841,32 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
             return loss_g, loss_d, m
         model.loss_and_metrics = wrapped
         return out
+
+    def nete_versus(rec, ref_m, one, feats, bias_g, mesh, tag, exact):
+        """The netE case against one process's step: ``inst_collisions``
+        equal (each data row's maps counted once); fp32 (``exact``) the
+        pooled features of every rank against one process's rows (rank
+        0 reads the others' from ``folder``), and netE's tail bias
+        gradient through float64 sums on both sides, returned for
+        ``versus``."""
+        got, want = rec["metrics"]["inst_collisions"], \
+            ref_m["inst_collisions"]
+        rec["inst_collisions"] = (got, want)
+        check(got == want > 0, f"spatial_train {tag}: inst_collisions "
+              f"{got} (one process {want}, > 0)")
+        if not exact:
+            return None
+        rows = [feats[-1]] + [torch.load(folder / f"feat{world}_{rank + r}"
+                                         ".pt") for r in range(1, mesh.sp)]
+        whole = one.nete_view[0][-1]
+        err = float((torch.cat(rows, dim=1) - whole).abs().max())
+        rec["pooled_features_max_abs"] = err
+        check(err <= NETE_FEATURE_TOL and whole.shape[1] == sum(
+            r.shape[1] for r in rows), f"spatial_train {tag}: netE's pooled "
+            f"features on the {mesh.sp} ranks against one process's rows, "
+            f"max-abs {err:.3g} (tol {NETE_FEATURE_TOL})")
+        bias = f"model.{one.netE.tail}.bias"
+        return {"netE": {bias: (bias_g, one.nete_view[1].exact_bias_grad())}}
 
     def summed(grads, mesh):
         """A partitioned step's per-rank gradients summed over the ranks
@@ -5251,8 +5898,6 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
         return dict(out, ok=ok)
 
     import torch.distributed as dist
-    # ranks 2 and 3's pair (every rank of the world makes the group)
-    pairs = (pair, dist.new_group([2, 3]))
     try:
         for world in (2, 4):
             first_failure = len(failures)
@@ -5281,6 +5926,8 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                 for dtype in dtypes:
                     model = seeded(preset, dtype, remat, gp)
                     replicate(model, mesh)
+                    feats, tail = (nete_view(model) if preset in NETE
+                                   else (None, None))
                     glob = spatial_train_batch(model.cfg, dp)
                     local = shard_batch(glob, mesh)
                     timed = preset in SPATIAL_TRAIN_TIMED
@@ -5305,11 +5952,25 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                         # D's gradient from D_GP alone, fp32 (pinned)
                         hook = (gp_alone(model) if gp and pins is not None
                                 else None)
+                        exact = tail is not None and pins is not None
+                        bias_g = None
                         with (pins.recording() if pins is not None
-                              else contextlib.nullcontext()):
+                              else contextlib.nullcontext()), (
+                                tail.capturing() if exact
+                                else contextlib.nullcontext()):
                             res["steps"].append(step(model, local, tag,
                                                      want, hook))
                         rec = res["steps"][-1]
+                        if exact:
+                            # netE's tail bias through float64 sums, over
+                            # the ranks as all_reduce_grads sums; this
+                            # rank's pooled features for rank 0
+                            bias_g = tail.exact_bias_grad()
+                            dist.all_reduce(bias_g, group=mesh.group)
+                            bias_g /= mesh.dp
+                            if mesh.rank:
+                                torch.save(feats[-1], folder /
+                                           f"feat{world}_{rank}.pt")
                         rec.update(case=(preset, dp, sp, dtype, remat, gp),
                                    i=i)
                         if gp:
@@ -5335,8 +5996,12 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                         for t, one in ones.items():
                             one_hook = (gp_alone(one) if hook is not None
                                         else None)
+                            one_tail = (one.nete_view[1] if exact
+                                        else None)
                             with (replay.replaying() if replay
-                                  else contextlib.nullcontext()):
+                                  else contextlib.nullcontext()), (
+                                    one_tail.capturing() if exact
+                                    else contextlib.nullcontext()):
                                 ref_m[t] = {k: float(v) for k, v in
                                             one.train_step(glob).items()}
                             check(replay is None or replay.all_replayed(),
@@ -5356,8 +6021,13 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                         if one32 is not None:
                             one32.train_step(glob)
                         for t, one in ones.items():
+                            fixed = None
+                            if preset in NETE:
+                                fixed = nete_versus(rec, ref_m[t], one,
+                                                    feats, bias_g, mesh,
+                                                    f"{tag} vs {t}", exact)
                             v = versus(model, ref_m[t], one,
-                                       f"{tag} vs {t}", dtype, one32)
+                                       f"{tag} vs {t}", dtype, one32, fixed)
                             if isinstance(model.pool, dict):
                                 v["pools"] = pools_versus(model, one, dtype)
                                 v["ok"] = v["ok"] and v["pools"]["ok"]
@@ -5381,7 +6051,7 @@ def spatial_train_section(rank: int, pair, folder: Path) -> None:
                 # the negative control: the row above rank 1's first row,
                 # at every layer, taken from the last shard's rows instead
                 preset, sp, dtype = SPATIAL_TRAIN_BROKEN
-                mesh = mesh_of(1, sp, rank, pair)
+                mesh = mesh_of(1, sp, rank, pairs[0])
                 model = seeded(preset, dtype)
                 replicate(model, mesh)
                 glob = spatial_train_batch(model.cfg, 1)
@@ -5561,7 +6231,8 @@ def spatial_train_report(res: dict, folder: Path, card: str) -> None:
                       v["net_grad_rel"], v.get("pools"))
                   for k, v in rec.items() if k.startswith("vs_")}
             vs.update({k: v for k, v in rec.items()
-                       if k.startswith("d_from_gp_")})
+                       if k.startswith("d_from_gp_") or k in (
+                           "pooled_features_max_abs", "inst_collisions")})
             one = mine[0]["one_process_peak_gib"].get(
                 rec.get("case", [""])[0])
             print(f"spatial_train {rec['tag']}: ms/step per rank "
@@ -5574,7 +6245,8 @@ def spatial_train_report(res: dict, folder: Path, card: str) -> None:
                      f" (one process, no remat: {one:.2f} GiB)")
                   + f"; against one process (worst loss rel, worst gradient "
                   f"tensor's share of the bar, each network's ||d||/||g||, "
-                  f"the pools; D's gradient from D_GP alone):"
+                  f"the pools; D's gradient from D_GP alone; netE's pooled "
+                  f"features, inst_collisions against one process's):"
                   f" {vs}" + ("" if "remat_vs_plain" not in rec else
                               f"; against the step without remat "
                               f"{rec['remat_vs_plain']}") + f"; {label}",
@@ -5597,9 +6269,10 @@ RANKS_WORLD = 4
 
 
 def pair_mesh(pair, rank: int, dp: int, sp: int):
-    """``dp_sp_mesh(dp, sp)``'s layout (``dp * sp == 2``) over ranks 0 and
-    1 of the ranks' world, whose group is ``pair``: a data-parallel mesh
-    of two for sp 1, a dp 1 x sp 2 mesh (``pair`` its sp group) else."""
+    """``dp_sp_mesh(dp, sp)``'s layout (``dp * sp == 2``) over a pair of
+    the ranks' world (ranks 0 and 1, or 2 and 3), whose group is
+    ``pair``, ``rank`` the rank in it: a data-parallel mesh of two for sp
+    1, a dp 1 x sp 2 mesh (``pair`` its sp group) else."""
     from ir2rgb_tpu_torch.parallel import DataParallelMesh
     if dp * sp != 2:
         raise ValueError(f"a pair of ranks holds no dp {dp} x sp {sp} mesh")
@@ -5620,8 +6293,9 @@ def mesh_of(dp: int, sp: int, rank: int, pair):
 def ranks_main(rank: int, port: int, out: str) -> int:
     """One of the RANKS_WORLD gloo ranks on the one card (``chip_smoke.py
     --ranks R PORT DIR``): up once, then the parallel phase's two ranks
-    (``parallel_section``, ranks 0 and 1), the spatial phase's cases
-    (``spatial_section``) and the spatial_train phase's
+    (``parallel_section``, ranks 0 and 1) beside the spatial phase's
+    cases of ranks 2 and 3 (``spatial_pair_section``), the spatial
+    phase's cases (``spatial_section``) and the spatial_train phase's
     (``spatial_train_section``), the world's barrier after each; each
     section's seconds on this rank in ``DIR/ranks<rank>.json``. Exits 1
     on a failed check."""
@@ -5635,17 +6309,19 @@ def ranks_main(rank: int, port: int, out: str) -> int:
                          num_processes=RANKS_WORLD, process_id=rank,
                          backend="gloo", timeout_s=RANKS_TIMEOUT_S)
     set_parity_mode()
-    # every rank makes the pair's group, ranks 0 and 1 use it
-    pair = dist.new_group([0, 1])
+    # every rank makes both pairs' groups, each pair uses its own
+    pairs = (dist.new_group([0, 1]), dist.new_group([2, 3]))
     res = {"rank": rank, "up_s": time.perf_counter() - T0, "seconds": {}}
     for name, section in (("parallel", parallel_section),
                           ("spatial", spatial_section),
                           ("spatial_train", spatial_train_section)):
         t0 = time.perf_counter()
         if name != "parallel":
-            section(rank, pair, folder / name)
+            section(rank, pairs, folder / name)
         elif rank < 2:
-            section(rank, pair_mesh(pair, rank, 2, 1), folder / name)
+            section(rank, pair_mesh(pairs[0], rank, 2, 1), folder / name)
+        else:
+            spatial_pair_section(rank, pairs[1], folder / "spatial")
         torch.cuda.empty_cache()
         dist.barrier()
         res["seconds"][name] = time.perf_counter() - t0
@@ -5671,9 +6347,19 @@ def start_ranks(folder: Path) -> tuple:
     t0 = time.perf_counter()
     cli = start_train_cli(folder / "cli")
     procs = [start_group([sys.executable, __file__, "--ranks", str(r),
-                          str(port), str(folder)])
+                          str(port), str(folder)],
+                         log=folder / f"rank{r}.log")
              for r in range(RANKS_WORLD)]
     return cli, procs, t0
+
+
+def stop_ranks(started: tuple) -> None:
+    """Kill what ``start_ranks`` started and is still running."""
+    (cli, _), procs, _ = started
+    for p in (cli, *procs):
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
 
 
 def ranks_phase(card: str, parallel: dict, spatial: dict,
@@ -5686,18 +6372,18 @@ def ranks_phase(card: str, parallel: dict, spatial: dict,
     each section's seconds (rank 0's) as ``ranks_s``."""
     cli, procs, t0 = started
     try:
-        outs = wait_group(procs, RANKS_TIMEOUT_S)
+        wait_group(procs, RANKS_TIMEOUT_S)
     finally:
         spatial_train["cli"] = finish_train_cli(*cli)
         spatial_train["cli_s"] = time.perf_counter() - t0
     lost = False
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+    for r, p in enumerate(procs):
         path = folder / f"ranks{r}.json"
         lost |= not path.exists()
         # a rank whose checks failed still writes its results
         check(p.returncode == 0, f"ranks' world rank {r}: exit "
-              f"{p.returncode}" + ("" if path.exists() else
-                                   f"\n{o[-3000:]}\n{e[-3000:]}"))
+              f"{p.returncode}" + ("" if path.exists() else "\n" + (
+                  folder / f"rank{r}.log").read_text()[-6000:]))
     if lost:
         raise RuntimeError("the ranks' world: a rank failed (above)")
     seconds = json.load(open(folder / "ranks0.json"))["seconds"]
@@ -5728,6 +6414,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ranks"]:
         return ranks_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--quant-refs"]:
+        return quant_cpu_refs(Path(sys.argv[2]))
     from ir2rgb_tpu_torch import set_parity_mode
     from ir2rgb_tpu_torch.kernels import _build
 
@@ -5748,6 +6436,22 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"built {so.name} in {build_s:.1f} s", flush=True)
 
+    quant_refs = start_quant_refs()
+    try:
+        return run_phases(card, name, row, (bw, fp32_peak, bf16_peak),
+                          quant_refs)
+    finally:
+        if quant_refs[1].poll() is None:
+            quant_refs[1].kill()
+            quant_refs[1].wait()
+
+
+def run_phases(card: str, name: str, row: str, rates: tuple,
+               quant_refs: tuple) -> int:
+    """``main``'s phases and report on the card ``name`` (``card``: its
+    line; ``row``, ``rates``: ``peaks``'), the quant phase's CPU
+    references running in ``quant_refs`` (``start_quant_refs``)."""
+    bw, fp32_peak, bf16_peak = rates
     seconds = {}
 
     def phase(name, fn, *args, **kw):
@@ -5776,11 +6480,11 @@ def main() -> int:
     options = phase("train_options", train_options_phase, card)
     cli = phase("train_cli", train_cli_phase, card)
     serve = phase("serve", serve_phase, card)
-    quant = phase("quant", quant_phase, card)
-    nete = phase("netE", nete_phase, card)
-    export = phase("export", export_phase, card)
-    # the parent's parts of the last three phases, then their gloo ranks,
-    # one world for all three (ranks_phase)
+    quant = phase("quant", quant_phase, card, quant_refs)
+    # the parent's parts of the three gloo phases, then their ranks, one
+    # world for all three (ranks_phase), beside the netE, export and
+    # parallel (a) phases: the ranks' exchanges stage through the host and
+    # leave the card mostly idle
     import shutil
     ranks_dir = Path("build") / "ranks"
     shutil.rmtree(ranks_dir, ignore_errors=True)
@@ -5788,11 +6492,15 @@ def main() -> int:
                     ranks_dir / "spatial")
     spatial_train = phase("spatial_train", spatial_train_phase, card, bw,
                           gen)
-    # the ranks' start and their parallel section beside parallel (a)
     started = start_ranks(ranks_dir)
-    parallel = phase("parallel", parallel_phase, card)
-    phase("ranks", ranks_phase, card, parallel, spatial, spatial_train,
-          ranks_dir, started)
+    try:
+        nete = phase("netE", nete_phase, card)
+        export = phase("export", export_phase, card)
+        parallel = phase("parallel", parallel_phase, card)
+        phase("ranks", ranks_phase, card, parallel, spatial, spatial_train,
+              ranks_dir, started)
+    finally:
+        stop_ranks(started)
     shutil.rmtree(ranks_dir, ignore_errors=True)
     # each of the three phases: its parent's part and its ranks' section
     by_phase = {name: seconds[name] + res["ranks_s"] for name, res in (

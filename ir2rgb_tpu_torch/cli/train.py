@@ -40,10 +40,11 @@ Spatially partitioned, each frame's rows over S ranks of a dp×S mesh
 The S ranks of a data row decode the same images (the loader is sharded
 over dp), crop and flip them alike, then each keeps its image rows (of
 every frame, for a temporal folder's windows; of both domains'
-frames, for an unaligned folder's). Temporal windows, ``--model.remat
-true``, ``--loss.gan_mode wgangp`` and CycleGAN train partitioned; netE
-and instance edges, and the U-Net raise before any collective (ROADMAP
-A16b):
+frames, for an unaligned folder's; the instance maps stay whole).
+Temporal windows, ``--model.remat true``, ``--loss.gan_mode wgangp``,
+CycleGAN, netE (``--model.use_instance_feat``) and the edge input
+(``--model.use_instance_edges``) train partitioned; the U-Net raises
+before any collective (ROADMAP A16b):
 
     torchrun --standalone --nproc_per_node 2 -m ir2rgb_tpu_torch.cli.train \
         --preset temporal_512 --train.spatial_devices 2 ...

@@ -60,6 +60,10 @@ from ir2rgb_tpu_torch import kernels  # noqa: F401 (registers the ir2rgb:: ops)
 from ir2rgb_tpu_torch.infer.wire import host_to_wire_u8
 from ir2rgb_tpu_torch.runtime import resolve_device
 
+# a sealed program is one card's, as the JAX package's artifacts are
+ONE_CARD = ("a sealed artifact serves one card: its program holds no "
+            "exchange, and the JAX package's loaders take no mesh")
+
 _FORMAT_VERSION = 1
 # multi-stream artifacts carry a different program signature (masks and
 # per-slot carries); their own version makes a single-stream loader
@@ -388,11 +392,10 @@ def load_serving_artifact(path: str, device=None,
                           mesh=None) -> ExportedStream:
     """Load an artifact written by :func:`export_serving_artifact` onto
     ``device`` (None: the CUDA device) and return a ready stream. A
-    sealed program serves one card: a ``mesh`` raises (ROADMAP A16b)."""
+    sealed program serves one card, as the JAX package's does (its
+    loader takes no mesh): a ``mesh`` raises ``ValueError``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a sealed artifact on a mesh: its program is one card's "
-            "(ROADMAP A16b)")
+        raise ValueError(ONE_CARD)
     program, params, meta = _read_artifact(path, device)
     if meta.get("multistream"):
         raise ValueError(

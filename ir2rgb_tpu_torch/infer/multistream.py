@@ -34,7 +34,9 @@ A quantized model (``cfg.infer.quant``) serves its tick through
 activation scale of ``int8`` and ``int8_mixed`` is one amax over the
 whole batched tick, pad rows included, so a stream's frame depends on
 the other streams of its tick, and a batched frame equals its batch-1
-frame only in ``"none"`` and ``int8_w``.
+frame only in ``"none"`` and ``int8_w``. On a mesh too: each rank's
+amax of its block is merged over every rank (``quant.act_scale``), so
+the tick quantizes as one process's tick of the whole batch.
 
 On a dp×sp mesh (``mesh=``, ``parallel.dp_sp_mesh``; JAX's
 ``multistream.py:151-211``) every rank makes the same server and ticks
@@ -227,14 +229,16 @@ class MultiStreamServer:
         ``n_slots`` may cap the attachable streams below it (default: all
         of them). A cap above the sealed batch raises, unless ``clamp``
         (the CLI's forgiving mode) clips it to the sealed batch. A sealed
-        program serves one card: a ``mesh`` raises (ROADMAP A16b)."""
+        program serves one card, as the JAX package's does: a ``mesh``
+        raises ``ValueError``."""
         from functools import partial
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sealed artifact on a mesh: its program is one card's "
-                f"({spatial.A16B})")
 
-        from ir2rgb_tpu_torch.infer.export import load_multistream_artifact
+        from ir2rgb_tpu_torch.infer.export import (
+            ONE_CARD,
+            load_multistream_artifact,
+        )
+        if mesh is not None:
+            raise ValueError(ONE_CARD)
         tick, params, meta = load_multistream_artifact(path, device)
         self = cls.__new__(cls)
         self.model = None  # a sealed program: no model code behind it

@@ -16,8 +16,9 @@ port of ``ir2rgb_tpu/infer/stream.py``).
 
 - On a dp×sp mesh (``mesh=``, ``parallel.dp_sp_mesh``), as JAX's
   ``StreamingGenerator(mesh=)`` (``stream.py:84-107``): every rank makes
-  the same stream and pushes the same whole frame. Each takes its block
-  (batch rows over ``dp``, image rows over ``sp``), serves it under
+  the same stream and pushes the same whole frame (and netE feature and
+  instance-edge maps). Each takes its block (batch rows over ``dp``,
+  image rows over ``sp``), serves it under
   ``parallel.spatial.serving`` (the ops exchange the rows and statistics
   the whole frame's computation reads), keeps its rows of the carry, and
   returns the whole output, gathered from every rank, as JAX's global
@@ -112,29 +113,28 @@ class StreamingGenerator:
         ``use_instance_edges`` model, ``feat`` the (B, H, W, feat_num)
         netE feature map of a ``use_instance_feat`` model (JAX's
         ``step_extra``); a temporal stream refuses both. On a mesh ``a``
-        is the whole frame on every rank, and so is the output."""
-        if feat is not None or edges is not None:
-            if self.temporal:
-                raise ValueError(
-                    "feature/edge maps are a pix2pixHD (single-frame) "
-                    "test surface; temporal streaming has no such input")
-            if self.mesh is not None:
-                raise NotImplementedError(
-                    "netE features and instance edges on a mesh "
-                    f"({spatial.A16B})")
-            return self.model.generate(a, feat=feat, edges=edges)
+        and the maps are whole on every rank, each cut to the rank's
+        block, and the output is whole."""
+        if (feat is not None or edges is not None) and self.temporal:
+            raise ValueError(
+                "feature/edge maps are a pix2pixHD (single-frame) "
+                "test surface; temporal streaming has no such input")
         if self.mesh is None:
-            return self._generate(a)
+            return self._generate(a, feat, edges)
         with torch.inference_mode():
-            a = spatial.local_block(a, self.mesh).contiguous()
-            return spatial.gather_block(self._generate(a), self.mesh)
+            a, feat, edges = (None if t is None else spatial.local_block(
+                t, self.mesh).contiguous() for t in (a, feat, edges))
+            return spatial.gather_block(self._generate(a, feat, edges),
+                                        self.mesh)
 
-    def _generate(self, a: torch.Tensor) -> torch.Tensor:
-        """The rank's rows of the frame -> its rows of the output, the
-        carry advanced."""
+    def _generate(self, a: torch.Tensor,
+                  feat: Optional[torch.Tensor] = None,
+                  edges: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rank's rows of the frame (and of its feature and edge
+        maps) -> its rows of the output, the carry advanced."""
         with spatial.serving(self.mesh, self._shards):
             if not self.temporal:
-                return self.model.generate(a)
+                return self.model.generate(a, feat=feat, edges=edges)
             fake = self.model.generate(a, prev=self._carry)
         with torch.inference_mode():
             self._carry = torch.cat([fake.to(torch.float32), self._carry],

@@ -17,7 +17,10 @@ takes the mean feature of its instance. The ids are hashed into a static
 segment sums are ``index_add`` in fp32 (with atomics on a CUDA tensor, so
 the pooled means are not bit-stable from run to run there), then gathered
 back through the id map. Distinct ids whose hashes collide share one mean;
-:func:`instance_collision_count` counts such segments.
+:func:`instance_collision_count` counts such segments. On a partitioned
+frame the encoder runs on the rank's rows (its ops exchange what they
+read) and the pooling adds the ranks' segment sums
+(:func:`instance_feature_table`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ir2rgb_tpu_torch.parallel import spatial
 from . import ops
 from .generators import (
     Deconv,
@@ -94,8 +98,8 @@ class Encoder(nn.Module):
         for i in self.ups:
             h = _norm_act(seq[i + 1], seq[i](h), cfg.norm, "relu")
         tail = seq[self.tail]
-        feat = torch.tanh(ops.conv(ops.reflect_pad(h, 3), tail.weight,
-                                   tail.bias).float())
+        y = ops.conv(ops.reflect_pad(h, 3), tail.weight, tail.bias)
+        feat = spatial.same_rows(torch.tanh(y.float()), y)
         if inst is not None:
             feat = instance_wise_avg_pool(feat, inst, cfg.num_instances)
         return feat.to(cfg.compute_dtype)
@@ -132,13 +136,25 @@ def instance_feature_table(feat: torch.Tensor, inst: torch.Tensor,
     """Per-segment pooled features: (B, num_instances, C) fp32 means,
     (B, num_instances) pixel counts (0 for an empty segment), and the
     (B, H·W) segment ids (hashed, not offset). Differentiable in
-    ``feat``."""
+    ``feat``.
+
+    On a partitioned frame (``spatial.active()``) ``feat`` holds this
+    rank's rows and ``inst`` the whole frame's ids (id maps are not split
+    over ``sp``): each rank sums its rows of every segment, the sums and
+    counts are added over the ranks in rank order (differentiably,
+    ``Shards.sum_over_ranks``), and the ids returned are its rows'."""
     b, h, w, c = feat.shape
+    part = spatial.active()
+    if part is not None:
+        inst = part.rows_of(inst, feat)
     seg = _segments(inst, num_instances).reshape(-1)
     flat = feat.reshape(b * h * w, c).float()
     sums = flat.new_zeros((b * num_instances, c)).index_add(0, seg, flat)
     cnts = flat.new_zeros(b * num_instances).index_add(
         0, seg, flat.new_ones(b * h * w))
+    if part is not None:
+        both = part.sum_over_ranks(torch.cat([sums, cnts[:, None]], dim=1))
+        sums, cnts = both[:, :c], both[:, c]
     means = sums / torch.clamp(cnts, min=1.0)[:, None]
     return (means.reshape(b, num_instances, c),
             cnts.reshape(b, num_instances),
@@ -151,9 +167,10 @@ def instance_wise_avg_pool(feat: torch.Tensor, inst: torch.Tensor,
     hash segment): feat (B, H, W, C) float, inst (B, H, W) integer ids ->
     (B, H, W, C) fp32."""
     b, h, w, c = feat.shape
-    means, _, _ = instance_feature_table(feat, inst, num_instances)
-    seg = _segments(inst, num_instances).reshape(-1)
-    return means.reshape(-1, c).index_select(0, seg).reshape(b, h, w, c)
+    means, _, ids = instance_feature_table(feat, inst, num_instances)
+    seg = ids + torch.arange(b, device=ids.device)[:, None] * num_instances
+    return spatial.same_rows(means.reshape(-1, c).index_select(
+        0, seg.reshape(-1)).reshape(b, h, w, c), feat)
 
 
 def instance_collision_count(inst: torch.Tensor,

@@ -58,8 +58,9 @@ the same forward, served or trained: the ops of ``nn/ops.py`` exchange
 what they read across ranks (differentiably), the divisibility check
 reads the global H, and the served tail runs B2 on this rank's rows
 extended by three halo rows each side (reflected at the global edge),
-keeping the rows between; the training tail is the composed one, its
-reflect pad through the halo. The U-Net is not partitioned (its
+keeping the rows between, in every quant mode but ``int8``; the
+training tail and ``int8``'s are the composed one, its reflect pad
+through the halo. The U-Net is not partitioned (its
 innermost levels have fewer rows than ranks, ROADMAP A16b).
 
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
@@ -154,22 +155,23 @@ def _tail(conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     modes (``nn/quant.py``): ``int8_mixed`` leaves this 3-wide conv fp
     (B2 as in "none"); ``int8_w`` feeds B2 the dequantized weight, the
     same function as JAX's dequantized conv + bias + tanh; ``int8`` is an
-    int8 product, another function than B2's, so it runs composed."""
-    part = spatial.active()
-    if part is not None and not train:
-        # B2 on the rows and 3 halo rows each side; the kept rows read
-        # real rows only, so they are this rank's rows of the frame's tail
-        h = x.shape[1]
-        y = kernels.tail_fused(part.halo(x, 3, 3, "reflect"),
-                               conv.weight.permute(2, 3, 1, 0), conv.bias)
-        return y[:, 3:3 + h]
+    int8 product, another function than B2's, so it runs composed. On a
+    partitioned frame B2 runs on the rows and 3 halo rows each side, and
+    keeps the rows between: they read real rows only, so they are this
+    rank's rows of the frame's tail."""
     if not train:
         m = quant.mode_for(conv.in_channels, conv.out_channels)
         if m != "int8":
             w = conv.weight
             if m == "int8_w":
                 w = quant.dequantized(w.to(x.dtype), source=(w, "conv"))
-            return kernels.tail_fused(x, w.permute(2, 3, 1, 0), conv.bias)
+            w = w.permute(2, 3, 1, 0)
+            part = spatial.active()
+            if part is None:
+                return kernels.tail_fused(x, w, conv.bias)
+            h = x.shape[1]
+            return kernels.tail_fused(part.halo(x, 3, 3, "reflect"), w,
+                                      conv.bias)[:, 3:3 + h]
     y = ops.conv(ops.reflect_pad(x, 3), conv.weight, conv.bias)
     return spatial.same_rows(torch.tanh(y.float()).to(x.dtype), y)
 

@@ -47,7 +47,9 @@ in rank order, then
 second derivative (:class:`_SplitInstanceNormActBackward`, as the halo's
 transpose is). Batch norm takes the moments over every rank; a dropout
 mask is this rank's rows of the global draw. A 2×2 max pool needs even
-local rows, a transposed conv an even split; quant mode "none" only.
+local rows, a transposed conv an even split. A quantized conv runs its
+mode on the window (``int8_w`` the dequantized weight; ``int8`` the scale
+of the rows every rank owns, merged over the mesh, ``quant.act_scale``).
 """
 
 from __future__ import annotations
@@ -159,30 +161,29 @@ def conv(x: torch.Tensor, weight: torch.Tensor,
     """NHWC conv (cross-correlation) with an OIHW weight, computed in x's
     dtype (quantized as the serving mode says, ``nn/quant.py``)."""
     m = quant.mode_for(weight.shape[1], weight.shape[0])
-    part = spatial.active()
-    if part is not None:
-        _refuse_quant(m)
-        k = weight.shape[2]
-        rows, out = _conv_rows(part, x, k, stride, padding)
-        return part.tag(_on_rows(rows, k, lambda t: _nhwc(F.conv2d(
-            _nchw(t), weight.to(x.dtype),
-            None if bias is None else bias.to(x.dtype), stride=stride,
-            padding=(0, padding)))), out)
-    if m != "none":
-        y = quant.conv(x, weight.to(x.dtype), m, stride, padding,
-                       source=(weight, "conv"))
-        return y if bias is None else y + bias.to(y.dtype)
+    w = weight.to(x.dtype)
     b = None if bias is None else bias.to(x.dtype)
-    return _nhwc(F.conv2d(_nchw(x), weight.to(x.dtype), b, stride=stride,
-                          padding=padding))
-
-
-def _refuse_quant(m: str) -> None:
-    if m != "none":
-        raise NotImplementedError(
-            f"quant mode {m!r} on a spatially partitioned frame: its "
-            "per-tensor activation scale spans every rank's rows "
-            f"({spatial.A16B})")
+    part = spatial.active()
+    if part is None:
+        if m == "none":
+            return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride,
+                                  padding=padding))
+        y = quant.conv(x, w, m, stride, padding, source=(weight, "conv"))
+        return y if b is None else y + b
+    k = weight.shape[2]
+    # int8's scale spans the rows every rank owns, before any window
+    sx = quant.act_scale(part.own_rows(x)) if m == "int8" else None
+    rows, out = _conv_rows(part, x, k, stride, padding)
+    if m == "none":
+        def op(t):
+            return _nhwc(F.conv2d(_nchw(t), w, b, stride=stride,
+                                  padding=(0, padding)))
+    else:
+        def op(t):
+            y = quant.conv(t, w, m, stride, ((0, 0), (padding, padding)),
+                           source=(weight, "conv"), scale=sx)
+            return y if b is None else y + b
+    return part.tag(_on_rows(rows, k, op), out)
 
 
 def _conv_rows(part, x: torch.Tensor, k: int, stride: int, padding: int):
@@ -337,11 +338,13 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     _, h, w, _ = x.shape
     out_h = (h - 1) * 2 - 2 * padding + k + output_padding
     out_w = (w - 1) * 2 - 2 * padding + k + output_padding
+    sx = None
     if part is None:
         xp = F.pad(x, (0, 0, lo, hi, lo, hi))
     else:
-        # the rows from the halo; the trim is against the global size
-        _refuse_quant(m)
+        # the rows from the halo; the trim is against the global size;
+        # int8's scale spans the rows every rank owns
+        sx = quant.act_scale(part.own_rows(x)) if m == "int8" else None
         src = part.bounds(x)
         g = src[-1]
         if (g - 1) * 2 - 2 * padding + k + output_padding != 2 * g:
@@ -352,7 +355,7 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
         xp = F.pad(part.halo(x, lo, hi, "zero"), (0, 0, lo, hi))
         out_h = 2 * h
     y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
-        xp, wk, m, source=(weight, ("subpixel", padding))))
+        xp, wk, m, source=(weight, ("subpixel", padding)), scale=sx))
     y = d2s_fn(y, co)
     if out_h != 2 * h or out_w != 2 * w:
         y = y[:, :out_h, :out_w, :]

@@ -44,6 +44,16 @@ float64 (:func:`int_mm_reference`), which is exact: each term is at most
 127², and every partial sum of at most 3·3·1024 of them stays an integer
 below 2^53. The two agree bit for bit.
 
+On a mesh (``parallel/mesh.py``: ``mesh.active()``, entered by
+``parallel.spatial.serving`` for a served frame or tick) each rank holds
+a block of the tensor JAX's program quantizes whole, so the ``int8``
+activation scale (:func:`act_scale`) is the amax of the rows each rank
+owns, merged over every rank of the group (dp × sp): one exchange a
+quantized conv, each rank's amax in its own slot of a zero buffer, then
+the max, exact in fp32 and the same bits on every rank. A rank without
+rows adds 0. A partitioned frame's conv hands :func:`conv` that scale
+with the window of rows it reads (``nn/ops.py``).
+
 ``quant.dot`` of the JAX package serves only its space-to-depth
 matmuls (``nn/s2d_space.py``), which the port does not have; it is not
 ported.
@@ -59,6 +69,9 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
+
+from ir2rgb_tpu_torch.parallel import mesh as pmesh
+from ir2rgb_tpu_torch.parallel import spatial
 
 _VALID = ("none", "int8", "int8_w", "int8_mixed")
 
@@ -129,6 +142,30 @@ def _q8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def _act_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-tensor symmetric scale from the fp32 amax of all of ``x``."""
     return torch.clamp(x.float().abs().amax(), min=1e-12) / 127.0
+
+
+def act_scale(x: torch.Tensor) -> torch.Tensor:
+    """The ``int8`` activation scale of a conv whose input is ``x``:
+    :func:`_act_scale` in one process. On a mesh ``x`` is the rows this
+    rank owns of the tensor the whole program quantizes, and its fp32
+    amax (0 for no rows) is merged with every other rank's: over the
+    mesh's group (every rank, dp × sp) while a mesh is active, else over
+    the ranks of a partition (``spatial.active()``, its ``sp`` ranks).
+    Every rank must call it for every quantized conv, in the same order.
+    While a program is exported nothing is merged: a sealed program
+    serves one card."""
+    mesh, part = pmesh.active(), spatial.active()
+    if torch.compiler.is_exporting() or (mesh is None and part is None):
+        return _act_scale(x)
+    amax = (x.float().abs().amax() if x.numel()
+            else x.new_zeros((), dtype=torch.float32))
+    if mesh is not None:
+        slots = amax.new_zeros(mesh.world)
+        slots[mesh.rank] = amax
+        amax = pmesh.all_reduce_bytes(slots, mesh.group, mesh.device).max()
+    else:
+        amax = part.gather_stats(amax).max()
+    return torch.clamp(amax, min=1e-12) / 127.0
 
 
 def _w_q8_per_channel(w32: torch.Tensor):
@@ -260,13 +297,17 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor,
 
 def conv(x: torch.Tensor, w: torch.Tensor, m: str, stride: int = 1,
          padding: Padding = 0, lhs_dilation: int = 1,
-         source: Optional[Source] = None) -> torch.Tensor:
+         source: Optional[Source] = None,
+         scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC conv of ``x`` with OIHW ``w`` (in x's dtype) in mode ``m``
     (``"int8"`` or ``"int8_w"``, from :func:`mode_for`), no bias; the
     result in x's dtype. ``padding``: an int, or ((h_lo, h_hi), (w_lo,
     w_hi)); ``lhs_dilation``: zeros between input pixels, applied before
     the padding (the direct form of a transposed conv); ``source``: the
-    parameter ``w`` was derived from, and how (:func:`_weight_entry`)."""
+    parameter ``w`` was derived from, and how (:func:`_weight_entry`);
+    ``scale``: ``int8``'s activation scale, by default :func:`act_scale`
+    of ``x`` (a partitioned frame's conv gives the scale of the rows its
+    rank owns, ``x`` being the window it reads)."""
     pads = _pads(padding)
     if m == "int8_w":
         xp = F.pad(_dilate(x, lhs_dilation), (0, 0) + pads)
@@ -276,7 +317,7 @@ def conv(x: torch.Tensor, w: torch.Tensor, m: str, stride: int = 1,
     if m != "int8":
         raise ValueError(f"quant.conv computes int8 or int8_w, not {m!r}")
     qw, sw = weight_q8(w, source)
-    sx = _act_scale(x)
+    sx = act_scale(x) if scale is None else scale
     xq = F.pad(_dilate(_q8(x.float(), sx), lhs_dilation), (0, 0) + pads)
     y = int8_conv(xq, qw, stride)
     return (y.float() * (sx * sw)).to(x.dtype)

@@ -45,7 +45,17 @@ themselves while a frame or a train step runs under :func:`serving`
   a second derivative needs it (:meth:`Shards.sum_over_ranks`);
 - :func:`local_block` / :func:`gather_block`: a whole frame's block of
   this rank (batch rows over ``dp``, image rows over ``sp``) and the
-  whole frame back from every rank's block.
+  whole frame back from every rank's block; :meth:`Shards.rows_of`: this
+  rank's rows of a whole-frame map (instance ids and their edges stay
+  whole on every rank, as JAX leaves rank-3 leaves unsplit).
+
+What runs partitioned, served and trained: the ResNet generators and
+the local enhancers in every quant mode (``int8``'s activation scale an
+amax merged over every rank, ``nn/quant.py::act_scale``), netE with its
+instance pooling (the ranks' segment sums added), the instance-edge
+input, temporal windows, remat, WGAN-GP and CycleGAN. The U-Net, the
+dilated transposed conv and non-integer bilinear resizes raise
+``NotImplementedError`` naming :data:`A16B`.
 
 It imports torch only.
 """
@@ -318,6 +328,23 @@ class Shards:
 
     def extension(self, x: torch.Tensor) -> Optional[Tuple[int, int]]:
         return self._extended.get(x)
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of ``x`` this rank owns: all of them, but for the
+        rows a pad extended (:meth:`mark`), which other ranks own or
+        mirror."""
+        ext = self.extension(x)
+        return x if ext is None else x[:, ext[0]:x.shape[1] - ext[1]]
+
+    def rows_of(self, whole: torch.Tensor, like: torch.Tensor
+                ) -> torch.Tensor:
+        """This rank's rows of ``whole``, a map of the whole frame on every
+        rank (an instance map, its edges), partitioned as ``like``."""
+        b = self.bounds(like)
+        if whole.shape[1] != b[-1]:
+            raise ValueError(f"a whole-frame map of {whole.shape[1]} rows "
+                             f"against a frame of {b[-1]}")
+        return whole[:, b[self.rank]:b[self.rank + 1]]
 
     # -- the halo ------------------------------------------------------
 

@@ -89,9 +89,12 @@ trained or JAX-converted weights with ``load_state_dict``.
   split B1 (each twice differentiable) and each sample's norm summed
   over the ranks (``losses.gradient_penalty``); a CycleGAN
   (``train/cycle.py``) runs its four networks and two pools the same
-  way. Out of this slice, each raising before the first collective
-  (``spatial_train_refusal``, ROADMAP A16b): netE and instance edges,
-  the U-Net.
+  way. netE runs on the rank's rows of the real target, its pooling
+  adding the ranks' segment sums, and the edge channel is the rank's
+  rows of the whole map's edges (id maps stay whole on every rank);
+  ``inst_collisions`` counts each data row's maps once. Out of this
+  slice, raising before the first collective (``spatial_train_refusal``,
+  ROADMAP A16b): the U-Net.
 
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
   reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
@@ -463,6 +466,8 @@ class GanModel:
             a, b = batch["a"].to(self.device), batch["b"].to(self.device)
             inst = batch.get("inst")
             inst = None if inst is None else inst.to(self.device)
+            # a partitioned step's id maps are whole on every rank
+            part = spatial.active()
             edges = feat = None
             if m.use_instance_edges:
                 if inst is None:
@@ -470,6 +475,8 @@ class GanModel:
                         "use_instance_edges is on but the batch has no "
                         "'inst' maps (<phase>Inst/ folder missing?)")
                 edges = instance_edges(inst)
+                if part is not None:
+                    edges = part.rows_of(edges, a)
             if self.netE is not None:
                 feat = self.netE(b, inst)
             fake = self._fake(a, edges=edges, freeze_trunk=freeze_trunk,
@@ -480,9 +487,13 @@ class GanModel:
                 a_d = torch.cat([a_d, edges.to(a_d.dtype)], dim=-1)
             metrics = self._frame_losses(a_d, b, self._for_d(fake), fake)
             if self.netE is not None and inst is not None:
-                # a diagnostic count, not a loss term
-                metrics["inst_collisions"] = instance_collision_count(
+                # a diagnostic count, not a loss term, summed over the
+                # data rows: one rank of a data row counts its whole maps
+                count = instance_collision_count(
                     inst, self.enc_cfg.num_instances).to(torch.float32)
+                metrics["inst_collisions"] = (
+                    count if part is None or part.rank == 0
+                    else torch.zeros_like(count))
         return metrics["_loss_g"], metrics["_loss_d"], metrics
 
     def _params(self) -> Iterable[nn.Parameter]:
@@ -688,16 +699,14 @@ def _load_pool(pool, saved, device: torch.device):
 
 def spatial_train_refusal(cfg: Config) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP A16b) for what a
-    spatially partitioned train step does not cover; nothing else."""
-    m, loss = cfg.model, cfg.loss
-    out = [what for what, on in (
-        ("netE features", m.use_instance_feat),
-        ("the instance-edge input", m.use_instance_edges),
-        (f"net_g={m.net_g} (the U-Net)", m.net_g.startswith("unet"))) if on]
-    if out:
+    spatially partitioned train step does not cover, the U-Net; nothing
+    else."""
+    m = cfg.model
+    if m.net_g.startswith("unet"):
         raise NotImplementedError(
             "spatially partitioned training (train.spatial_devices > 1) "
-            f"with {', '.join(out)} is not ported ({spatial.A16B})")
+            f"with net_g={m.net_g} (the U-Net) is not ported "
+            f"({spatial.A16B})")
 
 
 def _check_supported(cfg: Config) -> None:

@@ -8,6 +8,13 @@ ones.
   equals the unsharded op to 1e-6; B1's plain statistics merged over the
   shards, then its plain apply, equal ``instance_norm_act_reference``;
   B2's plain version over a halo equals ``tail_fused_reference``.
+- In process, the ranks on threads (their collectives at a barrier): every quantized op (the convs, the
+  subpixel deconv, the served tail) in int8, int8_w and int8_mixed on sp
+  2, 4 and 8 over rows of different ranges equals the unsharded op to
+  1e-6 (int8's activation scale merged over the ranks); netE's instance
+  pooling and its gradient over shards equal ``instance_wise_avg_pool``;
+  a quantized conv, and a local enhancer with netE's feature map or the
+  edge channel, on two ranks equal the whole frame.
 - Layout: ``dp_sp_mesh(2, 4)`` on 8 ranks of a fake process group is
   JAX's ``dp_sp_mesh(2, 4)`` (rank order and subgroups), and
   ``shard_batch``'s blocks are JAX's shards on conftest's 8 devices.
@@ -19,9 +26,16 @@ ones.
   JAX's sharded ones (1e-4), the carry's rows per rank; a
   ``MultiStreamServer`` of 4 temporal slots on dp 2 × sp 2 against the
   one-process server; a batch-norm generator's batch of 2 on dp 2 × sp 2
-  (the moments over every rank's rows) against one process.
+  (the moments over every rank's rows) against one process; the local
+  enhancer in each quant mode on sp 4 against one process (1e-5; no
+  int8 rounding tie flips at this seed, so nothing is pinned) and JAX's
+  sharded frame of the mode (1e-4); an int8 batch of two frames of
+  different ranges on dp 2 (a pair of ranks) and on dp 2 × sp 2 against
+  one process's batch-2 frame and JAX's dp-sharded frame (the one
+  activation scale spans the batch); a netE feature map and edges pushed
+  whole on sp 4 against one process.
 - Errors: pooled serving with a mesh (JAX's ``test_multistream.py:232``),
-  and each piece out of this slice names ROADMAP A16b.
+  the U-Net names ROADMAP A16b, a sealed artifact refuses a mesh.
 """
 
 import importlib.util
@@ -56,6 +70,11 @@ from ir2rgb_tpu_torch.kernels.tail_fused import (  # noqa: E402
     tail_fused_reference,
 )
 from ir2rgb_tpu_torch.nn import ops, quant  # noqa: E402
+from ir2rgb_tpu_torch.nn.encoders import (  # noqa: E402
+    instance_edges,
+    instance_wise_avg_pool,
+)
+from ir2rgb_tpu_torch.nn.generators import _tail  # noqa: E402
 from ir2rgb_tpu_torch.parallel import (  # noqa: E402
     dp_sp_mesh,
     multihost,
@@ -77,6 +96,13 @@ TICKS = [(0, 1, 2, 3), (0, 2), (0, 1, 2, 3)]
 # batch norm's moments over dp x sp: a batch of 2 on dp 2 x sp 2
 BATCH_NORM = dict(model="pix2pix", net_g="resnet_6blocks", ngf=8,
                   norm="batch")
+QUANT_MODES = ("int8", "int8_w", "int8_mixed")
+# the int8 batch on dp 2 (two ranks of their own group) and dp 2 x sp 2:
+# two frames of different ranges, whose one activation scale spans both
+RESNET = dict(model="pix2pix", net_g="resnet_6blocks", ngf=8)
+RANGES = (1.0, 0.1)
+# the local enhancer with netE's feature input and the edge channel
+STYLED = dict(LOCAL, use_instance_feat=True, use_instance_edges=True)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +220,126 @@ def test_a_stride_2_op_on_odd_shards_names_the_layer_and_sp():
     with spatial.partitioned(CutShards(4, 1, x)), torch.no_grad(), \
             pytest.raises(ValueError, match=r"resnet_6blocks.*sp = 4"):
         g(x[:, 3:6])
+
+
+# ---------------------------------------------------------------------------
+# In process, the ranks on threads: what a rank merges with the others
+# (the quantized convs' activation scale, B1's statistics, netE's segment
+# sums) meets the other threads at a barrier
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def threads(monkeypatch):
+    """``threads(sp, fn)``: ``fn(rank)`` on ``sp`` thread ranks whose
+    collectives meet at a barrier (``test_torch_port_spatial_train``'s
+    ``on_ranks``), each with its own ``spatial.active()``; the results in
+    rank order."""
+    import test_torch_port_spatial_train as tr
+    monkeypatch.setattr(spatial, "active",
+                        lambda: getattr(tr._LOCAL, "shards", None))
+    return lambda sp, fn: tr.on_ranks(sp, lambda r, part: fn(r))
+
+
+TAIL = torch.nn.Conv2d(4, 3, 7)
+with torch.no_grad():
+    TAIL.weight.copy_(_seeded((3, 4, 7, 7), 16) * 0.1)
+    TAIL.bias.copy_(_seeded((3,), 17))
+# the quantized ops: (fn, stride); the served tail (B2, or int8 composed)
+QUANT_OPS = {k: OPS[k][:2] for k in ("conv_k3_s1_p1", "conv_k3_s2_p1",
+                                     "reflect_pad_3_conv_k7",
+                                     "deconv_k3_p1_op1")}
+QUANT_OPS["tail"] = (lambda x: _tail(TAIL, x, train=False), 1)
+
+
+@pytest.mark.parametrize("sp", [2, 4, 8])
+@pytest.mark.parametrize("mode", QUANT_MODES)
+@pytest.mark.parametrize("op", sorted(QUANT_OPS))
+def test_quantized_op_on_shards_equals_the_unsharded_op(op, mode, sp,
+                                                        threads,
+                                                        monkeypatch):
+    # int8_mixed's gate at 4 channels: these 4 -> 6 convs quantize, the
+    # 3-wide tail does not; the rows' ranges differ, so a rank's own
+    # amax is not the frame's
+    monkeypatch.setattr(quant, "MIXED_MIN_CH", 4)
+    fn, stride = QUANT_OPS[op]
+    x = _seeded((2, 8 * stride, 10, 4), 5)
+    x = x * torch.linspace(0.1, 1.0, x.shape[1])[None, :, None, None]
+    h = x.shape[1] // sp
+
+    def run(t):
+        # the mode is a context variable: each thread enters its own
+        with torch.inference_mode(), quant.using(mode):
+            return fn(t)
+    want = run(x)
+    got = torch.cat(threads(sp, lambda r: run(x[:, r * h:(r + 1) * h])),
+                    dim=1)
+    assert got.shape == want.shape, op
+    assert float((got - want).abs().max()) <= 1e-6, (op, mode)
+
+
+def _ids(seed, shape, n=6):
+    """Instance ids: ``n`` random ids below 2^24, each pixel one of
+    them."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, 1 << 24, n)
+    return torch.from_numpy(ids[r.integers(0, n, shape)].astype(np.int32))
+
+
+@pytest.mark.parametrize("sp", [2, 4, 8])
+def test_netE_pooling_over_shards_equals_instance_wise_avg_pool(sp,
+                                                               threads):
+    # each rank's rows of the features and the whole id map; the
+    # gradient goes back through the ranks' sum (8 segments: ids share
+    # one, as colliding hashed ids do)
+    feat, inst = _seeded((2, 8, 6, 3), 18), _ids(19, (2, 8, 6))
+    cot = _seeded((2, 8, 6, 3), 20)
+    whole = feat.clone().requires_grad_(True)
+    want = instance_wise_avg_pool(whole, inst, 8)
+    (want_g,) = torch.autograd.grad((want * cot).sum(), whole)
+    h = 8 // sp
+
+    def rank(r):
+        f = feat[:, r * h:(r + 1) * h].clone().requires_grad_(True)
+        y = instance_wise_avg_pool(f, inst, 8)
+        (g,) = torch.autograd.grad((y * cot[:, r * h:(r + 1) * h]).sum(), f)
+        return y.detach(), g
+    outs = threads(sp, rank)
+    got = torch.cat([o[0] for o in outs], dim=1)
+    grad = torch.cat([o[1] for o in outs], dim=1)
+    assert float((got - want.detach()).abs().max()) <= 1e-6
+    assert float((grad - want_g).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("what", ["quant", "netE_features", "edges"])
+def test_quant_netE_features_and_edges_serve_on_a_partition(what, threads):
+    # what the parent refused on a partitioned frame (ROADMAP A16b items
+    # 1 and 2, serving), on two thread ranks against the whole frame
+    x = _seeded((1, CROP, CROP, 3), 21)
+    h = CROP // 2
+    if what == "quant":
+        w = _seeded((8, 3, 3, 3), 22)
+
+        def conv(t):
+            with torch.no_grad(), quant.using("int8"):
+                return ops.conv(t, w, padding=1)
+        want = conv(x)
+        outs = threads(2, lambda r: conv(x[:, r * h:(r + 1) * h]))
+    else:
+        model = _model(STYLED)
+        inst = _ids(23, (1, CROP, CROP))
+        extra = ({"feat": _seeded((1, CROP, CROP, 3), 24)}
+                 if what == "netE_features"
+                 else {"edges": instance_edges(inst)})
+        want = model.generate(x, **extra)
+
+        def rank(r):
+            rows = slice(r * h, (r + 1) * h)
+            return model.generate(x[:, rows], **{
+                k: v[:, rows] for k, v in extra.items()})
+        outs = threads(2, rank)
+    got = torch.cat(outs, dim=1)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5, what
 
 
 # ---------------------------------------------------------------------------
@@ -364,38 +510,34 @@ def test_pooled_serving_with_a_mesh_raises():
                           mesh=object())
 
 
-@pytest.mark.parametrize("what", ["train_step", "quant", "netE_features",
-                                  "edges", "artifact",
+@pytest.mark.parametrize("what", ["train_step", "artifact",
                                   "multistream_artifact", "unet"])
 def test_out_of_slice_pieces_name_a16b(what, tmp_path):
+    # the U-Net is what is left of ROADMAP A16b; a sealed artifact serves
+    # one card, as the JAX package's loaders take no mesh (no A16b item)
     from ir2rgb_tpu_torch.infer.export import load_serving_artifact
     from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g
     from ir2rgb_tpu_torch.train.trainer import Trainer
     x = _seeded((1, 8, 8, 8), 12)
+    if what in ("artifact", "multistream_artifact"):
+        with pytest.raises(ValueError, match="serves one card"):
+            if what == "artifact":
+                load_serving_artifact(str(tmp_path / "m.ir2rgb"),
+                                      mesh=FAKE_SP2)
+            else:
+                MultiStreamServer.from_artifact(str(tmp_path / "m.ir2rgb"),
+                                                mesh=FAKE_SP2)
+        return
     with pytest.raises(NotImplementedError, match="A16b"):
         if what == "train_step":
-            # temporal windows, WGAN-GP and CycleGAN train partitioned;
-            # the instance-edge input does not
-            cfg = Config(model=ModelConfig(**LOCAL, use_instance_edges=True),
+            # temporal windows, WGAN-GP, CycleGAN, netE and the edge input
+            # train partitioned; the U-Net does not
+            cfg = Config(model=ModelConfig(model="pix2pix", net_g="unet_128",
+                                           ngf=8),
                          loss=LossConfig(no_vgg_loss=True),
                          train=TrainConfig(spatial_devices=2,
                                            checkpoints_dir=str(tmp_path)))
             Trainer(create_model(cfg, device="cpu"), cfg)
-        elif what == "quant":
-            with torch.no_grad(), quant.using("int8"), \
-                    spatial.partitioned(CutShards(2, 0, x)):
-                ops.conv(x[:, :4], torch.zeros((8, 8, 3, 3)), padding=1)
-        elif what in ("netE_features", "edges"):
-            s = StreamingGenerator(_model(LOCAL), (CROP, CROP), mesh=FAKE_SP2)
-            extra = torch.zeros((1, CROP, CROP, 1))
-            s.push_device(torch.zeros((1, CROP, CROP, 3)),
-                          **{"feat" if what == "netE_features" else "edges":
-                             extra})
-        elif what == "artifact":
-            load_serving_artifact(str(tmp_path / "m.ir2rgb"), mesh=FAKE_SP2)
-        elif what == "multistream_artifact":
-            MultiStreamServer.from_artifact(str(tmp_path / "m.ir2rgb"),
-                                            mesh=FAKE_SP2)
         else:
             with torch.no_grad(), spatial.partitioned(CutShards(2, 0, x)):
                 define_g(GenConfig(net_g="unet_128", ngf=4, input_nc=8))(
@@ -421,6 +563,18 @@ def _u8_frames():
     r = np.random.default_rng(14)
     return [r.integers(0, 256, (CROP, CROP, 3), dtype=np.uint8)
             for _ in range(2)]
+
+
+def _ranged():
+    """Two frames, the second of a tenth of the first's range."""
+    x = torch.from_numpy(_frames(2, 4)[:, 0])
+    return x * torch.tensor(RANGES)[:, None, None, None]
+
+
+def _styled_maps():
+    """A netE feature map and the edges of an instance map, whole."""
+    inst = _ids(25, (1, CROP, CROP))
+    return _seeded((1, CROP, CROP, 3), 26), instance_edges(inst)
 
 
 def _step_device(srv):
@@ -477,6 +631,26 @@ def worker(port, rank, out):
     res["batch_norm"] = StreamingGenerator(
         _model(BATCH_NORM), (CROP, CROP), batch=2, mesh=m22).push_device(
             torch.from_numpy(_frames(2, 3)[:, 0]))
+    # the quant modes on sp 4; netE's features and the edge channel
+    for mode in QUANT_MODES:
+        q = _model(LOCAL, quant=mode)
+        q.netG.load_state_dict(weights["local"])
+        res["local_" + mode] = StreamingGenerator(
+            q, (CROP, CROP), mesh=m14).push_device(x)
+    feat, edges = _styled_maps()
+    res["styled"] = StreamingGenerator(
+        _model(STYLED), (CROP, CROP), mesh=m14).push_device(
+            x, feat=feat, edges=edges)
+    # an int8 batch on dp 2 (ranks 0 and 1, and 2 and 3, each a pair of
+    # their own) and on dp 2 x sp 2
+    pairs = [torch.distributed.new_group(g) for g in ([0, 1], [2, 3])]
+    pair = DataParallelMesh(2, rank % 2, 0, torch.device("cpu"),
+                            pairs[rank // 2])
+    resnet = _model(RESNET, quant="int8")
+    resnet.netG.load_state_dict(weights["resnet"])
+    for name, mesh in (("int8_dp2", pair), ("int8_dp2_sp2", m22)):
+        res[name] = StreamingGenerator(resnet, (CROP, CROP), batch=2,
+                                       mesh=mesh).push_device(_ranged())
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     m14.barrier()
     torch.distributed.destroy_process_group()
@@ -516,13 +690,19 @@ def ranks(tmp_path_factory):
     from ir2rgb_tpu.train import create_model as jax_create_model
     from ir2rgb_tpu_torch.checkpoint import generator_state_dict_from_jax
 
+    from ir2rgb_tpu.config import InferConfig as JInferConfig
     out = tmp_path_factory.mktemp("spatial")
     jm, params, sds = {}, {}, {}
-    for i, (name, arch) in enumerate((("local", LOCAL),
-                                      ("temporal", TEMPORAL))):
-        jm[name] = jax_create_model(JConfig(
+
+    def jax_model(arch, quant="none"):
+        return jax_create_model(JConfig(
             model=JModelConfig(**arch), data=JDataConfig(crop_size=CROP),
-            loss=JLossConfig(no_vgg_loss=True)), steps_per_epoch=10)
+            loss=JLossConfig(no_vgg_loss=True),
+            infer=JInferConfig(quant=quant)), steps_per_epoch=10)
+    for i, (name, arch) in enumerate((("local", LOCAL),
+                                      ("temporal", TEMPORAL),
+                                      ("resnet", RESNET))):
+        jm[name] = jax_model(arch)
         params[name] = _jax_weights(jm[name], i)
         sds[name] = generator_state_dict_from_jax(
             params[name], _model(arch).gen_cfg)
@@ -544,6 +724,19 @@ def ranks(tmp_path_factory):
             in_shardings=(rep, xsh), out_shardings=xsh)(
                 jax.device_put(params["local"], rep),
                 jax.device_put(jnp.asarray(x), xsh)))
+        def sharded(models, p, a, mesh):
+            """Each of ``models``' generate (one jit) on ``mesh``."""
+            rep, sh = replicate(mesh), batch_sharding(mesh)
+            ys = jax.jit(lambda p, a: {k: m.generate(p, a, train=False)
+                                       for k, m in models.items()},
+                         in_shardings=(rep, sh), out_shardings=sh)(
+                jax.device_put(p, rep), jax.device_put(jnp.asarray(a), sh))
+            return {k: np.asarray(y) for k, y in ys.items()}
+        jax_quant = sharded({m: jax_model(LOCAL, m) for m in QUANT_MODES},
+                            params["local"], x, mesh)
+        jax_int8_dp = sharded({"int8": jax_model(RESNET, "int8")},
+                              params["resnet"], _ranged().numpy(),
+                              jax_dp_sp_mesh(2, 1))["int8"]
         js = JStream(jm["temporal"], params["temporal"], (CROP, CROP),
                      mesh=mesh)
         jax_temporal = [np.asarray(js.push_device(jnp.array(f)))
@@ -564,6 +757,19 @@ def ranks(tmp_path_factory):
                 temporal, (CROP, CROP), n_slots=SLOTS))
             one_batch_norm = _model(BATCH_NORM).generate(
                 torch.from_numpy(_frames(2, 3)[:, 0]))
+            one_quant = {}
+            for m in QUANT_MODES:
+                q = _model(LOCAL, quant=m)
+                q.netG.load_state_dict(sds["local"])
+                one_quant[m] = q.generate(torch.from_numpy(x))
+            feat, edges = _styled_maps()
+            one_styled = _model(STYLED).generate(torch.from_numpy(x),
+                                                 feat=feat, edges=edges)
+            resnet = _model(RESNET, quant="int8")
+            resnet.netG.load_state_dict(sds["resnet"])
+            one_int8 = resnet.generate(_ranged())
+            int8_batch1 = torch.cat([resnet.generate(f[None])
+                                     for f in _ranged()])
     finally:
         try:
             outs = [p.communicate(timeout=TIMEOUT_S) for p in procs]
@@ -581,7 +787,10 @@ def ranks(tmp_path_factory):
                 one_local=one_local, one_temporal=one_temporal,
                 one_server=one_server, one_batch_norm=one_batch_norm,
                 one_local_u8=one_local_u8,
-                one_server_device=one_server_device)
+                one_server_device=one_server_device,
+                jax_quant=jax_quant, one_quant=one_quant,
+                one_styled=one_styled, jax_int8_dp=jax_int8_dp,
+                one_int8=one_int8, int8_batch1=int8_batch1)
 
 
 def _gap(a, b):
@@ -639,6 +848,39 @@ def test_batch_norm_on_dp2_sp2_takes_the_whole_batchs_moments(ranks):
     for r in ranks["ranks"]:
         assert r["batch_norm"].shape == (2, CROP, CROP, 3)
         assert _gap(r["batch_norm"], ranks["one_batch_norm"]) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", QUANT_MODES)
+def test_quantized_local_enhancer_on_sp4_equals_one_process_and_jax(
+        ranks, mode):
+    # int8's activation scale merged over the ranks, int8_w's dequantized
+    # weights, int8_mixed's width gate as in one process; no int8
+    # rounding tie flips at this seed, so nothing is pinned
+    for r in ranks["ranks"]:
+        got = r["local_" + mode]
+        assert got.shape == (1, CROP, CROP, 3)
+        assert _gap(got, ranks["one_quant"][mode]) <= 1e-5
+        assert _gap(got, ranks["jax_quant"][mode]) <= 1e-4
+
+
+@pytest.mark.parametrize("layout", ["int8_dp2", "int8_dp2_sp2"])
+def test_int8_batch_on_a_dp_mesh_scales_over_the_whole_batch(ranks, layout):
+    # JAX's scale is one amax over the global batch: a rank's own frames'
+    # would serve each frame as its batch-1 frame, another function
+    want = ranks["one_int8"]
+    assert _gap(ranks["int8_batch1"], want) > 1e-2
+    for r in ranks["ranks"]:
+        got = r[layout]
+        assert got.shape == (2, CROP, CROP, 3)
+        assert _gap(got, want) <= 1e-5
+        assert _gap(got, ranks["jax_int8_dp"]) <= 1e-4
+
+
+def test_netE_features_and_edges_on_sp4_equal_one_process(ranks):
+    # the whole feature and edge maps pushed on every rank, cut to its rows
+    for r in ranks["ranks"]:
+        assert r["styled"].shape == (1, CROP, CROP, 3)
+        assert _gap(r["styled"], ranks["one_styled"]) <= 1e-5
 
 
 if __name__ == "__main__":

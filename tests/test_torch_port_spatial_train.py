@@ -40,8 +40,13 @@ one-device step.
   equal); a 2-step temporal ``Trainer`` run on sp 2 from a folder of
   videos. In process: the carry keeps the fakes' uneven partition, and a
   remat block's input is tagged again for its recompute.
-- Errors: each piece out of the slice raises before any collective,
-  naming ROADMAP A16b; WGAN-GP and CycleGAN pass to the mesh.
+- netE and the edge input on the 4 ranks, dp 2 × sp 2 (the port's
+  netE test's pix2pixHD config, ids hashed into 4 segments so that they
+  collide): the step held to JAX's one-device jitted step (losses rtol
+  2e-3, ``inst_collisions`` equal) and to one process's step pinned to
+  the partitioned forward (the step's bars above, netE's gradient too).
+- Errors: the U-Net raises before any collective, naming ROADMAP A16b;
+  WGAN-GP, CycleGAN, netE and the edge input pass to the mesh.
 """
 
 import contextlib
@@ -491,15 +496,16 @@ def test_remat_block_on_uneven_shards_equals_the_whole_block(sp):
 # ---------------------------------------------------------------------------
 
 OUT_OF_SLICE = {
-    "netE": ({"use_instance_feat": True}, {}),
-    "edges": ({"use_instance_edges": True}, {}),
     "unet": ({"net_g": "unet_256"}, {}),
 }
 # what the partitioned step has covered since: WGAN-GP and CycleGAN
-# (tests/test_torch_port_spatial_gp.py)
+# (tests/test_torch_port_spatial_gp.py), netE and the edge input (the
+# ranks' netE step below)
 IN_SLICE = {
     "wgangp": ({}, {"gan_mode": "wgangp"}),
     "cycle_gan": ({"model": "cycle_gan"}, {}),
+    "netE": ({"use_instance_feat": True}, {}),
+    "edges": ({"use_instance_edges": True}, {}),
 }
 
 
@@ -747,6 +753,65 @@ def window_runs(case, mesh, remat=False):
     return out
 
 
+# netE and the edge channel on dp 2 x sp 2: the pix2pixHD config of the
+# port's netE test against JAX (tests/test_torch_port_encoder.py) with
+# the edges, no pool; 6 instance ids an image hashed into 4 segments, so
+# that ids collide and inst_collisions counts
+N_LAYOUT = (2, 2)
+N_MODEL = dict(model="pix2pixhd", net_g="local", net_d="multiscale",
+               num_d=2, ngf=4, ndf=8, n_downsample_global=2,
+               n_blocks_global=1, n_blocks_local=1, use_instance_feat=True,
+               use_instance_edges=True, feat_num=3, nef=4, n_downsample_e=2,
+               num_instances=4)
+N_BATCH = 2
+
+
+def _ncfg():
+    return Config(model=ModelConfig(**N_MODEL),
+                  data=DataConfig(crop_size=CROP, batch_size=N_BATCH),
+                  loss=LossConfig(no_vgg_loss=True, pool_size=0,
+                                  lambda_l1=10.0))
+
+
+def _nbatch():
+    """Frames and instance maps: each pixel the id of its nearest of 6
+    random sites, the ids random below 2^24."""
+    r = np.random.default_rng(5)
+    out = {k: torch.from_numpy(r.uniform(-1, 1, (N_BATCH, CROP, CROP, 3))
+                               .astype(np.float32)) for k in ("a", "b")}
+    yy, xx = np.mgrid[:CROP, :CROP]
+    inst = np.empty((N_BATCH, CROP, CROP), np.int32)
+    for i in range(N_BATCH):
+        sites, ids = r.integers(0, CROP, (6, 2)), r.integers(0, 1 << 24, 6)
+        d = ((yy[None] - sites[:, 0, None, None]) ** 2
+             + (xx[None] - sites[:, 1, None, None]) ** 2)
+        inst[i] = ids[d.argmin(0)]
+    out["inst"] = torch.from_numpy(inst)
+    return out
+
+
+def nete_case(weights, mesh=None, pins=None):
+    """One train step of the netE config from JAX's weights on this rank's
+    block (the whole batch without ``mesh``; the id maps whole on every
+    rank of a data row), its forward point recorded (``mesh``) or
+    replayed (``pins``, as ``window_case``'s)."""
+    model = create_model(_ncfg(), device="cpu", steps_per_epoch=10,
+                         seed=0 if mesh is None else 5 * mesh.rank)
+    for name in ("netG", "netE", "netD"):
+        getattr(model, name).load_state_dict(weights[name])
+    batch = _nbatch()
+    if mesh is not None:
+        replicate(model, mesh)
+        batch = shard_batch(batch, mesh)
+    with torch.backends.mkldnn.flags(enabled=True), (
+            contextlib.nullcontext() if pins is None else
+            pins.recording() if mesh is not None else pins.replaying()):
+        metrics = model.train_step(batch)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _grads(model), "weights": _weights(model),
+            "inst": tuple(batch["inst"].shape)}
+
+
 def fit_temporal_case(out):
     """A 2-step temporal Trainer run from a synthetic folder of videos on
     this rank's block: the loader's windows of the data row, each frame
@@ -811,6 +876,11 @@ def worker(port, rank, out):
         mesh = dp_sp_mesh(dp, sp, device="cpu")
         res[("temporal", dp, sp)] = window_runs(
             cases[g], mesh, remat=(dp, sp, g) == T_REMAT)
+    pins = _chip_smoke().ShardPins()
+    mesh = dp_sp_mesh(*N_LAYOUT, device="cpu")
+    res["nete"] = nete_case(torch.load(os.path.join(out, "nete.pt")), mesh,
+                            pins)
+    res["nete"]["pins"] = (pins.saved, pins.stats)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     mesh.barrier()
     torch.distributed.destroy_process_group()
@@ -930,6 +1000,42 @@ def _jax_temporal(g):
                        "draws": {"masks": masks, "pool": pool}}
 
 
+def _jax_nete():
+    """JAX's netE model of ``_ncfg``, an initial state built as
+    ``_jax_state``'s, and its weights as the port's."""
+    import jax
+    import jax.numpy as jnp
+    from ir2rgb_tpu.config import Config as JConfig
+    from ir2rgb_tpu.config import DataConfig as JDataConfig
+    from ir2rgb_tpu.config import LossConfig as JLossConfig
+    from ir2rgb_tpu.config import ModelConfig as JModelConfig
+    from ir2rgb_tpu.train import create_model as jax_create_model
+    from ir2rgb_tpu.train.image_pool import init_pool
+    from ir2rgb_tpu.train.model import TrainState
+    from ir2rgb_tpu_torch.checkpoint import (
+        discriminator_state_dict_from_jax,
+        encoder_state_dict_from_jax,
+        generator_state_dict_from_jax,
+    )
+    jm = jax_create_model(JConfig(
+        model=JModelConfig(**N_MODEL),
+        data=JDataConfig(crop_size=CROP, batch_size=N_BATCH),
+        loss=JLossConfig(no_vgg_loss=True, pool_size=0, lambda_l1=10.0)),
+        steps_per_epoch=10)
+    g, d = _drawn(jm.g_init, 0), _drawn(jm.d_init, 1)
+    state = TrainState(g_params=g, d_params=d, g_opt=jm.g_tx.init(g),
+                       d_opt=jm.d_tx.init(d), step=jnp.zeros((), jnp.int32),
+                       rng=jax.random.PRNGKey(2),
+                       pool=init_pool(0, (CROP, CROP, 3)))
+    pm = create_model(_ncfg(), device="cpu")
+    g = jax.tree.map(np.asarray, g)
+    return jm, state, {
+        "netG": generator_state_dict_from_jax(g, pm.gen_cfg),
+        "netE": encoder_state_dict_from_jax(g["netE"], pm.enc_cfg),
+        "netD": discriminator_state_dict_from_jax(
+            jax.tree.map(np.asarray, d), pm.disc_cfg)}
+
+
 def _jax_state():
     """JAX's ``tests/test_parallel.py:127`` model and an initial state
     built as ``init_state`` builds it, with the reference's
@@ -979,6 +1085,8 @@ def ranks(tmp_path_factory):
     torch.save(weights, out / "weights.pt")
     temporal = {g: _jax_temporal(g) for g in (2, 3)}
     torch.save({g: t[2] for g, t in temporal.items()}, out / "temporal.pt")
+    njm, nstate, nweights = _jax_nete()
+    torch.save(nweights, out / "nete.pt")
     write_synthetic_dataset(str(out / "data"), n=4, size=40)
     write_synthetic_dataset(str(out / "videos"), size=40, n_videos=2,
                             frames_per_video=4)
@@ -993,6 +1101,9 @@ def ranks(tmp_path_factory):
             _, m = jax.jit(tjm.train_step)(tstate, {
                 k: v.numpy() for k, v in _windows().items()})
             jax_windows[g] = {k: float(v) for k, v in m.items()}
+        _, m = jax.jit(njm.train_step)(nstate, {
+            k: v.numpy() for k, v in _nbatch().items()})
+        jax_nete = {k: float(v) for k, v in m.items()}
     finally:
         _wait(procs)
     res = dict(ranks=[torch.load(out / f"rank{r}.pt") for r in range(4)],
@@ -1009,6 +1120,11 @@ def ranks(tmp_path_factory):
             "jax": jax_windows[g],
             "one": window_case(temporal[g][2], pins=pins),
             "replayed": pins.all_replayed()}
+    # one process's netE step at the partitioned forward point
+    pins = _pins_of([r["nete"].pop("pins") for r in res["ranks"]],
+                    *N_LAYOUT)
+    res["nete"] = {"jax": jax_nete, "one": nete_case(nweights, pins=pins),
+                   "replayed": pins.all_replayed()}
     return res
 
 
@@ -1146,6 +1262,38 @@ def test_temporal_trainer_fit_on_sp2(ranks):
     assert f0["pool"] == f1["pool"] == ((2, CROP, CROP, 3), 2)
     assert all(torch.equal(f0["weights"][k], f1["weights"][k])
                for k in f0["weights"])
+
+
+def test_nete_and_edges_step_on_dp2_sp2_equals_jax_and_one_process(ranks):
+    # netE on each rank's rows of the real target, its pooling over the
+    # ranks' segment sums; the edge channel cut from the whole map; the
+    # collisions counted once a data row
+    rs = [r["nete"] for r in ranks["ranks"]]
+    want = ranks["nete"]
+    assert want["replayed"]
+    for r in rs:
+        assert r["inst"] == (N_BATCH // N_LAYOUT[0], CROP, CROP)
+        assert r["metrics"] == rs[0]["metrics"]
+        for key in ("grads", "weights"):
+            assert all(torch.equal(r[key][k], rs[0][key][k])
+                       for k in rs[0][key]), key
+    got, one, jx = rs[0], want["one"], want["jax"]
+    assert got["metrics"].keys() == one["metrics"].keys() == jx.keys()
+    assert got["metrics"]["inst_collisions"] == jx["inst_collisions"] > 0
+    for k, v in jx.items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=2e-3,
+                                   err_msg=k)
+        w = one["metrics"][k]
+        assert abs(got["metrics"][k] - w) <= 1e-5 * abs(w), k
+    assert got["grads"].keys() == one["grads"].keys()
+    for net in ("netG", "netE", "netD"):
+        keys = [k for k in one["grads"] if k.startswith(net + ".")]
+        a = torch.cat([got["grads"][k].reshape(-1) for k in keys])
+        b = torch.cat([one["grads"][k].reshape(-1) for k in keys])
+        assert _rel_norm(a, b) <= 1e-5, net
+    for k, v in one["weights"].items():
+        np.testing.assert_allclose(got["weights"][k].numpy(), v.numpy(),
+                                   atol=5e-4, err_msg=k)
 
 
 if __name__ == "__main__":
