@@ -592,15 +592,20 @@ def per_frame(preset: str) -> dict:
             "d2s": len(t["d2s"]), "s2d": 0}
 
 
-def spatial_per_frame(preset: str) -> dict:
-    """Kernel launches of one served frame of ``preset`` on one rank of
-    a spatially partitioned mesh (the ``SPATIAL`` table): every norm is
+def spatial_per_frame(preset: str, sp: int = 1, q: int = 0,
+                      n: int = 1) -> dict:
+    """Kernel launches of one served frame of ``preset`` on rank ``q`` of
+    ``sp`` ranks of a spatially partitioned mesh (the ``SPATIAL`` table
+    for a preset whose stages split evenly, every rank's): every norm is
     B1 split, two launches (statistics, apply) and no fused one; the
-    tail (B2, over the halo) and the ups (d2s) as unsharded."""
-    want = per_frame(preset)
-    norms = want["instance_norm_act"]
-    return {**want, "instance_norm_act": 0, "instance_norm_stats": norms,
-            "instance_norm_apply": norms}
+    tail (B2, over the halo) as unsharded; a norm or an up of no rows on
+    this rank (the U-Net's inner levels, ``shard_table``) launches
+    nothing."""
+    t = shard_table(SERVE[preset], sp, n, q)
+    norms = sum(t["b1"].values())
+    return {**per_frame(preset), "instance_norm_act": 0,
+            "instance_norm_stats": norms, "instance_norm_apply": norms,
+            "d2s": len(t["d2s"])}
 
 
 def spatial_quant_per_frame(preset: str, mode: str) -> dict:
@@ -698,13 +703,19 @@ D2S_SHAPES += sorted({k for t in SERVE_TICK.values() for k in t["d2s"]}
 # wrong shard and must fail the fp32 bar.
 SPATIAL_CASES = [("pix2pixhd_2048", 2, ("float32", "bf16"), 2),
                  ("pix2pixhd_512", 2, ("bf16",), 2),
+                 ("pix2pix_unet256", 2, ("float32", "bf16"), 2),
                  ("pix2pixhd_2048", 4, ("float32", "bf16"), 2),
-                 ("temporal_512", 4, ("float32", "bf16"), 3)]
+                 ("temporal_512", 4, ("float32", "bf16"), 3),
+                 ("pix2pix_unet256", 4, ("float32", "bf16"), 2)]
 SPATIAL_SERVER, SPATIAL_SLOTS = "temporal_512", 4
 SPATIAL_TICKS = [(0, 1, 2, 3), (0, 2, 3), (0, 1, 2, 3)]
 SPATIAL_SERVER_MESHES = [(2, 1), (1, 2)]
 SPATIAL_BROKEN = ("pix2pixhd_512", 2, "float32")
 SPATIAL_BF16_PSNR = 40.0
+# the ops no generator of the phase runs partitioned (``spatial_ops``,
+# on ranks 0 and 1): their input rows and fp32 max-abs against the whole
+# op on the card
+SPATIAL_OPS_ROWS, SPATIAL_OPS_TOL = 3, 1e-5
 # Quantized serving and netE's inputs on a mesh (ROADMAP A16b items 1-2),
 # on ranks 2 and 3 (``spatial_pair_section``) beside ranks 0 and 1's
 # parallel section, each held to one process's frames of the same
@@ -737,27 +748,41 @@ SPLIT_STATS_KEYS = ("ms", "plain_ms", "library_ms", "eager_ms", "bound_ms",
 SPLIT_COLD_BYTES = 16 << 20
 
 
-def shard_table(table: dict, sp: int, n: int = 1) -> dict:
-    """A ``SERVE`` entry's kernel shapes on one of ``sp`` ranks at batch
-    ``n``: H / sp, the tail's x extended by 3 halo rows each side."""
+def shard_rows(h: int, sp: int, q: int) -> int:
+    """Rank q's rows of ``h`` global rows over ``sp`` ranks (the
+    partition ``parallel/spatial.py::bounds``: ⌊q·h/sp⌋ ...)."""
+    return (q + 1) * h // sp - q * h // sp
+
+
+def shard_table(table: dict, sp: int, n: int, q: int) -> dict:
+    """A ``SERVE`` entry's kernel launches on rank ``q`` of ``sp`` at
+    batch ``n``: every shape's rows split as ``parallel/spatial.py``'s
+    ``bounds`` splits them (H / sp where sp divides H; the U-Net's inner
+    levels unevenly, its ups realigned to the split), the tail's x
+    extended by 3 halo rows each side; the norms and ups of no rows on
+    this rank launch nothing and are left out."""
     def at(shape, grow=0):
-        return (n, shape[1] // sp + grow) + tuple(shape[2:])
-    return dict(b1={(at(s), a): c for (s, a), c in table["b1"].items()},
+        return (n, shard_rows(shape[1], sp, q) + grow) + tuple(shape[2:])
+    return dict(b1={(at(s), a): c for (s, a), c in table["b1"].items()
+                    if at(s)[1]},
                 tail=[at(s, 6) for s in table["tail"]],
-                d2s=[(at(s), c) for s, c in table["d2s"]])
+                d2s=[(at(s), c) for s, c in table["d2s"] if at(s)[1]])
 
 
 # every (preset, sp, batch) the phase serves partitioned, and its shapes
-SPATIAL_TABLES = {k: shard_table(SERVE[k[0]], k[1], k[2]) for k in sorted(
+# on rank 1 (every rank's where the generator's stages split evenly)
+SPATIAL_TABLES = {k: shard_table(SERVE[k[0]], k[1], k[2], 1) for k in sorted(
     {(p, sp, 1) for p, sp, _, _ in SPATIAL_CASES}
     | {(SPATIAL_SERVER, sp, SPATIAL_SLOTS // dp)
        for dp, sp in SPATIAL_SERVER_MESHES if sp > 1})}
+# ... and on every rank
+SPATIAL_RANK_TABLES = [shard_table(SERVE[p], sp, n, q)
+                       for p, sp, n in SPATIAL_TABLES for q in range(sp)]
 SPATIAL = {p: spatial_per_frame(p) for p, _, _ in SPATIAL_TABLES}
-B1_SPLIT_SHAPES = sorted({k for t in SPATIAL_TABLES.values()
-                          for k in t["b1"]})
-B2_SHAPES += sorted({x for t in SPATIAL_TABLES.values() for x in t["tail"]}
+B1_SPLIT_SHAPES = sorted({k for t in SPATIAL_RANK_TABLES for k in t["b1"]})
+B2_SHAPES += sorted({x for t in SPATIAL_RANK_TABLES for x in t["tail"]}
                     - set(B2_SHAPES))
-D2S_SHAPES += sorted({k for t in SPATIAL_TABLES.values() for k in t["d2s"]}
+D2S_SHAPES += sorted({k for t in SPATIAL_RANK_TABLES for k in t["d2s"]}
                      - set(D2S_SHAPES))
 
 # The spatial_train phase (``spatial_train_phase``): train steps with each
@@ -765,11 +790,11 @@ D2S_SHAPES += sorted({k for t in SPATIAL_TABLES.values() for k in t["d2s"]}
 # card, the partitioned step held to one process's step of the same
 # weights and batch. Cases (preset, dp, sp, dtypes, steps, remat, gp):
 # the cases of two ranks run on a pair of ranks, those with WGAN-GP
-# (``gp``) or a CycleGAN on ranks 2 and 3 beside the others on ranks 0
-# and 1 (``pair_of``); all four ranks run the rest. A temporal preset's
-# step is a window of its n_frames_total frames; a remat case follows the
-# same case without remat and is held to it as well. The steps of
-# SPATIAL_TRAIN_TIMED are timed alone (no reference).
+# (``gp``), a CycleGAN, netE or the U-Net on ranks 2 and 3 beside the
+# others on ranks 0 and 1 (``pair_of``); all four ranks run the rest. A
+# temporal preset's step is a window of its n_frames_total frames; a
+# remat case follows the same case without remat and is held to it as
+# well. The steps of SPATIAL_TRAIN_TIMED are timed alone (no reference).
 # SPATIAL_TRAIN_BROKEN (preset, sp, dtype): one step with one halo row a
 # layer from the wrong shard, which must fail the bars;
 # SPATIAL_TRAIN_CLI: the preset of one torchrun of cli.train on sp 2 for
@@ -783,7 +808,12 @@ SPATIAL_TRAIN_CASES = [
     (NETE_KEY, 1, 2, ("float32", "bf16"), 1, False, False),
     ("pix2pixhd_512", 2, 2, ("float32",), 1, False, False),
     ("pix2pixhd_2048", 1, 4, ("bf16",), 2, False, False),
-    ("temporal_1024", 1, 4, ("bf16",), 1, True, False)]
+    ("temporal_1024", 1, 4, ("bf16",), 1, True, False),
+    ("pix2pix_unet256", 1, 2, ("float32", "bf16"), 1, False, False),
+    ("pix2pix_unet256", 1, 4, ("bf16",), 1, False, False)]
+# the presets whose spatial_train cases train with use_dropout: the
+# U-Net's inner levels drop out on uneven shards and on ranks of no rows
+SPATIAL_TRAIN_DROPOUT = ("pix2pix_unet256",)
 # the frames of a temporal case's window (its preset's n_frames_total is
 # 4): the carry crosses a frame, at half the window's time
 SPATIAL_TRAIN_FRAMES = 2
@@ -819,12 +849,6 @@ ONE_PROCESS_PEAK = ("temporal_1024",)
 SPATIAL_TRAIN_BARS = {"float32": (1e-4, 1e-3), "bf16": (2e-2, 2.0)}
 
 
-def shard_rows(h: int, sp: int, q: int) -> int:
-    """Rank q's rows of ``h`` global rows over ``sp`` ranks (the
-    partition ``parallel/spatial.py::bounds``: ⌊q·h/sp⌋ ...)."""
-    return (q + 1) * h // sp - q * h // sp
-
-
 # the enhancer levels of a local preset: (hw, ngf_n) each
 _ENHANCERS = {"pix2pixhd_1024": [(1024, 32)],
               "pix2pixhd_2048": [(1024, 32), (2048, 16)],
@@ -846,10 +870,11 @@ def remat_blocks(preset: str) -> Counter:
 
 def pair_of(case) -> int:
     """The pair of ranks a two-rank case of SPATIAL_TRAIN_CASES runs on:
-    1 (ranks 2 and 3) for WGAN-GP, CycleGAN and netE, 0 (ranks 0 and 1)
-    for the others."""
+    1 (ranks 2 and 3) for WGAN-GP, CycleGAN, netE and the U-Net, 0
+    (ranks 0 and 1) for the others."""
     preset, _, _, _, _, _, gp = case
-    return int(gp or preset in _CYCLE or preset in NETE)
+    return int(gp or preset in _CYCLE or preset in NETE
+               or preset in SPATIAL_TRAIN_DROPOUT)
 
 
 def window_frames(preset: str) -> int:
@@ -892,17 +917,22 @@ def spatial_train_table(preset: str, sp: int, q: int, n: int = 1,
 
     def at(shape):
         return (n, shard_rows(shape[1], sp, q)) + tuple(shape[2:])
+
+    def up(shape):
+        # an up's output rows: twice its input's (``ops.deconv``)
+        return (n, 2 * shard_rows(shape[1] // 2, sp, q)) + tuple(shape[2:])
     return dict(b1=Counter({(at(s), a): c for (s, a), c in b1.items()}),
                 b1_bwd=Counter({(at(s), a): c
                                 for (s, a), c in t["b1_bwd"].items()}),
                 d2s=Counter({(at(s), c): m for (s, c), m in t["d2s"].items()}),
-                s2d=Counter({at(s): m for s, m in t["s2d"].items()}))
+                s2d=Counter({up(s): m for s, m in t["s2d"].items()}))
 
 
 def spatial_per_step(table: dict) -> dict:
     """Kernel launches of one partitioned train step on one rank: every
     norm of the step is B1 split, statistics and apply forward, the sums
-    and apply backward, none fused, and none on a rank without rows."""
+    and apply backward, none fused; none of a norm or an up on a rank
+    without its rows."""
     def live(c):
         return sum(m for (s, _), m in c.items() if s[1])
     return {"instance_norm_act": 0, "instance_norm_act_bwd": 0,
@@ -910,8 +940,8 @@ def spatial_per_step(table: dict) -> dict:
             "instance_norm_apply": live(table["b1"]),
             "instance_norm_bwd_stats": live(table["b1_bwd"]),
             "instance_norm_bwd_apply": live(table["b1_bwd"]),
-            "tail_fused": 0, "d2s": sum(table["d2s"].values()),
-            "s2d": sum(table["s2d"].values())}
+            "tail_fused": 0, "d2s": live(table["d2s"]),
+            "s2d": sum(m for s, m in table["s2d"].items() if s[1])}
 
 
 # every (preset, dp, sp, remat, gp, rank) the phase trains on, and its
@@ -925,10 +955,10 @@ SPATIAL_TRAIN = {(p, dp, sp, remat, gp, q): spatial_train_table(
 B1_SPLIT_TRAIN_SHAPES = sorted(
     {k for t in SPATIAL_TRAIN.values() for k in t["b1"] if k[0][1]}
     - set(B1_SPLIT_SHAPES))
-D2S_SHAPES += sorted({k for t in SPATIAL_TRAIN.values() for k in t["d2s"]}
-                     - set(D2S_SHAPES))
-S2D_SHAPES += sorted({k for t in SPATIAL_TRAIN.values() for k in t["s2d"]}
-                     - set(S2D_SHAPES))
+D2S_SHAPES += sorted({k for t in SPATIAL_TRAIN.values() for k in t["d2s"]
+                      if k[0][1]} - set(D2S_SHAPES))
+S2D_SHAPES += sorted({k for t in SPATIAL_TRAIN.values() for k in t["s2d"]
+                      if k[1]} - set(S2D_SHAPES))
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # graph_ms captures REPS_LONG calls of a call longer than LONG_CALL_MS
 # (a reading of such a graph spans >= 0.5 ms; the plain and library
@@ -1561,10 +1591,27 @@ def slice_phase(preset: str, seed: int, card: str, cmp_size=None):
     return res
 
 
+@contextlib.contextmanager
+def without_init():
+    """``create_model`` inside draws no init for its networks (a CPU
+    normal of every weight, seconds for a full-width preset) where every
+    network's weights are loaded right after (``nets_of``); until then
+    they hold what ``to_empty`` left. The VGG keeps its own init."""
+    from ir2rgb_tpu_torch.train import model as tm
+    draw = tm.init_weights
+    tm.init_weights = lambda net, generator: None
+    try:
+        yield
+    finally:
+        tm.init_weights = draw
+
+
 def train_model(preset: str, dtype: str, device: str, weights,
-                fix_steps: int = 0, **sections):
+                fix_steps: int = 0, init: bool = True, **sections):
     """``preset`` at full width, with ``weights`` (network name -> its
-    state_dict, "vgg" for the VGG; None: the seeded init) loaded; the
+    state_dict, "vgg" for the VGG; None: the seeded init, or with
+    ``init=False`` none, for a caller that loads every network's) loaded;
+    the
     trunk frozen for the first ``fix_steps`` steps (niter_fix_global 1 x
     steps_per_epoch ``fix_steps``; only the local enhancer has a trunk),
     none when 0. ``sections``: config fields to change, by section
@@ -1577,8 +1624,10 @@ def train_model(preset: str, dtype: str, device: str, weights,
     changes.setdefault("train", {})["niter_fix_global"] = int(fix_steps > 0)
     cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
                          for k, v in changes.items()})
-    model = create_model(cfg, device=device,
-                         steps_per_epoch=max(fix_steps, 1))
+    with (without_init() if weights is not None or not init
+          else contextlib.nullcontext()):
+        model = create_model(cfg, device=device,
+                             steps_per_epoch=max(fix_steps, 1))
     if weights is not None:
         for name, net in nets_of(model).items():
             net.load_state_dict(weights[name])
@@ -1603,7 +1652,8 @@ def seeded_model(preset: str, dtype: str, fix_steps: int = 0,
                  **sections) -> tuple:
     """``train_model`` on the card with ``seeded_weights``: (the model,
     its weights)."""
-    model = train_model(preset, dtype, "cuda", None, fix_steps, **sections)
+    model = train_model(preset, dtype, "cuda", None, fix_steps, init=False,
+                        **sections)
     weights = seeded_weights(model)
     for name, net in nets_of(model).items():
         net.load_state_dict(weights[name])
@@ -4760,18 +4810,71 @@ def crop_of(preset: str) -> int:
     return PRESETS[preset].data.crop_size
 
 
+# the last spatial_model's (preset, model fields) and its networks'
+# weights on the card: the next dtype of a case loads them
+_SPATIAL_LAST = [None, None]
+
+
 def spatial_model(preset: str, dtype: str, **model):
     """``preset`` at full width on the card, built to serve (no VGG), its
     G drawn by ``create_model`` from SEED: the same fp32 weights in every
-    process and either dtype; ``model``: model config fields to change
-    (netE's feature input, the edge channel)."""
+    process and either dtype (loaded from the last call's where it built
+    the same preset and fields, its init not drawn again); ``model``:
+    model config fields to change (netE's feature input, the edge
+    channel)."""
     from ir2rgb_tpu_torch.config import PRESETS
     from ir2rgb_tpu_torch.train import create_model
     cfg = PRESETS[preset]
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 compute_dtype=dtype, **model),
                       loss=dataclasses.replace(cfg.loss, no_vgg_loss=True))
-    return create_model(cfg, device="cuda", seed=SEED)
+    key = (preset, tuple(sorted(model.items())))
+    if _SPATIAL_LAST[0] == key:
+        with without_init():
+            out = create_model(cfg, device="cuda", seed=SEED)
+        for name, net in nets_of(out).items():
+            net.load_state_dict(_SPATIAL_LAST[1][name])
+        return out
+    out = create_model(cfg, device="cuda", seed=SEED)
+    _SPATIAL_LAST[:] = key, {
+        name: {k: v.detach().clone() for k, v in net.state_dict().items()}
+        for name, net in nets_of(out).items()}
+    return out
+
+
+def spatial_ops(mesh) -> dict:
+    """This rank's rows of two ops no generator of the phase runs, over
+    SPATIAL_OPS_ROWS rows on ``mesh`` (dp 1 x sp 2), fp32 on the card,
+    against the whole op on the card: a k4 p1 op1 transposed conv (the
+    dilated route; 2H + 1 rows, split unevenly) and a 3 -> 5-row
+    bilinear resize. Per op: max-abs, the output's partition, ok
+    (SPATIAL_OPS_TOL)."""
+    from ir2rgb_tpu_torch.nn import ops
+    from ir2rgb_tpu_torch.parallel import spatial
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    x = torch.randn((1, SPATIAL_OPS_ROWS, 64, 32), generator=g,
+                    device="cuda")
+    w = torch.randn((32, 16, 4, 4), generator=g, device="cuda") * 0.05
+    b = torch.randn((16,), generator=g, device="cuda")
+    cases = {"deconv k4 p1 op1": lambda t: ops.deconv(t, w, b, 1, 1),
+             "resize_bilinear 3->5 rows": lambda t: ops.resize_bilinear(
+                 t, (5, 96))}
+    part, q = spatial.Shards.of(mesh), mesh.sp_rank
+    rows = spatial.bounds(SPATIAL_OPS_ROWS, mesh.sp)
+    out = {}
+    for name, fn in cases.items():
+        with torch.no_grad():
+            want = fn(x)
+            with spatial.partitioned(part):
+                got = fn(part.tag(x[:, rows[q]:rows[q + 1]].contiguous(),
+                                  rows))
+        b = part.bounds(got)
+        mine = want[:, b[q]:b[q + 1]]
+        err = (float((got - mine).abs().max()) if mine.numel() else 0.0)
+        out[name] = dict(max_abs=err, rows=b, ok=(
+            err <= SPATIAL_OPS_TOL and b[-1] == want.shape[1]
+            and got.shape == mine.shape))
+    return out
 
 
 def spatial_frames(preset: str, n: int) -> list:
@@ -4963,6 +5066,11 @@ def _spatial_group(rank, world, pair, folder, frame_start, frame_end):
     first_failure = len(failures)
     res = {"rank": rank, "world": world, "up_s": time.perf_counter() - T0,
            "frames": [], "ticks": []}
+    if world == 2:
+        res["ops"] = spatial_ops(mesh_of(1, 2, rank, pair))
+        check(all(v["ok"] for v in res["ops"].values()), f"spatial ops "
+              f"rank {rank}: its rows against the whole op {res['ops']} "
+              f"(tol {SPATIAL_OPS_TOL})")
     for preset, sp, dtypes, n in SPATIAL_CASES:
         if sp != world:
             continue
@@ -4981,7 +5089,8 @@ def _spatial_group(rank, world, pair, folder, frame_start, frame_end):
                         :, rank * h:(rank + 1) * h].cuda()
                 t0 = frame_start()
                 y = stream.push_device(a)
-                frame_end(t0, rec, SPATIAL[preset])
+                frame_end(t0, rec, spatial_per_frame(preset, sp,
+                                                     mesh.sp_rank))
                 if rank == 0:
                     rec["frame"] = spatial_bar(y, ref["frames"][i], dtype)
                     check(rec["frame"]["ok"] and y.shape == a.shape[:3]
@@ -5456,6 +5565,9 @@ def spatial_report(res: dict, folder: Path, card: str) -> None:
     broken = next(r for r in ranks if r["world"] == 2 and r["rank"] == 0)
     res["broken"] = broken["broken"]
     print(f"spatial negative control: {broken['broken']}", flush=True)
+    res["ops"] = [r["ops"] for r in groups[0]]
+    print(f"spatial ops on sp 2, each rank's rows against the whole op "
+          f"(fp32, {card}): {res['ops']}", flush=True)
 
 
 def b1_split_bwd_phase(bw: float, gen: torch.Generator):
@@ -5779,8 +5891,11 @@ def spatial_train_section(rank: int, pairs, folder: Path) -> None:
 
     def sections_of(preset, remat=False, gp=False):
         """The config changes of a case: remat, WGAN-GP, netE's model
-        (NETE_KEY) and a temporal window's frames."""
+        (NETE_KEY), dropout (SPATIAL_TRAIN_DROPOUT) and a temporal
+        window's frames."""
         out = dict(model=dict(remat=remat))
+        if preset in SPATIAL_TRAIN_DROPOUT:
+            out["model"]["use_dropout"] = True
         if gp:
             out["loss"] = dict(gan_mode="wgangp")
         if preset in NETE:

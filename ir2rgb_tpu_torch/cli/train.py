@@ -42,9 +42,9 @@ over dp), crop and flip them alike, then each keeps its image rows (of
 every frame, for a temporal folder's windows; of both domains'
 frames, for an unaligned folder's; the instance maps stay whole).
 Temporal windows, ``--model.remat true``, ``--loss.gan_mode wgangp``,
-CycleGAN, netE (``--model.use_instance_feat``) and the edge input
-(``--model.use_instance_edges``) train partitioned; the U-Net raises
-before any collective (ROADMAP A16b):
+CycleGAN, netE (``--model.use_instance_feat``), the edge input
+(``--model.use_instance_edges``) and the U-Net (``--preset
+pix2pix_unet256``) train partitioned:
 
     torchrun --standalone --nproc_per_node 2 -m ir2rgb_tpu_torch.cli.train \
         --preset temporal_512 --train.spatial_devices 2 ...
@@ -83,7 +83,6 @@ def main(argv=None) -> int:
         multihost,
     )
     from ir2rgb_tpu_torch.parallel.mesh import image_rows, sharded
-    from ir2rgb_tpu_torch.train.model import spatial_train_refusal
     from ir2rgb_tpu_torch.runtime import resolve_device, set_parity_mode
     from ir2rgb_tpu_torch.train import Trainer, create_model
 
@@ -106,7 +105,6 @@ def main(argv=None) -> int:
     device = resolve_device(device_flag)
     sp = cfg.train.spatial_devices
     if sp > 1:
-        spatial_train_refusal(cfg)
         mesh = dp_sp_mesh(cfg.train.num_devices, sp, device=device)
     else:
         mesh = data_parallel_mesh(cfg.train.num_devices, device=device)

@@ -70,6 +70,10 @@ def _launch(src: torch.Tensor, out_shape, hs: int, ws: int, c: int,
         raise TypeError(f"unsupported dtype {src.dtype} (2- or 4-byte "
                         "elements)")
     dst = torch.empty(out_shape, device=src.device, dtype=src.dtype)
+    if not dst.numel():
+        # a rank of a partitioned frame that owns no rows of the up: no
+        # element to move, and an empty grid is no launch
+        return dst
     row = c * esize
     if row % 16 == 0 and src.data_ptr() % 16 == 0:
         unit, cw = 16, row // 16

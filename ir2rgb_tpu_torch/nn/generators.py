@@ -60,8 +60,11 @@ reads the global H, and the served tail runs B2 on this rank's rows
 extended by three halo rows each side (reflected at the global edge),
 keeping the rows between, in every quant mode but ``int8``; the
 training tail and ``int8``'s are the composed one, its reflect pad
-through the halo. The U-Net is not partitioned (its
-innermost levels have fewer rows than ranks, ROADMAP A16b).
+through the halo. The U-Net's inner levels have fewer rows than ranks
+(at 256² on sp 4 the 1-row level is one rank's, the 2-row level two
+ranks'): each level's up doubles its input's partition, and the level
+moves those rows to its skip's partition (``Shards.repartition``, one
+exchange) before its norm and the concat.
 
 The JAX package's TPU-layout rewrites (``nn/s2d_conv.py``,
 ``nn/s2d_space.py``) are exact rewrites of the same math and are not
@@ -338,7 +341,13 @@ class ResnetStack(nn.Sequential):
         return h
 
 
-def _check_divisible(x: torch.Tensor, downs: int, net: str) -> None:
+def _check_divisible(x: torch.Tensor, downs: int, net: str,
+                     even_stages: bool = True) -> None:
+    """H and W divisible by 2^downs; on a partitioned frame, with
+    ``even_stages`` (the ResNet generators and the local enhancer, whose
+    residual adds line up rank by rank), every stage's rows split evenly
+    over the ranks too. The U-Net's levels need not: it realigns its
+    ups."""
     d = 1 << downs
     h, w = x.shape[1], x.shape[2]
     part = spatial.active()
@@ -349,9 +358,7 @@ def _check_divisible(x: torch.Tensor, downs: int, net: str) -> None:
             f"net_g={net}: input {h}x{w} must be divisible by {d} "
             f"(2^{downs} stride-2 stages); resize/crop the frames or "
             f"lower n_downsample_global/n_local_enhancers")
-    if part is not None and (h // d) % part.sp:
-        # every stage's rows split evenly, so the ranks' residual adds
-        # and concats line up
+    if even_stages and part is not None and (h // d) % part.sp:
         raise ValueError(
             f"net_g={net}: global H {h} is not divisible by {d}·sp = "
             f"{d * part.sp}: each of the {downs} stride-2 stages needs "
@@ -544,12 +551,17 @@ class UnetBlock(nn.Module):
         if self.sub is not None:
             d = m[self.sub](d, generator)
         u = m[self.up](ops.apply_act(d, "relu"))
+        part = spatial.active()
+        if part is not None:
+            # the up's rows are twice its input's partition; the skip's
+            # split the level's rows over the ranks
+            u = part.repartition(u, part.bounds(x))
         if self.outermost:
-            return torch.tanh(u.float()).to(u.dtype)
+            return spatial.same_rows(torch.tanh(u.float()).to(u.dtype), u)
         u = _norm_act(m[self.up_norm], u, self.norm, "none")
         if self.use_dropout and generator is not None:
             u = ops.dropout(u, 0.5, generator)
-        return torch.cat([x, u], dim=-1)
+        return spatial.same_rows(torch.cat([x, u], dim=-1), x)
 
 
 class UnetGenerator(nn.Module):
@@ -586,12 +598,8 @@ class UnetGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if spatial.active() is not None:
-            raise NotImplementedError(
-                f"net_g={self.cfg.net_g} on a spatially partitioned frame: "
-                "its innermost levels have fewer rows than ranks "
-                f"({spatial.A16B})")
-        _check_divisible(x, self.num_downs, self.cfg.net_g)
+        _check_divisible(x, self.num_downs, self.cfg.net_g,
+                         even_stages=False)
         return self.model(x.to(self.cfg.compute_dtype),
                           generator if train else None)
 

@@ -30,12 +30,15 @@ its output's global rows over the ranks (``spatial.conv_windows``: the
 discriminator's 4×4 convs give uneven shards, and a rank may own none),
 takes the window of input rows those read (``Shards.window``, mapped by
 its edge rule at the global image edge, whatever partition the input
-has) and runs with its H padding 0; a subpixel deconv, a pad or a
-bilinear up takes the rows above and below its own (``Shards.halo``),
-and a pad returns the extended rows, which the next conv takes as they
-are. Each output is tagged with its partition (``Shards.tag``). A rank
-with no output rows runs the op on k zero rows and keeps none, so that
-every rank records the same graph and makes the same exchanges. The
+has) and runs with its H padding 0; a transposed conv takes the window
+its output rows read (the subpixel route's output twice its input's
+partition, any other geometry's split by ``spatial.bounds``), a bilinear
+resize the window its rows of the H weight read; a pad takes the rows
+above and below its own (``Shards.halo``) and returns the extended rows,
+which the next conv takes as they are. Each output is tagged with its
+partition (``Shards.tag``). A rank with no output rows runs the op on k
+zero rows and keeps none, so that every rank records the same graph and
+makes the same exchanges. The
 halos are differentiable: their backward is the exchange's transpose.
 Instance norm runs B1 split (:class:`_SplitInstanceNormAct`): this
 rank's statistics (``kernels.instance_norm_stats``), the ranks' merged
@@ -47,13 +50,14 @@ in rank order, then
 second derivative (:class:`_SplitInstanceNormActBackward`, as the halo's
 transpose is). Batch norm takes the moments over every rank; a dropout
 mask is this rank's rows of the global draw. A 2×2 max pool needs even
-local rows, a transposed conv an even split. A quantized conv runs its
-mode on the window (``int8_w`` the dequantized weight; ``int8`` the scale
-of the rows every rank owns, merged over the mesh, ``quant.act_scale``).
+local rows. A quantized conv runs its mode on the window (``int8_w`` the
+dequantized weight; ``int8`` the scale of the rows every rank owns,
+merged over the mesh, ``quant.act_scale``).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -306,63 +310,120 @@ def deconv(x: torch.Tensor, weight: torch.Tensor,
     (``nn/quant.py``): the subpixel route the rearranged weight (its
     4·cout outputs are what ``int8_mixed`` gates on and what the weight
     scales are per), the dilated route the flipped forward-conv weight
-    over the zero-dilated input; the bias comes last, as in "none"."""
+    over the zero-dilated input; the bias comes last, as in "none".
+
+    On a partitioned frame each route computes this rank's output rows
+    from the window of input rows they read (``Shards.window``, zeros
+    past the global edge). The subpixel route's output is twice its
+    input's partition where it emits exactly 2·H (a rank of no rows runs
+    the conv on kk zero rows and keeps none), else the output's global
+    rows split by ``spatial.bounds``, each rank's phase rows trimmed to
+    its own. The dilated route splits its output so: k4 p1 op1 gives
+    2·H + 1 rows, uneven shards by construction."""
     b = None if bias is None else bias.to(x.dtype)
     ci, co, k, _ = weight.shape
     if lowering not in ("subpixel", "dilated"):
         raise ValueError(f"unknown deconv lowering: {lowering!r}")
     part = spatial.active()
-    sub = lowering == "subpixel" and subpixel_admits(k, padding,
-                                                    output_padding)
-    if part is not None and not sub:
-        raise NotImplementedError(
-            f"a {lowering} k{k} p{padding} op{output_padding} transposed "
-            "conv on a spatially partitioned frame: only the subpixel "
-            f"lowering is ({spatial.A16B})")
-    if not sub:
-        m = quant.mode_for(ci, co)
-        if m == "none":
-            return _nhwc(F.conv_transpose2d(_nchw(x), weight.to(x.dtype), b,
-                                            stride=2, padding=padding,
-                                            output_padding=output_padding))
-        lo = k - 1 - padding
-        wf = weight.to(x.dtype).permute(1, 0, 2, 3).flip(2, 3)
-        y = quant.conv(x, wf, m, 1, ((lo, lo + output_padding),) * 2,
-                       lhs_dilation=2, source=(weight, "dilated"))
-        return y if b is None else y + b
+    if not (lowering == "subpixel"
+            and subpixel_admits(k, padding, output_padding)):
+        return _deconv_dilated(part, x, weight, b, padding, output_padding)
     if wk is None:
         wk = subpixel_weight(weight.to(x.dtype), padding)
     _, kk, omin = _subpixel_plan(k, padding)
     lo, hi = -omin, kk - 1 + omin
     m = quant.mode_for(ci, 4 * co)
     _, h, w, _ = x.shape
-    out_h = (h - 1) * 2 - 2 * padding + k + output_padding
     out_w = (w - 1) * 2 - 2 * padding + k + output_padding
-    sx = None
     if part is None:
+        out_h = (h - 1) * 2 - 2 * padding + k + output_padding
         xp = F.pad(x, (0, 0, lo, hi, lo, hi))
-    else:
-        # the rows from the halo; the trim is against the global size;
-        # int8's scale spans the rows every rank owns
-        sx = quant.act_scale(part.own_rows(x)) if m == "int8" else None
-        src = part.bounds(x)
-        g = src[-1]
-        if (g - 1) * 2 - 2 * padding + k + output_padding != 2 * g:
-            raise ValueError(f"transposed conv k{k} p{padding} "
-                             f"op{output_padding} at {tuple(x.shape)}: its "
-                             "output trims global rows, which do not split "
-                             f"over sp = {part.sp}")
-        xp = F.pad(part.halo(x, lo, hi, "zero"), (0, 0, lo, hi))
-        out_h = 2 * h
-    y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
-        xp, wk, m, source=(weight, ("subpixel", padding)), scale=sx))
-    y = d2s_fn(y, co)
-    if out_h != 2 * h or out_w != 2 * w:
-        y = y[:, :out_h, :out_w, :]
+        y = (_nhwc(F.conv2d(_nchw(xp), wk)) if m == "none" else quant.conv(
+            xp, wk, m, source=(weight, ("subpixel", padding))))
+        y = d2s_fn(y, co)
+        if out_h != 2 * h or out_w != 2 * w:
+            y = y[:, :out_h, :out_w, :]
+        return y if b is None else y + b
+    # int8's scale spans the rows every rank owns
+    sx = quant.act_scale(part.own_rows(x)) if m == "int8" else None
+    src = part.bounds(x)
+    g = src[-1]
+    out_h = (g - 1) * 2 - 2 * padding + k + output_padding
+    out = (tuple(2 * r for r in src) if out_h == 2 * g
+           else spatial.bounds(out_h, part.sp))
+    # output rows [o0, o1) are phase rows [o0 // 2, ⌈o1 / 2⌉), which read
+    # the input rows lo above and hi below them
+    wins = []
+    for q in range(part.sp):
+        o0, o1 = out[q], out[q + 1]
+        wins.append((o0 // 2 - lo, (o1 + 1) // 2 + hi) if o1 > o0
+                    else (o0 // 2, o0 // 2))
+    rows = part.window(x, wins, "zero")
+
+    def op(t):
+        t = F.pad(t, (0, 0, lo, hi))
+        return (_nhwc(F.conv2d(_nchw(t), wk)) if m == "none" else quant.conv(
+            t, wk, m, source=(weight, ("subpixel", padding)), scale=sx))
+    y = d2s_fn(_on_rows(rows, kk, op), co)
+    o0, o1 = out[part.rank], out[part.rank + 1]
+    first = 2 * (o0 // 2)
+    if o0 != first or o1 - o0 != y.shape[1] or out_w != 2 * w:
+        y = y[:, o0 - first:o1 - first, :out_w, :]
     y = y if b is None else y + b
-    if part is not None:
-        part.tag(y, tuple(2 * r for r in src))
-    return y
+    return part.tag(y, out)
+
+
+def _deconv_dilated(part, x: torch.Tensor, weight: torch.Tensor,
+                    b: Optional[torch.Tensor], padding: int,
+                    output_padding: int) -> torch.Tensor:
+    """:func:`deconv`'s dilated route: ``F.conv_transpose2d`` (with the
+    bias ``b``), or the quantized conv of the flipped weight over the
+    zero-dilated input, then ``b``. On a partitioned frame the output's
+    global rows split by ``spatial.bounds``; output row m = 2i + a -
+    padding (tap a) reads input rows ⌈(m + padding - k + 1) / 2⌉ ..
+    ⌊(m + padding) / 2⌋, so each rank runs the full transposed conv (H
+    padding 0) of its window of those rows and keeps its own."""
+    ci, co, k, _ = weight.shape
+    m = quant.mode_for(ci, co)
+    w = weight.to(x.dtype)
+    lo = k - 1 - padding
+    if m != "none":
+        wf = w.permute(1, 0, 2, 3).flip(2, 3)
+    if part is None:
+        if m == "none":
+            return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=2,
+                                            padding=padding,
+                                            output_padding=output_padding))
+        y = quant.conv(x, wf, m, 1, ((lo, lo + output_padding),) * 2,
+                       lhs_dilation=2, source=(weight, "dilated"))
+        return y if b is None else y + b
+    sx = quant.act_scale(part.own_rows(x)) if m == "int8" else None
+    g = part.bounds(x)[-1]
+    out = spatial.bounds((g - 1) * 2 - 2 * padding + k + output_padding,
+                         part.sp)
+    wins = []
+    for q in range(part.sp):
+        o0, o1 = out[q], out[q + 1]
+        i0 = -((k - 1 - o0 - padding) // 2)
+        wins.append((i0, (o1 - 1 + padding) // 2 + 1) if o1 > o0
+                    else (i0, i0))
+    rows = part.window(x, wins, "zero")
+    if m == "none":
+        def op(t):
+            return _nhwc(F.conv_transpose2d(
+                _nchw(t), w, b, stride=2, padding=(0, padding),
+                output_padding=(0, output_padding)))
+    else:
+        def op(t):
+            y = quant.conv(t, wf, m, 1, ((k - 1, k - 1),
+                                         (lo, lo + output_padding)),
+                           lhs_dilation=2, source=(weight, "dilated"),
+                           scale=sx)
+            return y if b is None else y + b
+    o0, o1 = out[part.rank], out[part.rank + 1]
+    top = o0 - 2 * wins[part.rank][0] + padding
+    y = _on_rows(rows, 1, op)[:, top:top + o1 - o0]
+    return part.tag(y, out)
 
 
 @_kept_index
@@ -475,30 +536,74 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False
     result in x's dtype. ``align_corners=False``: half-pixel centres, the
     triangle kernel widened when shrinking (``jax.image.resize``'s
     "linear", torch's ``antialias=True``); ``True``: the end pixels map
-    to the end pixels, no widening."""
+    to the end pixels, no widening.
+
+    On a partitioned frame the output's rows split by ``spatial.bounds``:
+    each rank takes the window of source rows that its rows of the H
+    weight (:func:`_resize_rows`) read, resizes W with ``F.interpolate``,
+    then H by those weights."""
     part = spatial.active()
     if part is None:
         y = F.interpolate(_nchw(x.float()).contiguous(), size=tuple(out_hw),
                           mode="bilinear", align_corners=align_corners,
                           antialias=not align_corners)
         return _nhwc(y).to(x.dtype)
-    # an integer up-scale of the rows: half-pixel centres read the rows
-    # next to the shard's (edge rows at the global edge), so the rows of
-    # the halo-extended shard scaled by s, less s at each end, are this
-    # rank's; any other scale's rows would not split over the ranks
-    h = x.shape[1]
-    src = part.bounds(x)
-    s = out_hw[0] // src[-1]
-    if align_corners or s < 1 or s * src[-1] != out_hw[0]:
-        raise NotImplementedError(
-            f"resize_bilinear {src[-1]} -> {out_hw[0]} rows "
-            f"(align_corners={align_corners}) on a partitioned frame: "
-            f"only integer up-scales are ({spatial.A16B})")
-    ext = part.halo(part.same_rows(x.float(), x), 1, 1, "edge")
-    y = F.interpolate(_nchw(ext).contiguous(), size=(s * (h + 2), out_hw[1]),
-                      mode="bilinear", align_corners=False, antialias=True)
-    return part.tag(_nhwc(y[:, :, s:s * (h + 1)]).to(x.dtype),
-                    tuple(s * r for r in src))
+    g = part.bounds(x)[-1]
+    out, wins = _resize_windows(g, out_hw[0], align_corners, part.sp)
+    ext = part.window(part.same_rows(x.float(), x), wins, "edge")
+    o0, o1 = out[part.rank], out[part.rank + 1]
+    j0 = wins[part.rank][0]
+    if ext.shape[1]:
+        ext = _nhwc(F.interpolate(
+            _nchw(ext).contiguous(), size=(ext.shape[1], out_hw[1]),
+            mode="bilinear", align_corners=align_corners,
+            antialias=not align_corners))
+    else:  # no rows: still the window's graph, as every rank's
+        ext = ext[:, :, :1].expand(-1, -1, out_hw[1], -1)
+    wt = _resize_rows(g, out_hw[0], align_corners, x.device)[
+        o0:o1, j0:j0 + ext.shape[1]]
+    y = torch.einsum("oj,njwc->nowc", wt, ext)
+    return part.tag(y.to(x.dtype), out)
+
+
+@lru_cache(maxsize=None)
+def _resize_weight(n_in: int, n_out: int, align_corners: bool
+                   ) -> torch.Tensor:
+    """(n_out, n_in) float64 weights of torch's bilinear resize along one
+    axis (``antialias`` where not ``align_corners``, as
+    :func:`resize_bilinear`): the resize of an identity, two columns wide
+    (torch 2.x's antialiased resize of a one-column image is not the
+    bilinear one)."""
+    with torch.inference_mode(False):  # see _reflect_index
+        eye = torch.eye(n_in, dtype=torch.float64).reshape(
+            n_in, 1, n_in, 1).expand(n_in, 1, n_in, 2).contiguous()
+        wt = F.interpolate(eye, size=(n_out, 2), mode="bilinear",
+                           align_corners=align_corners,
+                           antialias=not align_corners)
+        return wt[..., 0].reshape(n_in, n_out).T.contiguous()
+
+
+@_kept_index
+def _resize_rows(n_in: int, n_out: int, align_corners: bool,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`_resize_weight` in float32 on ``device``."""
+    with torch.inference_mode(False):  # see _reflect_index
+        return _resize_weight(n_in, n_out, align_corners).to(
+            device, torch.float32)
+
+
+@lru_cache(maxsize=None)
+def _resize_windows(n_in: int, n_out: int, align_corners: bool, sp: int):
+    """(the output partition, each rank's window of source rows: those
+    its rows of :func:`_resize_weight` read; empty for no rows)."""
+    wt = _resize_weight(n_in, n_out, align_corners)
+    out = spatial.bounds(n_out, sp)
+    wins = []
+    for q in range(sp):
+        cols = wt[out[q]:out[q + 1]].abs().sum(dim=0).nonzero()
+        wins.append((int(cols[0]), int(cols[-1]) + 1) if cols.numel()
+                    else (0, 0))
+    return out, tuple(wins)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator

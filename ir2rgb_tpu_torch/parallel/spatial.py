@@ -49,13 +49,17 @@ themselves while a frame or a train step runs under :func:`serving`
   rank's rows of a whole-frame map (instance ids and their edges stay
   whole on every rank, as JAX leaves rank-3 leaves unsplit).
 
-What runs partitioned, served and trained: the ResNet generators and
-the local enhancers in every quant mode (``int8``'s activation scale an
-amax merged over every rank, ``nn/quant.py::act_scale``), netE with its
-instance pooling (the ranks' segment sums added), the instance-edge
-input, temporal windows, remat, WGAN-GP and CycleGAN. The U-Net, the
-dilated transposed conv and non-integer bilinear resizes raise
-``NotImplementedError`` naming :data:`A16B`.
+- :meth:`Shards.repartition`: a tensor's rows moved to another partition
+  of the same global rows (a window a rank, one exchange,
+  differentiable): the U-Net's up doubles its input's partition, which
+  at the inner levels (fewer rows than ranks) is not its skip's.
+
+What runs partitioned, served and trained: every generator (the ResNet
+generators, the local enhancers and the U-Net) in every quant mode
+(``int8``'s activation scale an amax merged over every rank,
+``nn/quant.py::act_scale``), every transposed-conv geometry and bilinear
+resize, netE with its instance pooling (the ranks' segment sums added),
+the instance-edge input, temporal windows, remat, WGAN-GP and CycleGAN.
 
 It imports torch only.
 """
@@ -73,7 +77,6 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from . import mesh as pmesh
 
-A16B = "ROADMAP A16b"
 MODES = ("zero", "reflect", "edge")
 
 
@@ -358,6 +361,21 @@ class Shards:
         plan = halo_plan(self.bounds(x), tuple(windows), mode)
         return _Halo.apply(x, self, plan)
 
+    def repartition(self, x: torch.Tensor, dst: Tuple[int, ...]
+                    ) -> torch.Tensor:
+        """``x``'s rows moved to the partition ``dst`` of the same global
+        rows (:meth:`window` with each rank's window its ``dst`` range:
+        one exchange, differentiable), tagged ``dst``; ``x`` itself where
+        it is partitioned so already."""
+        src = self.bounds(x)
+        if src == dst:
+            return x
+        if src[-1] != dst[-1]:
+            raise ValueError(f"repartition of {src[-1]} rows to {dst}")
+        y = self.window(x, tuple((dst[q], dst[q + 1])
+                                 for q in range(self.sp)), "zero")
+        return self.tag(y, dst)
+
     def halo(self, x: torch.Tensor, top: int, bottom: int,
              mode: str) -> torch.Tensor:
         """``x`` extended by ``top`` rows above and ``bottom`` below."""
@@ -580,6 +598,6 @@ def gather_block(x: torch.Tensor, mesh: "pmesh.DataParallelMesh"
     return pmesh.all_reduce_bytes(out, mesh.group, mesh.device)
 
 
-__all__ = ["A16B", "HaloPlan", "Shards", "active", "bounds",
+__all__ = ["HaloPlan", "Shards", "active", "bounds",
            "conv_windows", "gather_block", "halo_plan", "local_block",
            "merge_stats", "partitioned", "same_rows", "serving"]

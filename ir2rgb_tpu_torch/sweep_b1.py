@@ -72,15 +72,17 @@ SHAPES = [(1, 512, 512, 32), (1, 256, 256, 64), (1, 128, 128, 128),
 # the statistics kernel's shapes: every shard shape of chip_smoke.py's
 # partitioned frames (B1_SPLIT_SHAPES)
 STATS_SHAPES = [
-    (1, 4, 16, 1024), (1, 8, 16, 1024), (1, 8, 32, 512), (1, 8, 32, 1024),
-    (1, 16, 32, 512), (1, 16, 32, 1024), (1, 16, 64, 256), (1, 16, 64, 512),
-    (1, 32, 64, 256), (1, 32, 64, 512), (1, 32, 128, 128),
-    (1, 32, 128, 256), (1, 64, 128, 128), (1, 64, 128, 256),
-    (1, 64, 256, 64), (1, 64, 256, 128), (1, 128, 256, 64),
-    (1, 128, 256, 128), (1, 128, 512, 32), (1, 128, 512, 64),
-    (1, 256, 512, 32), (1, 256, 512, 64), (1, 256, 1024, 32),
-    (1, 512, 1024, 32), (1, 512, 2048, 16), (1, 1024, 2048, 16),
-    (4, 8, 16, 1024), (4, 16, 32, 512), (4, 32, 64, 256),
+    (1, 1, 2, 512), (1, 1, 4, 512), (1, 2, 4, 512), (1, 2, 8, 512),
+    (1, 4, 8, 512), (1, 4, 16, 512), (1, 4, 16, 1024), (1, 8, 16, 512),
+    (1, 8, 16, 1024), (1, 8, 32, 256), (1, 8, 32, 512), (1, 8, 32, 1024),
+    (1, 16, 32, 256), (1, 16, 32, 512), (1, 16, 32, 1024), (1, 16, 64, 128),
+    (1, 16, 64, 256), (1, 16, 64, 512), (1, 32, 64, 128), (1, 32, 64, 256),
+    (1, 32, 64, 512), (1, 32, 128, 64), (1, 32, 128, 128), (1, 32, 128, 256),
+    (1, 64, 128, 64), (1, 64, 128, 128), (1, 64, 128, 256), (1, 64, 256, 64),
+    (1, 64, 256, 128), (1, 128, 256, 64), (1, 128, 256, 128),
+    (1, 128, 512, 32), (1, 128, 512, 64), (1, 256, 512, 32), (1, 256, 512, 64),
+    (1, 256, 1024, 32), (1, 512, 1024, 32), (1, 512, 2048, 16),
+    (1, 1024, 2048, 16), (4, 8, 16, 1024), (4, 16, 32, 512), (4, 32, 64, 256),
     (4, 64, 128, 128), (4, 128, 256, 64), (4, 256, 512, 32)]
 # the statistics kernel's shapes that chip_smoke.py's partitioned steps
 # give it beside those (B1_SPLIT_TRAIN_SHAPES): the discriminators', a
@@ -104,37 +106,44 @@ STATS_TRAIN_SHAPES = [
 # launches of each in one pix2pixhd_512 rank's step on sp 2
 # (SPATIAL_TRAIN[SPLIT_TRAIN_STEP])
 BWD_SHAPES = [
-    ((1, 8, 16, 1024), "none"), ((1, 8, 16, 1024), "relu"),
+    ((1, 1, 2, 512), "none"), ((1, 1, 4, 512), "none"),
+    ((1, 2, 4, 512), "none"), ((1, 2, 8, 512), "none"),
+    ((1, 4, 8, 512), "none"), ((1, 4, 16, 512), "none"),
+    ((1, 8, 16, 512), "none"), ((1, 8, 16, 1024), "none"),
+    ((1, 8, 16, 1024), "relu"), ((1, 8, 32, 256), "none"),
     ((1, 8, 32, 1024), "none"), ((1, 8, 32, 1024), "relu"),
     ((1, 8, 33, 256), "leaky_relu"), ((1, 8, 34, 512), "leaky_relu"),
     ((1, 9, 33, 256), "leaky_relu"), ((1, 9, 34, 512), "leaky_relu"),
     ((1, 15, 31, 512), "leaky_relu"), ((1, 16, 31, 512), "leaky_relu"),
-    ((1, 16, 32, 256), "leaky_relu"), ((1, 16, 32, 256), "relu"),
-    ((1, 16, 32, 512), "relu"), ((1, 16, 33, 256), "leaky_relu"),
+    ((1, 16, 32, 256), "leaky_relu"), ((1, 16, 32, 256), "none"),
+    ((1, 16, 32, 256), "relu"), ((1, 16, 32, 512), "relu"),
+    ((1, 16, 33, 256), "leaky_relu"), ((1, 16, 64, 128), "none"),
     ((1, 16, 64, 512), "relu"), ((1, 16, 65, 128), "leaky_relu"),
     ((1, 16, 65, 256), "leaky_relu"), ((1, 16, 66, 512), "leaky_relu"),
     ((1, 17, 33, 256), "leaky_relu"), ((1, 17, 34, 512), "leaky_relu"),
     ((1, 17, 65, 128), "leaky_relu"), ((1, 17, 65, 256), "leaky_relu"),
     ((1, 17, 66, 512), "leaky_relu"), ((1, 32, 64, 128), "leaky_relu"),
-    ((1, 32, 64, 128), "relu"), ((1, 32, 64, 256), "none"),
-    ((1, 32, 64, 256), "relu"), ((1, 32, 65, 128), "leaky_relu"),
-    ((1, 32, 65, 256), "leaky_relu"), ((1, 32, 128, 256), "relu"),
+    ((1, 32, 64, 128), "none"), ((1, 32, 64, 128), "relu"),
+    ((1, 32, 64, 256), "none"), ((1, 32, 64, 256), "relu"),
+    ((1, 32, 65, 128), "leaky_relu"), ((1, 32, 65, 256), "leaky_relu"),
+    ((1, 32, 128, 64), "none"), ((1, 32, 128, 256), "relu"),
     ((1, 32, 129, 128), "leaky_relu"), ((1, 32, 129, 256), "leaky_relu"),
     ((1, 32, 130, 512), "leaky_relu"), ((1, 33, 65, 128), "leaky_relu"),
     ((1, 33, 65, 256), "leaky_relu"), ((1, 33, 66, 512), "leaky_relu"),
     ((1, 33, 129, 128), "leaky_relu"), ((1, 33, 129, 256), "leaky_relu"),
-    ((1, 33, 130, 512), "leaky_relu"), ((1, 64, 128, 64), "relu"),
-    ((1, 64, 128, 128), "relu"), ((1, 64, 129, 128), "leaky_relu"),
-    ((1, 64, 256, 128), "relu"), ((1, 64, 257, 128), "leaky_relu"),
-    ((1, 64, 257, 256), "leaky_relu"), ((1, 64, 258, 512), "leaky_relu"),
-    ((1, 65, 129, 128), "leaky_relu"), ((1, 65, 257, 128), "leaky_relu"),
-    ((1, 65, 257, 256), "leaky_relu"), ((1, 65, 258, 512), "leaky_relu"),
-    ((1, 128, 256, 32), "relu"), ((1, 128, 256, 64), "none"),
-    ((1, 128, 256, 64), "relu"), ((1, 128, 512, 64), "none"),
-    ((1, 128, 512, 64), "relu"), ((1, 128, 513, 128), "leaky_relu"),
-    ((1, 129, 513, 128), "leaky_relu"), ((1, 256, 512, 16), "relu"),
-    ((1, 256, 512, 32), "relu"), ((1, 256, 1024, 32), "none"),
-    ((1, 256, 1024, 32), "relu"), ((1, 512, 2048, 16), "relu")]
+    ((1, 33, 130, 512), "leaky_relu"), ((1, 64, 128, 64), "none"),
+    ((1, 64, 128, 64), "relu"), ((1, 64, 128, 128), "relu"),
+    ((1, 64, 129, 128), "leaky_relu"), ((1, 64, 256, 128), "relu"),
+    ((1, 64, 257, 128), "leaky_relu"), ((1, 64, 257, 256), "leaky_relu"),
+    ((1, 64, 258, 512), "leaky_relu"), ((1, 65, 129, 128), "leaky_relu"),
+    ((1, 65, 257, 128), "leaky_relu"), ((1, 65, 257, 256), "leaky_relu"),
+    ((1, 65, 258, 512), "leaky_relu"), ((1, 128, 256, 32), "relu"),
+    ((1, 128, 256, 64), "none"), ((1, 128, 256, 64), "relu"),
+    ((1, 128, 512, 64), "none"), ((1, 128, 512, 64), "relu"),
+    ((1, 128, 513, 128), "leaky_relu"), ((1, 129, 513, 128), "leaky_relu"),
+    ((1, 256, 512, 16), "relu"), ((1, 256, 512, 32), "relu"),
+    ((1, 256, 1024, 32), "none"), ((1, 256, 1024, 32), "relu"),
+    ((1, 512, 2048, 16), "relu")]
 BWD_STEP = {
     ((1, 8, 16, 1024), "none"): 9, ((1, 8, 16, 1024), "relu"): 10,
     ((1, 16, 32, 512), "relu"): 2, ((1, 16, 33, 256), "leaky_relu"): 3,

@@ -92,9 +92,11 @@ trained or JAX-converted weights with ``load_state_dict``.
   way. netE runs on the rank's rows of the real target, its pooling
   adding the ranks' segment sums, and the edge channel is the rank's
   rows of the whole map's edges (id maps stay whole on every rank);
-  ``inst_collisions`` counts each data row's maps once. Out of this
-  slice, raising before the first collective (``spatial_train_refusal``,
-  ROADMAP A16b): the U-Net.
+  ``inst_collisions`` counts each data row's maps once. The U-Net
+  (``pix2pix_unet256``, ``unet_128``) trains so too: its inner levels'
+  shards are uneven or empty, its ups realigned to its skips
+  (``nn/generators.py``), and batch norm's moments span every rank's
+  rows, a rank of no rows adding zeros.
 
 - ``state_dict`` / ``load_state_dict`` hold everything ``train_step``
   reads (JAX's ``TrainState``, the EMA shadows as ``ema_g`` and
@@ -519,7 +521,6 @@ class GanModel:
         accum = max(1, int(self.cfg.train.grad_accum))
         part = self.mesh is not None and self.mesh.sp > 1
         if part:
-            spatial_train_refusal(self.cfg)
             if self._shards is None or self._shards[0] is not self.mesh:
                 self._shards = (self.mesh, spatial.Shards.of(self.mesh))
         n = next(iter(batch.values())).shape[0]
@@ -695,18 +696,6 @@ def _load_pool(pool, saved, device: torch.device):
         return None
     pool.buffer.copy_(saved["buffer"])
     return PoolState(pool.buffer, saved["count"].to(device))
-
-
-def spatial_train_refusal(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP A16b) for what a
-    spatially partitioned train step does not cover, the U-Net; nothing
-    else."""
-    m = cfg.model
-    if m.net_g.startswith("unet"):
-        raise NotImplementedError(
-            "spatially partitioned training (train.spatial_devices > 1) "
-            f"with net_g={m.net_g} (the U-Net) is not ported "
-            f"({spatial.A16B})")
 
 
 def _check_supported(cfg: Config) -> None:

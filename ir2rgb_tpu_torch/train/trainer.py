@@ -27,12 +27,11 @@ of dp·S processes, each S ranks of a data row reading the same images
 (``model.train_step`` runs partitioned, ``parallel/spatial.py``),
 temporal windows (their rows over dim 2), ``remat``, WGAN-GP,
 CycleGAN (its ``a`` and ``b`` domains' blocks, its two pools whole on
-every rank), netE and the instance-edge input (the instance maps whole
-on every rank) included. I/O stays on rank 0, whose checkpoint holds
-every network and pool whole; the display gathers the frame first
-(``spatial.gather_block``; a window's first frame), on every rank. What
-such a step does not cover, the U-Net, raises before any collective
-(``model.spatial_train_refusal``, ROADMAP A16b).
+every rank), netE, the instance-edge input (the instance maps whole
+on every rank) and the U-Net included. I/O stays on rank 0, whose
+checkpoint holds every network and pool whole; the display gathers the
+frame first (``spatial.gather_block``; a window's first frame), on every
+rank.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ from ir2rgb_tpu_torch.parallel import (
     replicate,
     spatial,
 )
-from ir2rgb_tpu_torch.train.model import GanModel, spatial_train_refusal
+from ir2rgb_tpu_torch.train.model import GanModel
 
 log = logging.getLogger(__name__)
 
@@ -94,8 +93,6 @@ def _partial_merge(net: nn.Module, src: Dict[str, torch.Tensor],
 class Trainer:
     def __init__(self, model: GanModel, cfg: Config, visualizer=None):
         tcfg = cfg.train
-        if tcfg.spatial_devices > 1:
-            spatial_train_refusal(cfg)
         if tcfg.multihost:
             multihost.initialize(require=True)
         if tcfg.spatial_devices > 1:

@@ -4,8 +4,11 @@ ones.
 
 - In process, no group: every shard-aware op of ``nn/ops.py`` run on each
   rank's rows with the halo rows cut from the whole tensor
-  (:class:`CutShards`), for sp 2, 4 and 8 (shards of one row included),
-  equals the unsharded op to 1e-6; B1's plain statistics merged over the
+  (:class:`CutShards`), for sp 2, 4 and 8 (shards of one row included;
+  the U-Net's k4 p1 op0 up, the dilated k4 p1 op1 up of 2H + 1 rows, a
+  shrinking, a 3 -> 5 and an align_corners bilinear resize, whose
+  outputs split unevenly), equals the unsharded op to 1e-6; B1's plain
+  statistics merged over the
   shards, then its plain apply, equal ``instance_norm_act_reference``;
   B2's plain version over a halo equals ``tail_fused_reference``.
 - In process, the ranks on threads (their collectives at a barrier): every quantized op (the convs, the
@@ -14,7 +17,9 @@ ones.
   1e-6 (int8's activation scale merged over the ranks); netE's instance
   pooling and its gradient over shards equal ``instance_wise_avg_pool``;
   a quantized conv, and a local enhancer with netE's feature map or the
-  edge channel, on two ranks equal the whole frame.
+  edge channel, on two ranks equal the whole frame; the new ups and
+  resizes on 3 rows over sp 2, 4 and 8 (shards of no rows in or out)
+  equal the unsharded op and its gradient to 1e-6.
 - Layout: ``dp_sp_mesh(2, 4)`` on 8 ranks of a fake process group is
   JAX's ``dp_sp_mesh(2, 4)`` (rank order and subgroups), and
   ``shard_batch``'s blocks are JAX's shards on conftest's 8 devices.
@@ -33,9 +38,12 @@ ones.
   different ranges on dp 2 (a pair of ranks) and on dp 2 × sp 2 against
   one process's batch-2 frame and JAX's dp-sharded frame (the one
   activation scale spans the batch); a netE feature map and edges pushed
-  whole on sp 4 against one process.
+  whole on sp 4 against one process; ``unet_128`` (ngf 8, 128²: its
+  inner levels have fewer rows than ranks) on sp 4 and a batch of 2 on
+  dp 2 × sp 2 against one process (1e-5) and JAX's sharded frames
+  (1e-4).
 - Errors: pooled serving with a mesh (JAX's ``test_multistream.py:232``),
-  the U-Net names ROADMAP A16b, a sealed artifact refuses a mesh.
+  a sealed artifact refuses a mesh.
 """
 
 import importlib.util
@@ -61,7 +69,6 @@ from ir2rgb_tpu_torch.config import (  # noqa: E402
     InferConfig,
     LossConfig,
     ModelConfig,
-    TrainConfig,
 )
 from ir2rgb_tpu_torch.infer import MultiStreamServer  # noqa: E402
 from ir2rgb_tpu_torch.infer import StreamingGenerator  # noqa: E402
@@ -103,6 +110,9 @@ RESNET = dict(model="pix2pix", net_g="resnet_6blocks", ngf=8)
 RANGES = (1.0, 0.1)
 # the local enhancer with netE's feature input and the edge channel
 STYLED = dict(LOCAL, use_instance_feat=True, use_instance_edges=True)
+# the U-Net at 128²: on sp 4 its 1-row level is one rank's and its 2-row
+# level two ranks'
+UNET, UNET_CROP = dict(model="pix2pix", net_g="unet_128", ngf=8), 128
 
 
 # ---------------------------------------------------------------------------
@@ -121,12 +131,16 @@ class CutShards(spatial.Shards):
         return self.whole[:, list(plan.foreign[self.rank])]
 
 
-def _per_rank(fn, x, sp):
+def _per_rank(fn, x, sp, bounds=False):
+    """``fn`` of each rank's rows of ``x``; with ``bounds``, each with its
+    output's partition."""
     h = x.shape[1] // sp
     outs = []
     for r in range(sp):
-        with spatial.partitioned(CutShards(sp, r, x)):
-            outs.append(fn(x[:, r * h:(r + 1) * h].contiguous()))
+        part = CutShards(sp, r, x)
+        with spatial.partitioned(part):
+            y = fn(x[:, r * h:(r + 1) * h].contiguous())
+        outs.append((y, part.bounds(y)) if bounds else y)
     return outs
 
 
@@ -139,6 +153,7 @@ W3 = _seeded((6, 4, 3, 3), 1)
 W7 = _seeded((6, 4, 7, 7), 2)
 B = _seeded((6,), 3)
 WT = _seeded((4, 6, 3, 3), 4)  # a k3 p1 op1 transposed conv, IOHW
+WT4 = _seeded((4, 6, 4, 4), 27) * 0.25  # the U-Net's k4 up
 # op -> (fn, stride, rows it adds at each end: pads compare extended rows)
 OPS = {
     "conv_k3_s1_p1": (lambda x: ops.conv(x, W3, B, 1, 1), 1, 0),
@@ -153,12 +168,26 @@ OPS = {
     "resize_nearest": (lambda x: ops.resize_nearest(x, 2), 1, 0),
     "resize_bilinear": (
         lambda x: ops.resize_bilinear(x, (2 * _global_rows(x), 20)), 1, 0),
+    # the U-Net's up; k4 p1 op1 (2H + 1 rows) and the dilated lowering
+    "deconv_k4_p1_op0": (lambda x: ops.deconv(x, WT4, B, 1, 0), 1, 0),
+    "deconv_k4_p1_op1": (lambda x: ops.deconv(x, WT4, B, 1, 1), 1, 0),
+    "deconv_k3_p1_op1_dilated": (
+        lambda x: ops.deconv(x, WT, B, lowering="dilated"), 1, 0),
+    "resize_bilinear_shrink": (
+        lambda x: ops.resize_bilinear(x, (max(1, _global_rows(x) // 3), 7)),
+        1, 0),
+    "resize_bilinear_3_to_5": (
+        lambda x: ops.resize_bilinear(x, (5 * _global_rows(x) // 3, 7)),
+        1, 0),
+    "resize_bilinear_align_corners": (
+        lambda x: ops.resize_bilinear(x, (5 * _global_rows(x) // 3, 13),
+                                      align_corners=True), 1, 0),
 }
 
 
 def _global_rows(x):
     part = spatial.active()
-    return x.shape[1] if part is None else part.global_rows(x.shape[1])
+    return x.shape[1] if part is None else part.global_rows(x)
 
 
 @pytest.mark.parametrize("sp", [2, 4, 8])
@@ -168,12 +197,17 @@ def test_shard_aware_op_equals_the_unsharded_op(op, sp):
     # shards of one row: 8 rows, 16 where a stride-2 op halves them
     x = _seeded((2, 8 * stride, 10, 4), 5)
     want = fn(x)
-    outs = _per_rank(fn, x, sp)
-    hout = want.shape[1] // sp if not grow else x.shape[1] // sp
-    for r, got in enumerate(outs):
-        ref = want[:, r * hout:(r + 1) * hout + 2 * grow]
+    outs = _per_rank(fn, x, sp, bounds=True)
+    h = x.shape[1] // sp
+    for r, (got, b) in enumerate(outs):
+        # a pad's extended rows; else the rows of the output's partition
+        # (the even split, or uneven where the global rows do not split)
+        ref = (want[:, r * h:(r + 1) * h + 2 * grow] if grow
+               else want[:, b[r]:b[r + 1]])
+        assert b[-1] == want.shape[1] or grow, (op, b)
         assert got.shape == ref.shape, (op, r)
-        assert float((got - ref).abs().max()) <= 1e-6, (op, r)
+        assert not ref.numel() or float((got - ref).abs().max()) <= 1e-6, \
+            (op, r)
 
 
 @pytest.mark.parametrize("sp", [2, 4, 8])
@@ -277,6 +311,46 @@ def test_quantized_op_on_shards_equals_the_unsharded_op(op, mode, sp,
     assert float((got - want).abs().max()) <= 1e-6, (op, mode)
 
 
+# the ups and resizes that split their output unevenly, on fewer input
+# rows than ranks (3 on sp 4 and 8, 1 on sp 2): shards of no rows in or
+# out
+FEW_ROWS = ("deconv_k4_p1_op0", "deconv_k4_p1_op1",
+            "deconv_k3_p1_op1_dilated", "resize_bilinear_shrink",
+            "resize_bilinear_3_to_5", "resize_bilinear_align_corners")
+
+
+@pytest.mark.parametrize("sp", [2, 4, 8])
+@pytest.mark.parametrize("op", FEW_ROWS)
+def test_op_on_fewer_rows_than_ranks_and_its_gradient(op, sp, threads):
+    fn = OPS[op][0]
+    rows = 3 if sp > 2 else 1
+    x = _seeded((2, rows, 10, 4), 28)
+    whole = x.clone().requires_grad_(True)
+    want = fn(whole)
+    cot = _seeded(tuple(want.shape), 29)
+    (want_g,) = torch.autograd.grad((want * cot).sum(), whole)
+    b = spatial.bounds(rows, sp)
+
+    def rank(r):
+        part = spatial.active()
+        xr = part.tag(x[:, b[r]:b[r + 1]].clone().requires_grad_(True), b)
+        y = fn(xr)
+        out = part.bounds(y)
+        (g,) = torch.autograd.grad((y * cot[:, out[r]:out[r + 1]]).sum(),
+                                   xr)
+        return y.detach(), out, g
+    outs = threads(sp, rank)
+    got = torch.cat([o[0] for o in outs], dim=1)
+    grad = torch.cat([o[2] for o in outs], dim=1)
+    assert any(b[r] == b[r + 1] or o[1][r] == o[1][r + 1]
+               for r, o in enumerate(outs)), op
+    assert got.shape == want.shape, op
+    # against the largest entry where it exceeds 1
+    for a, w in ((got, want.detach()), (grad, want_g)):
+        assert float((a - w).abs().max()) <= 1e-6 * max(
+            1.0, float(w.abs().max())), op
+
+
 def _ids(seed, shape, n=6):
     """Instance ids: ``n`` random ids below 2^24, each pixel one of
     them."""
@@ -369,10 +443,9 @@ def _chip_smoke():
 
 # a rank process (the file run as a script) needs none of it
 CS = _chip_smoke() if __name__ != "__main__" else None
-# every ResNet-family preset on sp 4, and the phase's own shards
+# every preset on sp 4, and the phase's own shards
 PARTITIONED = [] if CS is None else sorted(
-    {(p, 4, 1) for p in CS.SERVE if "unet" not in p}
-    | set(CS.SPATIAL_TABLES))
+    {(p, 4, 1) for p in CS.SERVE} | set(CS.SPATIAL_TABLES))
 
 
 @pytest.mark.parametrize("key", PARTITIONED,
@@ -402,7 +475,8 @@ def test_partitioned_frame_sends_chip_smokes_shapes(monkeypatch, key):
         return x[..., :3]
 
     def interleave(y, c):
-        d2s.append((tuple(y.shape), c))
+        if y.shape[1]:  # an up of no rows here launches nothing
+            d2s.append((tuple(y.shape), c))
         return y.new_empty((y.shape[0], 2 * y.shape[1], 2 * y.shape[2], c))
     monkeypatch.setattr(ops, "instance_norm_stats", norm_stats)
     monkeypatch.setattr(ops, "instance_norm_apply", norm_apply)
@@ -411,22 +485,32 @@ def test_partitioned_frame_sends_chip_smokes_shapes(monkeypatch, key):
     monkeypatch.setattr(ops, "d2s_fn", interleave)
     gen_cfg, _ = network_configs(PRESETS[preset])
     size = PRESETS[preset].data.crop_size
-    with torch.device("meta"), torch.no_grad(), \
-            spatial.partitioned(MetaShards(sp, 1)):
-        y = define_g(gen_cfg)(torch.empty((n, size // sp, size,
-                                           gen_cfg.input_nc)))
-    table = CS.shard_table(CS.SERVE[preset], sp, n)
-    assert table == CS.SPATIAL_TABLES.get(key, table)
-    assert tuple(y.shape) == (n, size // sp, size, 3)
-    assert b1 == table["b1"] and tails == table["tail"]
-    assert d2s == table["d2s"]
-    assert stats == {s: sum(c for (t, _), c in b1.items() if t == s)
-                     for s, _ in b1}
+    # every rank: the U-Net's inner levels split unevenly, some ranks
+    # owning none of a level's rows
+    for q in range(sp):
+        for got in (stats, b1, tails, d2s):
+            got.clear()
+        with torch.device("meta"), torch.no_grad(), \
+                spatial.partitioned(MetaShards(sp, q)):
+            y = define_g(gen_cfg)(torch.empty((n, size // sp, size,
+                                               gen_cfg.input_nc)))
+        table = CS.shard_table(CS.SERVE[preset], sp, n, q)
+        if q == 1:
+            assert table == CS.SPATIAL_TABLES.get(key, table)
+        assert tuple(y.shape) == (n, size // sp, size, 3)
+        assert b1 == table["b1"] and tails == table["tail"], q
+        assert d2s == table["d2s"], q
+        assert stats == {s: sum(c for (t, _), c in b1.items() if t == s)
+                         for s, _ in b1}
+        assert CS.spatial_per_frame(preset, sp, q, n) == {
+            **CS.per_frame(preset), "instance_norm_act": 0,
+            "instance_norm_stats": sum(stats.values()),
+            "instance_norm_apply": sum(b1.values()),
+            "tail_fused": len(tails), "d2s": len(d2s)}, q
     assert CS.spatial_per_frame(preset) == {
         **CS.per_frame(preset), "instance_norm_act": 0,
-        "instance_norm_stats": sum(stats.values()),
-        "instance_norm_apply": sum(b1.values()), "tail_fused": len(tails),
-        "d2s": len(d2s)}
+        "instance_norm_stats": sum(CS.SERVE[preset]["b1"].values()),
+        "instance_norm_apply": sum(CS.SERVE[preset]["b1"].values())}
 
 
 # ---------------------------------------------------------------------------
@@ -493,8 +577,8 @@ def test_dp_sp_mesh_sp_without_a_group_of_dp_times_sp_raises():
 # Errors: pooled serving with a mesh, and what is out of this slice
 # ---------------------------------------------------------------------------
 
-def _model(arch, **infer):
-    cfg = Config(model=ModelConfig(**arch), data=DataConfig(crop_size=CROP),
+def _model(arch, crop=CROP, **infer):
+    cfg = Config(model=ModelConfig(**arch), data=DataConfig(crop_size=crop),
                  loss=LossConfig(no_vgg_loss=True),
                  infer=InferConfig(**infer))
     return create_model(cfg, device="cpu")
@@ -510,47 +594,31 @@ def test_pooled_serving_with_a_mesh_raises():
                           mesh=object())
 
 
-@pytest.mark.parametrize("what", ["train_step", "artifact",
-                                  "multistream_artifact", "unet"])
-def test_out_of_slice_pieces_name_a16b(what, tmp_path):
-    # the U-Net is what is left of ROADMAP A16b; a sealed artifact serves
-    # one card, as the JAX package's loaders take no mesh (no A16b item)
+@pytest.mark.parametrize("what", ["artifact", "multistream_artifact"])
+def test_a_sealed_artifact_serves_one_card(what, tmp_path):
+    # as the JAX package's loaders take no mesh
     from ir2rgb_tpu_torch.infer.export import load_serving_artifact
-    from ir2rgb_tpu_torch.nn.generators import GenConfig, define_g
-    from ir2rgb_tpu_torch.train.trainer import Trainer
-    x = _seeded((1, 8, 8, 8), 12)
-    if what in ("artifact", "multistream_artifact"):
-        with pytest.raises(ValueError, match="serves one card"):
-            if what == "artifact":
-                load_serving_artifact(str(tmp_path / "m.ir2rgb"),
-                                      mesh=FAKE_SP2)
-            else:
-                MultiStreamServer.from_artifact(str(tmp_path / "m.ir2rgb"),
-                                                mesh=FAKE_SP2)
-        return
-    with pytest.raises(NotImplementedError, match="A16b"):
-        if what == "train_step":
-            # temporal windows, WGAN-GP, CycleGAN, netE and the edge input
-            # train partitioned; the U-Net does not
-            cfg = Config(model=ModelConfig(model="pix2pix", net_g="unet_128",
-                                           ngf=8),
-                         loss=LossConfig(no_vgg_loss=True),
-                         train=TrainConfig(spatial_devices=2,
-                                           checkpoints_dir=str(tmp_path)))
-            Trainer(create_model(cfg, device="cpu"), cfg)
+    with pytest.raises(ValueError, match="serves one card"):
+        if what == "artifact":
+            load_serving_artifact(str(tmp_path / "m.ir2rgb"), mesh=FAKE_SP2)
         else:
-            with torch.no_grad(), spatial.partitioned(CutShards(2, 0, x)):
-                define_g(GenConfig(net_g="unet_128", ngf=4, input_nc=8))(
-                    x[:, :4])
+            MultiStreamServer.from_artifact(str(tmp_path / "m.ir2rgb"),
+                                            mesh=FAKE_SP2)
 
 
 # ---------------------------------------------------------------------------
 # The ranks
 # ---------------------------------------------------------------------------
 
-def _frames(n, seed, c=3):
+def _frames(n, seed, c=3, size=CROP):
     r = np.random.default_rng(seed)
-    return r.uniform(-1, 1, (n, 1, CROP, CROP, c)).astype(np.float32)
+    return r.uniform(-1, 1, (n, 1, size, size, c)).astype(np.float32)
+
+
+def _unet_frames():
+    """Two U-Net frames: the first served alone on sp 4, both as a batch
+    on dp 2 x sp 2."""
+    return _frames(2, 16, size=UNET_CROP)[:, 0]
 
 
 def _u8_ticks():
@@ -651,6 +719,14 @@ def worker(port, rank, out):
     for name, mesh in (("int8_dp2", pair), ("int8_dp2_sp2", m22)):
         res[name] = StreamingGenerator(resnet, (CROP, CROP), batch=2,
                                        mesh=mesh).push_device(_ranged())
+    # the U-Net, whose inner levels have fewer rows than ranks
+    unet = _model(UNET, UNET_CROP)
+    unet.netG.load_state_dict(weights["unet"])
+    xu, hw = torch.from_numpy(_unet_frames()), (UNET_CROP, UNET_CROP)
+    res["unet_sp4"] = StreamingGenerator(unet, hw, mesh=m14).push_device(
+        xu[:1])
+    res["unet_dp2_sp2"] = StreamingGenerator(unet, hw, batch=2,
+                                             mesh=m22).push_device(xu)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     m14.barrier()
     torch.distributed.destroy_process_group()
@@ -694,18 +770,18 @@ def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("spatial")
     jm, params, sds = {}, {}, {}
 
-    def jax_model(arch, quant="none"):
+    def jax_model(arch, quant="none", crop=CROP):
         return jax_create_model(JConfig(
-            model=JModelConfig(**arch), data=JDataConfig(crop_size=CROP),
+            model=JModelConfig(**arch), data=JDataConfig(crop_size=crop),
             loss=JLossConfig(no_vgg_loss=True),
             infer=JInferConfig(quant=quant)), steps_per_epoch=10)
-    for i, (name, arch) in enumerate((("local", LOCAL),
-                                      ("temporal", TEMPORAL),
-                                      ("resnet", RESNET))):
-        jm[name] = jax_model(arch)
+    for i, (name, arch, crop) in enumerate((
+            ("local", LOCAL, CROP), ("temporal", TEMPORAL, CROP),
+            ("resnet", RESNET, CROP), ("unet", UNET, UNET_CROP))):
+        jm[name] = jax_model(arch, crop=crop)
         params[name] = _jax_weights(jm[name], i)
         sds[name] = generator_state_dict_from_jax(
-            params[name], _model(arch).gen_cfg)
+            params[name], _model(arch, crop).gen_cfg)
     torch.save(sds, out / "weights.pt")
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
@@ -737,6 +813,12 @@ def ranks(tmp_path_factory):
         jax_int8_dp = sharded({"int8": jax_model(RESNET, "int8")},
                               params["resnet"], _ranged().numpy(),
                               jax_dp_sp_mesh(2, 1))["int8"]
+        xu = _unet_frames()
+        jax_unet = {
+            "unet_sp4": sharded({"g": jm["unet"]}, params["unet"], xu[:1],
+                                mesh)["g"],
+            "unet_dp2_sp2": sharded({"g": jm["unet"]}, params["unet"], xu,
+                                    jax_dp_sp_mesh(2, 2))["g"]}
         js = JStream(jm["temporal"], params["temporal"], (CROP, CROP),
                      mesh=mesh)
         jax_temporal = [np.asarray(js.push_device(jnp.array(f)))
@@ -770,6 +852,11 @@ def ranks(tmp_path_factory):
             one_int8 = resnet.generate(_ranged())
             int8_batch1 = torch.cat([resnet.generate(f[None])
                                      for f in _ranged()])
+            unet = _model(UNET, UNET_CROP)
+            unet.netG.load_state_dict(sds["unet"])
+            both = unet.generate(torch.from_numpy(xu))
+            one_unet = {"unet_sp4": unet.generate(torch.from_numpy(xu[:1])),
+                        "unet_dp2_sp2": both}
     finally:
         try:
             outs = [p.communicate(timeout=TIMEOUT_S) for p in procs]
@@ -790,7 +877,8 @@ def ranks(tmp_path_factory):
                 one_server_device=one_server_device,
                 jax_quant=jax_quant, one_quant=one_quant,
                 one_styled=one_styled, jax_int8_dp=jax_int8_dp,
-                one_int8=one_int8, int8_batch1=int8_batch1)
+                one_int8=one_int8, int8_batch1=int8_batch1,
+                one_unet=one_unet, jax_unet=jax_unet)
 
 
 def _gap(a, b):
@@ -881,6 +969,18 @@ def test_netE_features_and_edges_on_sp4_equal_one_process(ranks):
     for r in ranks["ranks"]:
         assert r["styled"].shape == (1, CROP, CROP, 3)
         assert _gap(r["styled"], ranks["one_styled"]) <= 1e-5
+
+
+@pytest.mark.parametrize("layout", ["unet_sp4", "unet_dp2_sp2"])
+def test_unet_on_a_mesh_equals_one_process_and_jax(ranks, layout):
+    # its ups realigned to its skips at the levels of fewer rows than
+    # ranks: the whole frames on every rank
+    want, jax_out = ranks["one_unet"][layout], ranks["jax_unet"][layout]
+    for r in ranks["ranks"]:
+        got = r[layout]
+        assert got.shape == want.shape == jax_out.shape
+        assert _gap(got, want) <= 1e-5
+        assert _gap(got, jax_out) <= 1e-4
 
 
 if __name__ == "__main__":

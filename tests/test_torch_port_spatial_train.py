@@ -45,8 +45,15 @@ one-device step.
   collide): the step held to JAX's one-device jitted step (losses rtol
   2e-3, ``inst_collisions`` equal) and to one process's step pinned to
   the partitioned forward (the step's bars above, netE's gradient too).
-- Errors: the U-Net raises before any collective, naming ROADMAP A16b;
-  WGAN-GP, CycleGAN, netE and the edge input pass to the mesh.
+- The U-Net on the 2 ranks (``unet_256``, ngf 4, the n-layer D, 256²,
+  batch 1, dropout; instance norm, and batch norm): its 1-row level one
+  rank's, its ups realigned to its skips (``Shards.repartition``, whose
+  values and transpose are checked in process on sp 2, 4 and 8), the
+  dropout masks on uneven and empty shards; with JAX's masks held to
+  JAX's one-device jitted step (losses rtol 2e-3), with its own to one
+  process's step pinned to the partitioned forward (batch norm's
+  outputs pinned too; the step's bars above).
+- WGAN-GP, CycleGAN, netE, the edge input and the U-Net pass to the mesh.
 """
 
 import contextlib
@@ -93,6 +100,7 @@ from ir2rgb_tpu_torch.parallel import (  # noqa: E402
     shard_batch,
     spatial,
 )
+from ir2rgb_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from ir2rgb_tpu_torch.train import create_model, image_pool  # noqa: E402
 from ir2rgb_tpu_torch.train.model import next_carry  # noqa: E402
 
@@ -325,6 +333,32 @@ def test_halo_backward_is_the_exchanges_transpose(mode, sp):
 
 
 @pytest.mark.parametrize("sp", [2, 4, 8])
+def test_repartition_moves_the_rows_and_its_backward_is_the_transpose(sp):
+    # 9 rows from the even-as-can-be split to one whose first ranks own
+    # few rows or none (the U-Net's ups to their skips' split), and back
+    x = _seeded((2, 9, 3, 2), 50, np.float64)
+    src = spatial.bounds(9, sp)
+    dst = (0,) + tuple(9 * q * q // (sp * sp) for q in range(1, sp + 1))
+    ys = [_seeded((2, dst[r + 1] - dst[r], 3, 2), 60 + r, np.float64)
+          for r in range(sp)]
+
+    def rank(r, part):
+        xr = part.tag(_rows(x, src, r).clone().requires_grad_(True), src)
+        y = part.repartition(xr, dst)
+        back = part.repartition(y, src)
+        (gr,) = torch.autograd.grad(y, xr, ys[r])
+        return (y.detach(), part.bounds(y), back.detach(),
+                float((y * ys[r]).sum().detach()),
+                float((xr * gr).sum().detach()))
+    outs = on_ranks(sp, rank)
+    for r, (y, b, back, _, _) in enumerate(outs):
+        assert b == dst and torch.equal(y, _rows(x, dst, r))
+        assert torch.equal(back, _rows(x, src, r))
+    lhs, rhs = sum(o[3] for o in outs), sum(o[4] for o in outs)
+    assert abs(lhs - rhs) <= 1e-12 * max(1.0, abs(lhs))
+
+
+@pytest.mark.parametrize("sp", [2, 4, 8])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh", "none"])
 def test_plain_split_backward_equals_the_fused_backward_and_jax(act, sp):
     from ir2rgb_tpu.kernels.instance_norm import _fused_bwd
@@ -492,52 +526,32 @@ def test_remat_block_on_uneven_shards_equals_the_whole_block(sp):
 
 
 # ---------------------------------------------------------------------------
-# Errors: what a partitioned step does not cover
+# What a partitioned step covers reaches the mesh
 # ---------------------------------------------------------------------------
 
-OUT_OF_SLICE = {
-    "unet": ({"net_g": "unet_256"}, {}),
-}
-# what the partitioned step has covered since: WGAN-GP and CycleGAN
-# (tests/test_torch_port_spatial_gp.py), netE and the edge input (the
-# ranks' netE step below)
+# what the partitioned step covers beside JAX's test config: WGAN-GP and
+# CycleGAN (tests/test_torch_port_spatial_gp.py), netE and the edge input
+# (the ranks' netE step below), the U-Net (the pair's U-Net steps below)
 IN_SLICE = {
     "wgangp": ({}, {"gan_mode": "wgangp"}),
     "cycle_gan": ({"model": "cycle_gan"}, {}),
     "netE": ({"use_instance_feat": True}, {}),
     "edges": ({"use_instance_edges": True}, {}),
+    "unet": ({"net_g": "unet_256"}, {}),
 }
-
-
-@pytest.mark.parametrize("what", sorted(OUT_OF_SLICE))
-def test_out_of_slice_options_raise_before_any_collective(what, tmp_path):
-    from ir2rgb_tpu_torch.train import Trainer
-    from ir2rgb_tpu_torch.train.model import spatial_train_refusal
-    model, loss = OUT_OF_SLICE[what]
-    cfg = Config(model=ModelConfig(**{**BASE, **model}),
-                 loss=LossConfig(no_vgg_loss=True, **loss),
-                 train=TrainConfig(spatial_devices=2,
-                                   checkpoints_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="A16b"):
-        spatial_train_refusal(cfg)
-    # the trainer refuses before it builds a mesh (no process group here)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        Trainer(None, cfg)
 
 
 @pytest.mark.parametrize("what", sorted(IN_SLICE))
 def test_wgangp_and_cyclegan_pass_the_refusal_to_the_mesh(what, tmp_path):
-    # no refusal: the model builds and the trainer goes on to build its
-    # dp×sp mesh, which needs a process group of 2 ranks (none here)
+    # the model builds and the trainer goes on to build its dp×sp mesh,
+    # which needs a process group of 2 ranks (none here)
     from ir2rgb_tpu_torch.train import CycleGanModel, Trainer
-    from ir2rgb_tpu_torch.train.model import spatial_train_refusal
     model, loss = IN_SLICE[what]
     cfg = Config(model=ModelConfig(**{**BASE, **model}),
                  data=DataConfig(crop_size=CROP, batch_size=2),
                  loss=LossConfig(no_vgg_loss=True, **loss),
                  train=TrainConfig(spatial_devices=2,
                                    checkpoints_dir=str(tmp_path)))
-    assert spatial_train_refusal(cfg) is None
     built = create_model(cfg, device="cpu")
     assert isinstance(built, CycleGanModel) == (what == "cycle_gan")
     assert built.cfg.loss.gan_mode == cfg.loss.gan_mode
@@ -660,7 +674,13 @@ def _jax_draws(draws, mesh):
     saved = ops.dropout_mask, image_pool.draw_decisions
 
     def mask(shape, rate, generator, rows=None):
-        return spatial.local_block(masks.pop(0), mesh)
+        m = masks.pop(0)
+        if rows is None:
+            return spatial.local_block(m, mesh)
+        # the activation's partition: uneven at the U-Net's inner levels
+        n = pmesh.local_rows(m.shape[0], mesh.dp, mesh.dp_rank)
+        q = mesh.sp_rank
+        return m[int(n[0]):int(n[-1]) + 1, rows[q]:rows[q + 1]]
 
     def decisions(n, size, generator):
         swap, idx = pool.pop(0)
@@ -812,6 +832,79 @@ def nete_case(weights, mesh=None, pins=None):
             "inst": tuple(batch["inst"].shape)}
 
 
+# the U-Net on the two ranks (dp 1 x sp 2): unet_256 at 256² (its 1-row
+# level one rank's, its ups realigned to its skips), ngf 4, the n-layer D,
+# dropout on its three inner middle levels; instance norm (B1 split), and
+# batch norm (the moments over both ranks' rows)
+U_LAYOUT = (1, 2)
+U_BASE = dict(model="pix2pix", net_g="unet_256", net_d="n_layers", ngf=4,
+              ndf=8, use_dropout=True)
+U_CROP, U_NORMS = 256, ("instance", "batch")
+
+
+def _ucfg(norm):
+    return Config(model=ModelConfig(**U_BASE, norm=norm),
+                  data=DataConfig(crop_size=U_CROP, batch_size=1),
+                  loss=LossConfig(no_vgg_loss=True, pool_size=0))
+
+
+def _ubatch():
+    r = np.random.default_rng(6)
+    return {k: torch.from_numpy(r.uniform(-1, 1, (1, U_CROP, U_CROP, 3))
+                                .astype(np.float32)) for k in ("a", "b")}
+
+
+@contextlib.contextmanager
+def _pinned_batch_norm(pins):
+    """``pins`` also at every batch norm's output, in call order with the
+    conv outputs: the moments summed over the ranks are a rounding away
+    from one process's, which flips the ReLU and LeakyReLU kinks after
+    them (unpinned, G's gradient moved by 1.5e-3)."""
+    bn = ops.batch_norm
+    ops.batch_norm = lambda *a, **kw: pins.pin(bn(*a, **kw))
+    try:
+        yield
+    finally:
+        ops.batch_norm = bn
+
+
+def unet_case(case, mesh=None, draws=None, pins=None):
+    """One train step of the U-Net config of ``case`` (``_jax_unet``: its
+    norm and weights) on this rank's block (the whole batch without
+    ``mesh``), its own dropout draws or JAX's (``draws``), its forward
+    point recorded (``mesh``) or replayed (``pins``, as
+    ``window_case``'s, batch norm's outputs too)."""
+    model = create_model(_ucfg(case["norm"]), device="cpu",
+                         steps_per_epoch=10,
+                         seed=0 if mesh is None else 5 * mesh.rank)
+    model.netG.load_state_dict(case["weights"]["netG"])
+    model.netD.load_state_dict(case["weights"]["netD"])
+    batch = _ubatch()
+    if mesh is not None:
+        replicate(model, mesh)
+        batch = shard_batch(batch, mesh)
+    with torch.backends.mkldnn.flags(enabled=True), (
+            _jax_draws(draws, mesh) if draws is not None
+            else contextlib.nullcontext()), (
+            contextlib.nullcontext() if pins is None else
+            pins.recording() if mesh is not None else pins.replaying()), (
+            contextlib.nullcontext() if pins is None
+            else _pinned_batch_norm(pins)):
+        metrics = model.train_step(batch)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": _grads(model), "weights": _weights(model)}
+
+
+def unet_runs(case, mesh):
+    """The U-Net step of ``case`` on ``mesh`` drawing its own (with its
+    ``ShardPins`` records) and with JAX's draws."""
+    pins = _chip_smoke().ShardPins()
+    out = {"own": unet_case(case, mesh, pins=pins),
+           "jax": unet_case(case, mesh, draws=case["draws"])}
+    out["pins"] = (pins.saved, pins.stats)
+    return out
+
+
 def fit_temporal_case(out):
     """A 2-step temporal Trainer run from a synthetic folder of videos on
     this rank's block: the loader's windows of the data row, each frame
@@ -899,6 +992,10 @@ def fit_worker(port, rank, out):
     pair = {("temporal", dp, sp): window_runs(
         cases[g], dp_sp_mesh(dp, sp, device="cpu")),
         "fit": fit_temporal_case(out)}
+    unets = torch.load(os.path.join(out, "unet.pt"))
+    mesh = dp_sp_mesh(*U_LAYOUT, device="cpu")
+    for norm in U_NORMS:
+        pair[("unet", norm)] = unet_runs(unets[norm], mesh)
     torch.save(pair, os.path.join(out, f"pair{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -1000,6 +1097,58 @@ def _jax_temporal(g):
                        "draws": {"masks": masks, "pool": pool}}
 
 
+def _jax_unet(norm):
+    """JAX's model of ``_ucfg(norm)``, an initial state built as
+    ``_jax_state``'s and, for the ranks, its weights as the port's and
+    the dropout masks JAX's ``train_step`` draws from the state's key
+    (``model.py:440``, ``:330``; ``generators.py:763-767``) in the
+    port's call order: the innermost dropout level's first."""
+    import jax
+    import jax.numpy as jnp
+    from ir2rgb_tpu.config import Config as JConfig
+    from ir2rgb_tpu.config import DataConfig as JDataConfig
+    from ir2rgb_tpu.config import LossConfig as JLossConfig
+    from ir2rgb_tpu.config import ModelConfig as JModelConfig
+    from ir2rgb_tpu.train import create_model as jax_create_model
+    from ir2rgb_tpu.train.image_pool import init_pool
+    from ir2rgb_tpu.train.model import TrainState
+    from ir2rgb_tpu_torch.checkpoint import (
+        discriminator_state_dict_from_jax,
+        generator_state_dict_from_jax,
+    )
+    jm = jax_create_model(JConfig(
+        model=JModelConfig(**U_BASE, norm=norm),
+        data=JDataConfig(crop_size=U_CROP, batch_size=1),
+        loss=JLossConfig(no_vgg_loss=True, pool_size=0)), steps_per_epoch=10)
+    r = np.random.default_rng(3)
+
+    def gamma(path, t):
+        # batch norm's gamma as the reference's weights_init draws it,
+        # N(1, 0.02) (``ops.py:325-329``; 0 would zero every norm)
+        if getattr(path[-1], "key", None) != "gamma":
+            return t
+        return jnp.asarray((1.0 + r.normal(0, 0.02, t.shape))
+                           .astype(t.dtype))
+    g, d = (jax.tree_util.tree_map_with_path(gamma, _drawn(init, seed))
+            for init, seed in ((jm.g_init, 0), (jm.d_init, 1)))
+    state = TrainState(g_params=g, d_params=d, g_opt=jm.g_tx.init(g),
+                       d_opt=jm.d_tx.init(d), step=jnp.zeros((), jnp.int32),
+                       rng=jax.random.PRNGKey(2),
+                       pool=init_pool(0, (U_CROP, U_CROP, 3)))
+    k_drop = jax.random.split(jax.random.split(state.rng)[1])[0]
+    # unet_256: 8 levels, dropout after the up norms of levels 6, 5, 4
+    masks = [torch.from_numpy(np.asarray(jax.random.bernoulli(
+        k, 0.5, (1, U_CROP >> i, U_CROP >> i, 8 * U_BASE["ngf"]))))
+        for i, k in zip((6, 5, 4), jax.random.split(k_drop, 3))]
+    pm = create_model(_ucfg(norm), device="cpu")
+    weights = {"netG": generator_state_dict_from_jax(
+        jax.tree.map(np.asarray, g), pm.gen_cfg),
+        "netD": discriminator_state_dict_from_jax(
+            jax.tree.map(np.asarray, d), pm.disc_cfg)}
+    return jm, state, {"norm": norm, "weights": weights,
+                       "draws": {"masks": masks, "pool": []}}
+
+
 def _jax_nete():
     """JAX's netE model of ``_ncfg``, an initial state built as
     ``_jax_state``'s, and its weights as the port's."""
@@ -1087,6 +1236,8 @@ def ranks(tmp_path_factory):
     torch.save({g: t[2] for g, t in temporal.items()}, out / "temporal.pt")
     njm, nstate, nweights = _jax_nete()
     torch.save(nweights, out / "nete.pt")
+    unets = {norm: _jax_unet(norm) for norm in U_NORMS}
+    torch.save({norm: u[2] for norm, u in unets.items()}, out / "unet.pt")
     write_synthetic_dataset(str(out / "data"), n=4, size=40)
     write_synthetic_dataset(str(out / "videos"), size=40, n_videos=2,
                             frames_per_video=4)
@@ -1104,6 +1255,11 @@ def ranks(tmp_path_factory):
         _, m = jax.jit(njm.train_step)(nstate, {
             k: v.numpy() for k, v in _nbatch().items()})
         jax_nete = {k: float(v) for k, v in m.items()}
+        jax_unets = {}
+        for norm, (ujm, ustate, _) in unets.items():
+            _, m = jax.jit(ujm.train_step)(ustate, {
+                k: v.numpy() for k, v in _ubatch().items()})
+            jax_unets[norm] = {k: float(v) for k, v in m.items()}
     finally:
         _wait(procs)
     res = dict(ranks=[torch.load(out / f"rank{r}.pt") for r in range(4)],
@@ -1125,6 +1281,17 @@ def ranks(tmp_path_factory):
                     *N_LAYOUT)
     res["nete"] = {"jax": jax_nete, "one": nete_case(nweights, pins=pins),
                    "replayed": pins.all_replayed()}
+    # one process's U-Net step at the partitioned forward point (batch
+    # norm pins no statistics: its outputs and the conv outputs)
+    res["unet"] = {}
+    for norm in U_NORMS:
+        pins = _pins_of([r[("unet", norm)].pop("pins")
+                         for r in res["pairs"]], *U_LAYOUT)
+        res["unet"][norm] = {
+            "jax": jax_unets[norm],
+            "one": unet_case(unets[norm][2], pins=pins),
+            "replayed": pins.replayed == len(pins.saved) > 0
+            and pins.stats_replayed == len(pins.stats)}
     return res
 
 
@@ -1262,6 +1429,40 @@ def test_temporal_trainer_fit_on_sp2(ranks):
     assert f0["pool"] == f1["pool"] == ((2, CROP, CROP, 3), 2)
     assert all(torch.equal(f0["weights"][k], f1["weights"][k])
                for k in f0["weights"])
+
+
+@pytest.mark.parametrize("norm", U_NORMS)
+def test_unet_step_on_sp2_equals_jax_and_one_process(ranks, norm):
+    # dropout's masks on uneven and empty shards, the ups realigned to
+    # the skips, batch norm's moments over both ranks' rows: JAX's draws
+    # give JAX's one-device step, the port's own the one-process step at
+    # the partitioned forward point
+    rs = [p[("unet", norm)] for p in ranks["pairs"]]
+    want = ranks["unet"][norm]
+    assert want["replayed"]
+    for run in ("own", "jax"):
+        for r in rs[1:]:
+            assert r[run]["metrics"] == rs[0][run]["metrics"], run
+            for key in ("grads", "weights"):
+                assert all(torch.equal(r[run][key][k], rs[0][run][key][k])
+                           for k in rs[0][run][key]), (run, key)
+    got = rs[0]["jax"]["metrics"]
+    assert got.keys() == want["jax"].keys()
+    for k, v in want["jax"].items():
+        np.testing.assert_allclose(got[k], v, rtol=2e-3, err_msg=k)
+    got, one = rs[0]["own"], want["one"]
+    assert got["metrics"].keys() == one["metrics"].keys()
+    for k, v in one["metrics"].items():
+        assert abs(got["metrics"][k] - v) <= 1e-5 * abs(v), k
+    assert got["grads"].keys() == one["grads"].keys()
+    for net in ("netG", "netD"):
+        keys = [k for k in one["grads"] if k.startswith(net + ".")]
+        a = torch.cat([got["grads"][k].reshape(-1) for k in keys])
+        b = torch.cat([one["grads"][k].reshape(-1) for k in keys])
+        assert _rel_norm(a, b) <= 1e-5, net
+    for k, v in one["weights"].items():
+        np.testing.assert_allclose(got["weights"][k].numpy(), v.numpy(),
+                                   atol=5e-4, err_msg=k)
 
 
 def test_nete_and_edges_step_on_dp2_sp2_equals_jax_and_one_process(ranks):
